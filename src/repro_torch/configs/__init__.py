@@ -1,0 +1,4 @@
+from repro_torch.configs.registry import (ARCH_IDS, canon, full_config,
+                                          get_arch, smoke_config)
+
+__all__ = ["ARCH_IDS", "canon", "full_config", "get_arch", "smoke_config"]

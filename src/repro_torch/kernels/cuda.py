@@ -1,0 +1,133 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+``csrc/f2p_kernels.cu`` is compiled at first use with ``nvcc`` into a shared
+library with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``,
+no ``--use_fast_math``: the codec must stay bitwise) and loaded with
+``ctypes``. The library lands in ``repro_torch/_build/<source hash>/``, so an
+edited source rebuilds and an unchanged one loads in milliseconds. Nothing
+here runs at import time: the CPU tests import every module of the package
+on a machine without ``nvcc``.
+
+``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that the main
+path went through the kernels. No build or launch error is caught: a
+failure raises where it happens.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "f2p_kernels.cu"
+BUILD_ROOT = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+MAX_SMEM = 232448   # bytes of shared memory one CTA may use on Hopper
+
+LAUNCHES: dict[str, int] = {"quantize_packed": 0, "dequantize_packed": 0,
+                            "attention_packed": 0, "attention_paged": 0}
+
+_lib = None
+build_log = ""       # nvcc's output (register / shared-memory report)
+build_seconds = 0.0  # 0.0 when the library was already built
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class F2PConsts(ctypes.Structure):
+    """Mirror of ``struct F2PConsts`` in the CUDA source."""
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("nu", "h", "sgn", "vmax", "v_sub", "v_top", "bias",
+                 "is_signed", "n_bits")]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def build() -> Path:
+    """Compile the source if its hash has no library yet; return the path."""
+    global build_log, build_seconds
+    src = SOURCE.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = BUILD_ROOT / key
+    lib_path = out_dir / "libf2p_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                          capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, lib_path)   # atomic: concurrent builds agree
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        L = ctypes.CDLL(str(build()))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        L.f2p_error_string.argtypes = [I]
+        L.f2p_error_string.restype = ctypes.c_char_p
+        L.f2p_quantize_packed.argtypes = [P, I, P, P, I, I, I, I, F2PConsts,
+                                          F, I, P]
+        L.f2p_dequantize_packed.argtypes = [P, P, P, I, I, I, I, I, F2PConsts,
+                                            P]
+        L.f2p_attention_smem.argtypes = [I, I, I, I]
+        L.f2p_attention_smem.restype = ctypes.c_size_t
+        L.f2p_attention.argtypes = [P] * 8 + [I] * 13 + [
+            F2PConsts, F2PConsts, F, P]
+        for fn in (L.f2p_quantize_packed, L.f2p_dequantize_packed,
+                   L.f2p_attention):
+            fn.restype = I
+        _lib = L
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib().f2p_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require_cuda(t: torch.Tensor, what: str, dtype=None) -> None:
+    """Wrapper-side argument check: the kernels take contiguous CUDA
+    tensors of the stated dtype and nothing else."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")

@@ -1,0 +1,361 @@
+"""Flash-style attention straight off the bit-packed F2P KV cache, dense
+(``attention_packed``) and through a page table (``attention_paged``).
+
+Port of ``repro.kernels.f2p_attention`` (DESIGN.md §11, §14). GQA folds
+q ``[B, Sq, H, hd]`` (H = K*G) to rows ``[B, K, R = G*Sq, hd]`` (row
+r = g*Sq + s), so one program per (batch row, kv head) feeds all G query
+heads against a single streamed KV tile; causal masks recover the query
+position as ``q_offset + r % Sq``.
+
+The plain version keeps the reference's tile loop and its -inf-guarded
+online softmax (``_online_step``) op for op: per kv tile, unpack the n-bit
+fields, decode, scale, then one (acc, m, l) update. The paged plain version
+gathers each tile's pages straight from the slabs, so with the same tile it
+is bitwise equal to the dense one over :func:`gather_pages_to_dense`.
+
+Device routing: CPU tensors run the plain version; CUDA tensors launch the
+templated kernel of ``csrc/f2p_kernels.cu`` (or raise). That kernel
+replaces ``repro/kernels/f2p_attention.py::_fused_kernel`` (dense) and
+``::_paged_kernel`` (paged). On an H100 decode attention is bound by bytes:
+it must read every live packed K/V word and scale once (n_bits/8 bytes per
+element instead of 2 for bf16), and does only 4*R*hd flops per position.
+The kernel runs one CTA per (batch row, kv head), decodes each K and V tile
+into f32 shared memory once and reuses it for all R rows, and skips tiles
+past the row's kv_len; both addressing modes share one tile loop, so paged
+== dense-over-gathered-pages bitwise on the card too. Its grid (B*K CTAs)
+does not fill 132 SMs at decode batch 8; split-KV and TMA are later work.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core.f2p import F2PFormat
+from repro_torch.core.qtensor import QTensor
+from repro_torch.kernels import cuda as C
+from repro_torch.kernels.bits import unpack_bits
+from repro_torch.kernels.f2p_quant import cuda_consts, dequantize_tile_math
+
+__all__ = ["attention_packed", "attention_paged", "attention_packed_plain",
+           "attention_paged_plain", "gather_pages_to_dense",
+           "attention_reference", "attention_packed_reference",
+           "attention_paged_reference", "DEFAULT_TILE"]
+
+DEFAULT_TILE = 128
+
+
+# ---------------------------------------------------------------------------
+# Shared per-tile math (plain version)
+# ---------------------------------------------------------------------------
+def _decode_rows(words, scales, fmt: F2PFormat, hd: int):
+    """[..., W] uint32 words + [..., 1] f32 scales -> [..., hd] f32."""
+    codes = unpack_bits(words, fmt.n_bits, hd)
+    return dequantize_tile_math(codes, fmt) * scales
+
+
+def _tile_mask(j: int, tile: int, rows: int, sq: int, causal: bool,
+               kvlen, qoff):
+    """[B, 1, rows, tile] validity of kv tile ``j`` for per-batch [B]
+    kvlen/qoff: position < kvlen and (causal) <= q_offset + r % Sq."""
+    dev = kvlen.device
+    kpos = j * tile + torch.arange(tile, device=dev)
+    valid = kpos[None, None, None, :] < kvlen[:, None, None, None]
+    if causal:
+        r = torch.arange(rows, device=dev)
+        qpos = qoff[:, None] + r[None, :] % sq                # [B, rows]
+        valid = valid & (kpos[None, None, None, :] <= qpos[:, None, :, None])
+    return valid
+
+
+def _online_step(q2, k_t, v_t, valid, acc, m, l, scale: float):
+    """One online-softmax update over a tile: q2 [B,K,R,hd], k_t/v_t
+    [B,K,T,hd] f32, valid [B,1,R,T], running acc [B,K,R,hd], m/l
+    [B,K,R,1]. The same guarded rescale as the reference."""
+    s = torch.matmul(q2, k_t.transpose(-1, -2)) * scale
+    s = torch.where(valid, s, -math.inf)
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(s - safe_m)
+    corr = torch.exp(torch.where(torch.isfinite(m), m - safe_m, -math.inf))
+    l_new = l * corr + p.sum(dim=-1, keepdim=True)
+    acc_new = acc * corr + torch.matmul(p, v_t)
+    return acc_new, m_new, l_new
+
+
+def _tile_loop(q3, lens, sq: int, causal: bool, tile: int, nt: int,
+               tile_kv):
+    """Run the online softmax over ``nt`` tiles; ``tile_kv(j)`` returns the
+    tile's (k, v) as contiguous [B, K, tile, hd] f32."""
+    B, K, R, hd = q3.shape
+    scale = 1.0 / math.sqrt(hd)
+    acc = torch.zeros_like(q3)
+    m = torch.full((B, K, R, 1), -math.inf, device=q3.device)
+    l = torch.zeros((B, K, R, 1), device=q3.device)
+    kvlen, qoff = lens[:, 0], lens[:, 1]
+    for j in range(nt):
+        kt, vt = tile_kv(j)
+        valid = _tile_mask(j, tile, R, sq, causal, kvlen, qoff)
+        acc, m, l = _online_step(q3, kt, vt, valid, acc, m, l, scale)
+    return acc / torch.clamp_min(l, 1e-37)
+
+
+def _fold_q(q, K: int):
+    """[B, Sq, H, hd] -> [B, K, G*Sq, hd] f32 (row r = g*Sq + s)."""
+    B, Sq, H, hd = q.shape
+    G = H // K
+    q3 = q.to(torch.float32).reshape(B, Sq, K, G, hd)
+    return q3.permute(0, 2, 3, 1, 4).reshape(B, K, G * Sq, hd).contiguous()
+
+
+def _unfold_o(o3, sq: int, dtype):
+    """Inverse of :func:`_fold_q`: [B, K, G*Sq, hd] -> [B, Sq, H, hd]."""
+    B, K, R, hd = o3.shape
+    G = R // sq
+    o = o3.reshape(B, K, G, sq, hd).permute(0, 3, 1, 2, 4)
+    return o.reshape(B, sq, K * G, hd).to(dtype)
+
+
+def _take_words(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``words[idx]`` along the first axis, through the int32 view."""
+    return words.view(torch.int32)[idx].view(torch.uint32)
+
+
+def _make_lens(kv_len, q_offset, B: int, S: int, device):
+    """Per-batch ``[B, 2]`` int32 (kv_len, q_offset): scalars broadcast to
+    every row, ``[B]`` vectors thread per-slot lengths."""
+    def per_row(v):
+        # a Python int fills on the device: no host->device copy (which
+        # would make the step wait for the stream)
+        if isinstance(v, (int, np.integer)):
+            return torch.full((B,), int(v), dtype=torch.int32, device=device)
+        return torch.as_tensor(v, dtype=torch.int32, device=device).expand(B)
+
+    kv_len = torch.clamp(per_row(S if kv_len is None else kv_len), max=S)
+    return torch.stack([kv_len, per_row(q_offset)], dim=1).contiguous()
+
+
+def _to_tiles(x, B: int, nt: int, tile: int):
+    """[B, S, K, hd] -> tile j as contiguous [B, K, tile, hd] (zero pad)."""
+    pad = nt * tile - x.shape[1]
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+    return lambda j: x[:, j * tile:(j + 1) * tile].permute(
+        0, 2, 1, 3).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper (both addressing modes)
+# ---------------------------------------------------------------------------
+def _attention_cuda(q3, kw, ks, vw, vs, lens, fmt_k, fmt_v, sq, causal,
+                    tile, pages=None):
+    B, K, R, hd = q3.shape
+    paged = pages is not None
+    for t, what, dt in ((q3, "q", torch.float32), (kw, "k words", torch.uint32),
+                        (ks, "k scales", torch.float32),
+                        (vw, "v words", torch.uint32),
+                        (vs, "v scales", torch.float32),
+                        (lens, "lens", torch.int32)):
+        C.require_cuda(t, what, dt)
+    if paged:
+        C.require_cuda(pages, "pages", torch.int32)
+        P, T = kw.shape[0], kw.shape[1]
+        maxp = pages.shape[1]
+        S = maxp * T
+    else:
+        P, T, maxp, S = 0, 0, 0, kw.shape[1]
+    smem = C.lib().f2p_attention_smem(R, hd, tile,
+                                      max(kw.shape[-1], vw.shape[-1]))
+    if smem > C.MAX_SMEM:
+        raise ValueError(f"attention tile needs {smem} B of shared memory "
+                         f"(R={R}, hd={hd}, tile={tile}); max {C.MAX_SMEM}")
+    out = torch.empty_like(q3)
+    C.check(C.lib().f2p_attention(
+        q3.data_ptr(), kw.data_ptr(), ks.data_ptr(), vw.data_ptr(),
+        vs.data_ptr(), pages.data_ptr() if paged else None, lens.data_ptr(),
+        out.data_ptr(), B, K, R, hd, kw.shape[-1], vw.shape[-1], S, T, P,
+        maxp, sq, int(causal), tile, cuda_consts(fmt_k), cuda_consts(fmt_v),
+        1.0 / math.sqrt(hd), C.stream()),
+        "attention_paged" if paged else "attention_packed")
+    C.LAUNCHES["attention_paged" if paged else "attention_packed"] += 1
+    return out
+
+
+def _check_cache(qt: QTensor, hd: int, what: str, ndim: int) -> None:
+    if not isinstance(qt, QTensor):
+        raise TypeError(f"{what} must be a QTensor, got {type(qt).__name__}")
+    if not qt.packed:
+        raise ValueError(f"{what} must be bit-packed")
+    if qt.codes.ndim != ndim:
+        raise ValueError(f"{what} codes must be {ndim}-D, got "
+                         f"{tuple(qt.codes.shape)}")
+    if qt.block != hd or qt.shape[-1] != hd:
+        raise ValueError(f"{what} must be blocked over head_dim={hd}, got "
+                         f"block={qt.block} shape={qt.shape}")
+
+
+def _dense_args(q, kq: QTensor, vq: QTensor, kv_len, q_offset, tile):
+    B, Sq, H, hd = q.shape
+    _check_cache(kq, hd, "kq", 4)
+    _check_cache(vq, hd, "vq", 4)
+    S, K = kq.codes.shape[1], kq.codes.shape[2]
+    if H % K:
+        raise ValueError(f"n_heads {H} not a multiple of kv heads {K}")
+    tile = max(1, min(int(tile or DEFAULT_TILE), S))
+    return _fold_q(q, K), _make_lens(kv_len, q_offset, B, S, q.device), tile
+
+
+def _paged_args(q, kq: QTensor, vq: QTensor, pages, kv_len, q_offset, tile):
+    B, Sq, H, hd = q.shape
+    _check_cache(kq, hd, "kq", 4)
+    _check_cache(vq, hd, "vq", 4)
+    P, T, K = kq.codes.shape[:3]
+    if H % K:
+        raise ValueError(f"n_heads {H} not a multiple of kv heads {K}")
+    pages = torch.as_tensor(pages, dtype=torch.int32, device=q.device)
+    if pages.ndim != 2 or pages.shape[0] != B:
+        raise ValueError(f"pages must be [B={B}, max_pages], got "
+                         f"{tuple(pages.shape)}")
+    S = pages.shape[1] * T
+    tile = max(1, min(int(tile or DEFAULT_TILE), S))
+    if tile % T:
+        raise ValueError(f"kv tile {tile} not a multiple of page_tokens {T}: "
+                         "paged tiles must span whole pages")
+    # garbage ids are clamped into the slab (their positions are masked)
+    pages = torch.clamp(pages, 0, P - 1).contiguous()
+    return (_fold_q(q, K), pages,
+            _make_lens(kv_len, q_offset, B, S, q.device), tile)
+
+
+def attention_packed(q, kq: QTensor, vq: QTensor, *, kv_len=None,
+                     causal: bool = False, q_offset=0, tile: int | None = None):
+    """Fused attention straight off a dense packed cache.
+
+    q ``[B, Sq, H, hd]`` (math in f32), kq/vq packed QTensors of logical
+    shape ``[B, S, K, hd]`` with block = hd. ``kv_len`` masks positions
+    >= kv_len; ``causal`` masks positions past ``q_offset + s``. Both take a
+    scalar or a per-batch ``[B]`` vector. Returns ``[B, Sq, H, hd]`` in q's
+    dtype. CUDA tensors launch the kernel, CPU tensors run
+    :func:`attention_packed_plain`."""
+    if q.device.type != "cuda":
+        return attention_packed_plain(q, kq, vq, kv_len=kv_len,
+                                      causal=causal, q_offset=q_offset,
+                                      tile=tile)
+    q3, lens, tile = _dense_args(q, kq, vq, kv_len, q_offset, tile)
+    o3 = _attention_cuda(q3, kq.codes, kq.scales, vq.codes, vq.scales, lens,
+                         kq.fmt, vq.fmt, q.shape[1], bool(causal), tile)
+    return _unfold_o(o3, q.shape[1], q.dtype)
+
+
+def attention_packed_plain(q, kq: QTensor, vq: QTensor, *, kv_len=None,
+                           causal: bool = False, q_offset=0,
+                           tile: int | None = None):
+    """Plain PyTorch version of :func:`attention_packed` (any device)."""
+    q3, lens, tile = _dense_args(q, kq, vq, kv_len, q_offset, tile)
+    B, Sq, hd = q.shape[0], q.shape[1], q.shape[3]
+    nt = -(-kq.codes.shape[1] // tile)
+    kt = _to_tiles(_decode_rows(kq.codes, kq.scales, kq.fmt, hd), B, nt, tile)
+    vt = _to_tiles(_decode_rows(vq.codes, vq.scales, vq.fmt, hd), B, nt, tile)
+    o3 = _tile_loop(q3, lens, Sq, bool(causal), tile, nt,
+                    lambda j: (kt(j), vt(j)))
+    return _unfold_o(o3, Sq, q.dtype)
+
+
+def attention_paged(q, kq: QTensor, vq: QTensor, pages, *, kv_len=None,
+                    causal: bool = False, q_offset=0, tile: int | None = None):
+    """Fused attention THROUGH a page table — no dense KV row exists.
+
+    kq/vq are packed pool slabs, codes ``[n_pages, page_tokens, K, words]``;
+    ``pages`` ``[B, max_pages]`` int32 orders each row's pages (ids are
+    clamped to the slab, positions >= kv_len contribute exactly 0.0). The
+    tile must span whole pages. With the same tile the output is bitwise
+    equal to :func:`attention_packed` over :func:`gather_pages_to_dense`.
+    CUDA tensors launch the kernel, CPU tensors run
+    :func:`attention_paged_plain`."""
+    if q.device.type != "cuda":
+        return attention_paged_plain(q, kq, vq, pages, kv_len=kv_len,
+                                     causal=causal, q_offset=q_offset,
+                                     tile=tile)
+    q3, pages, lens, tile = _paged_args(q, kq, vq, pages, kv_len, q_offset,
+                                        tile)
+    o3 = _attention_cuda(q3, kq.codes, kq.scales, vq.codes, vq.scales, lens,
+                         kq.fmt, vq.fmt, q.shape[1], bool(causal), tile,
+                         pages=pages)
+    return _unfold_o(o3, q.shape[1], q.dtype)
+
+
+def attention_paged_plain(q, kq: QTensor, vq: QTensor, pages, *,
+                          kv_len=None, causal: bool = False, q_offset=0,
+                          tile: int | None = None):
+    """Plain PyTorch version of :func:`attention_paged` (any device): each
+    tile gathers its pages from the slabs and decodes them."""
+    q3, pages, lens, tile = _paged_args(q, kq, vq, pages, kv_len, q_offset,
+                                        tile)
+    B, Sq, hd = q.shape[0], q.shape[1], q.shape[3]
+    K, T = kq.codes.shape[2], kq.codes.shape[1]
+    ppt = tile // T
+    maxp = pages.shape[1]
+    nt = -(-maxp // ppt)
+    if nt * ppt > maxp:   # padding pages sit past S >= kv_len: masked
+        pages = torch.nn.functional.pad(pages, (0, nt * ppt - maxp))
+
+    def gather(qt, pj):
+        x = _decode_rows(_take_words(qt.codes, pj), qt.scales[pj], qt.fmt, hd)
+        return x.reshape(B, tile, K, hd).permute(0, 2, 1, 3).contiguous()
+
+    def tile_kv(j):
+        pj = pages[:, j * ppt:(j + 1) * ppt].to(torch.int64)
+        return gather(kq, pj), gather(vq, pj)
+
+    o3 = _tile_loop(q3, lens, Sq, bool(causal), tile, nt, tile_kv)
+    return _unfold_o(o3, Sq, q.dtype)
+
+
+def gather_pages_to_dense(qt: QTensor, pages) -> QTensor:
+    """Slab ``[P, T, K, *]`` + ``pages [B, maxp]`` -> dense
+    ``[B, maxp*T, K, hd]`` QTensor: a pure word/scale gather, bit-exact."""
+    pages = torch.as_tensor(pages, dtype=torch.int64, device=qt.codes.device)
+    codes = _take_words(qt.codes, pages)          # [B, maxp, T, K, W]
+    scales = qt.scales[pages]
+    B, mp, T = codes.shape[:3]
+    return QTensor.from_parts(
+        codes.reshape((B, mp * T) + tuple(codes.shape[3:])),
+        scales.reshape((B, mp * T) + tuple(scales.shape[3:])),
+        qt.fmt, qt.block, (B, mp * T) + tuple(qt.shape[-2:]))
+
+
+def attention_paged_reference(q, kq: QTensor, vq: QTensor, pages, *,
+                              kv_len=None, causal: bool = False, q_offset=0,
+                              tile: int | None = None):
+    """The copy-in path the paged kernel replaces: gather the page table
+    into a dense row, then :func:`attention_packed` on it."""
+    return attention_packed(q, gather_pages_to_dense(kq, pages),
+                            gather_pages_to_dense(vq, pages), kv_len=kv_len,
+                            causal=causal, q_offset=q_offset, tile=tile)
+
+
+def attention_reference(q, k, v, *, kv_len=None, causal: bool = False,
+                        q_offset=0, tile: int = DEFAULT_TILE):
+    """Dense-KV online-softmax reference: the same tile loop on already
+    dequantized ``[B, S, K, hd]`` k/v (plain PyTorch on any device)."""
+    B, Sq, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    tile = max(1, min(int(tile), S))
+    nt = -(-S // tile)
+    lens = _make_lens(kv_len, q_offset, B, S, q.device)
+    kt = _to_tiles(k.to(torch.float32), B, nt, tile)
+    vt = _to_tiles(v.to(torch.float32), B, nt, tile)
+    o3 = _tile_loop(_fold_q(q, K), lens, Sq, bool(causal), tile, nt,
+                    lambda j: (kt(j), vt(j)))
+    return _unfold_o(o3, Sq, q.dtype)
+
+
+def attention_packed_reference(q, kq: QTensor, vq: QTensor, *, kv_len=None,
+                               causal: bool = False, q_offset=0,
+                               tile: int = DEFAULT_TILE):
+    """The unfused path the kernel replaces: dequantize the whole cache,
+    then attend with :func:`attention_reference`."""
+    return attention_reference(q, kq.dequantize(torch.float32),
+                               vq.dequantize(torch.float32), kv_len=kv_len,
+                               causal=causal, q_offset=q_offset, tile=tile)

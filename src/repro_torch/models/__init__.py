@@ -1,0 +1,7 @@
+from repro_torch.models.config import BlockSpec, ModelConfig, dense_pattern
+from repro_torch.models.model import (Model, decode_step, init_caches,
+                                      init_params, layer_cache, prefill)
+
+__all__ = ["BlockSpec", "ModelConfig", "dense_pattern", "Model",
+           "decode_step", "init_caches", "init_params", "layer_cache",
+           "prefill"]

@@ -1,0 +1,206 @@
+"""GQA attention for the llama-dense stack: naive prefill attention, the
+packed F2P KV cache and the decode branches (port of
+``repro.models.attention``).
+
+Shapes: x [B, S, D]; q [B, S, H, hd]; k/v [B, S, K, hd] with H % K == 0.
+A cache is ``{"k", "v"}`` holding either dense tensors ``[B, Smax, K, hd]``
+or packed :class:`~repro_torch.core.qtensor.QTensor` s (uint32 words
+``[B, Smax, K, W]`` + per-(position, head) f32 scales, block = head_dim).
+Where the reference returns updated caches from pure functions (and the
+engine donates the buffers), the port writes the new KV into the cache or
+pool-slab storage IN PLACE (``index_put_``/``copy_``) and returns the same
+objects.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core import qtensor as QT
+from repro_torch.core.f2p import F2PFormat, Flavor
+from repro_torch.core.qtensor import QTensor
+from repro_torch.kernels.bits import pack_bits_np
+from repro_torch.kernels.f2p_attention import attention_packed, attention_paged
+from repro_torch.models.common import apply_rope
+
+KV_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
+
+
+def quantize_kv(k: torch.Tensor, fmt: F2PFormat = KV_FMT) -> QTensor:
+    return QT.quantize(k, fmt, block=k.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+def _len_mask(Sk: int, kv_len, device):
+    """Additive 0/-inf mask over positions >= kv_len: scalar -> [Sk],
+    per-batch [B] -> [B, Sk]."""
+    kl = torch.as_tensor(kv_len, device=device)
+    ar = torch.arange(Sk, device=device)
+    return torch.where(ar < kl[..., None], 0.0, -math.inf)
+
+
+def naive_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None):
+    """Full-materialization GQA attention (einsum + softmax, as the
+    reference's prefill path)."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    # sqrt(hd) rounded f32 -> q's dtype, as the reference divides by it
+    root = float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype))
+    scores = (torch.einsum("bqkgd,bskd->bkgqs", qg, k) / root).to(
+        torch.float32)
+    mask = torch.zeros((Sq, Sk), dtype=torch.float32, device=q.device)
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        mask = torch.where(kpos <= qpos, 0.0, -math.inf)
+    if kv_len is not None:
+        lm = _len_mask(Sk, kv_len, q.device)
+        mask = mask + lm if lm.ndim == 1 else mask + lm[:, None, None, None, :]
+    probs = torch.softmax(scores + mask, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Block-level apply
+# ---------------------------------------------------------------------------
+def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
+                    pages=None):
+    """mode: 'prefill' | 'decode'. Returns (out, cache).
+
+    ``pages`` (decode only): a ``[B, max_pages]`` int32 page table; ``cache``
+    is then one layer's pool slab (``{"k","v"}`` QTensors, codes
+    ``[n_pages, page_tokens, K, words]``). The new token's KV is quantized
+    and written into the slab page holding position ``pos_offset`` and
+    attention reads the slabs through the table (``attention_paged``)."""
+    B, S, D = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, K, hd)
+    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    # an int stays an int (no device round trip per layer); a [B] tensor
+    # carries per-slot offsets -> positions [B, S]
+    pos = pos_offset
+    positions = torch.arange(S, device=x.device)
+    if isinstance(pos, torch.Tensor) and pos.ndim:
+        positions = pos[:, None] + positions
+    else:
+        positions = positions + int(pos)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if mode == "prefill":
+        _cache_write(cache, k, v, 0)
+        out = naive_attention(q, k, v, causal=True)
+    elif mode == "decode":
+        assert S == 1
+        if pages is not None:
+            _paged_cache_write(cache, k, v, pos, pages)
+            out = attention_paged(q, cache["k"], cache["v"], pages,
+                                  kv_len=pos + 1)
+        else:
+            _cache_write(cache, k, v, pos)
+            if cfg.fused_attention and isinstance(cache["k"], QTensor):
+                out = attention_packed(q, cache["k"], cache["v"],
+                                       kv_len=pos + 1)
+            else:
+                kc, vc = _cache_read(cache, cfg)
+                out = naive_attention(q, kc, vc, causal=False,
+                                      kv_len=pos + 1)
+    else:
+        raise ValueError(mode)
+    return out.reshape(B, S, H * hd) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# Cache plumbing
+# ---------------------------------------------------------------------------
+def zero_code_row(fmt: F2PFormat, hd: int) -> np.ndarray:
+    """One packed head_dim row of the code of VALUE zero (flavor-dependent:
+    0 for SR/SI, the top payload code for LR/LI): with unit scales an empty
+    slot decodes to exact 0.0."""
+    zero_code = int(fmt.encode_nearest(np.zeros(1))[0])
+    return pack_bits_np(np.full((hd,), zero_code, np.uint32), fmt.n_bits)
+
+
+def empty_packed(shape, fmt: F2PFormat, device) -> QTensor:
+    """Materialized zero-code packed cache of logical ``shape[..., hd]``."""
+    hd = shape[-1]
+    row = torch.from_numpy(zero_code_row(fmt, hd).view(np.int32)).to(device)
+    codes = row.expand(*shape[:-1], row.numel()).contiguous()
+    return QTensor.from_parts(
+        codes.view(torch.uint32),
+        torch.ones(*shape[:-1], 1, dtype=torch.float32, device=device),
+        fmt, hd, shape)
+
+
+def init_cache(cfg, batch: int, max_seq: int, quantized: bool, dtype,
+               device, fmt: F2PFormat = KV_FMT, lead: tuple = ()):
+    """``{"k","v"}`` cache ``[*lead, batch, max_seq, K, hd]``: packed
+    zero-code QTensors when ``quantized``, else zero tensors of ``dtype``."""
+    shape = (*lead, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    if quantized:
+        return {kv: empty_packed(shape, fmt, device) for kv in ("k", "v")}
+    return {kv: torch.zeros(shape, dtype=dtype, device=device)
+            for kv in ("k", "v")}
+
+
+def _cache_write(cache, k, v, idx):
+    """Write k/v ``[B, S, K, hd]`` at token position ``idx`` (an int, or a
+    per-slot ``[B]`` tensor), in place."""
+    for name, x in (("k", k), ("v", v)):
+        c = cache[name]
+        if isinstance(c, QTensor):
+            up = quantize_kv(x, c.fmt)
+            dst_w, src_w = c.codes.view(torch.int32), up.codes.view(torch.int32)
+            dst_s, src_s = c.scales, up.scales
+        else:
+            dst_w, src_w, dst_s, src_s = c, x.to(c.dtype), None, None
+        if isinstance(idx, torch.Tensor) and idx.ndim:   # per-slot [B]
+            B, S = x.shape[0], x.shape[1]
+            rows = torch.arange(B, device=k.device)[:, None]
+            cols = idx[:, None].to(torch.int64) + torch.arange(
+                S, device=k.device)
+            dst_w[rows, cols] = src_w
+            if dst_s is not None:
+                dst_s[rows, cols] = src_s
+        else:
+            start, n = int(idx), x.shape[1]
+            dst_w[:, start:start + n].copy_(src_w)
+            if dst_s is not None:
+                dst_s[:, start:start + n].copy_(src_s)
+
+
+def _paged_cache_write(cache, k, v, pos, pages):
+    """Decode write straight into the pool slabs: quantize the new token's
+    k/v ``[B, 1, K, hd]`` and scatter its words into slab page
+    ``pages[b, pos // T]`` at offset ``pos % T``. The page index is clamped
+    to the table (retired slots point at the dump page, whose contents are
+    never read)."""
+    T = cache["k"].codes.shape[1]
+    B = pages.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=pages.device)
+    pos = pos.expand(B)
+    col = torch.clamp(pos // T, max=pages.shape[1] - 1)
+    pidx = pages[torch.arange(B, device=pages.device), col].to(torch.int64)
+    off = pos % T
+    for name, x in (("k", k), ("v", v)):
+        slab = cache[name]
+        up = quantize_kv(x, slab.fmt)
+        slab.codes.view(torch.int32)[pidx, off] = up.codes[:, 0].view(
+            torch.int32)
+        slab.scales[pidx, off] = up.scales[:, 0]
+
+
+def _cache_read(cache, cfg):
+    """Dense k/v of a cache: packed caches are dequantized whole (the
+    unfused path the fused kernel replaces)."""
+    if isinstance(cache["k"], QTensor):
+        dt = cfg.torch_dtype
+        return cache["k"].dequantize(dt), cache["v"].dequantize(dt)
+    return cache["k"], cache["v"]

@@ -1,0 +1,56 @@
+"""Shared layer primitives (port of ``repro.models.common``): RMS norm,
+RoPE, SwiGLU and the truncated-normal init."""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def truncnorm_init(shape, dtype, generator: torch.Generator, device,
+                   scale: float = 0.02) -> torch.Tensor:
+    """``scale * truncated_normal(-2, 2)`` drawn in f32 from ``generator``
+    and cast to ``dtype`` — the reference's init distribution (torch draws
+    other numbers than jax.random from the same seed)."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * weight.to(torch.float32)).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
+    # built once per device: a host->device copy per call would make every
+    # layer wait for the stream
+    return torch.tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                        device=device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S]."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs_on(hd, float(theta), x.device)
+    ang = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """Llama-style gated MLP. x [..., D]; w_gate/w_up [D, F]; w_down [F, D]."""
+    g = x @ w_gate
+    u = x @ w_up
+    return (torch.nn.functional.silu(g) * u) @ w_down

@@ -1,0 +1,187 @@
+"""The llama-dense model: parameters, caches, prefill and decode (port of
+``repro.models.model``).
+
+Parameters live in an ``nn.Module`` tree with one :class:`Block` per layer
+(the reference stacks them ``[G, ...]`` and scans; here ``lax.scan`` over
+layers becomes a Python loop over ``model.blocks``). Every weight keeps the
+reference's ``[in, out]`` layout (``x @ w``) and its truncated-normal(0.02)
+init; norms start at one.
+
+Caches are ``{"k", "v"}`` with a leading layer axis ``[L, B, S, K, hd]``
+(the reference's ``{"b0": {...}}`` level collapses: the llama-dense pattern
+has one attention position). Paged decode instead binds the pool slabs
+``[L, P, T, K, W]`` and a ``[B, max_pages]`` page table; every cache and
+slab write happens in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as A
+from repro_torch.models.common import rms_norm, swiglu, truncnorm_init
+from repro_torch.models.config import ModelConfig
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        D, hd, H, K = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        dt = cfg.torch_dtype
+        self.wq = _param((D, H * hd), dt, device)
+        self.wk = _param((D, K * hd), dt, device)
+        self.wv = _param((D, K * hd), dt, device)
+        self.wo = _param((H * hd, D), dt, device)
+
+    def weights(self) -> dict:
+        return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        D, F, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
+        self.gate = _param((D, F), dt, device)
+        self.up = _param((D, F), dt, device)
+        self.down = _param((F, D), dt, device)
+
+    def forward(self, x):
+        return swiglu(x, self.gate, self.up, self.down)
+
+
+class Block(nn.Module):
+    """Pre-norm attention + SwiGLU block."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt = cfg.torch_dtype
+        self.norm1 = _param((cfg.d_model,), dt, device)
+        self.mixer = Attention(cfg, device)
+        self.norm2 = _param((cfg.d_model,), dt, device)
+        self.ff = FeedForward(cfg, device)
+
+    def forward(self, x, cfg: ModelConfig, *, mode, cache, pos_offset,
+                pages=None):
+        h = rms_norm(x, self.norm1, cfg.norm_eps)
+        h, _ = A.attention_apply(self.mixer.weights(), h, cfg, mode=mode,
+                                 cache=cache, pos_offset=pos_offset,
+                                 pages=pages)
+        x = x + h
+        return x + self.ff(rms_norm(x, self.norm2, cfg.norm_eps))
+
+
+class Model(nn.Module):
+    """Parameters of a llama-dense model (allocated, not initialised)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        D, V, dt = cfg.d_model, cfg.vocab_size, cfg.torch_dtype
+        self.embed = _param((V, D), dt, device)
+        self.final_norm = _param((D,), dt, device)
+        self.lm_head = _param((D, V), dt, device)
+        self.blocks = nn.ModuleList(Block(cfg, device)
+                                    for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
+    """Random weights from ``torch.Generator(device).manual_seed(seed)`` in
+    the reference's layout and distribution: truncated normal(-2, 2) x 0.02
+    for embed, lm_head and every projection, drawn in that order and layer
+    by layer; ones for the norms."""
+    device = torch.device(device)
+    model = Model(cfg, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+
+    def fill(p: nn.Parameter):
+        p.data.copy_(truncnorm_init(p.shape, p.dtype, gen, device))
+
+    with torch.no_grad():
+        fill(model.embed)
+        fill(model.lm_head)
+        model.final_norm.fill_(1.0)
+        for blk in model.blocks:
+            blk.norm1.fill_(1.0)
+            blk.norm2.fill_(1.0)
+            for w in (blk.mixer.wq, blk.mixer.wk, blk.mixer.wv, blk.mixer.wo,
+                      blk.ff.gate, blk.ff.up, blk.ff.down):
+                fill(w)
+    return model
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
+                quantized_kv: bool = False, attn_kv: bool = True,
+                device="cuda"):
+    """KV caches ``{"k","v"}`` of shape ``[L, batch, max_seq, K, hd]``.
+
+    ``attn_kv=False`` returns ``None``: the paged engine binds pool slabs
+    instead, and no dense ``[batch, max_seq]`` row is allocated. Quantized
+    caches are always bit-packed (the unpacked codec is ROADMAP B5/B6);
+    per-layer KV formats (``kv_policy``) are ROADMAP A7."""
+    if not attn_kv:
+        return None
+    return A.init_cache(cfg, batch, max_seq, quantized_kv, cfg.torch_dtype,
+                        torch.device(device), lead=(cfg.n_layers,))
+
+
+def layer_cache(caches, i: int):
+    """Layer ``i``'s ``{"k","v"}`` view of stacked caches or slabs (views
+    share storage, so in-place writes land in the stack)."""
+    from repro_torch.core.qtensor import QTensor
+
+    def one(c):
+        if isinstance(c, QTensor):
+            return QTensor(c.codes[i], c.scales[i], c.fmt, c.block,
+                           c.shape[1:], c.packed)
+        return c[i]
+
+    return {kv: one(caches[kv]) for kv in ("k", "v")}
+
+
+
+
+@torch.inference_mode()
+def prefill(model: Model, tokens: torch.Tensor, caches, last_index=None,
+            cfg: ModelConfig | None = None):
+    """Consume prompts ``[B, S]``: writes the caches in place and returns
+    the last-token logits ``[B, V]`` (at ``last_index[b]`` when given, for
+    bucket-padded prompts). ``cfg`` overrides ``model.cfg`` for serve-time
+    switches such as ``fused_attention``."""
+    cfg = cfg or model.cfg
+    x = model.embed[tokens]
+    for i, blk in enumerate(model.blocks):
+        x = blk(x, cfg, mode="prefill", cache=layer_cache(caches, i),
+                pos_offset=0)
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    if last_index is not None:
+        li = torch.as_tensor(last_index, device=x.device).to(torch.int64)
+        x = x[torch.arange(x.shape[0], device=x.device), li][:, None]
+    else:
+        x = x[:, -1:]
+    return (x @ model.lm_head)[:, 0]
+
+
+@torch.inference_mode()
+def decode_step(model: Model, token: torch.Tensor, pos, caches, pages=None,
+                cfg: ModelConfig | None = None):
+    """One decode step: token ``[B, 1]``; ``pos`` a scalar write index or a
+    per-slot ``[B]`` vector. With ``pages`` (``[B, max_pages]`` int32) the
+    caches are pool slabs attended in place through the page table.
+    Returns logits ``[B, V]``; caches are updated in place."""
+    cfg = cfg or model.cfg
+    x = model.embed[token]
+    for i, blk in enumerate(model.blocks):
+        x = blk(x, cfg, mode="decode", cache=layer_cache(caches, i),
+                pos_offset=pos, pages=pages)
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    return (x @ model.lm_head)[:, 0]

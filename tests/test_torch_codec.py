@@ -1,0 +1,144 @@
+"""Port parity, codec layer: ``repro_torch`` against the JAX reference.
+
+Everything here must be BITWISE equal: n-bit word packing, the copied F2P
+format's codes, and the packed quantize (words and scales) / dequantize of
+``repro_torch.core.qtensor`` against ``repro.core.qtensor`` on the xla
+backend. Inputs are made from numpy seeds and handed to both packages.
+"""
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import qtensor as QT
+from repro.core.f2p import F2PFormat as JF2PFormat
+from repro.core.formats import named_format as jnamed
+from repro.kernels import f2p_quant as JK
+from repro.kernels.bits import pack_bits_np, unpack_bits_np
+from repro_torch.core import qtensor as TQ
+from repro_torch.core.f2p import F2PFormat, Flavor
+from repro_torch.core.formats import named_format
+from repro_torch.kernels import bits as TB
+from repro_torch.kernels import f2p_quant as TK
+
+
+@pytest.mark.parametrize("n_bits", range(1, 20))
+def test_pack_unpack_bits_bitwise(n_bits):
+    """Odd lengths and fields straddling word boundaries, 1..19 bits."""
+    rng = np.random.default_rng(n_bits)
+    for n in (1, 5, 31, 33, 67):
+        codes = rng.integers(0, 1 << n_bits, (3, n)).astype(np.uint32)
+        want = pack_bits_np(codes, n_bits)
+        got = TB.pack_bits(torch.from_numpy(codes.astype(np.int64)), n_bits)
+        assert got.dtype == torch.uint32
+        np.testing.assert_array_equal(got.numpy(), want)
+        back = TB.unpack_bits(got, n_bits, n)
+        np.testing.assert_array_equal(back.numpy(),
+                                      unpack_bits_np(want, n_bits, n))
+        np.testing.assert_array_equal(TB.pack_bits_np(codes, n_bits), want)
+
+
+_FMTS = [(fl, h, n, s) for fl, h, n, s in itertools.product(
+    ("sr", "lr", "si", "li"), (1, 2), (6, 8, 11, 16), (False, True))]
+
+
+@pytest.mark.parametrize("fl,h,n,s", _FMTS)
+def test_copied_format_codes_match_reference(fl, h, n, s):
+    """The port's copy of core.f2p encodes/decodes code for code like the
+    reference (grid points, midpoint ties, one ulp either side, clamps)."""
+    ref = JF2PFormat(n, h, fl, s)
+    fmt = F2PFormat(n, h, fl, s)
+    g = ref.payload_grid
+    mid = (g[:-1] + g[1:]) / 2.0
+    rng = np.random.default_rng(n * 10 + h)
+    x = np.concatenate([g, mid, np.nextafter(mid, -np.inf),
+                        np.nextafter(mid, np.inf),
+                        rng.uniform(0, ref.max_value * 1.1, 256),
+                        [0.0, ref.max_value * 8, 1e300]])
+    if s:
+        x = np.concatenate([x, -x, [-0.0]])
+    np.testing.assert_array_equal(fmt.encode_nearest(x), ref.encode_nearest(x))
+    codes = np.arange(1 << n)
+    np.testing.assert_array_equal(fmt.decode(codes), ref.decode(codes))
+    assert fmt.max_value == ref.max_value
+
+
+def _case(shape, seed, zero_block=False, scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=shape) * scale).astype(np.float32)
+    if zero_block:
+        x[..., :32] = 0.0
+        x[0] = 0.0
+    return x
+
+
+_QCASES = [
+    ("f2p_sr_2_8s", (4, 128), 128, "f32", False),
+    ("f2p_sr_2_6s", (3, 5, 100), 32, "f32", True),
+    ("f2p_lr_2_16s", (2, 3, 77), 32, "f32", False),
+    ("f2p_lr_2_8s", (6, 64), 32, "pow2", True),
+    ("f2p_sr_1_6s", (7, 200), 64, "pow2", False),
+    ("f2p_sr_2_16s", (5, 128), 128, "f32", True),
+    ("f2p_li_2_8u", (4, 96), 32, "f32", False),
+]
+
+
+@pytest.mark.parametrize("name,shape,block,mode,zero", _QCASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_quantize_dequantize_bitwise(name, shape, block, mode, zero,
+                                            dtype):
+    x = _case(shape, seed=len(name) + block, zero_block=zero, scale=3.0)
+    jfmt, fmt = jnamed(name), named_format(name)
+    jx = jnp.asarray(x).astype(jnp.dtype(dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = QT.quantize(jx, jfmt, block=block, scale_mode=mode, backend="xla",
+                       packed=True)
+    got = TQ.quantize(tx, fmt, block=block, scale_mode=mode)
+    np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
+    np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
+    assert got.nbytes == want.nbytes
+    for out in ("float32", "bfloat16"):
+        wd = np.asarray(QT.dequantize(want, dtype=jnp.dtype(out),
+                                      backend="xla").astype(jnp.float32))
+        gd = got.dequantize(getattr(torch, out)).to(torch.float32).numpy()
+        np.testing.assert_array_equal(gd, wd)
+
+
+def test_tile_math_codes_match_reference_tile_math():
+    """Raw encode/decode tile math on values around every grid point."""
+    enc = jax.jit(JK.quantize_tile_math, static_argnums=1)
+    dec = jax.jit(JK.dequantize_tile_math, static_argnums=1)
+    for name in ("f2p_sr_2_8s", "f2p_lr_1_8s", "f2p_sr_2_10s", "f2p_lr_2_6s"):
+        jfmt, fmt = jnamed(name), named_format(name)
+        g = jfmt.grid.astype(np.float32)
+        x = np.concatenate([g, np.nextafter(g, np.float32(np.inf)),
+                            np.nextafter(g, np.float32(-np.inf)),
+                            ((g[:-1] + g[1:]) / 2).astype(np.float32)])
+        want = np.asarray(enc(jnp.asarray(x), jfmt))
+        got = TK.quantize_tile_math(torch.from_numpy(x), fmt).numpy()
+        np.testing.assert_array_equal(got, want.astype(np.int32))
+        codes = np.arange(1 << fmt.n_bits, dtype=np.int32)
+        np.testing.assert_array_equal(
+            TK.dequantize_tile_math(torch.from_numpy(codes), fmt).numpy(),
+            np.asarray(dec(jnp.asarray(codes), jfmt)))
+
+
+def test_dynamic_update_in_place_and_validation():
+    fmt = F2PFormat(8, 2, Flavor.SR, signed=True)
+    base = TQ.quantize(torch.zeros(2, 6, 3, 16), fmt, block=16)
+    upd = TQ.quantize(torch.ones(2, 1, 3, 16), fmt, block=16)
+    codes = base.codes
+    out = base.dynamic_update(upd, 4, axis=1)
+    assert out is base and out.codes.data_ptr() == codes.data_ptr()
+    np.testing.assert_array_equal(out.codes[:, 4].numpy(),
+                                  upd.codes[:, 0].numpy())
+    np.testing.assert_array_equal(out.dequantize()[:, 4].numpy(),
+                                  np.ones((2, 3, 16), np.float32))
+    with pytest.raises(ValueError):
+        TQ.QTensor.from_parts(base.codes[..., :3], base.scales, fmt, 16,
+                              base.shape)
+    with pytest.raises(NotImplementedError, match="B5/B6"):
+        TQ.quantize(torch.zeros(2, 16), fmt, block=16, packed=False)

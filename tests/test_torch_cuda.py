@@ -1,0 +1,67 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU with the CUDA toolkit (the kernels build
+with nvcc at first use and have no CPU mode); elsewhere they skip. This
+file imports no JAX, so it runs on a machine that has only the port:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+``chip_smoke.py`` runs the same checks at the full serving shapes.
+"""
+import pytest
+import torch
+
+from repro_torch.core import qtensor as QT
+from repro_torch.core.formats import named_format
+from repro_torch.kernels import f2p_attention as A
+from repro_torch.kernels import f2p_quant as Q
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("name", ["f2p_sr_2_6s", "f2p_sr_2_8s",
+                                  "f2p_lr_2_16s"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_codec_kernels_bitwise_vs_plain(gen, name, dtype):
+    fmt = named_format(name)
+    x = (torch.randn(48, 256, generator=gen, device="cuda") * 3).to(dtype)
+    x[0, :64] = 0
+    for mode in ("f32", "pow2"):
+        w, s = Q.f2p_quantize_packed(x, fmt, block=64, scale_mode=mode)
+        pw, ps = Q.quantize_packed_plain(x, fmt, 64, mode)
+        assert torch.equal(w.view(torch.int32), pw.view(torch.int32))
+        assert torch.equal(s, ps)
+        for out in (torch.float32, torch.bfloat16):
+            assert torch.equal(
+                Q.f2p_dequantize_packed(w, s, fmt, block=64, out_dtype=out),
+                Q.dequantize_packed_plain(w, s, fmt, 64, out))
+
+
+@pytest.mark.parametrize("tile", [8, 32, 128])
+def test_attention_kernels_vs_plain_and_paged_equals_dense(gen, tile):
+    fmt = named_format("f2p_sr_2_8s")
+    B, K, G, hd, T, P, maxp = 3, 2, 3, 64, 8, 40, 12
+    q = torch.randn(B, 2, K * G, hd, generator=gen, device="cuda")
+    slab_k = QT.quantize(torch.randn(P, T, K, hd, generator=gen,
+                                     device="cuda"), fmt, block=hd)
+    slab_v = QT.quantize(torch.randn(P, T, K, hd, generator=gen,
+                                     device="cuda"), fmt, block=hd)
+    pages = torch.randperm(P, generator=gen, device="cuda")[:B * maxp]
+    pages = pages.reshape(B, maxp).to(torch.int32)
+    kv_len = torch.tensor([96, 40, 0], device="cuda")
+    kw = dict(kv_len=kv_len, causal=True, q_offset=kv_len - 2, tile=tile)
+    got = A.attention_paged(q, slab_k, slab_v, pages, **kw)
+    dense = A.attention_packed(q, A.gather_pages_to_dense(slab_k, pages),
+                               A.gather_pages_to_dense(slab_v, pages), **kw)
+    assert torch.equal(got, dense)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    torch.testing.assert_close(
+        got, A.attention_paged_plain(q, slab_k, slab_v, pages, **kw),
+        rtol=1e-5, atol=1e-5)
