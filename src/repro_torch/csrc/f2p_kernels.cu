@@ -1,12 +1,15 @@
-// Hand-written Hopper (sm_90a) kernels for the F2P serve path.
+// Hand-written Hopper (sm_90a) kernels for the F2P serve and measurement
+// paths.
 //
-// Four kernels replace the four Pallas TPU kernels on the serving path of
-// src/repro (the JAX reference):
+// Six kernels replace six Pallas TPU kernels of src/repro (the JAX
+// reference):
 //
 //   quantize_packed_kernel    <- repro/kernels/f2p_quant.py::_quant_packed_kernel
 //   dequantize_packed_kernel  <- repro/kernels/f2p_quant.py::_dequant_packed_kernel
 //   attention_kernel<false>   <- repro/kernels/f2p_attention.py::_fused_kernel
 //   attention_kernel<true>    <- repro/kernels/f2p_attention.py::_paged_kernel
+//   counter_advance_kernel    <- repro/kernels/f2p_counter.py::_advance_kernel
+//   counter_estimate_kernel   <- repro/kernels/f2p_counter.py::_estimate_kernel
 //
 // Built with route (b): nvcc into a shared library with a plain C interface,
 // loaded with ctypes (repro_torch/kernels/cuda.py). Every entry takes the
@@ -338,6 +341,86 @@ __global__ void attention_kernel(AttnArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// counter_advance: the stochastic advance of F2P grid counters (B9)
+//
+// One thread per cell of the flattened state. Each of `sweeps` sweeps
+// crosses the run of p = 1 states in one step, then draws the geometric
+// sojourn ceil(log u / log(1-p)) of the current state and advances if the
+// remaining budget covers it (repro_torch.kernels.f2p_counter._sweep). The
+// uniforms are not streamed in: u = hash(seed, sweep0 + t, lane) is
+// computed in registers, the same counter-based stream hash_uniforms builds
+// for the plain version. Bound by bytes (state + budget in, state +
+// leftover out: 16 B per cell); the p/run/logq tables (<= 768 KiB) stay in
+// L2 and go through the read-only cache. A cell whose budget is spent
+// stops: a sweep with rem == 0 changes nothing, so the result is the same.
+//
+// Exactness against torch on the card: logf (not __logf), a correctly
+// rounded divide, no --use_fast_math; the uniform's arithmetic is exact.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t sweep,
+                                              uint32_t lane) {
+  const uint32_t x = fmix32(lane ^ (sweep * 0x9E3779B1u) ^ seed);
+  // 24 exact bits + half an ulp, times 2^-24: strictly inside (0, 1)
+  return __fmul_rn(__fadd_rn((float)(x >> 8), 0.5f), 5.9604644775390625e-8f);
+}
+
+__global__ void counter_advance_kernel(const int* __restrict__ state_in,
+                                       const float* __restrict__ budget,
+                                       int* __restrict__ state_out,
+                                       float* __restrict__ left,
+                                       const float* __restrict__ p_lut,
+                                       const float* __restrict__ run_lut,
+                                       const float* __restrict__ logq_lut,
+                                       long long n, int kmax, uint32_t seed,
+                                       uint32_t sweep0, int sweeps) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int s = state_in[i];
+  float rem = budget[i];
+  for (int t = 0; t < sweeps && rem > 0.f; ++t) {
+    const float run = fminf(rem, __ldg(run_lut + s));
+    s += (int)run;  // truncation, as torch's f32 -> int32
+    rem = __fsub_rn(rem, run);
+    const float pk = __ldg(p_lut + s);
+    const float u = hash_uniform(seed, sweep0 + (uint32_t)t, (uint32_t)i);
+    float need = ceilf(__fdiv_rn(logf(u), __ldg(logq_lut + s)));
+    // p = 1 and p = 0 carry logq = 0: the quotient is +-inf and is
+    // overridden here, before the maximum (the reference's order)
+    if (pk >= 1.f) need = 1.f;
+    if (pk <= 0.f) need = INFINITY;
+    need = fmaxf(need, 1.f);
+    if (need <= rem) {
+      s = min(s + 1, kmax);
+      rem = __fsub_rn(rem, need);
+    } else {
+      rem = 0.f;  // no advance within this budget; a saturated cell parks
+    }
+  }
+  state_out[i] = s;
+  left[i] = rem;
+}
+
+// ---------------------------------------------------------------------------
+// counter_estimate: L[state], one thread per cell (B10). Bound by bytes
+// (4 B of state in, 4 B of estimate out); the grid stays in L2.
+// ---------------------------------------------------------------------------
+__global__ void counter_estimate_kernel(const int* __restrict__ state,
+                                        const float* __restrict__ grid,
+                                        float* __restrict__ out, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __ldg(grid + state[i]);
+}
+
+// ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
 extern "C" {
@@ -417,6 +500,30 @@ int f2p_attention(const float* q3, const uint32_t* kw, const float* ks,
     attention_kernel<true><<<B * K, kAttnThreads, smem, stream>>>(a);
   else
     attention_kernel<false><<<B * K, kAttnThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int f2p_counter_advance(const int* state, const float* budget, int* state_out,
+                        float* left, const float* p_lut, const float* run_lut,
+                        const float* logq_lut, long long n, int kmax,
+                        uint32_t seed, uint32_t sweep0, int sweeps,
+                        cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const long long grid = (n + threads - 1) / threads;
+  counter_advance_kernel<<<(unsigned)grid, threads, 0, stream>>>(
+      state, budget, state_out, left, p_lut, run_lut, logq_lut, n, kmax, seed,
+      sweep0, sweeps);
+  return (int)cudaGetLastError();
+}
+
+int f2p_counter_estimate(const int* state, const float* grid_lut, float* out,
+                         long long n, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const long long grid = (n + threads - 1) / threads;
+  counter_estimate_kernel<<<(unsigned)grid, threads, 0, stream>>>(
+      state, grid_lut, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -2,11 +2,12 @@ from repro_torch.serve.arch import (SupportedArchitecture, arch_for,
                                     make_batched_decode_step,
                                     make_batched_prefill, sample_tokens)
 from repro_torch.serve.batched import BatchedEngine, BatchedServeConfig, Request
-from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.engine import Engine, ServeConfig, SketchIngestEngine
 from repro_torch.serve.paging import HostKV, PagedKVPool, PageTable, PoolExhausted
 
 __all__ = [
-    "Engine", "ServeConfig", "BatchedEngine", "BatchedServeConfig", "Request",
+    "Engine", "ServeConfig", "SketchIngestEngine", "BatchedEngine",
+    "BatchedServeConfig", "Request",
     "PagedKVPool", "PageTable", "HostKV", "PoolExhausted",
     "SupportedArchitecture", "arch_for", "make_batched_prefill",
     "make_batched_decode_step", "sample_tokens",

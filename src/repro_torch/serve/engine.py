@@ -1,5 +1,6 @@
-"""Sequential serving engine (port of ``repro.serve.engine``: ``ServeConfig``
-and ``Engine.generate`` with the periodic EOS sync).
+"""Sequential serving engine and the sketch ingest front end (port of
+``repro.serve.engine``: ``ServeConfig``, ``Engine.generate`` with the
+periodic EOS sync, and ``SketchIngestEngine``).
 
 One fixed-shape request batch runs start to finish: prefill the prompts,
 then decode until ``max_new`` or EOS. Tokens stay on the device and reach
@@ -10,14 +11,17 @@ jitted steps; here the caches are written in place.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.models import decode_step, init_caches, prefill
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 from repro_torch.serve.arch import sample_tokens
+from repro_torch.telemetry import HeavyHitterTable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,3 +95,124 @@ class Engine:
                 if (i + 1) % sync_k == 0 and bool(done.all()):
                     break
         return torch.cat(out, dim=1).cpu().numpy()[:B]
+
+
+class SketchIngestEngine:
+    """Streaming front end of the F2P sketch: packets in, reports out.
+
+    Callers hand over chunks of flow keys (one entry per packet arrival,
+    any chunk size); the engine re-batches them into fixed-size batches,
+    updates the sketch, and feeds a bounded heavy-hitter candidate table
+    with each batch's most frequent keys and their fresh sketch estimates.
+    Short remainders are zero-count padded at ``flush`` time, so totals are
+    exact regardless of how arrivals were chunked. The sketch's device
+    (the card by default) runs the advance.
+    """
+
+    def __init__(self, sketch, batch: int = 1 << 16, track_top: int = 256):
+        self.sketch = sketch
+        self.batch = int(batch)
+        self._buf = np.empty(self.batch, dtype=np.int64)
+        self._fill = 0
+        self.hh = HeavyHitterTable(capacity=track_top)
+        # obs registry (DESIGN.md §13): packet/batch tallies live in F2P
+        # cells with exact shadows; ``packets``/``batches`` stay exact-int
+        # reads. ``arrivals_per_s`` is derived from accumulated ingest wall
+        # time; ``flush_depth`` histograms the partial-tail size per flush.
+        self.metrics = obs.MetricsRegistry("sketch.ingest")
+        self._c_packets = self.metrics.counter("packets")
+        self._c_batches = self.metrics.counter("batches")
+        self._g_rate = self.metrics.gauge("arrivals_per_s")
+        self._h_flush = self.metrics.histogram("flush_depth", 1.0,
+                                               float(max(2, self.batch)))
+        self._ingest_s = 0.0
+
+    @property
+    def packets(self) -> int:
+        return self._c_packets.exact
+
+    @property
+    def batches(self) -> int:
+        return self._c_batches.exact
+
+    def ingest(self, keys: np.ndarray) -> None:
+        """Buffer packet keys; every full batch is dispatched eagerly."""
+        t0 = time.perf_counter()
+        keys = np.asarray(keys).ravel()
+        pos = 0
+        while pos < keys.size:
+            take = min(keys.size - pos, self.batch - self._fill)
+            self._buf[self._fill:self._fill + take] = keys[pos:pos + take]
+            self._fill += take
+            pos += take
+            if self._fill == self.batch:
+                self._fill = 0
+                self._dispatch(self._buf, np.ones(self.batch, np.float32))
+        self._ingest_s += time.perf_counter() - t0
+        if self._ingest_s > 0:
+            self._g_rate.set(self.packets / self._ingest_s)
+
+    def flush(self) -> None:
+        """Push the partial tail batch (zero-count padded to full shape) and
+        drain the budget the fixed-sweep advance carried between batches —
+        estimates read after a flush reflect every packet."""
+        if self._fill:
+            self._h_flush.observe(float(self._fill))
+        with obs.span("sketch.flush", buffered=self._fill):
+            self._flush_inner()
+
+    def _flush_inner(self) -> None:
+        if self._fill:
+            keys = np.zeros(self.batch, dtype=np.int64)
+            counts = np.zeros(self.batch, dtype=np.float32)
+            keys[:self._fill] = self._buf[:self._fill]
+            counts[:self._fill] = 1.0
+            self._fill = 0
+            self._dispatch(keys, counts)
+        self.sketch.flush()
+        # the drain advanced cells the candidate table was last told about
+        # pre-drain — refresh its estimates or the report undercounts
+        # exactly the heaviest (most-carried) flows
+        keys = self.hh.keys
+        if keys.size:
+            padded = np.zeros(4 * self.hh.capacity, dtype=np.int64)
+            padded[:keys.size] = keys
+            self.hh.offer(keys, self.sketch.query(padded)[:keys.size])
+
+    def _dispatch(self, keys: np.ndarray, counts: np.ndarray) -> None:
+        # pre-combine once and feed the sketch the (unique key, count) pairs
+        # — the candidate scan needs the combine anyway
+        live = keys[counts > 0]
+        uniq, cnt = np.unique(live, return_counts=True)
+        if uniq.size == 0:
+            return
+        self.sketch.update(uniq, cnt.astype(np.float32))
+        self._c_packets.inc(int(cnt.sum()))
+        self._c_batches.inc()
+        # candidate refresh: the batch's most frequent keys, re-estimated
+        # against the updated sketch (sketch+heap heavy-hitter recovery),
+        # queried at one fixed padded shape
+        cap = 4 * self.hh.capacity
+        if uniq.size > cap:
+            keep = np.argsort(cnt)[::-1][:cap]
+            uniq = uniq[keep]
+        padded = np.zeros(cap, dtype=np.int64)
+        padded[:uniq.size] = uniq
+        est = self.sketch.query(padded)[:uniq.size]
+        self.hh.offer(uniq, est)
+
+    def heavy_hitters(self, k: int = 20, min_share: float = 0.0):
+        """Top-k flow report against the exact ingested-packet total."""
+        return self.hh.report(k, total_arrivals=float(self.packets),
+                              min_share=min_share)
+
+    def stats(self) -> dict:
+        return {
+            "packets": self.packets,
+            "batches": self.batches,
+            "buffered": self._fill,
+            "sketch_fill": self.sketch.fill(),
+            "sketch_bytes": self.sketch.nbytes,
+            "device": str(self.sketch.device),
+            "pending_budget": self.sketch.pending_budget,
+        }

@@ -8,12 +8,15 @@ file imports no JAX, so it runs on a machine that has only the port:
 
 ``chip_smoke.py`` runs the same checks at the full serving shapes.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import qtensor as QT
+from repro_torch.core.f2p import F2PFormat, Flavor
 from repro_torch.core.formats import named_format
 from repro_torch.kernels import f2p_attention as A
+from repro_torch.kernels import f2p_counter as FC
 from repro_torch.kernels import f2p_quant as Q
 
 pytestmark = pytest.mark.cuda
@@ -65,3 +68,48 @@ def test_attention_kernels_vs_plain_and_paged_equals_dense(gen, tile):
     torch.testing.assert_close(
         got, A.attention_paged_plain(q, slab_k, slab_v, pages, **kw),
         rtol=1e-5, atol=1e-5)
+
+
+def _cuda_luts(grid):
+    return [torch.from_numpy(t).cuda() for t in FC.advance_tables(grid)]
+
+
+@pytest.mark.parametrize("flavor,n_bits", [("li", 8), ("li", 12), ("li", 16),
+                                           ("sr", 16)])
+@pytest.mark.parametrize("sweep0", [0, 32])
+def test_counter_advance_kernel_bitwise_vs_plain(gen, flavor, n_bits,
+                                                 sweep0):
+    """B9 against its plain version on the same stream, bitwise: stochastic
+    states, spent cells (early exit), saturated cells, an odd cell count."""
+    grid = F2PFormat(n_bits=n_bits, h_bits=2,
+                     flavor=Flavor(flavor)).payload_grid
+    rng = np.random.default_rng(n_bits + sweep0)
+    shape = (3, 5001)
+    state = torch.from_numpy(rng.integers(0, len(grid) - 1, shape).astype(
+        np.int32)).cuda()
+    budget = torch.from_numpy(rng.integers(0, 4000, shape).astype(
+        np.float32)).cuda()
+    budget[0, :100] = 0.0
+    state[1, :100] = len(grid) - 1
+    luts = _cuda_luts(grid)
+    seed = int(rng.integers(0, 1 << 32))
+    got = FC.counter_advance(state, budget, *luts, seed, sweep0=sweep0)
+    u = FC.hash_uniforms(seed, sweep0, FC.PALLAS_SWEEPS, shape, device="cuda")
+    want = FC.counter_advance_plain(state, budget, *luts, u)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0][0, :100], state[0, :100])
+    assert float(got[1][1, :100].abs().sum()) == 0.0
+    st, lf = FC.counter_advance_exact(state, budget, *luts, seed)
+    assert float(lf.abs().sum()) == 0.0
+
+
+def test_counter_estimate_kernel_bitwise_vs_plain(gen):
+    grid = F2PFormat(n_bits=16, h_bits=2, flavor=Flavor.LI).payload_grid
+    glut = torch.tensor(grid, dtype=torch.float32, device="cuda")
+    state = torch.randint(0, len(grid), (4, 3001), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    assert torch.equal(FC.counter_estimate(state, glut),
+                       FC.counter_estimate_plain(state, glut))
+    with pytest.raises(TypeError):
+        FC.counter_estimate(state.long(), glut)

@@ -190,6 +190,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+print(" ".join(names))
 print(len(names))
 """
 
@@ -199,4 +200,7 @@ def test_import_hygiene_no_jax_no_reference():
                           env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20
+    *names, count = proc.stdout.split()
+    assert int(count) >= 36
+    for sub in ("sketch", "obs", "telemetry", "autotune"):
+        assert f"repro_torch.{sub}" in names, sub
