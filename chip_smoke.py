@@ -9,8 +9,12 @@ Phases (any failed check raises, so the script exits non-zero):
 1. device  — card name and power limit (nvidia-smi), library versions.
 2. build   — nvcc builds csrc/f2p_kernels.cu from the checkout (sm_90a).
 3. kernels — each hand-written kernel at its main path's shapes against
-   its plain PyTorch version ON THE CARD: the codec bitwise (words, scales,
-   values; 6/8/16-bit formats, f32 and bf16), attention within
+   its plain PyTorch version ON THE CARD: the packed codec bitwise (words,
+   scales, values; 6/8/16-bit formats, f32 and bf16), the unpacked codec
+   (B5/B6) bitwise at the train path's leaf shapes ([3072, 8192],
+   [8192, 3072], [3072, 1024], [128256, 3072] and a [3072] norm; 8-bit
+   gradient and 16-bit checkpoint formats, f32 and pow2 scales, f32 and
+   bf16 outputs), attention within
    rtol=atol=1e-5 in f32 plus paged == dense-over-gathered-pages bitwise,
    the counter advance bitwise (state and leftover; 8/12/16-bit LI^2 and
    16-bit SR^2 cells, [4, 2^20] state, the budget of the trace's first
@@ -41,20 +45,48 @@ Phases (any failed check raises, so the script exits non-zero):
    2^20, track_top 256) into a 4 x 2^20 F2PSketch of 16-bit F2P_LI^2
    cells on the card, each pass flushed. Asserts the exact packet count, a
    drained carry, the true top-10 flows among the top-20 report, each
-   within 2% of its true count, and estimates() finite with the query
-   equal to its minimum over rows. Then a profiled steady window (busy
+   flow's query within 5 sd of its simulated law (|z| <= 5: 1024 draws of
+   its 4 cells fed the true cell totals, min over rows), their mean
+   |relative error| <= 2%, and estimates() finite with the query equal to
+   its minimum over rows. Then a profiled steady window (busy
    share, B9/B10 device time per call), the device-key path (a 2^20-key
    CUDA tensor through update == the host path, bitwise, on a unit grid),
    on-arrival accuracy (512 per-arrival exact advances of 4096 8-bit cells
    against the on_arrival_mse oracle, ratio in 0.8-1.25) and an obs
    registry synced through the advance kernel (exact in the dense head).
 
-Prints one ``{"sketch": {...}}`` JSON line, one ``{"kernels": [...]}``
-JSON line, then the nvidia-smi line, then the last line ``{"ok": true,
-"device": {...}}``. A copy of the results goes to
-chiprun_out/chip_smoke.json.
+8. train   — the serving model and the sketch are freed first.
+   (a) full llama3.2-3b (28 layers, bf16, random weights from
+   torch.Generator seed 0): 8 steps of make_train_step on
+   data.host_batch (batch 8 x seq 128) with F2P8 gradient compression
+   (the arch's default policy, min_size 512) and AdamW (lr 1e-3, warmup
+   10). Asserts finite losses, B5 and B6 launched once per compressed
+   leaf in every step, and at step 0 every compressed gradient equal,
+   bitwise, to the plain codec applied on the card to the same g + r
+   (captured by post-accumulate-grad hooks). Prints ms per step and
+   tokens/s over steps 2-7, the peak of max_memory_allocated, each step's
+   caching-allocator retries, cudaMalloc / cudaFree calls and garbage-
+   collector time (what a slow step spent outside its work), and, from
+   torch.profiler over step 1, the device's busy share and B5/B6 device
+   time per step (the profiler's garbage is collected before step 2).
+   (b) the same trainer through launch.train.run at full width with
+   depth cut to 2 layers: 2 steps, the run's AsyncCheckpointer(compress=
+   True, policy=default_policy) writes step 2 into a tempfile.mkdtemp()
+   directory (F2P16 payloads through B5); a fresh state restores it
+   (through B6) and every compressed leaf must equal the plain codec's
+   16-bit round trip bitwise, every raw leaf the saved one; then run()
+   resumes from the checkpoint and takes steps 2-3 (finite losses). Prints
+   the bytes on disk and the save and restore seconds; the directory is
+   removed.
+
+Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
+line, one ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
+the last line ``{"ok": true, "device": {...}}``. A copy of the results goes
+to chiprun_out/chip_smoke.json.
 """
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -69,6 +101,8 @@ SRC = "src/repro_torch/csrc/f2p_kernels.cu"
 REPLACES = {
     "quantize_packed": "src/repro/kernels/f2p_quant.py:341",
     "dequantize_packed": "src/repro/kernels/f2p_quant.py:352",
+    "quantize": "src/repro/kernels/f2p_quant.py:186",
+    "dequantize": "src/repro/kernels/f2p_quant.py:197",
     "attention_packed": "src/repro/kernels/f2p_attention.py:183",
     "attention_paged": "src/repro/kernels/f2p_attention.py:385",
     "counter_advance": "src/repro/kernels/f2p_counter.py:177",
@@ -78,6 +112,8 @@ REPLACES = {
 SKETCH = dict(depth=4, width=1 << 20, n_bits=16, h_bits=2, flavor="li",
               seed=0)
 N_PACKETS, N_FLOWS, BATCH = 1 << 25, 1 << 24, 1 << 20
+# phase 8: the train path of launch/train.py's defaults
+ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "llama3_2_3b", 8, 8, 128
 # f32 operations of one live sweep of the advance (min, sub, log, div,
 # ceil, two compares, max, compare, sub), log and divide counted as one
 ADVANCE_OPS_PER_SWEEP = 10
@@ -153,11 +189,33 @@ def device_profile(prof, wall_us: float, names) -> dict:
     top = sorted(per.items(), key=lambda kv: -kv[1][1])[:8]
     ours = {k: dict(calls=n, device_ms_per_call=tot / n / 1e3)
             for k, (n, tot) in per.items() if any(m in k for m in names)}
+    groups: dict = {}
+    for k, (n, tot) in per.items():
+        g = kernel_group(k, names)
+        groups[g] = groups.get(g, 0.0) + tot / 1e3
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 device_busy_share=busy / wall_us if dev else None,
-                kernels=ours,
+                kernels=ours, groups_ms=groups,
                 top=[dict(name=k[:80], calls=n, device_ms=tot / 1e3)
                      for k, (n, tot) in top])
+
+
+def kernel_group(name: str, ours) -> str:
+    """A device kernel's group for the time breakdown: the port's own
+    kernels, matrix products (cuBLAS / CUTLASS), elementwise, reductions,
+    copies, other."""
+    low = name.lower()
+    if any(m in name for m in ours):
+        return "ours"
+    if any(m in low for m in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+        return "matmul"
+    if "memcpy" in low or "copy" in low:
+        return "copy"
+    if "reduce" in low or "norm" in low or "softmax" in low:
+        return "reduction"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
 
 
 def log_profile(tag: str, res: dict) -> None:
@@ -171,6 +229,9 @@ def log_profile(tag: str, res: dict) -> None:
     for k, v in res["kernels"].items():
         log(f"profile  :   {k[:60]}: {v['calls']} calls, "
             f"{v['device_ms_per_call']:.5f} ms device per call")
+    log("profile  :   by group (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(res["groups_ms"].items(),
+                                          key=lambda kv: -kv[1])))
     for t in res["top"]:
         log(f"profile  :   top {t['device_ms']:9.3f} ms {t['calls']:6d} x "
             f"{t['name']}")
@@ -242,6 +303,147 @@ def check_codec(dev):
         bound_ms=bound_ms(nb), library_ms=None,
         max_abs_err=float((d.float() - pd.float()).abs().max()),
         shape="words [8192, 32] + scales -> [8192, 128] bf16")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (continued): the unpacked codec at the train path's leaf shapes
+# ---------------------------------------------------------------------------
+def train_leaf_counts(cfg) -> dict:
+    """Leaf shape -> number of such leaves in one llama-dense train state
+    (every leaf is >= min_size 512, so every gradient is compressed)."""
+    D, F, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    out: dict = {}
+    for shape, n in (((V, D), 1), ((D, V), 1), ((D,), 2 * L + 1),
+                     ((D, q), L), ((q, D), L), ((D, kv), 2 * L),
+                     ((D, F), 2 * L), ((F, D), L)):
+        out[shape] = out.get(shape, 0) + n
+    return out
+
+
+def plain_roundtrip(x, fmt, block: int, chunk: int = 1 << 24):
+    """The plain unpacked codec's quantize -> dequantize of ``x`` (f32) on
+    its own device, about ``chunk`` elements of whole rows at a time (rows
+    are independent, and the plain version's temporaries for a whole
+    [128256, 3072] leaf would not fit beside a train state)."""
+    import torch
+
+    from repro_torch.kernels import f2p_quant as Q
+
+    n = x.shape[-1]
+    x2 = x.reshape(-1, n).to(torch.float32)
+    if n % block:
+        x2 = torch.nn.functional.pad(x2, (0, -n % block))
+    out = torch.empty_like(x2)
+    rows = max(1, chunk // x2.shape[1])
+    for i in range(0, x2.shape[0], rows):
+        c, s = Q.quantize_plain(x2[i:i + rows], fmt, block)
+        out[i:i + rows] = Q.dequantize_plain(c, s, fmt, block)
+    return out[:, :n].reshape(x.shape)
+
+
+def _bits(t):
+    import torch
+
+    view = {2: torch.int16, 4: torch.int32, 1: torch.uint8}
+    return t.contiguous().view(view[t.element_size()])
+
+
+def check_unpacked_codec(dev):
+    """B5 and B6 against their plain versions at the train path's leaf
+    shapes, bitwise (row chunks for the plain side), then their time per
+    train step: each step compresses every leaf once (8-bit, f32 in)."""
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    grad_fmt, ckpt_fmt = named_format("f2p_sr_2_8s"), named_format(
+        "f2p_sr_2_16s")
+    checked, err = 0, 0.0
+    for shape in ((3072, 8192), (8192, 3072), (3072, 1024), (128256, 3072),
+                  (3072,)):
+        x = torch.randn(*shape, generator=g, device=dev) * 1e-3
+        x2 = x.reshape(-1, shape[-1])
+        x2[0, :128] = 0
+        for fmt in (grad_fmt, ckpt_fmt):
+            for mode in ("f32", "pow2"):
+                c, s = Q.f2p_quantize_codes(x2, fmt, block=128,
+                                            scale_mode=mode)
+                for i in range(0, x2.shape[0], 8192):
+                    pc, ps = Q.quantize_plain(x2[i:i + 8192], fmt, 128, mode)
+                    assert torch.equal(_bits(c[i:i + 8192]), _bits(pc)), \
+                        f"B5 codes differ: {shape} {fmt.n_bits}-bit {mode}"
+                    assert torch.equal(s[i:i + 8192], ps), \
+                        f"B5 scales differ: {shape} {fmt.n_bits}-bit {mode}"
+                    for odt in (torch.float32, torch.bfloat16):
+                        pd = Q.dequantize_plain(c[i:i + 8192], s[i:i + 8192],
+                                                fmt, 128, odt)
+                        d = Q.f2p_dequantize_codes(
+                            c[i:i + 8192].contiguous(),
+                            s[i:i + 8192].contiguous(), fmt, block=128,
+                            out_dtype=odt)
+                        err = max(err, float((d.float() - pd.float()).abs()
+                                             .max()))
+                        assert torch.equal(_bits(d), _bits(pd)), \
+                            f"B6 differs: {shape} {fmt.n_bits}-bit {odt}"
+                checked += 1
+        del x, x2
+    xb = (torch.randn(3072, 8192, generator=g, device=dev)).to(torch.bfloat16)
+    c, s = Q.f2p_quantize_codes(xb, grad_fmt)
+    pc, ps = Q.quantize_plain(xb, grad_fmt, 128)
+    assert torch.equal(c, pc) and torch.equal(s, ps), "B5 bf16 input differs"
+    log(f"codec    : unpacked quantize/dequantize (B5/B6) == plain, bitwise, "
+        f"{checked} shape x format x scale cases at the train leaf shapes "
+        "(8/16-bit, f32+pow2 scales, f32+bf16 out) and bf16 input")
+
+    # time per step: one B5 + one B6 per leaf, 8-bit, f32 in and out
+    cfg = full_config(ARCH)
+    per_shape = {}
+    tot = dict(q=0.0, d=0.0, qp=0.0, dp=0.0, qb=0, db=0, n=0)
+    for shape, count in train_leaf_counts(cfg).items():
+        x = torch.randn(*shape, generator=g, device=dev).reshape(
+            -1, shape[-1])
+        c, s = Q.f2p_quantize_codes(x, grad_fmt)
+        n, nblk = x.numel(), s.numel()
+        r = dict(count=count,
+                 quantize_ms=cuda_ms(lambda: Q.f2p_quantize_codes(
+                     x, grad_fmt), iters=20),
+                 dequantize_ms=cuda_ms(lambda: Q.f2p_dequantize_codes(
+                     c, s, grad_fmt), iters=20),
+                 quantize_plain_ms=cuda_ms(lambda: Q.quantize_plain(
+                     x, grad_fmt, 128), iters=2, warm=1),
+                 dequantize_plain_ms=cuda_ms(lambda: Q.dequantize_plain(
+                     c, s, grad_fmt, 128), iters=2, warm=1))
+        per_shape["x".join(map(str, shape))] = r
+        tot["q"] += count * r["quantize_ms"]
+        tot["d"] += count * r["dequantize_ms"]
+        tot["qp"] += count * r["quantize_plain_ms"]
+        tot["dp"] += count * r["dequantize_plain_ms"]
+        tot["qb"] += count * (5 * n + 4 * nblk)    # f32 in, code + scale out
+        tot["db"] += count * (5 * n + 4 * nblk)    # code + scale in, f32 out
+        tot["n"] += count * n
+        del x, c, s
+    nleaves = sum(train_leaf_counts(cfg).values())
+    shape_txt = (f"one train step: {nleaves} leaves, {tot['n']} elements, "
+                 "8-bit codes, f32 in/out (per-shape times in "
+                 "chip_smoke.json)")
+    out = {
+        "quantize": dict(ms=tot["q"], plain_ms=tot["qp"],
+                         bound_ms=bound_ms(tot["qb"]), bound_by="bytes",
+                         library_ms=None, max_abs_err=err, shape=shape_txt,
+                         per_shape=per_shape),
+        "dequantize": dict(ms=tot["d"], plain_ms=tot["dp"],
+                           bound_ms=bound_ms(tot["db"]), bound_by="bytes",
+                           library_ms=None, max_abs_err=err, shape=shape_txt,
+                           per_shape=per_shape)}
+    log(f"codec    : B5 {tot['q']:.3f} ms and B6 {tot['d']:.3f} ms per train "
+        f"step (bytes bounds {bound_ms(tot['qb']):.3f} / "
+        f"{bound_ms(tot['db']):.3f} ms; plain {tot['qp']:.1f} / "
+        f"{tot['dp']:.1f} ms)")
     return out
 
 
@@ -865,7 +1067,292 @@ def obs_sync(dev) -> dict:
     return dict(launches=n)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+def train_configs(cfg):
+    """launch/train.py's optimizer, compression and data configs."""
+    from repro_torch.launch.train import train_configs as configs
+
+    return configs(cfg, arch=ARCH, steps=TRAIN_STEPS,
+                   global_batch=TRAIN_BATCH, seq=TRAIN_SEQ)[:3]
+
+
+class StepStalls:
+    """What a train step spent outside its own work: the caching
+    allocator's retries (a failed cudaMalloc frees every cached block and
+    tries again), its cudaMalloc / cudaFree calls (segments allocated and
+    freed), the reserved bytes after the step, and the time Python's
+    garbage collector ran, in all and in its longest pass (with that
+    pass's generation). ``take()`` returns the deltas since the last
+    call."""
+
+    KEYS = {"alloc_retries": "num_alloc_retries",
+            "cuda_mallocs": "segment.all.allocated",
+            "cuda_frees": "segment.all.freed"}
+
+    def __init__(self):
+        import gc
+
+        self.gc_s, self.gc_max, self._t0 = 0.0, (0.0, -1), None
+        gc.callbacks.append(self._gc)
+        self._last = self._read()
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            dt = time.perf_counter() - self._t0
+            self.gc_s += dt
+            self.gc_max = max(self.gc_max, (dt, info["generation"]))
+            self._t0 = None
+
+    def _read(self) -> dict:
+        import torch
+
+        st = torch.cuda.memory_stats()
+        return {k: st.get(v, 0) for k, v in self.KEYS.items()}
+
+    def take(self) -> dict:
+        import torch
+
+        now = self._read()
+        out = {k: now[k] - self._last[k] for k in now}
+        out["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+        out["gc_ms"] = 1e3 * self.gc_s
+        out["gc_max_ms"] = 1e3 * self.gc_max[0]
+        out["gc_max_gen"] = self.gc_max[1]
+        self._last, self.gc_s, self.gc_max = now, 0.0, (0.0, -1)
+        return out
+
+    def close(self):
+        import gc
+
+        gc.callbacks.remove(self._gc)
+
+
+def train_phase(dev, launches) -> dict:
+    """(a): 8 steps of the full-depth trainer on the card."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import full_config
+    from repro_torch.data import host_batch
+    from repro_torch.kernels import cuda as C
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = full_config(ARCH)
+    ocfg, ccfg, dcfg = train_configs(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, ocfg, ccfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model, res = state["params"], state["residuals"]
+    n_comp = sum(r is not None for r in res.values())
+    log(f"train    : {cfg.name} {cfg.n_layers}L {cfg.param_count() / 1e9:.2f}B "
+        f"params {cfg.dtype}, remat {cfg.remat}, batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}; state on the card in {init_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB; {n_comp} of "
+        f"{len(res)} gradient leaves compressed ({ccfg.fmt.n_bits}-bit, "
+        f"block {ccfg.block})")
+
+    # step 0: the plain codec applied to each g + r as autograd hands the
+    # gradient over (before the step compresses it), kept on the host
+    want = {}
+
+    def hook(name):
+        def fn(p):
+            gin = p.grad.to(torch.float32) + res[name]
+            want[name] = plain_roundtrip(gin, ccfg.fmt, ccfg.block).to(
+                p.grad.dtype).cpu()
+        return fn
+
+    handles = [p.register_post_accumulate_grad_hook(hook(n))
+               for n, p in model.named_parameters() if res[n] is not None]
+    step_fn = make_train_step(cfg, ocfg, ccfg)
+    losses, step_s, per_step, prof_res, stalls = [], [], [], None, []
+    C.reset_launches()
+    torch.cuda.synchronize()
+    watch = StepStalls()
+    for step in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in host_batch(dcfg, step).items()}
+        before = dict(C.LAUNCHES)
+        ctx = profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) \
+            if step == 1 else contextlib.nullcontext()
+        with ctx as prof:
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        if prof is not None:
+            prof_res = device_profile(prof, dt * 1e6, ("quantize_kernel",))
+            # the profiler leaves millions of Python objects behind: a
+            # full collection here keeps a gen-2 pass over them (seconds)
+            # out of the timed steps
+            del prof
+            gc.collect()
+        step_s.append(dt)
+        losses.append(loss)
+        stalls.append(watch.take())
+        nq = C.LAUNCHES["quantize"] - before["quantize"]
+        nd = C.LAUNCHES["dequantize"] - before["dequantize"]
+        per_step.append((nq, nd))
+        assert math.isfinite(loss), f"step {step}: loss {loss}"
+        assert nq == nd == n_comp, \
+            f"step {step}: B5 {nq} / B6 {nd} launches, {n_comp} leaves"
+        if step == 0:
+            for h in handles:
+                h.remove()
+            assert len(want) == n_comp
+            for n, p in model.named_parameters():
+                if n in want:
+                    assert torch.equal(_bits(p.grad), _bits(want[n].to(dev))), \
+                        f"step 0: compressed gradient of {n} != plain codec"
+            want.clear()
+            log(f"train    : step 0 compressed gradients == plain codec on "
+                f"g + r, bitwise, all {n_comp} leaves")
+        st = stalls[-1]
+        log(f"train    : step {step} loss {loss:.4f} gnorm "
+            f"{float(m['grad_norm']):.3f} {dt * 1e3:.1f} ms, B5 {nq} B6 {nd}"
+            f"; allocator retries {st['alloc_retries']} cudaMalloc "
+            f"{st['cuda_mallocs']} cudaFree {st['cuda_frees']}, reserved "
+            f"{st['reserved_gib']:.2f} GiB, gc {st['gc_ms']:.1f} ms (longest "
+            f"{st['gc_max_ms']:.1f} ms, gen {st['gc_max_gen']})"
+            + (" (profiled)" if step == 1 else ""))
+    watch.close()
+    counts = dict(C.LAUNCHES)
+    launches["quantize"] = counts["quantize"]
+    launches["dequantize"] = counts["dequantize"]
+    peak = torch.cuda.max_memory_allocated()
+    steady = step_s[2:]
+    ms = 1e3 * sum(steady) / len(steady)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3)
+    b5 = b6 = 0.0
+    for k, v in prof_res["kernels"].items():
+        dev_ms = v["calls"] * v["device_ms_per_call"]
+        if "dequantize_kernel" in k:
+            b6 += dev_ms
+        elif "quantize_kernel" in k:
+            b5 += dev_ms
+    log_profile("train step 1", prof_res)
+    log(f"train    : steps 2-{TRAIN_STEPS - 1}: {ms:.1f} ms per step, "
+        f"{tok_s:.0f} tokens/s; peak allocated {peak / 2**30:.2f} GiB; "
+        f"device busy {100 * (prof_res['device_busy_share'] or 0):.1f}% of "
+        f"step 1; B5 {b5:.3f} ms + B6 {b6:.3f} ms device time per step")
+    out = dict(arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=init_s,
+               losses=losses, step_ms=[1e3 * x for x in step_s],
+               ms_per_step=ms, tokens_per_s=tok_s, peak_alloc_bytes=peak,
+               compressed_leaves=n_comp, launches_per_step=per_step,
+               stalls_per_step=stalls,
+               launches=counts, b5_device_ms_per_step=b5,
+               b6_device_ms_per_step=b6, profile=prof_res)
+    del state, model, res, step_fn
+    return out
+
+
+def train_resume_phase(dev) -> dict:
+    """(b): launch.train.run at full width, 2 layers: save at step 2,
+    restore into a fresh state (bitwise against the plain codec's round
+    trip), resume for steps 2-3."""
+    import dataclasses
+    import gc
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.core.f2p import F2PFormat, Flavor
+    from repro_torch.kernels import cuda as C
+    from repro_torch.launch.train import run
+    from repro_torch.train import checkpoint, init_train_state
+
+    cfg = dataclasses.replace(full_config(ARCH), n_layers=2)
+    ocfg, ccfg, _ = train_configs(cfg)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        C.reset_launches()
+        state, info = run(cfg, arch=ARCH, steps=2, global_batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, ckpt_dir=d, ckpt_every=2,
+                          device=dev, log=lambda *a: log("train    :", *a))
+        torch.cuda.synchronize()
+        save_launches = dict(C.LAUNCHES)
+        step_dir = os.path.join(d, "step_2")
+        disk = sum(os.path.getsize(os.path.join(step_dir, f))
+                   for f in os.listdir(step_dir))
+        with open(os.path.join(step_dir, "index.json")) as f:
+            index = _json.load(f)["leaves"]
+        fresh = init_train_state(cfg, ocfg, ccfg, seed=1, device=dev)
+        C.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        checkpoint.restore(d, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        restore_launches = dict(C.LAUNCHES)
+        assert int(fresh["opt"]["step"]) == 2
+        saved, got = checkpoint.flatten(state), checkpoint.flatten(fresh)
+        assert saved.keys() == got.keys() == index.keys()
+        n_q = 0
+        for name, e in index.items():
+            a_parts = list(saved[name]) if isinstance(saved[name], list) \
+                else [saved[name]]
+            b_parts = list(got[name]) if isinstance(got[name], list) \
+                else [got[name]]
+            for a, b in zip(a_parts, b_parts):
+                if e["codec"] == "qtensor":
+                    fmt = F2PFormat(e["fmt"]["n_bits"], e["fmt"]["h_bits"],
+                                    Flavor(e["fmt"]["flavor"]),
+                                    e["fmt"]["signed"])
+                    w = plain_roundtrip(a, fmt, e["block"]).to(a.dtype)
+                    assert torch.equal(_bits(b), _bits(w)), \
+                        f"restored {name} != plain 16-bit round trip"
+                else:
+                    assert torch.equal(_bits(a.detach()), _bits(b.detach())), \
+                        f"restored raw leaf {name} differs"
+            n_q += e["codec"] == "qtensor"
+        log(f"train    : checkpoint step 2: {disk} B on disk ({free / 1e9:.0f}"
+            f" GB free), {n_q} F2P16 leaves + {len(index) - n_q} raw; "
+            f"snapshot {info['ckpt']['snapshot_s'][-1]:.2f} s + write "
+            f"{info['ckpt']['write_s'][-1]:.2f} s, restore {restore_s:.2f} s;"
+            f" restored leaves == plain codec round trip / raw, bitwise")
+        del state, fresh, saved, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, info2 = run(cfg, arch=ARCH, steps=4, global_batch=TRAIN_BATCH,
+                           seq=TRAIN_SEQ, ckpt_dir=d, ckpt_every=100,
+                           device=dev, log=lambda *a: log("train    :", *a))
+        resumed = [h["loss"] for h in info2["history"]]
+        assert info2["start"] == 2 and len(resumed) == 2, info2["start"]
+        assert all(math.isfinite(x) for x in resumed), resumed
+        del state
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, losses=[h["loss"] for h in
+                                             info["history"]],
+                resumed_losses=resumed, ckpt_bytes=disk, disk_free=free,
+                snapshot_s=info["ckpt"]["snapshot_s"][-1],
+                write_s=info["ckpt"]["write_s"][-1], restore_s=restore_s,
+                f2p16_leaves=n_q, raw_leaves=len(index) - n_q,
+                save_launches=save_launches,
+                restore_launches=restore_launches)
+
+
 def main():
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -895,6 +1382,7 @@ def main():
         f"{time.perf_counter() - t0:.1f} s (numpy seed 0)")
 
     res = check_codec(dev)
+    res.update(check_unpacked_codec(dev))
     res.update(check_attention(dev))
     res.update(check_counter(dev, trace))
     check_small(dev)
@@ -902,10 +1390,20 @@ def main():
     serve_res = serve(dev, launches)
     sketch_res = sketch_phase(dev, trace, launches)
     assert sketch_res["obs"]["launches"] > 0, "obs sync never launched B9"
+    del trace
+    gc.collect()
+    torch.cuda.empty_cache()    # the serving model and the sketch are gone
+    train_res = train_phase(dev, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_res["resume"] = train_resume_phase(dev)
+    for name in ("quantize", "dequantize"):
+        assert launches[name] > 0, f"kernel {name} never launched"
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
-                 "dequantize_packed", "counter_advance", "counter_estimate"):
+                 "dequantize_packed", "quantize", "dequantize",
+                 "counter_advance", "counter_estimate"):
         r = res[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SRC,
@@ -921,9 +1419,12 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": kernels, "serve": serve_res,
-         "sketch": sketch_res,
-         "shapes": {k: v["shape"] for k, v in res.items()}}, indent=1))
+         "sketch": sketch_res, "train": train_res,
+         "shapes": {k: v["shape"] for k, v in res.items()},
+         "unpacked_per_shape": res["quantize"]["per_shape"]}, indent=1))
     print(json.dumps({"sketch": sketch_res}))
+    print(json.dumps({"train": {k: v for k, v in train_res.items()
+                                if k != "profile"}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,4 +13,4 @@ def smoke():
     return ModelConfig(
         name="llama3.2-3b-smoke", n_layers=2, d_model=96, n_heads=6,
         n_kv_heads=2, d_ff=256, vocab_size=512, pattern=dense_pattern(),
-        rope_theta=500_000.0, dtype="float32")
+        rope_theta=500_000.0, dtype="float32", remat=False)

@@ -1,11 +1,13 @@
-// Hand-written Hopper (sm_90a) kernels for the F2P serve and measurement
-// paths.
+// Hand-written Hopper (sm_90a) kernels for the F2P serve, measurement and
+// training paths.
 //
-// Six kernels replace six Pallas TPU kernels of src/repro (the JAX
+// Eight kernels replace eight Pallas TPU kernels of src/repro (the JAX
 // reference):
 //
 //   quantize_packed_kernel    <- repro/kernels/f2p_quant.py::_quant_packed_kernel
 //   dequantize_packed_kernel  <- repro/kernels/f2p_quant.py::_dequant_packed_kernel
+//   quantize_kernel           <- repro/kernels/f2p_quant.py::_quant_kernel
+//   dequantize_kernel         <- repro/kernels/f2p_quant.py::_dequant_kernel
 //   attention_kernel<false>   <- repro/kernels/f2p_attention.py::_fused_kernel
 //   attention_kernel<true>    <- repro/kernels/f2p_attention.py::_paged_kernel
 //   counter_advance_kernel    <- repro/kernels/f2p_counter.py::_advance_kernel
@@ -62,7 +64,10 @@ __device__ __forceinline__ uint32_t f2p_encode(float y, const F2PConsts& f) {
   const int lead = is_sub ? 0 : 1;
   float u = __fmul_rn(mag, exp2i(mbits - exp_lo));
   u = __fsub_rn(u, (float)(lead << mbits));
-  u = fminf(u, 2.0f * (float)(1 << mbits));
+  // not fminf, which drops a NaN: torch.minimum keeps it, and a NaN u
+  // then converts to m = 0 as in the plain version
+  const float cap = 2.0f * (float)(1 << mbits);
+  u = u > cap ? cap : u;
   const float mf = floorf(u);
   int m = (int)__fadd_rn(mf, (__fsub_rn(u, mf) >= 0.5f) ? 1.0f : 0.0f);
   m = max(m, 0);
@@ -118,6 +123,21 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
+// A scale block's scale from its lane's absmax and NaN flag, reduced over
+// the warp: absmax * f32(1/max), rounded up to a power of two in pow2 mode;
+// 1 for an all-zero block and for a block holding a NaN (the plain
+// version's absmax is NaN there, and NaN > 0 is false; fmaxf alone would
+// drop the NaN and scale by the finite elements).
+__device__ __forceinline__ float block_scale(float amax, bool nan,
+                                             float inv_max, int pow2) {
+  for (int off = 16; off; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (__any_sync(0xffffffffu, nan)) return 1.0f;
+  float scale = __fmul_rn(amax, inv_max);
+  if (pow2) scale = pow2_round_up(scale > 0.0f ? scale : 1.0f);
+  return amax > 0.0f ? scale : 1.0f;
+}
+
 // ---------------------------------------------------------------------------
 // quantize_packed: x [rows, cols] -> words [rows, W] u32, scales [rows, cols/block]
 // One CTA per row; warp w takes scale blocks w, w+nwarps, ...: warp-shuffle
@@ -140,12 +160,13 @@ __global__ void quantize_packed_kernel(const TIn* __restrict__ x,
   for (int bi = warp; bi < nblk; bi += nwarps) {
     const TIn* xb = xr + (size_t)bi * block;
     float amax = 0.0f;
-    for (int i = lane; i < block; i += 32) amax = fmaxf(amax, fabsf(to_f32(xb[i])));
-    for (int off = 16; off; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    float scale = __fmul_rn(amax, inv_max);
-    if (pow2) scale = pow2_round_up(scale > 0.0f ? scale : 1.0f);
-    scale = amax > 0.0f ? scale : 1.0f;
+    bool nan = false;
+    for (int i = lane; i < block; i += 32) {
+      const float a = fabsf(to_f32(xb[i]));
+      amax = fmaxf(amax, a);
+      nan |= a != a;
+    }
+    const float scale = block_scale(amax, nan, inv_max, pow2);
     if (lane == 0) scales[(size_t)row * nblk + bi] = scale;
     for (int i = lane; i < block; i += 32)
       codes[bi * block + i] = f2p_encode(__fdiv_rn(to_f32(xb[i]), scale), f);
@@ -179,6 +200,148 @@ __global__ void dequantize_packed_kernel(const uint32_t* __restrict__ words,
     const int j = (int)(idx - row * cols);
     const uint32_t c = get_field(words + row * W, j, f.n_bits);
     store(out + idx, __fmul_rn(f2p_decode(c, f), scales[row * nblk + j / block]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// quantize (unpacked): x [rows, cols] -> codes [rows, cols] uint8 (n <= 8) or
+// uint16, scales [rows, cols/block] (B5). Bound by bytes: x is read once
+// from device memory, 1 or 2 bytes per element and 4 per block go out.
+// One warp per scale block, grid-stride over the rows * nblk blocks (block
+// index == scale index, so the scales are written in order). With VEC
+// (block == 128, 16-byte aligned rows) lane l owns elements 4l..4l+3: one
+// 16-byte (f32) or 8-byte (bf16) load and one 4- or 8-byte store of its
+// four codes, so a warp moves its block in one instruction each way.
+// Otherwise lane l takes elements l, l+32, ...: a block of at most 128
+// stays in registers between the shuffle absmax and the encode, a wider
+// one is read twice (the second time from L1/L2). The absmax is a max, so
+// the element order does not change a bit of the result.
+// ---------------------------------------------------------------------------
+constexpr int kQuantVals = 4;   // values a lane keeps in registers
+
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void store4(uint8_t* p, const uint32_t* c) {
+  *reinterpret_cast<uint32_t*>(p) = c[0] | (c[1] << 8) | (c[2] << 16) | (c[3] << 24);
+}
+__device__ __forceinline__ void store4(uint16_t* p, const uint32_t* c) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(c[0] | (c[1] << 16), c[2] | (c[3] << 16));
+}
+
+template <typename TIn, typename TCode, bool VEC>
+__global__ void quantize_kernel(const TIn* __restrict__ x,
+                                TCode* __restrict__ codes,
+                                float* __restrict__ scales, long long nblocks,
+                                int block, F2PConsts f, float inv_max,
+                                int pow2) {
+  const int lane = threadIdx.x & 31;
+  const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
+  const bool in_regs = VEC || block <= 32 * kQuantVals;
+  for (long long wb = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       wb < nblocks; wb += nwarps) {
+    const TIn* xb = x + wb * block;
+    TCode* cb = codes + wb * block;
+    float v[kQuantVals];
+    float amax = 0.0f;
+    bool nan = false;
+    if (VEC) {
+      load4(xb + 4 * lane, v);
+#pragma unroll
+      for (int k = 0; k < kQuantVals; ++k) {
+        amax = fmaxf(amax, fabsf(v[k]));
+        nan |= v[k] != v[k];
+      }
+    } else if (in_regs) {
+#pragma unroll
+      for (int k = 0; k < kQuantVals; ++k) {
+        const int i = lane + 32 * k;
+        v[k] = i < block ? to_f32(xb[i]) : 0.0f;
+        amax = fmaxf(amax, fabsf(v[k]));
+        nan |= v[k] != v[k];
+      }
+    } else {
+      for (int i = lane; i < block; i += 32) {
+        const float a = fabsf(to_f32(xb[i]));
+        amax = fmaxf(amax, a);
+        nan |= a != a;
+      }
+    }
+    const float scale = block_scale(amax, nan, inv_max, pow2);
+    if (lane == 0) scales[wb] = scale;
+    if (VEC) {
+      uint32_t c[kQuantVals];
+#pragma unroll
+      for (int k = 0; k < kQuantVals; ++k) c[k] = f2p_encode(__fdiv_rn(v[k], scale), f);
+      store4(cb + 4 * lane, c);
+    } else if (in_regs) {
+#pragma unroll
+      for (int k = 0; k < kQuantVals; ++k) {
+        const int i = lane + 32 * k;
+        if (i < block) cb[i] = (TCode)f2p_encode(__fdiv_rn(v[k], scale), f);
+      }
+    } else {
+      for (int i = lane; i < block; i += 32)
+        cb[i] = (TCode)f2p_encode(__fdiv_rn(to_f32(xb[i]), scale), f);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dequantize (unpacked): codes [rows, cols] uint8/uint16 + scales -> values
+// (B6). Bound by bytes. Grid-stride; element idx belongs to scale
+// idx / block because cols is a multiple of block. With VEC (block % 4 == 0
+// and aligned pointers) a thread takes 4 consecutive codes, which share one
+// scale: one 4- or 8-byte load of codes, one 16-byte (f32) or 8-byte (bf16)
+// store. Otherwise one element per thread.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void load_codes4(const uint8_t* p, uint32_t* c) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  c[0] = w & 0xFFu; c[1] = (w >> 8) & 0xFFu; c[2] = (w >> 16) & 0xFFu; c[3] = w >> 24;
+}
+__device__ __forceinline__ void load_codes4(const uint16_t* p, uint32_t* c) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  c[0] = w.x & 0xFFFFu; c[1] = w.x >> 16; c[2] = w.y & 0xFFFFu; c[3] = w.y >> 16;
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<uint32_t*>(&a),
+                                            *reinterpret_cast<uint32_t*>(&b));
+}
+
+template <typename TCode, typename TOut, bool VEC>
+__global__ void dequantize_kernel(const TCode* __restrict__ codes,
+                                  const float* __restrict__ scales,
+                                  TOut* __restrict__ out, long long total,
+                                  int block, F2PConsts f) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (VEC) {
+    for (long long q = t0; 4 * q < total; q += stride) {
+      const long long idx = 4 * q;
+      const float s = __ldg(scales + idx / block);
+      uint32_t c[4];
+      float v[4];
+      load_codes4(codes + idx, c);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = __fmul_rn(f2p_decode(c[k], f), s);
+      store4(out + idx, v);
+    }
+  } else {
+    for (long long idx = t0; idx < total; idx += stride)
+      store(out + idx, __fmul_rn(f2p_decode((uint32_t)codes[idx], f),
+                                 __ldg(scales + idx / block)));
   }
 }
 
@@ -421,6 +584,43 @@ __global__ void counter_estimate_kernel(const int* __restrict__ state,
 }
 
 // ---------------------------------------------------------------------------
+// B5 / B6 launchers: the vectorized kernels where the block and the
+// pointers' alignment allow, the per-element ones otherwise
+// ---------------------------------------------------------------------------
+template <typename TIn, typename TCode>
+static void launch_quantize(const void* x, void* codes, float* scales,
+                            long long nblocks, int block, F2PConsts f,
+                            float inv_max, int pow2, cudaStream_t stream) {
+  const int threads = 256;   // 8 warps, one scale block each per pass
+  const int grid = (int)min((nblocks + 7) / 8, (long long)1 << 20);
+  const bool vec = block == 128 && ((uintptr_t)x % 16 == 0) &&
+                   ((uintptr_t)codes % 8 == 0);
+  if (vec)
+    quantize_kernel<TIn, TCode, true><<<grid, threads, 0, stream>>>(
+        (const TIn*)x, (TCode*)codes, scales, nblocks, block, f, inv_max, pow2);
+  else
+    quantize_kernel<TIn, TCode, false><<<grid, threads, 0, stream>>>(
+        (const TIn*)x, (TCode*)codes, scales, nblocks, block, f, inv_max, pow2);
+}
+
+template <typename TCode, typename TOut>
+static void launch_dequantize(const void* codes, const float* scales, void* out,
+                              long long total, int block, F2PConsts f,
+                              cudaStream_t stream) {
+  const int threads = 256;
+  const bool vec = block % 4 == 0 && ((uintptr_t)codes % 8 == 0) &&
+                   ((uintptr_t)out % 16 == 0);
+  const long long work = vec ? total / 4 : total;
+  const int grid = (int)min((work + threads - 1) / threads, (long long)1 << 20);
+  if (vec)
+    dequantize_kernel<TCode, TOut, true><<<grid, threads, 0, stream>>>(
+        (const TCode*)codes, scales, (TOut*)out, total, block, f);
+  else
+    dequantize_kernel<TCode, TOut, false><<<grid, threads, 0, stream>>>(
+        (const TCode*)codes, scales, (TOut*)out, total, block, f);
+}
+
+// ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
 extern "C" {
@@ -461,6 +661,43 @@ int f2p_dequantize_packed(const uint32_t* words, const float* scales, void* out,
   else
     dequantize_packed_kernel<float><<<grid, threads, 0, stream>>>(
         words, scales, (float*)out, total, cols, block, W, f);
+  return (int)cudaGetLastError();
+}
+
+int f2p_quantize(const void* x, int x_bf16, void* codes, int code_bytes,
+                 float* scales, long long rows, int cols, int block,
+                 F2PConsts f, float inv_max, int pow2, cudaStream_t stream) {
+  const long long nblocks = rows * (cols / block);
+  if (nblocks <= 0) return 0;
+  if (x_bf16 && code_bytes == 1)
+    launch_quantize<__nv_bfloat16, uint8_t>(x, codes, scales, nblocks, block, f,
+                                            inv_max, pow2, stream);
+  else if (x_bf16)
+    launch_quantize<__nv_bfloat16, uint16_t>(x, codes, scales, nblocks, block, f,
+                                             inv_max, pow2, stream);
+  else if (code_bytes == 1)
+    launch_quantize<float, uint8_t>(x, codes, scales, nblocks, block, f, inv_max,
+                                    pow2, stream);
+  else
+    launch_quantize<float, uint16_t>(x, codes, scales, nblocks, block, f,
+                                     inv_max, pow2, stream);
+  return (int)cudaGetLastError();
+}
+
+int f2p_dequantize(const void* codes, int code_bytes, const float* scales,
+                   void* out, int out_bf16, long long total, int block,
+                   F2PConsts f, cudaStream_t stream) {
+  if (total <= 0) return 0;
+  if (code_bytes == 1 && out_bf16)
+    launch_dequantize<uint8_t, __nv_bfloat16>(codes, scales, out, total, block, f,
+                                              stream);
+  else if (code_bytes == 1)
+    launch_dequantize<uint8_t, float>(codes, scales, out, total, block, f, stream);
+  else if (out_bf16)
+    launch_dequantize<uint16_t, __nv_bfloat16>(codes, scales, out, total, block, f,
+                                               stream);
+  else
+    launch_dequantize<uint16_t, float>(codes, scales, out, total, block, f, stream);
   return (int)cudaGetLastError();
 }
 

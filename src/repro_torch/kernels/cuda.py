@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_SMEM = 232448   # bytes of shared memory one CTA may use on Hopper
 
 LAUNCHES: dict[str, int] = {"quantize_packed": 0, "dequantize_packed": 0,
+                            "quantize": 0, "dequantize": 0,
                             "attention_packed": 0, "attention_paged": 0,
                             "counter_advance": 0, "counter_estimate": 0}
 
@@ -102,16 +103,19 @@ def lib():
                                           F, I, P]
         L.f2p_dequantize_packed.argtypes = [P, P, P, I, I, I, I, I, F2PConsts,
                                             P]
+        LL, U = ctypes.c_longlong, ctypes.c_uint32
+        L.f2p_quantize.argtypes = [P, I, P, I, P, LL, I, I, F2PConsts, F, I,
+                                   P]
+        L.f2p_dequantize.argtypes = [P, I, P, P, I, LL, I, F2PConsts, P]
         L.f2p_attention_smem.argtypes = [I, I, I, I]
         L.f2p_attention_smem.restype = ctypes.c_size_t
         L.f2p_attention.argtypes = [P] * 8 + [I] * 13 + [
             F2PConsts, F2PConsts, F, P]
-        LL, U = ctypes.c_longlong, ctypes.c_uint32
         L.f2p_counter_advance.argtypes = [P] * 7 + [LL, I, U, U, I, P]
         L.f2p_counter_estimate.argtypes = [P, P, P, LL, P]
         for fn in (L.f2p_quantize_packed, L.f2p_dequantize_packed,
-                   L.f2p_attention, L.f2p_counter_advance,
-                   L.f2p_counter_estimate):
+                   L.f2p_quantize, L.f2p_dequantize, L.f2p_attention,
+                   L.f2p_counter_advance, L.f2p_counter_estimate):
             fn.restype = I
         _lib = L
     return _lib

@@ -1,7 +1,7 @@
-"""Block-scaled packed F2P quantize / dequantize: tile math, plain versions
-and the CUDA kernel wrappers.
+"""Block-scaled F2P quantize / dequantize, packed and unpacked: tile math,
+plain versions and the CUDA kernel wrappers.
 
-Port of ``repro.kernels.f2p_quant`` for the packed codec only. The tile
+Port of ``repro.kernels.f2p_quant``. The tile
 math is the reference's branch-free arithmetic, written on torch int32/f32
 tensors so it is bitwise identical to the JAX functions:
 
@@ -10,7 +10,7 @@ tensors so it is bitwise identical to the JAX functions:
            exact fractional part -> field assembly with variable shifts.
   decode:  field split with variable shifts -> ldexp by bit assembly.
 
-Two entry points, each routed by the tensor's device (no registry, no
+Four entry points, each routed by the tensor's device (no registry, no
 environment override): a CPU tensor runs the plain PyTorch version, a CUDA
 tensor launches the hand-written kernel of ``csrc/f2p_kernels.cu`` or raises.
 
@@ -28,8 +28,20 @@ read and that one write.
 output element reads the one or two words holding its field, so codes never
 exist outside registers.
 
-The unpacked codecs (``_quant_kernel``/``_dequant_kernel``) are not ported
-yet (ROADMAP B5/B6).
+``f2p_quantize_codes`` replaces ``repro/kernels/f2p_quant.py::_quant_kernel``
+(B5): the same scales and codes as the packed quantize, stored one code per
+byte (n_bits <= 8, uint8) or per two bytes (uint16). Bound by bytes: x in
+once, 1 or 2 bytes per element and one f32 per block out. One warp per
+scale block; at block 128 a lane loads its 4 consecutive values in one
+vector load, keeps them in registers between the shuffle absmax and the
+encode, and stores its 4 codes at once. ``f2p_dequantize_codes`` replaces
+``_dequant_kernel`` (B6): decode times the block's scale, 4 codes per
+thread where aligned, bound by bytes. Other blocks and misaligned tensors
+take the kernels' one-element-per-lane forms.
+
+torch's uint16 has few operations, so 16-bit codes travel as uint16 tensors
+(the reference's dtype, what the checkpoint writes) and every piece of
+arithmetic on them goes through an int16 view.
 """
 from __future__ import annotations
 
@@ -44,7 +56,9 @@ from repro_torch.kernels.bits import pack_bits, packed_words, unpack_bits
 
 __all__ = ["quantize_tile_math", "dequantize_tile_math",
            "f2p_quantize_packed", "f2p_dequantize_packed",
-           "quantize_packed_plain", "dequantize_packed_plain"]
+           "quantize_packed_plain", "dequantize_packed_plain",
+           "f2p_quantize_codes", "f2p_dequantize_codes", "quantize_plain",
+           "dequantize_plain", "code_dtype", "codes_to_int32"]
 
 def _exp2i(n: torch.Tensor) -> torch.Tensor:
     """Exact 2^n for int32 n in [-126, 127], built by bit assembly."""
@@ -143,9 +157,53 @@ def dequantize_tile_math(codes: torch.Tensor, fmt: F2PFormat) -> torch.Tensor:
     return val
 
 
+def code_dtype(fmt: F2PFormat) -> torch.dtype:
+    """The unpacked codes' dtype: uint8 for n_bits <= 8, else uint16 (as
+    ``F2PFormat.code_dtype``; the tile math stops at 16 bits)."""
+    return torch.uint8 if fmt.n_bits <= 8 else torch.uint16
+
+
+def codes_to_int32(codes: torch.Tensor) -> torch.Tensor:
+    """uint8 / uint16 codes -> int32 values (uint16 through an int16 view)."""
+    if codes.dtype == torch.uint16:
+        return codes.view(torch.int16).to(torch.int32) & 0xFFFF
+    return codes.to(torch.int32)
+
+
+def _int32_to_codes(c: torch.Tensor, fmt: F2PFormat) -> torch.Tensor:
+    if fmt.n_bits <= 8:
+        return c.to(torch.uint8)
+    # fold [32768, 65536) onto the int16 bit pattern, then reinterpret
+    return torch.where(c >= 32768, c - 65536, c).to(torch.int16).view(
+        torch.uint16)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (CPU tensors; the kernels' oracles on the card)
 # ---------------------------------------------------------------------------
+def quantize_plain(x2: torch.Tensor, fmt: F2PFormat, block: int,
+                   scale_mode: str = "f32"):
+    """``[r, c]`` -> (codes ``[r, c]`` uint8/uint16, scales ``[r, c/block]``
+    f32): the reference's ``_quant_kernel`` body on torch tensors."""
+    from repro_torch.core.qtensor import block_scales
+
+    r, c = x2.shape
+    xb = x2.to(torch.float32).reshape(r, c // block, block)
+    scale = block_scales(xb, fmt, scale_mode)
+    y = (xb / scale[..., None]).reshape(r, c)
+    return _int32_to_codes(quantize_tile_math(y, fmt), fmt), scale
+
+
+def dequantize_plain(codes: torch.Tensor, scales: torch.Tensor,
+                     fmt: F2PFormat, block: int,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """codes ``[r, c]`` + scales ``[r, c/block]`` -> ``[r, c]`` values."""
+    r, c = codes.shape
+    vals = dequantize_tile_math(codes_to_int32(codes), fmt)
+    vals = vals.reshape(r, c // block, block) * scales[..., None]
+    return vals.reshape(r, c).to(out_dtype)
+
+
 def quantize_packed_plain(x2: torch.Tensor, fmt: F2PFormat, block: int,
                           scale_mode: str = "f32"):
     """``[r, c]`` -> (words ``[r, W]`` uint32, scales ``[r, c/block]`` f32)."""
@@ -233,4 +291,62 @@ def f2p_dequantize_packed(words: torch.Tensor, scales: torch.Tensor,
             int(out_dtype == torch.bfloat16), r, c, block, W,
             cuda_consts(fmt), C.stream()), "dequantize_packed")
         C.LAUNCHES["dequantize_packed"] += 1
+    return out
+
+
+def f2p_quantize_codes(x2: torch.Tensor, fmt: F2PFormat, *,
+                       block: int = 128, scale_mode: str = "f32"):
+    """Blocked F2P quantization of ``[r, c]`` into byte-aligned codes:
+    (codes ``[r, c]`` uint8 or uint16, scales ``[r, c/block]`` f32), B5 on
+    a CUDA tensor. Bitwise equal on both devices and to the JAX reference."""
+    _check_2d(x2, block, "x")
+    if scale_mode not in ("f32", "pow2"):
+        raise ValueError(f"unknown scale_mode {scale_mode!r}")
+    if x2.device.type != "cuda":
+        return quantize_plain(x2, fmt, block, scale_mode)
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes f32 or bf16 input, got {x2.dtype}")
+    C.require_cuda(x2, "x")
+    consts = cuda_consts(fmt)   # raises for n_bits > 16 or h_bits > 2
+    r, c = x2.shape
+    cdt = code_dtype(fmt)
+    codes = torch.empty((r, c), dtype=cdt, device=x2.device)
+    scales = torch.empty((r, c // block), dtype=torch.float32,
+                         device=x2.device)
+    if r and c:
+        C.check(C.lib().f2p_quantize(
+            x2.data_ptr(), int(x2.dtype == torch.bfloat16), codes.data_ptr(),
+            codes.element_size(), scales.data_ptr(), r, c, block, consts,
+            inv_max_value(fmt), int(scale_mode == "pow2"), C.stream()),
+            "quantize")
+        C.LAUNCHES["quantize"] += 1
+    return codes, scales
+
+
+def f2p_dequantize_codes(codes: torch.Tensor, scales: torch.Tensor,
+                         fmt: F2PFormat, *, block: int = 128,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """Decode x scale of byte-aligned codes ``[r, c]`` -> ``[r, c]`` in
+    ``out_dtype``, B6 on a CUDA tensor."""
+    _check_2d(codes, block, "codes")
+    r, c = codes.shape
+    if tuple(scales.shape) != (r, c // block):
+        raise ValueError(f"scales {tuple(scales.shape)} != {(r, c // block)}")
+    if codes.dtype != code_dtype(fmt):
+        raise TypeError(f"{fmt.n_bits}-bit codes must be {code_dtype(fmt)}, "
+                        f"got {codes.dtype}")
+    if codes.device.type != "cuda":
+        return dequantize_plain(codes, scales, fmt, block, out_dtype)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel writes f32 or bf16, got {out_dtype}")
+    C.require_cuda(codes, "codes")
+    C.require_cuda(scales, "scales", torch.float32)
+    consts = cuda_consts(fmt)
+    out = torch.empty((r, c), dtype=out_dtype, device=codes.device)
+    if r and c:
+        C.check(C.lib().f2p_dequantize(
+            codes.data_ptr(), codes.element_size(), scales.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), r * c, block,
+            consts, C.stream()), "dequantize")
+        C.LAUNCHES["dequantize"] += 1
     return out

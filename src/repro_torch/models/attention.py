@@ -1,5 +1,5 @@
-"""GQA attention for the llama-dense stack: naive prefill attention, the
-packed F2P KV cache and the decode branches (port of
+"""GQA attention for the llama-dense stack: naive train / prefill attention,
+the packed F2P KV cache and the decode branches (port of
 ``repro.models.attention``).
 
 Shapes: x [B, S, D]; q [B, S, H, hd]; k/v [B, S, K, hd] with H % K == 0.
@@ -71,7 +71,10 @@ def naive_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None):
 # ---------------------------------------------------------------------------
 def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
                     pages=None):
-    """mode: 'prefill' | 'decode'. Returns (out, cache).
+    """mode: 'train' | 'prefill' | 'decode'. Returns (out, cache).
+
+    ``train`` is causal attention over the sequence with no cache (the
+    reference's plain einsum/softmax, differentiable through autograd).
 
     ``pages`` (decode only): a ``[B, max_pages]`` int32 page table; ``cache``
     is then one layer's pool slab (``{"k","v"}`` QTensors, codes
@@ -94,7 +97,9 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    if mode == "prefill":
+    if mode == "train":
+        out = naive_attention(q, k, v, causal=True)
+    elif mode == "prefill":
         _cache_write(cache, k, v, 0)
         out = naive_attention(q, k, v, causal=True)
     elif mode == "decode":

@@ -1,5 +1,5 @@
 """Shared layer primitives (port of ``repro.models.common``): RMS norm,
-RoPE, SwiGLU and the truncated-normal init."""
+RoPE, SwiGLU, the truncated-normal init and the token cross-entropy."""
 from __future__ import annotations
 
 import functools
@@ -54,3 +54,17 @@ def swiglu(x, w_gate, w_up, w_down):
     g = x @ w_gate
     u = x @ w_up
     return (torch.nn.functional.silu(g) * u) @ w_down
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token CE in f32; labels < 0 are masked out."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0)[..., None].to(torch.int64))[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    mask = labels >= 0
+    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1)

@@ -4,8 +4,10 @@ The reference dataclass covers every assigned family; this slice of the
 port serves the llama-dense pattern (GQA attention + SwiGLU FF, RoPE).
 Any other mixer, FF kind or position scheme raises ``NotImplementedError``
 (ROADMAP A13). Fields the port does not read (MoE, SSM, xLSTM, encoder,
-position schemes, tied embeddings, sharding and training knobs) are left
-out: positions are RoPE and the LM head is its own matrix.
+position schemes, tied embeddings, sharding and the ``opt_*`` knobs) are
+left out: positions are RoPE and the LM head is its own matrix. ``remat``
+is kept: the train forward recomputes each block in the backward
+(``torch.utils.checkpoint``) as the reference rematerializes its scan body.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ class ModelConfig:
     # decode attends the packed KV cache with the fused kernel instead of
     # dequantizing the whole cache each step (engages for packed caches)
     fused_attention: bool = False
+    remat: bool = True                     # recompute each block in backward
 
     def __post_init__(self):
         if any(b != BlockSpec("attn", "dense") for b in self.pattern):

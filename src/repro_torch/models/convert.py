@@ -1,13 +1,27 @@
-"""Carry the JAX reference's parameters into the port.
+"""Carry the JAX reference's parameters and train state into the port, and
+name the port's parameters by the reference's leaf paths.
 
 ``params_from_jax(np_tree, cfg, device)`` takes the tree of
 ``repro.models.init_params(cfg, PRNGKey(0))`` with every leaf converted to
 a numpy array (the caller does the conversion, so this module never imports
 JAX) and returns a :class:`~repro_torch.models.model.Model` holding the same
-numbers. Both packages then compute the same function, which is what the
-parity tests compare.
+numbers. ``train_state_from_jax`` does the same for a whole train state
+``{"params", "opt": {"mu", "nu", "step"}, "residuals"}``. Both packages
+then compute the same function, which is what the parity tests compare.
+
+The reference stacks the layers' leaves ``[G, ...]`` under
+``blocks/b0/...``; the port keeps one tensor per layer, named
+``blocks.<i>.<...>`` by ``Model.named_parameters()``.
+:func:`reference_path` maps a port name onto the reference's path and
+layer, and :func:`reference_layout` regroups a flat name -> tensor dict
+(the parameters, their moments, residuals or gradients) into the
+reference's leaves, each the list of its per-layer parts. The checkpoint
+writes that layout, and gradient compression reads each leaf's size from
+it, so both act on exactly the leaves the reference acts on.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -15,28 +29,102 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 
+_BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
+
+
+def reference_path(name: str) -> tuple[tuple[str, ...], int | None]:
+    """Port parameter name -> (reference leaf path, layer index or None):
+    ``blocks.3.mixer.wq`` -> (("blocks", "b0", "mixer", "wq"), 3)."""
+    m = _BLOCK.match(name)
+    if m:
+        return ("blocks", "b0", *m[2].split(".")), int(m[1])
+    return tuple(name.split(".")), None
+
+
+def is_layer_dict(d: dict) -> bool:
+    """True for a flat dict keyed by the port's parameter names."""
+    return bool(d) and all(isinstance(k, str) for k in d) and any(
+        "." in k for k in d)
+
+
+class Stacked(list):
+    """The per-layer parts of one stacked reference leaf, in layer order."""
+
+
+def reference_layout(named: dict) -> dict[tuple, object]:
+    """Flat ``{port name: tensor}`` -> ``{reference path: leaf}``: the
+    tensor itself for an unstacked leaf, a :class:`Stacked` list of the
+    layers' tensors for a stacked one."""
+    groups: dict[tuple, dict[int, object]] = {}
+    for name, t in named.items():
+        path, layer = reference_path(name)
+        groups.setdefault(path, {})[-1 if layer is None else layer] = t
+    out = {}
+    for path, parts in groups.items():
+        idx = sorted(parts)
+        if idx != [-1] and idx != list(range(len(idx))):
+            raise ValueError(f"{'/'.join(path)}: layers {idx} are not "
+                             "0..n-1")
+        out[path] = parts[-1] if idx == [-1] else Stacked(
+            parts[i] for i in idx)
+    return out
+
+
+def reference_numel(named: dict) -> dict[str, int]:
+    """Each name's element count in the reference's (stacked) leaf."""
+    sizes = {}
+    for path, leaf in reference_layout(named).items():
+        parts = leaf if isinstance(leaf, Stacked) else [leaf]
+        sizes[path] = sum(int(p.numel()) for p in parts if p is not None)
+    return {name: sizes[reference_path(name)[0]] for name in named}
+
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> Model:
     """Reference tree (stacked ``blocks/b0/...`` leaves ``[G, ...]``) ->
     per-layer ``Model``."""
     model = Model(cfg, device)
-
-    def put(p, arr):
-        a = np.array(arr, dtype=np.float32)
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(f"shape {a.shape} != {tuple(p.shape)}")
-        p.data.copy_(torch.from_numpy(a).to(p.dtype))
-
     with torch.no_grad():
-        put(model.embed, np_tree["embed"])
-        put(model.final_norm, np_tree["final_norm"])
-        put(model.lm_head, np_tree["lm_head"])
-        blocks = np_tree["blocks"]["b0"]
-        for i, blk in enumerate(model.blocks):
-            put(blk.norm1, blocks["norm1"][i])
-            put(blk.norm2, blocks["norm2"][i])
-            for name in ("wq", "wk", "wv", "wo"):
-                put(getattr(blk.mixer, name), blocks["mixer"][name][i])
-            for name in ("gate", "up", "down"):
-                put(getattr(blk.ff, name), blocks["ff"][name][i])
+        for name, p in model.named_parameters():
+            p.copy_(_leaf(np_tree, name, tuple(p.shape)).to(p.dtype))
     return model
+
+
+def _leaf(np_tree: dict, name: str, shape: tuple) -> torch.Tensor:
+    path, layer = reference_path(name)
+    a = np_tree
+    for k in path:
+        a = a[k]
+    if a is None:
+        return None
+    a = np.array(a if layer is None else a[layer], dtype=np.float32)
+    if tuple(a.shape) != shape:
+        raise ValueError(f"{name}: shape {a.shape} != {shape}")
+    return torch.from_numpy(a)
+
+
+def train_state_from_jax(np_state: dict, cfg: ModelConfig, device="cuda"):
+    """A reference train state (every leaf a numpy array, ``None``
+    residuals kept) -> the port's ``{"params": Model (gradients on),
+    "opt": {"mu", "nu", "step"}, "residuals"}``, moments and residuals
+    keyed by parameter name."""
+    model = params_from_jax(np_state["params"], cfg, device)
+    model.requires_grad_(True)
+    opt = np_state["opt"]
+    return {"params": model,
+            "opt": {"mu": named_from_jax(opt["mu"], model),
+                    "nu": named_from_jax(opt["nu"], model),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32,
+                                         device=model.device)},
+            "residuals": named_from_jax(np_state["residuals"], model)}
+
+
+def named_from_jax(np_tree: dict, model: Model) -> dict:
+    """A params-shaped reference tree of numpy f32 leaves (moments,
+    residuals, gradients; ``None`` kept) -> ``{parameter name: f32
+    tensor}`` on the model's device."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = _leaf(np_tree, name, tuple(p.shape))
+        out[name] = None if t is None else t.to(model.device)
+    return out

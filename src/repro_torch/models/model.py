@@ -1,5 +1,5 @@
-"""The llama-dense model: parameters, caches, prefill and decode (port of
-``repro.models.model``).
+"""The llama-dense model: parameters, caches, the train forward, prefill and
+decode (port of ``repro.models.model``).
 
 Parameters live in an ``nn.Module`` tree with one :class:`Block` per layer
 (the reference stacks them ``[G, ...]`` and scans; here ``lax.scan`` over
@@ -12,6 +12,10 @@ Caches are ``{"k", "v"}`` with a leading layer axis ``[L, B, S, K, hd]``
 has one attention position). Paged decode instead binds the pool slabs
 ``[L, P, T, K, W]`` and a ``[B, max_pages]`` page table; every cache and
 slab write happens in place.
+
+Parameters are created with ``requires_grad=False``: serving runs under
+``torch.inference_mode``, and training (``repro_torch.train``) turns the
+gradients on.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as A
-from repro_torch.models.common import rms_norm, swiglu, truncnorm_init
+from repro_torch.models.common import (rms_norm, softmax_cross_entropy,
+                                      swiglu, truncnorm_init)
 from repro_torch.models.config import ModelConfig
 
 
@@ -65,7 +70,7 @@ class Block(nn.Module):
         self.norm2 = _param((cfg.d_model,), dt, device)
         self.ff = FeedForward(cfg, device)
 
-    def forward(self, x, cfg: ModelConfig, *, mode, cache, pos_offset,
+    def forward(self, x, cfg: ModelConfig, *, mode, cache=None, pos_offset=0,
                 pages=None):
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         h, _ = A.attention_apply(self.mixer.weights(), h, cfg, mode=mode,
@@ -148,6 +153,28 @@ def layer_cache(caches, i: int):
     return {kv: one(caches[kv]) for kv in ("k", "v")}
 
 
+def train_forward(model: Model, batch, cfg: ModelConfig | None = None):
+    """batch: tokens ``[B, S]``, labels ``[B, S]`` (-1 = masked). Returns
+    (loss, metrics): mean token CE + 0.01 x aux loss (0 for the dense
+    stack), as the reference. With ``cfg.remat`` every block is recomputed
+    in the backward (``torch.utils.checkpoint``), so only the block inputs
+    stay alive between forward and backward."""
+    from torch.utils.checkpoint import checkpoint
+
+    cfg = cfg or model.cfg
+    dev = model.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).to(torch.int64)
+    labels = torch.as_tensor(batch["labels"], device=dev).to(torch.int64)
+    x = model.embed[tokens]
+    for blk in model.blocks:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(blk, x, cfg, mode="train", use_reentrant=False)
+        else:
+            x = blk(x, cfg, mode="train")
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    loss = softmax_cross_entropy(x @ model.lm_head, labels)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 @torch.inference_mode()

@@ -29,6 +29,20 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _non_finite(x, block):
+    """A NaN block, a -NaN block and an inf block (rows 2-4), as a
+    diverged gradient brings them. A block that holds a NaN has scale 1 in
+    the plain version (its absmax is NaN)."""
+    x[2, 3] = float("nan")
+    x[3, block + 1] = -float("nan")
+    x[4, 2 * block + 5] = float("inf")
+
+
+def _bits(t):
+    """Values as integers, so that NaNs compare equal bit for bit."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
 @pytest.mark.parametrize("name", ["f2p_sr_2_6s", "f2p_sr_2_8s",
                                   "f2p_lr_2_16s"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -36,15 +50,70 @@ def test_codec_kernels_bitwise_vs_plain(gen, name, dtype):
     fmt = named_format(name)
     x = (torch.randn(48, 256, generator=gen, device="cuda") * 3).to(dtype)
     x[0, :64] = 0
+    _non_finite(x, 64)
     for mode in ("f32", "pow2"):
         w, s = Q.f2p_quantize_packed(x, fmt, block=64, scale_mode=mode)
         pw, ps = Q.quantize_packed_plain(x, fmt, 64, mode)
         assert torch.equal(w.view(torch.int32), pw.view(torch.int32))
-        assert torch.equal(s, ps)
+        assert torch.equal(_bits(s), _bits(ps))
         for out in (torch.float32, torch.bfloat16):
             assert torch.equal(
-                Q.f2p_dequantize_packed(w, s, fmt, block=64, out_dtype=out),
-                Q.dequantize_packed_plain(w, s, fmt, 64, out))
+                _bits(Q.f2p_dequantize_packed(w, s, fmt, block=64,
+                                              out_dtype=out)),
+                _bits(Q.dequantize_packed_plain(w, s, fmt, 64, out)))
+
+
+def _codes_i(c):
+    return c.view(torch.int16) if c.dtype == torch.uint16 else c
+
+
+@pytest.mark.parametrize("name", ["f2p_sr_2_6s", "f2p_sr_2_8s",
+                                  "f2p_lr_2_8s", "f2p_sr_2_16s",
+                                  "f2p_lr_2_16s"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,offset", [(32, 0), (128, 0), (128, 1),
+                                          (256, 0)])
+def test_unpacked_codec_kernels_bitwise_vs_plain(gen, name, dtype, block,
+                                                 offset):
+    """B5 and B6 against their plain versions: codes, scales and values,
+    f32 and pow2 scales, f32 and bf16 outputs, zero and non-finite blocks;
+    the vectorized kernels (block 128, aligned), the per-element ones on a
+    misaligned input (offset 1), a block kept in registers (32) and one
+    read twice (256)."""
+    fmt = named_format(name)
+    n = 37 * 4 * block
+    flat = (torch.randn(n + offset, generator=gen, device="cuda") * 3).to(
+        dtype)
+    x = flat[offset:].view(37, 4 * block)
+    x[0, :block] = 0
+    x[1] = 0
+    _non_finite(x, block)
+    for mode in ("f32", "pow2"):
+        c, s = Q.f2p_quantize_codes(x, fmt, block=block, scale_mode=mode)
+        pc, ps = Q.quantize_plain(x, fmt, block, mode)
+        assert c.dtype == Q.code_dtype(fmt)
+        assert torch.equal(_codes_i(c), _codes_i(pc))
+        assert torch.equal(_bits(s), _bits(ps))
+        for out in (torch.float32, torch.bfloat16):
+            assert torch.equal(
+                _bits(Q.f2p_dequantize_codes(c, s, fmt, block=block,
+                                             out_dtype=out)),
+                _bits(Q.dequantize_plain(c, s, fmt, block, out)))
+
+
+def test_unpacked_qtensor_on_card_matches_cpu(gen):
+    """Any-rank QTensor through B5/B6 on the card == the CPU plain path,
+    with a padded last dim, a 1-D leaf and pack()/unpack() on the card."""
+    fmt = named_format("f2p_sr_2_16s")
+    for shape, block in (((3, 5, 200), 128), ((3072,), 128), ((7, 64), 64)):
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        q = QT.quantize(x, fmt, block=block, packed=False)
+        qc = QT.quantize(x.cpu(), fmt, block=block, packed=False)
+        assert torch.equal(_codes_i(q.codes).cpu(), _codes_i(qc.codes))
+        assert torch.equal(q.scales.cpu(), qc.scales)
+        assert torch.equal(q.dequantize().cpu(), qc.dequantize())
+        back = q.pack().unpack()
+        assert torch.equal(_codes_i(back.codes), _codes_i(q.codes))
 
 
 @pytest.mark.parametrize("tile", [8, 32, 128])

@@ -202,5 +202,6 @@ def test_import_hygiene_no_jax_no_reference():
     assert proc.returncode == 0, proc.stderr
     *names, count = proc.stdout.split()
     assert int(count) >= 36
-    for sub in ("sketch", "obs", "telemetry", "autotune"):
+    for sub in ("sketch", "obs", "telemetry", "autotune", "optim", "train",
+                "launch", "data", "faults"):
         assert f"repro_torch.{sub}" in names, sub
