@@ -24,7 +24,20 @@ Phases (any failed check raises, so the script exits non-zero):
    rate, and the f32 operations this run's data needs / 67 TFLOP/s), its
    plain version and, where one PyTorch call computes the same function, a
    yardstick the port never calls: scaled_dot_product_attention on K/V
-   dequantized up front; grid_lut[state] for the estimate.
+   dequantized up front; grid_lut[state] for the estimate. Then the
+   dequant matmul (B8 on f2p_sr_2_8s uint8 codes, B7 on 6- and 8-bit
+   packed words) at llama3.2-3b's projection shapes (K, N) in (3072,
+   3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256): M = 8
+   with bf16 x, plus M = 2048 with f32 x at (3072, 8192); weights randn x
+   0.02 (torch.Generator seed 3) quantized on the card by quantize_weight
+   and held bitwise to the plain quantizer; each call within rtol=1e-4,
+   atol=1e-4 x max|y_plain| of ref_dequant_matmul; the yardstick is
+   torch.matmul on the weight dequantized up front (f32, TF32 off). No
+   model path calls B7/B8 (the reference's only caller is its benchmark
+   folder), so their launches are those of one drive pass of
+   dequant_matmul over the five shapes at M = 8, and the kernels line
+   reports one decode step of the full model at M = 8 (each shape's time x
+   the projections of that shape per step).
 4. small   — smoke llama3.2-3b in f32 on the card (kernels) against the
    same weights on the CPU (plain versions): logits agree within 1e-3.
 5. serve   — full-width llama3.2-3b (28 layers, d_model 3072, bf16, random
@@ -35,7 +48,20 @@ Phases (any failed check raises, so the script exits non-zero):
    Engine replay whose token agreement is printed, not asserted (cuBLAS may
    sum batch-1 and batch-8 products in different orders at bf16). Every
    kernel's launch counter is zeroed just before the path that runs it and
-   read just after; each must be > 0.
+   read just after; each must be > 0. Each engine run prints TTFT, TBT and
+   queue-wait p50 / p99 from the engine's obs registry (exact shadows and
+   the F2P cells' estimate) and its admit / preempt / evict / readmit
+   counts.
+5b. policy — the same model and workload under a solved KV format: the K
+   and V of all 28 layers from a prefill of the first 4 requests are
+   calibrated into one state for kv/b0 (calibrate.update, NORM_SPEC, block
+   = head_dim); solve picks over candidate_formats(n_bits=(6, 8)) at 6.25
+   bits/elem, i.e. the lowest-error 6-bit F2P partition (asserted), and
+   prints each candidate's modeled error. B3/B4 bitwise and B1/B2 within
+   1e-5 of their plain versions at that format; then BatchedEngine paged
+   and copy-in under kv_policy: bitwise-equal tokens, every request
+   finished, B1 and B3 launched; tokens/s and the pool's bytes against
+   the 8-bit run.
 6. profile — torch.profiler over a short paged run: the device's busy
    share of the wall time and each kernel's device time per call (the
    phase-3 times include the Python wrapper; these do not).
@@ -80,9 +106,9 @@ Phases (any failed check raises, so the script exits non-zero):
    removed.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
-line, one ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
-the last line ``{"ok": true, "device": {...}}``. A copy of the results goes
-to chiprun_out/chip_smoke.json.
+line, one ``{"kernels": [...]}`` JSON line (all ten kernels), then the
+nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
+copy of the results goes to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import json
@@ -107,7 +133,15 @@ REPLACES = {
     "attention_paged": "src/repro/kernels/f2p_attention.py:385",
     "counter_advance": "src/repro/kernels/f2p_counter.py:177",
     "counter_estimate": "src/repro/kernels/f2p_counter.py:267",
+    "dequant_matmul": "src/repro/kernels/f2p_matmul.py:90",
+    "dequant_matmul_packed": "src/repro/kernels/f2p_matmul.py:147",
 }
+# phase 3: llama3.2-3b's projections as (K, N): q and o, k and v, gate and
+# up, down, the LM head
+MATMUL_SHAPES = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
+                 (3072, 128256))
+# phase 5b: the KV-format solve (a 6-bit code and an f32 scale per 128)
+KV_CANDIDATE_BITS, KV_BUDGET_BITS = (6, 8), 6.25
 # phase 7: the sketch of a monitoring host counting a backbone link
 SKETCH = dict(depth=4, width=1 << 20, n_bits=16, h_bits=2, flavor="li",
               seed=0)
@@ -240,6 +274,30 @@ def log_profile(tag: str, res: dict) -> None:
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions on the card
 # ---------------------------------------------------------------------------
+def codec_bitwise(dev, g, fmt) -> None:
+    """B3 and B4 against their plain versions, bitwise, at the serving
+    shapes: decode (slots 8 x 8 kv heads rows of head_dim 128) and a
+    prefill group (4 prompts at bucket 256 x 8 kv heads)."""
+    import torch
+
+    from repro_torch.kernels import f2p_quant as Q
+
+    for rows, dt in ((64, torch.bfloat16), (64, torch.float32),
+                     (8192, torch.bfloat16)):
+        x = (torch.randn(rows, 128, generator=g, device=dev) * 3).to(dt)
+        x[0, :32] = 0
+        x[1] = 0
+        w, s = Q.f2p_quantize_packed(x, fmt)
+        pw, ps = Q.quantize_packed_plain(x, fmt, 128)
+        assert torch.equal(w.view(torch.int32), pw.view(torch.int32)), \
+            f"quantize words differ: {fmt} {rows} {dt}"
+        assert torch.equal(s, ps), f"quantize scales differ: {fmt}"
+        for odt in (torch.float32, torch.bfloat16):
+            d = Q.f2p_dequantize_packed(w, s, fmt, out_dtype=odt)
+            pd = Q.dequantize_packed_plain(w, s, fmt, 128, odt)
+            assert torch.equal(d, pd), f"dequantize differs: {fmt} {odt}"
+
+
 def check_codec(dev):
     import torch
 
@@ -248,24 +306,8 @@ def check_codec(dev):
 
     g = torch.Generator(device=dev).manual_seed(1)
     out = {}
-    # decode: slots 8 x 8 kv heads rows of head_dim 128; prefill: a
-    # group of 4 prompts at bucket 256 x 8 kv heads
     for name in ("f2p_sr_2_6s", "f2p_sr_2_8s", "f2p_lr_2_16s"):
-        fmt = named_format(name)
-        for rows, dt in ((64, torch.bfloat16), (64, torch.float32),
-                         (8192, torch.bfloat16)):
-            x = (torch.randn(rows, 128, generator=g, device=dev) * 3).to(dt)
-            x[0, :32] = 0
-            x[1] = 0
-            w, s = Q.f2p_quantize_packed(x, fmt)
-            pw, ps = Q.quantize_packed_plain(x, fmt, 128)
-            assert torch.equal(w.view(torch.int32), pw.view(torch.int32)), \
-                f"quantize words differ: {name} {rows} {dt}"
-            assert torch.equal(s, ps), f"quantize scales differ: {name}"
-            for odt in (torch.float32, torch.bfloat16):
-                d = Q.f2p_dequantize_packed(w, s, fmt, out_dtype=odt)
-                pd = Q.dequantize_packed_plain(w, s, fmt, 128, odt)
-                assert torch.equal(d, pd), f"dequantize differs: {name} {odt}"
+        codec_bitwise(dev, g, named_format(name))
     log("codec    : quantize/dequantize kernels == plain, bitwise "
         "(6/8/16-bit, f32+bf16 in, f32+bf16 out)")
     fmt = named_format("f2p_sr_2_8s")
@@ -447,7 +489,7 @@ def check_unpacked_codec(dev):
     return out
 
 
-def check_attention(dev):
+def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     import torch
     import torch.nn.functional as F
 
@@ -456,7 +498,7 @@ def check_attention(dev):
     from repro_torch.kernels import f2p_attention as A
 
     g = torch.Generator(device=dev).manual_seed(2)
-    fmt = named_format("f2p_sr_2_8s")
+    fmt = named_format(fmt_name)
     B, K, G, hd, T, S = 8, 8, 3, 128, 8, 1024
     maxp = S // T
     P = (B + 1) * maxp + 1
@@ -514,8 +556,8 @@ def check_attention(dev):
             max_abs_err=float((got - ref).abs().max()),
             shape=f"B={B} K={K} R={G} hd={hd} span {S} kv_len 512..{S} "
                   f"(live {live}) tile 128 page {T}")
-    log("attention: paged == dense-over-gathered bitwise; both within "
-        "1e-5 of the plain version (decode and causal multi-query)")
+    log(f"attention: {fmt_name}: paged == dense-over-gathered bitwise; both "
+        "within 1e-5 of the plain version (decode and causal multi-query)")
     return out
 
 
@@ -632,6 +674,191 @@ def check_counter(dev, trace, width=SKETCH["width"], batch=BATCH):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (continued): the dequant matmul (B7/B8), which no model path calls
+# ---------------------------------------------------------------------------
+def decode_step_counts(cfg) -> dict:
+    """(K, N) -> the number of such projections in one decode step of the
+    full llama-dense model (q, k, v, o, gate, up, down per layer, then the
+    LM head)."""
+    D, F, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    out: dict = {}
+    for shape, n in (((D, q), L), ((q, D), L), ((D, kv), 2 * L),
+                     ((D, F), 2 * L), ((F, D), L), ((D, V), 1)):
+        out[shape] = out.get(shape, 0) + n
+    return out
+
+
+def _col_chunks(N: int, chunk: int = 16384):
+    """Column ranges of at most ``chunk`` (a multiple of 32, so a packed
+    row's chunk starts on a word boundary for any n_bits)."""
+    return [(j, min(N, j + chunk)) for j in range(0, N, chunk)]
+
+
+def _word_range(j0: int, j1: int, nb: int):
+    from repro_torch.kernels.bits import packed_words
+
+    return j0 * nb // 32, packed_words(j1, nb)
+
+
+def plain_matmul(x, w, scales, fmt, packed: bool):
+    """The plain version (ref_dequant_matmul, after unpack_bits for packed
+    words) over column chunks of W: columns are independent, and the plain
+    dequantize of a whole [3072, 128256] weight would hold ~16 GB of
+    temporaries."""
+    import torch
+
+    from repro_torch.kernels import f2p_matmul as MM
+    from repro_torch.kernels.bits import unpack_bits
+
+    out = []
+    for j0, j1 in _col_chunks(scales.shape[1]):
+        if packed:
+            w0, w1 = _word_range(j0, j1, fmt.n_bits)
+            codes = unpack_bits(w[:, w0:w1].contiguous(), fmt.n_bits,
+                                j1 - j0)
+        else:
+            codes = w[:, j0:j1].contiguous()
+        out.append(MM.ref_dequant_matmul(x, codes,
+                                         scales[:, j0:j1].contiguous(), fmt))
+    return torch.cat(out, dim=1)
+
+
+def check_quantize_weight(w, fmt, codes, scales, packed: bool):
+    """quantize_weight on the card (B5 on W^T) against the plain quantizer
+    on the same card, bitwise, by column chunks."""
+    import torch
+
+    from repro_torch.kernels import f2p_matmul as MM
+
+    for j0, j1 in _col_chunks(w.shape[1]):
+        pc, ps = MM.quantize_weight_plain(w[:, j0:j1].contiguous(), fmt,
+                                          packed=packed)
+        got = (codes[:, slice(*_word_range(j0, j1, fmt.n_bits))] if packed
+               else codes[:, j0:j1])
+        assert torch.equal(_bits(got), _bits(pc)), \
+            f"quantize_weight {'words' if packed else 'codes'} differ: " \
+            f"{tuple(w.shape)} {fmt.n_bits}-bit, columns {j0}:{j1}"
+        assert torch.equal(scales[:, j0:j1], ps), \
+            f"quantize_weight scales differ: {tuple(w.shape)}"
+
+
+def check_matmul(dev):
+    """B8 (uint8 f2p_sr_2_8s codes) and B7 (6- and 8-bit packed words) at
+    llama3.2-3b's projection shapes, weights randn x 0.02 from
+    torch.Generator seed 3 quantized on the card by quantize_weight (held
+    bitwise to the plain quantizer). Each kernel's launches are those of one
+    pass of dequant_matmul over the shapes at a decode batch (M = 8, bf16
+    x), the library path that stands in for the missing model caller; then
+    every call is held to the plain version (rtol 1e-4, atol 1e-4 x
+    max|y_plain|) and timed beside its bound and torch.matmul on the
+    weight dequantized up front (f32, TF32 off). M = 2048 with f32 x runs
+    at (3072, 8192). The kernels line reports one decode step of the full
+    model at M = 8 (the per-shape times x decode_step_counts)."""
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cuda as C
+    from repro_torch.kernels import f2p_matmul as MM
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    counts = decode_step_counts(full_config(ARCH))
+    kinds = (("dequant_matmul", named_format("f2p_sr_2_8s"), False),
+             ("dequant_matmul_packed", named_format("f2p_sr_2_6s"), True),
+             ("dequant_matmul_packed_8bit", named_format("f2p_sr_2_8s"),
+              True))
+    launches = {"dequant_matmul": 0, "dequant_matmul_packed": 0}
+    rows = []
+    for K, N in MATMUL_SHAPES:
+        w = torch.randn(K, N, generator=g, device=dev) * 0.02
+        cases = [(8, torch.bfloat16)] + ([(2048, torch.float32)]
+                                         if (K, N) == (3072, 8192) else [])
+        xs = {M: torch.randn(M, K, generator=g, device=dev).to(dt)
+              for M, dt in cases}
+        for kind, fmt, packed in kinds:
+            q, scales = MM.quantize_weight(w, fmt, packed=packed)
+            check_quantize_weight(w, fmt, q, scales, packed)
+            for M, dt in cases:
+                x = xs[M]
+                key = "dequant_matmul_packed" if packed else "dequant_matmul"
+                before = C.LAUNCHES[key]
+                y = MM.dequant_matmul(x, q, scales, fmt=fmt, packed=packed)
+                if M == 8:
+                    launches[key] += C.LAUNCHES[key] - before
+                ref = plain_matmul(x, q, scales, fmt, packed)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    y, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+                err = float((y - ref).abs().max())
+                big = N > 16384
+                code_bytes = q.numel() * q.element_size()
+                nbytes = code_bytes + scales.numel() * 4 \
+                    + x.numel() * x.element_size() + M * N * 4
+                ops = 2 * M * K * N
+                rows.append(dict(
+                    kind=kind, K=K, N=N, M=M, x=str(dt).split(".")[-1],
+                    ms=cuda_ms(lambda: MM.dequant_matmul(
+                        x, q, scales, fmt=fmt, packed=packed),
+                        iters=5 if M > 8 else 20),
+                    plain_ms=cuda_ms(lambda: plain_matmul(
+                        x, q, scales, fmt, packed), iters=2 if big else 5,
+                        warm=1),
+                    bytes=nbytes, ops=ops,
+                    bytes_ms=bound_ms(nbytes),
+                    ops_ms=ops / F32_OPS_PER_S * 1e3, max_abs_err=err))
+            del q, scales
+        # the yardstick: one torch.matmul on W dequantized up front (f32,
+        # the 8-bit unpacked weight), the same for every kind of a shape
+        q, scales = MM.quantize_weight(w, kinds[0][1])
+        wd = torch.cat([MM.dequantize_weight(
+            q[:, j0:j1].contiguous(), scales[:, j0:j1].contiguous(),
+            kinds[0][1]) for j0, j1 in _col_chunks(N)], dim=1)
+        for r in rows:
+            if (r["K"], r["N"]) == (K, N) and "library_ms" not in r:
+                xf = xs[r["M"]].float()
+                r["library_ms"] = cuda_ms(lambda: torch.matmul(xf, wd),
+                                          iters=5 if r["M"] > 8 else 20)
+        for r in rows[-3 * len(cases):]:
+            log(f"matmul   : {r['kind']:27s} M={r['M']:4d} {r['x']:8s} "
+                f"K={K} N={N}: {r['ms']:.5f} ms (bound "
+                f"{max(r['bytes_ms'], r['ops_ms']):.5f}, plain "
+                f"{r['plain_ms']:.3f}, torch.matmul {r['library_ms']:.5f}),"
+                f" max |err| {r['max_abs_err']:.2e}")
+        del w, q, scales, wd, xs
+        torch.cuda.empty_cache()
+    log("matmul   : B8 and B7 (6/8-bit) == plain within rtol 1e-4 at every "
+        "projection shape; quantize_weight == plain quantizer, bitwise")
+    out = {}
+    for name, kind in (("dequant_matmul", "dequant_matmul"),
+                       ("dequant_matmul_packed", "dequant_matmul_packed")):
+        step = [r for r in rows if r["kind"] == kind and r["M"] == 8]
+        tot = {k: sum(counts[(r["K"], r["N"])] * r[k] for r in step)
+               for k in ("ms", "plain_ms", "library_ms", "bytes", "ops")}
+        b_ms = bound_ms(tot["bytes"])
+        o_ms = tot["ops"] / F32_OPS_PER_S * 1e3
+        out[name] = dict(
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations",
+            library_ms=tot["library_ms"],
+            max_abs_err=max(r["max_abs_err"] for r in rows
+                            if r["kind"] == kind),
+            launches=launches[name],
+            shape=f"one decode step of {ARCH} at M = 8 (bf16 x): "
+                  f"{sum(counts.values())} projections over "
+                  f"{len(MATMUL_SHAPES)} shapes, "
+                  f"{'6-bit packed' if 'packed' in name else '8-bit'} "
+                  "weights (per-shape rows in chip_smoke.json)",
+            rows=rows)
+        log(f"matmul   : {name}: {tot['ms']:.3f} ms per decode step (bound "
+            f"{max(b_ms, o_ms):.3f} ms by "
+            f"{out[name]['bound_by']}, torch.matmul {tot['library_ms']:.3f}"
+            f" ms, plain {tot['plain_ms']:.1f} ms); {launches[name]} "
+            "launches in the drive pass")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: small model, card vs CPU
 # ---------------------------------------------------------------------------
 def check_small(dev):
@@ -717,10 +944,12 @@ def serve(dev, launches):
             f"calls, occupancy {st['slot_occupancy']:.2f}, pool peak "
             f"{st['pool']['peak_used']}/{st['pool']['n_pages']} pages; "
             f"launches {counts}")
+        st["latency"] = engine_latency(tag, eng)
         return out, counts, ntok / dt, st
 
     run("warm-up (paged)")
     paged, cnt_p, tps_p, st_p = run("paged")
+    st_p["tok_s"] = tps_p
     copy_in, cnt_c, tps_c, _ = run("copy-in", paged_decode=False)
     for r in reqs:
         assert np.array_equal(paged[r.uid], copy_in[r.uid]), \
@@ -751,9 +980,128 @@ def serve(dev, launches):
         "(printed, not asserted)")
     for name, n in launches.items():
         assert n > 0, f"kernel {name} never launched on its path"
+    policy = serve_policy(dev, cfg, model, reqs, bs, run, paged, st_p)
     return dict(paged_tok_s=tps_p, copy_in_tok_s=tps_c,
                 seq_agreement=f"{agree}/{total}", rounds=st_p["rounds"],
+                latency=st_p["latency"], pool=st_p["pool"], policy=policy,
                 profile=profile_decode(cfg, model, bs))
+
+
+def engine_latency(tag: str, eng) -> dict:
+    """TTFT and TBT p50 / p99 from the engine's obs registry (the exact
+    shadows and the F2P cells' estimate) and its admission events."""
+    m, st = eng.metrics, eng.stats
+    out = {}
+    for name in ("ttft_ms", "tbt_ms", "queue_wait_ms"):
+        h = m[name]
+        out[name] = {f"p{int(q * 100)}{suffix}": h.quantile(q, exact=exact)
+                     for q in (0.5, 0.99)
+                     for suffix, exact in (("", True), ("_f2p", False))}
+        out[name]["count"] = h.count
+    out["events"] = {k: st.get(k, 0) for k in (
+        "prefills", "preemptions", "host_evictions", "readmits")}
+    log(f"serve    : {tag}: TTFT p50 {out['ttft_ms']['p50']:.1f} / p99 "
+        f"{out['ttft_ms']['p99']:.1f} ms (F2P estimate "
+        f"{out['ttft_ms']['p50_f2p']:.1f} / {out['ttft_ms']['p99_f2p']:.1f}),"
+        f" TBT p50 {out['tbt_ms']['p50']:.2f} / p99 "
+        f"{out['tbt_ms']['p99']:.2f} ms (F2P "
+        f"{out['tbt_ms']['p50_f2p']:.2f} / {out['tbt_ms']['p99_f2p']:.2f}); "
+        f"admits {out['events']['prefills']}, preemptions "
+        f"{out['events']['preemptions']}, evictions "
+        f"{out['events']['host_evictions']}, readmits "
+        f"{out['events']['readmits']}")
+    return out
+
+
+def calibrate_kv(dev, cfg, model, reqs) -> dict:
+    """One calibration state for kv/b0: the K and V of all layers from a
+    prefill of each of ``reqs`` (batch 1, exact length) into unquantized
+    caches, block-normalized per head_dim row (NORM_SPEC)."""
+    import torch
+
+    from repro_torch.autotune import NORM_SPEC, empty_state, update
+    from repro_torch.models import init_caches, prefill
+
+    state = empty_state(NORM_SPEC, dev)
+    for r in reqs:
+        caches = init_caches(cfg, 1, len(r.tokens), device=dev)
+        prefill(model, torch.as_tensor(r.tokens[None], device=dev).long(),
+                caches)
+        for kv in ("k", "v"):
+            state = update(state, caches[kv], NORM_SPEC, block=cfg.head_dim)
+    return state
+
+
+def serve_policy(dev, cfg, model, reqs, bs, run, base_out, base_st) -> dict:
+    """Phase 5b: calibrate the KV of the first 4 requests, solve kv/b0 over
+    the 6- and 8-bit F2P candidates at 6.25 bits/elem (a 6-bit code plus
+    an f32 scale per 128: the lowest-error 6-bit partition), hold B1 and
+    B3 to their plain versions at the solved format, then serve the
+    phase-5 workload paged and copy-in under that policy: tokens bitwise
+    equal between the modes, every request finished, B1 and B3 launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.autotune import (NORM_SPEC, LeafSpec, candidate_formats,
+                                      scale_rms, solve, to_dist)
+    from repro_torch.autotune.policy import _leaf_bits, _leaf_error
+    from repro_torch.core.formats import named_format
+
+    t0 = time.perf_counter()
+    state = calibrate_kv(dev, cfg, model, reqs[:4])
+    leaf = LeafSpec(path="kv/b0", size=int(state["n"]),
+                    last_dim=cfg.head_dim, dist=to_dist(state, NORM_SPEC),
+                    scale_rms=scale_rms(state))
+    cands = candidate_formats(n_bits=KV_CANDIDATE_BITS)
+    pol = solve([leaf], cands, KV_BUDGET_BITS, block=cfg.head_dim)
+    fmt = pol.rules[0].fmt
+    table = sorted(((c, _leaf_bits(leaf, c, cfg.head_dim) / leaf.size,
+                     _leaf_error(leaf, c) / leaf.size) for c in cands),
+                   key=lambda r: (r[1], r[2]))
+    log(f"policy   : calibrated {leaf.size} K/V elements of {len(reqs[:4])} "
+        f"prompts ({time.perf_counter() - t0:.1f} s), scale_rms "
+        f"{leaf.scale_rms:.4g}; solve at {KV_BUDGET_BITS} bits/elem over "
+        f"{len(cands)} candidates -> kv/b0 = {fmt}")
+    for c, bits, err in table:
+        log(f"policy   :   {c:14s} {bits:.4f} bits/elem, modeled MSE "
+            f"{err:.4e}" + ("  <- chosen" if c == fmt else ""))
+    assert named_format(fmt).n_bits == 6, f"solver picked {fmt}"
+    six = [r for r in table if named_format(r[0]).n_bits == 6]
+    assert fmt == min(six, key=lambda r: r[2])[0]
+
+    # B1 and B3 at the solved format, against their plain versions
+    g = torch.Generator(device=dev).manual_seed(5)
+    codec_bitwise(dev, g, named_format(fmt))
+    attn = check_attention(dev, fmt)
+    log(f"policy   : {fmt}: quantize/dequantize kernels == plain, bitwise; "
+        f"attention within 1e-5")
+
+    kw = dict(kv_policy=pol)
+    paged, cnt_p, tps_p, st_p = run(f"paged, kv/b0 {fmt}", **kw)
+    copy_in, cnt_c, tps_c, _ = run(f"copy-in, kv/b0 {fmt}",
+                                   paged_decode=False, **kw)
+    for r in reqs:
+        assert np.array_equal(paged[r.uid], copy_in[r.uid]), \
+            f"request {r.uid}: paged != copy-in under {fmt}"
+    assert cnt_p["attention_paged"] > 0 and cnt_p["quantize_packed"] > 0
+    assert cnt_c["attention_packed"] > 0
+    agree = sum(int((paged[r.uid] == base_out[r.uid]).sum()) for r in reqs)
+    total = sum(r.max_new for r in reqs)
+    pb, pb8 = st_p["pool"]["pool_bytes_packed"], \
+        base_st["pool"]["pool_bytes_packed"]
+    live, live8 = st_p["pool"]["page_bytes_packed"], \
+        base_st["pool"]["page_bytes_packed"]
+    log(f"policy   : paged == copy-in under {fmt}, token for token; "
+        f"{tps_p:.1f} / {tps_c:.1f} tok/s (8-bit paged "
+        f"{base_st['tok_s']:.1f}); pool {pb} B vs {pb8} B at 8 bits "
+        f"({pb / pb8:.4f}), {live} vs {live8} B per page; tokens equal to "
+        f"the 8-bit run {agree}/{total} (printed)")
+    return dict(fmt=fmt, candidates=table, scale_rms=leaf.scale_rms,
+                elements=leaf.size, paged_tok_s=tps_p, copy_in_tok_s=tps_c,
+                pool_bytes=pb, pool_bytes_8bit=pb8, page_bytes=live,
+                page_bytes_8bit=live8, agree_8bit=f"{agree}/{total}",
+                launches_paged=cnt_p, launches_copy_in=cnt_c,
+                latency=st_p["latency"], attention=attn)
 
 
 def profile_decode(cfg, model, bs) -> dict:
@@ -1385,8 +1733,12 @@ def main():
     res.update(check_unpacked_codec(dev))
     res.update(check_attention(dev))
     res.update(check_counter(dev, trace))
+    res.update(check_matmul(dev))
     check_small(dev)
-    launches: dict[str, int] = {}
+    # B7/B8 have no model caller: their launches are check_matmul's drive
+    # pass over the projection shapes
+    launches: dict[str, int] = {k: res[k]["launches"] for k in (
+        "dequant_matmul", "dequant_matmul_packed")}
     serve_res = serve(dev, launches)
     sketch_res = sketch_phase(dev, trace, launches)
     assert sketch_res["obs"]["launches"] > 0, "obs sync never launched B9"
@@ -1403,7 +1755,9 @@ def main():
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
                  "dequantize_packed", "quantize", "dequantize",
-                 "counter_advance", "counter_estimate"):
+                 "counter_advance", "counter_estimate", "dequant_matmul",
+                 "dequant_matmul_packed"):
+        assert launches[name] > 0, f"kernel {name} never launched"
         r = res[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SRC,
@@ -1421,7 +1775,9 @@ def main():
         {"device": smi, "kernels": kernels, "serve": serve_res,
          "sketch": sketch_res, "train": train_res,
          "shapes": {k: v["shape"] for k, v in res.items()},
-         "unpacked_per_shape": res["quantize"]["per_shape"]}, indent=1))
+         "unpacked_per_shape": res["quantize"]["per_shape"],
+         "matmul_rows": res["dequant_matmul"]["rows"]}, indent=1,
+        default=str))
     print(json.dumps({"sketch": sketch_res}))
     print(json.dumps({"train": {k: v for k, v in train_res.items()
                                 if k != "profile"}}))

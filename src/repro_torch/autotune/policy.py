@@ -1,5 +1,5 @@
-"""FormatPolicy: leaf-path patterns -> chosen format (port of the data half
-of ``repro.autotune.policy``).
+"""FormatPolicy: leaf-path patterns -> chosen format, and the budgeted
+per-leaf format allocator (port of ``repro.autotune.policy``).
 
 A :class:`FormatPolicy` is a small, immutable, hashable, JSON-serializable
 table of ``(fnmatch pattern, format name, block)`` rules plus a default.
@@ -8,8 +8,11 @@ Formats are stored by their canonical parseable NAME
 checkpoints and config files without pickling format objects; a policy
 written by either package reads back in the other.
 
-The budgeted allocator of the reference (``solve``, ``candidate_formats``,
-``LeafSpec``) is not ported yet (ROADMAP A9).
+``solve()`` turns calibrated leaf summaries into a policy: it minimizes
+the total modeled squared error (closed-form models x
+:class:`~repro_torch.autotune.error_models.HistogramDist` summaries)
+subject to a bit budget, by greedy marginal-gain ascent, on the host in
+numpy, exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -17,11 +20,16 @@ import dataclasses
 import fnmatch
 import json
 import re
+from typing import Sequence
 
+import numpy as np
+
+from repro_torch.autotune.error_models import Dist, expected_mse
 from repro_torch.core.f2p import F2PFormat
-from repro_torch.core.formats import format_name, named_format
+from repro_torch.core.formats import format_bits, format_name, named_format
 
-__all__ = ["PolicyRule", "FormatPolicy", "leaf_path_str", "path_from_keystr"]
+__all__ = ["PolicyRule", "FormatPolicy", "LeafSpec", "solve",
+           "candidate_formats", "leaf_path_str", "path_from_keystr"]
 
 
 # ---------------------------------------------------------------------------
@@ -146,3 +154,154 @@ class FormatPolicy:
         lines.append(f"  {'*':<28} -> {self.default_fmt or '<caller default>'}"
                      f" (block {self.default_block})")
         return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Candidate enumeration
+# ---------------------------------------------------------------------------
+def candidate_formats(n_bits: Sequence[int] = (8,),
+                      h_bits: Sequence[int] = (1, 2, 3),
+                      flavors: Sequence[str] = ("sr", "lr", "si", "li"),
+                      signed: bool = True,
+                      include_baselines: bool = False) -> list[str]:
+    """Canonical names of every representable candidate: all valid F2P
+    (flavor x h x n) combos, plus (optionally) the paper's baselines at the
+    same widths: intN, the xMyE fp8 variants, SEAD."""
+    s = "s" if signed else "u"
+    out: list[str] = []
+    for n in n_bits:
+        for h in h_bits:
+            for fl in flavors:
+                name = f"f2p_{fl}_{h}_{n}{s}"
+                try:
+                    named_format(name)
+                except ValueError:
+                    continue
+                out.append(name)
+        if include_baselines:
+            out.append(f"int{n}{s}")
+            out.append(f"sead{n}{s}")
+            if n == 8:
+                out += [f"3m4e{s}", f"4m3e{s}"]  # fp8-e4m3 / e5m2 family
+            if n == 16:
+                out += [f"10m5e{s}", f"7m8e{s}"]  # fp16 / bf16
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The solve
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """Everything the solver needs to know about one tensor: ``dist`` is
+    the distribution of the block-normalized magnitudes u = |x| /
+    absmax(block) on [0, 1] (``calibrate.leaf_summary`` or ``update(...,
+    block=...)`` with ``NORM_SPEC``); ``scale_rms`` =
+    sqrt(E[absmax_block^2]) converts modeled normalized error back to data
+    units."""
+
+    path: str
+    size: int             # element count
+    last_dim: int         # blocking axis width (block caps at this)
+    dist: Dist            # distribution of u = |x| / absmax_block
+    scale_rms: float      # sqrt(E[absmax_block^2])
+
+    def block_for(self, block: int) -> int:
+        return max(1, min(block, self.last_dim))
+
+
+def _leaf_error(spec: LeafSpec, fmt_name: str) -> float:
+    """Total modeled squared error of quantizing this leaf with ``fmt``
+    under blockwise absmax scaling: E[err^2] ~= E[e_u^2] *
+    E[absmax_block^2]."""
+    fmt = named_format(fmt_name)
+    if spec.scale_rms <= 0.0:
+        return 0.0
+    e_u = expected_mse(fmt, spec.dist, scale=1.0 / fmt.max_value)
+    return spec.size * spec.scale_rms ** 2 * e_u
+
+
+def _leaf_bits(spec: LeafSpec, fmt_name: str, block: int,
+               bits_mode: str = "packed") -> float:
+    """Total bits of the codes + per-block f32 scales for this leaf:
+    ``packed`` charges the word-granular rows of ``packed_nbytes``,
+    ``storage`` the byte-aligned code dtype of unpacked containers."""
+    from repro_torch.kernels.bits import packed_nbytes
+
+    fmt = named_format(fmt_name)
+    blk = spec.block_for(block)
+    rows = spec.size // spec.last_dim
+    npad = -(-spec.last_dim // blk) * blk
+    nblocks = (npad // blk) * rows
+    if bits_mode == "storage":
+        fbits = 8 * np.dtype(fmt.code_dtype).itemsize if hasattr(
+            fmt, "code_dtype") else 8 * -(-format_bits(fmt) // 8)
+        code_bits = float(spec.size * fbits)
+    else:
+        code_bits = 8.0 * rows * packed_nbytes(npad, format_bits(fmt))
+    return code_bits + 32.0 * nblocks
+
+
+def solve(leaves: Sequence[LeafSpec], candidates: Sequence[str],
+          budget_bits_per_elem: float, *, block: int = 128,
+          default_fmt: str | None = None,
+          bits_mode: str = "packed") -> FormatPolicy:
+    """Minimize total modeled squared error subject to ``sum(bits) <=
+    budget_bits_per_elem * sum(size)``: every leaf starts at its cheapest
+    candidate (ties: lowest error), then the single (leaf, candidate)
+    upgrade with the best error drop per extra bit is applied until the
+    budget is spent. Returns a FormatPolicy with one exact-path rule per
+    leaf."""
+    if not leaves:
+        return FormatPolicy(default_fmt=default_fmt, default_block=block)
+    if not candidates:
+        raise ValueError("no candidate formats")
+
+    tables = []
+    for sp in leaves:
+        rows = [(c, _leaf_bits(sp, c, block, bits_mode), _leaf_error(sp, c))
+                for c in candidates]
+        rows.sort(key=lambda r: (r[1], r[2]))
+        tables.append(rows)
+
+    total_elems = sum(sp.size for sp in leaves)
+    # a relative slack: (sum/total)*total can land one ULP below the sum
+    budget = budget_bits_per_elem * total_elems * (1.0 + 1e-9)
+
+    choice = []
+    spent = 0.0
+    for rows in tables:
+        min_bits = rows[0][1]
+        best = min((r for r in rows if r[1] == min_bits), key=lambda r: r[2])
+        choice.append(best)
+        spent += best[1]
+    if spent > budget:
+        raise ValueError(
+            f"budget {budget_bits_per_elem} bits/elem infeasible: cheapest "
+            f"assignment needs {spent / total_elems:.2f}")
+
+    improved = True
+    while improved:
+        improved = False
+        best_gain, best_i, best_row = 0.0, -1, None
+        for i, rows in enumerate(tables):
+            _, cur_bits, cur_err = choice[i]
+            for name, bits, err in rows:
+                dbits = bits - cur_bits
+                derr = cur_err - err
+                if derr <= 0.0 or spent + dbits > budget:
+                    continue
+                # free upgrades (same bits, less error) are taken greedily
+                gain = derr / dbits if dbits > 0 else float("inf")
+                if gain > best_gain:
+                    best_gain, best_i, best_row = gain, i, (name, bits, err)
+        if best_i >= 0:
+            spent += best_row[1] - choice[best_i][1]
+            choice[best_i] = best_row
+            improved = True
+
+    rules = tuple(PolicyRule(pattern=sp.path, fmt=name,
+                             block=sp.block_for(block))
+                  for sp, (name, _, _) in zip(leaves, choice))
+    return FormatPolicy(rules=rules, default_fmt=default_fmt,
+                        default_block=block)

@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the F2P serve, measurement and
 // training paths.
 //
-// Eight kernels replace eight Pallas TPU kernels of src/repro (the JAX
+// Ten kernels replace the ten Pallas TPU kernels of src/repro (the JAX
 // reference):
 //
 //   quantize_packed_kernel    <- repro/kernels/f2p_quant.py::_quant_packed_kernel
@@ -12,6 +12,8 @@
 //   attention_kernel<true>    <- repro/kernels/f2p_attention.py::_paged_kernel
 //   counter_advance_kernel    <- repro/kernels/f2p_counter.py::_advance_kernel
 //   counter_estimate_kernel   <- repro/kernels/f2p_counter.py::_estimate_kernel
+//   dequant_matmul_kernel<UnpackedW>  <- repro/kernels/f2p_matmul.py::_kernel
+//   dequant_matmul_kernel<PackedW>    <- repro/kernels/f2p_matmul.py::_packed_kernel
 //
 // Built with route (b): nvcc into a shared library with a plain C interface,
 // loaded with ctypes (repro_torch/kernels/cuda.py). Every entry takes the
@@ -584,6 +586,169 @@ __global__ void counter_estimate_kernel(const int* __restrict__ state,
 }
 
 // ---------------------------------------------------------------------------
+// dequant_matmul: y[M, N] f32 = x[M, K] (f32 or bf16) @ W, W[k, n] =
+// decode(code[k, n]) * scales[k / block, n] (B8 from uint8 / uint16 codes,
+// B7 from each K-row's bit-packed words). f32 only: every W element is the
+// correctly rounded f32 product decode * scale, as the plain version's, and
+// the sum is f32 FMAs (no TF32, no bf16 tensor cores).
+//
+// At a decode batch (M = 8) the kernel is bound by the weight stream
+// (n_bits/8 bytes per weight + 4/block for the scales), at a prefill batch
+// (M = 2048) by its f32 operations. A simple SIMT design: one CTA of 256
+// threads per (BM x 128) output tile, BM = 8 * TM covering M (so a decode
+// batch does not pad to 128 rows); per K step of 32 it stages the x tile
+// (as f32, k-major) and the decoded, scaled W tile in shared memory, and
+// warp w / lane l accumulate rows w + 8i (i < TM) x columns l + 32j (j < 4)
+// in registers. Formats of at most 10 bits decode through a table in
+// shared memory built with f2p_decode (the same values bit for bit), wider
+// ones call f2p_decode per element. When the output tiles alone leave the
+// card idle (decode shapes), K is split across `splits` CTAs, each writing
+// its partial tile to part[split]; sum_splits_kernel then adds the
+// partials in split order, so the result does not depend on scheduling.
+// Later: wgmma, TMA staging and a pipelined packed stream.
+// ---------------------------------------------------------------------------
+constexpr int kMmBN = 128, kMmBK = 32, kMmThreads = 256, kMmLut = 1024;
+
+template <typename TCode>
+struct UnpackedW {
+  const TCode* __restrict__ codes;
+  int N;
+  __device__ __forceinline__ uint32_t code(int k, int n) const {
+    return (uint32_t)codes[(size_t)k * N + n];
+  }
+};
+
+struct PackedW {
+  const uint32_t* __restrict__ words;
+  int W, nb;
+  __device__ __forceinline__ uint32_t code(int k, int n) const {
+    return get_field(words + (size_t)k * W, n, nb);
+  }
+};
+
+template <typename TIn, typename WSrc, int TM>
+__global__ void __launch_bounds__(kMmThreads)
+dequant_matmul_kernel(const TIn* __restrict__ x, WSrc w,
+                      const float* __restrict__ scales,
+                      float* __restrict__ part, int M, int N, int K, int block,
+                      int k_chunk, F2PConsts f) {
+  constexpr int BM = 8 * TM;
+  __shared__ float xs[kMmBK][BM + 1];     // x tile, k-major (+1: no bank clash)
+  __shared__ float ws[kMmBK][kMmBN];      // decoded, scaled W tile
+  __shared__ float lut[kMmLut];
+  const bool use_lut = f.n_bits <= 10;
+  if (use_lut)
+    for (int c = threadIdx.x; c < (1 << f.n_bits); c += kMmThreads)
+      lut[c] = f2p_decode((uint32_t)c, f);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n0 = blockIdx.x * kMmBN, m0 = blockIdx.y * BM;
+  const int kb = blockIdx.z * k_chunk, ke = min(K, kb + k_chunk);
+  float acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int k0 = kb; k0 < ke; k0 += kMmBK) {
+    __syncthreads();   // the table is built / the last tile is consumed
+    for (int e = threadIdx.x; e < BM * kMmBK; e += kMmThreads) {
+      const int m = e / kMmBK, kk = e - m * kMmBK;
+      const int gm = m0 + m, gk = k0 + kk;
+      xs[kk][m] = (gm < M && gk < ke) ? to_f32(x[(size_t)gm * K + gk]) : 0.0f;
+    }
+    for (int e = threadIdx.x; e < kMmBK * kMmBN; e += kMmThreads) {
+      const int kk = e / kMmBN, n = e - kk * kMmBN;
+      const int gk = k0 + kk, gn = n0 + n;
+      float v = 0.0f;
+      if (gk < ke && gn < N) {
+        const uint32_t c = w.code(gk, gn);
+        // the table covers the code's n_bits, which is all f2p_decode reads
+        const float d = use_lut ? lut[c & ((1u << f.n_bits) - 1u)] : f2p_decode(c, f);
+        v = __fmul_rn(d, __ldg(scales + (size_t)(gk / block) * N + gn));
+      }
+      ws[kk][n] = v;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kMmBK; ++kk) {
+      float b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ws[kk][lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float a = xs[kk][warp + 8 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+      }
+    }
+  }
+  float* out = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + warp + 8 * i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + lane + 32 * j;
+      if (gn < N) out[(size_t)gm * N + gn] = acc[i][j];
+    }
+  }
+}
+
+// y = part[0] + part[1] + ... in split order (deterministic)
+__global__ void sum_splits_kernel(const float* __restrict__ part,
+                                  float* __restrict__ y, long long mn,
+                                  int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < mn;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = part[i];
+    for (int p = 1; p < splits; ++p) s += part[p * mn + i];
+    y[i] = s;
+  }
+}
+
+template <typename TIn, typename WSrc>
+static void launch_matmul(const void* x, WSrc w, const float* scales, float* part,
+                          int M, int N, int K, int block, int bm, int k_chunk,
+                          int splits, F2PConsts f, cudaStream_t stream) {
+  const dim3 grid((N + kMmBN - 1) / kMmBN, (M + bm - 1) / bm, splits);
+  const TIn* xp = (const TIn*)x;
+  switch (bm) {
+    case 8:
+      dequant_matmul_kernel<TIn, WSrc, 1><<<grid, kMmThreads, 0, stream>>>(
+          xp, w, scales, part, M, N, K, block, k_chunk, f);
+      break;
+    case 16:
+      dequant_matmul_kernel<TIn, WSrc, 2><<<grid, kMmThreads, 0, stream>>>(
+          xp, w, scales, part, M, N, K, block, k_chunk, f);
+      break;
+    case 32:
+      dequant_matmul_kernel<TIn, WSrc, 4><<<grid, kMmThreads, 0, stream>>>(
+          xp, w, scales, part, M, N, K, block, k_chunk, f);
+      break;
+    case 64:
+      dequant_matmul_kernel<TIn, WSrc, 8><<<grid, kMmThreads, 0, stream>>>(
+          xp, w, scales, part, M, N, K, block, k_chunk, f);
+      break;
+    default:
+      dequant_matmul_kernel<TIn, WSrc, 16><<<grid, kMmThreads, 0, stream>>>(
+          xp, w, scales, part, M, N, K, block, k_chunk, f);
+  }
+}
+
+template <typename WSrc>
+static void launch_matmul_in(int x_bf16, const void* x, WSrc w,
+                             const float* scales, float* part, int M, int N,
+                             int K, int block, int bm, int k_chunk, int splits,
+                             F2PConsts f, cudaStream_t stream) {
+  if (x_bf16)
+    launch_matmul<__nv_bfloat16>(x, w, scales, part, M, N, K, block, bm,
+                                 k_chunk, splits, f, stream);
+  else
+    launch_matmul<float>(x, w, scales, part, M, N, K, block, bm, k_chunk,
+                         splits, f, stream);
+}
+
+// ---------------------------------------------------------------------------
 // B5 / B6 launchers: the vectorized kernels where the block and the
 // pointers' alignment allow, the per-element ones otherwise
 // ---------------------------------------------------------------------------
@@ -751,6 +916,28 @@ int f2p_counter_advance(const int* state, const float* budget, int* state_out,
   counter_advance_kernel<<<(unsigned)grid, threads, 0, stream>>>(
       state, budget, state_out, left, p_lut, run_lut, logq_lut, n, kmax, seed,
       sweep0, sweeps);
+  return (int)cudaGetLastError();
+}
+
+int f2p_dequant_matmul(const void* x, int x_bf16, const void* w, int code_bytes,
+                       int W, const float* scales, float* part, float* y, int M,
+                       int N, int K, int block, int bm, int k_chunk, int splits,
+                       F2PConsts f, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (code_bytes == 1)
+    launch_matmul_in(x_bf16, x, UnpackedW<uint8_t>{(const uint8_t*)w, N}, scales,
+                     part, M, N, K, block, bm, k_chunk, splits, f, stream);
+  else if (code_bytes == 2)
+    launch_matmul_in(x_bf16, x, UnpackedW<uint16_t>{(const uint16_t*)w, N},
+                     scales, part, M, N, K, block, bm, k_chunk, splits, f, stream);
+  else
+    launch_matmul_in(x_bf16, x, PackedW{(const uint32_t*)w, W, f.n_bits}, scales,
+                     part, M, N, K, block, bm, k_chunk, splits, f, stream);
+  if (splits > 1) {
+    const long long mn = (long long)M * N;
+    const int grid = (int)min((mn + 255) / 256, (long long)1 << 16);
+    sum_splits_kernel<<<grid, 256, 0, stream>>>(part, y, mn, splits);
+  }
   return (int)cudaGetLastError();
 }
 

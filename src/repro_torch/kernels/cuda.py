@@ -37,7 +37,8 @@ MAX_SMEM = 232448   # bytes of shared memory one CTA may use on Hopper
 LAUNCHES: dict[str, int] = {"quantize_packed": 0, "dequantize_packed": 0,
                             "quantize": 0, "dequantize": 0,
                             "attention_packed": 0, "attention_paged": 0,
-                            "counter_advance": 0, "counter_estimate": 0}
+                            "counter_advance": 0, "counter_estimate": 0,
+                            "dequant_matmul": 0, "dequant_matmul_packed": 0}
 
 _lib = None
 build_log = ""       # nvcc's output (register / shared-memory report)
@@ -113,9 +114,12 @@ def lib():
             F2PConsts, F2PConsts, F, P]
         L.f2p_counter_advance.argtypes = [P] * 7 + [LL, I, U, U, I, P]
         L.f2p_counter_estimate.argtypes = [P, P, P, LL, P]
+        L.f2p_dequant_matmul.argtypes = [P, I, P, I, I, P, P, P] + [I] * 7 + [
+            F2PConsts, P]
         for fn in (L.f2p_quantize_packed, L.f2p_dequantize_packed,
                    L.f2p_quantize, L.f2p_dequantize, L.f2p_attention,
-                   L.f2p_counter_advance, L.f2p_counter_estimate):
+                   L.f2p_counter_advance, L.f2p_counter_estimate,
+                   L.f2p_dequant_matmul):
             fn.restype = I
         _lib = L
     return _lib

@@ -128,3 +128,28 @@ def named_from_jax(np_tree: dict, model: Model) -> dict:
         t = _leaf(np_tree, name, tuple(p.shape))
         out[name] = None if t is None else t.to(model.device)
     return out
+
+
+def quantized_weight_from_jax(codes_or_words, scales, *, packed: bool,
+                              device="cuda"):
+    """The reference's ``quantize_weight`` outputs as numpy arrays (codes
+    uint8 / uint16 ``[K, N]``, or packed words uint32 ``[K, W]``; scales
+    f32 ``[K/block, N]``) -> the port's tensors of the same dtypes and bits
+    on ``device``, ready for ``kernels.f2p_matmul.dequant_matmul``."""
+    c = np.array(codes_or_words)          # a writable copy for torch
+    want = (np.uint32,) if packed else (np.uint8, np.uint16)
+    if c.dtype not in want:
+        raise TypeError(f"{'words' if packed else 'codes'} must be "
+                        f"{'/'.join(np.dtype(d).name for d in want)}, got "
+                        f"{c.dtype}")
+    # through a signed view of the same width: torch's unsigned 16/32-bit
+    # types have few operations, their bits travel unchanged
+    signed = {np.dtype(np.uint16): (np.int16, torch.uint16),
+              np.dtype(np.uint32): (np.int32, torch.uint32)}
+    if c.dtype in signed:
+        view, tdt = signed[c.dtype]
+        t = torch.from_numpy(c.view(view)).to(device).view(tdt)
+    else:
+        t = torch.from_numpy(c).to(device)
+    s = torch.from_numpy(np.array(scales, np.float32)).to(device)
+    return t, s

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.f2p import F2PFormat
 from repro_torch.models import attention as A
 from repro_torch.models.common import (rms_norm, softmax_cross_entropy,
                                       swiglu, truncnorm_init)
@@ -124,19 +125,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     return model
 
 
+def kv_format(kv_policy=None) -> F2PFormat:
+    """The quantized-KV format under ``kv_policy`` (a
+    :class:`~repro_torch.autotune.policy.FormatPolicy` or None): the rule
+    path is ``kv/b<i>`` per pattern position, as in the reference. The
+    llama-dense pattern has one position, so ``kv/b0`` (or ``kv/*``) sets
+    the format of every layer; no policy keeps ``attention.KV_FMT``."""
+    if kv_policy is None:
+        return A.KV_FMT
+    fmt, _ = kv_policy.f2p_for("kv/b0", (A.KV_FMT, 0))
+    return fmt
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
-                quantized_kv: bool = False, attn_kv: bool = True,
-                device="cuda"):
+                quantized_kv: bool = False, kv_policy=None,
+                attn_kv: bool = True, device="cuda"):
     """KV caches ``{"k","v"}`` of shape ``[L, batch, max_seq, K, hd]``.
 
     ``attn_kv=False`` returns ``None``: the paged engine binds pool slabs
     instead, and no dense ``[batch, max_seq]`` row is allocated. Quantized
-    caches are always bit-packed (the unpacked codec is ROADMAP B5/B6);
-    per-layer KV formats (``kv_policy``) are ROADMAP A7."""
+    caches are always bit-packed, in the format :func:`kv_format` picks
+    from ``kv_policy``."""
     if not attn_kv:
         return None
     return A.init_cache(cfg, batch, max_seq, quantized_kv, cfg.torch_dtype,
-                        torch.device(device), lead=(cfg.n_layers,))
+                        torch.device(device), fmt=kv_format(kv_policy),
+                        lead=(cfg.n_layers,))
 
 
 def layer_cache(caches, i: int):

@@ -19,19 +19,29 @@ The engine admits a dynamic set of requests into a fixed number of decode
   the smallest power-of-two span bucket of the table covering every live
   slot. ``paged_decode=False`` keeps the copy-in engine (pages word-copied
   into a dense slot row and freed) as the bitwise comparator.
-* admission is SLO-scored (queue-wait age normalised by min(SLO, observed
-  median queue wait) minus a projected-tail penalty) with the FIFO
+* admission is SLO-scored (queue-wait age normalised by min(SLO, the
+  queue-wait histogram's p50) minus a projected-tail penalty) with the FIFO
   starvation bound as a hard floor; starvation preempts the longest-tail
   slot, whose KV is parked (evicted to host numpy by default) and readmitted
   later.
+* ``kv_policy`` (a :class:`~repro_torch.autotune.FormatPolicy`) picks the
+  F2P format of the KV pages, the copy-in and prefill caches through its
+  ``kv/b0`` rule (``models.kv_format``); host eviction and readmission
+  move the words of that format unchanged.
 
 The reference jits one round (``sync_every`` steps under ``lax.scan``);
 here a round is a loop of ``sync_every`` eager steps followed by ONE host
 sync of the ``[slots, sync_every]`` token chunk. Host mirrors of the per-
 slot inputs are uploaded as deltas: only slots whose bookkeeping changed
-overwrite the device vectors. ``repro.obs`` is not ported yet (ROADMAP
-A10): ``stats`` keeps the reference's keys, counted with plain ints, and
-the trace sites are omitted.
+overwrite the device vectors.
+
+Observability is the reference's (DESIGN.md §13): an engine-owned
+``obs.MetricsRegistry("serve.batched")`` holds the step / round / slot /
+token / event counters and the ``ttft_ms``, ``tbt_ms`` and
+``queue_wait_ms`` histograms (bucketed on the host); ``stats`` is a view
+over the registry's exact shadows. The trace sites (``obs.span``,
+``obs.instant``, ``obs.counter_event`` and per-request rows at retirement)
+are no-ops unless ``obs.enable()``.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.models import init_caches
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
@@ -59,7 +70,7 @@ class BatchedServeConfig:
     eos: int = -1                 # per-request EOS (chunk-synced)
     temperature: float = 0.0      # 0 = greedy
     seed: int = 0                 # sampling stream root
-    kv_policy: Any = None         # per-layer KV formats: ROADMAP A7
+    kv_policy: Any = None         # per-layer KV formats (FormatPolicy|None)
     page_tokens: int | None = None     # None = family default
     n_pages: int | None = None         # None = mode-dependent default
     prefill_buckets: tuple[int, ...] | None = None  # None = family default
@@ -110,10 +121,6 @@ class BatchedEngine:
 
     def __init__(self, cfg: ModelConfig, bscfg: BatchedServeConfig,
                  model: Model):
-        if bscfg.kv_policy is not None:
-            raise NotImplementedError(
-                "per-layer KV formats (kv_policy) are not ported yet "
-                "(ROADMAP A7)")
         self.arch: SupportedArchitecture = arch_for(cfg)
         if not cfg.fused_attention:
             cfg = dataclasses.replace(cfg, fused_attention=True)
@@ -135,11 +142,13 @@ class BatchedEngine:
             # one staging admission, plus the dump page; copy-in: every
             # slot plus one transit request
             n_pages = (B + 1) * maxp + 1 if self.paged else B * maxp + maxp
-        self.pool = PagedKVPool(cfg, T, n_pages, device=dev)
+        self.pool = PagedKVPool(cfg, T, n_pages, kv_policy=bscfg.kv_policy,
+                                device=dev)
         if self.paged:
             (self._dump,) = self.pool.alloc(1)
         self.caches = (self.pool.slabs if self.paged else
-                       init_caches(cfg, B, S, quantized_kv=True, device=dev))
+                       init_caches(cfg, B, S, quantized_kv=True,
+                                   kv_policy=bscfg.kv_policy, device=dev))
         self.tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((B,), dtype=torch.int64, device=dev)
         self.req = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -173,33 +182,49 @@ class BatchedEngine:
         self._group_sizes = tuple(gs) + (max(1, bscfg.prefill_group),)
         self._parked: deque[_Parked] = deque()
         self._sched_skips: dict[int, int] = {}
+        # the engine-owned registry (always on: counters buffer host
+        # floats, the histograms bucket on the host, the F2P fold runs at
+        # sync / export); tracing is the global opt-in obs.enable()
+        self.metrics = obs.MetricsRegistry("serve.batched", seed=bscfg.seed)
+        m = self.metrics
+        self._c_prefills = m.counter("prefills")
+        self._c_prefill_calls = m.counter("prefill_calls")
+        self._c_readmits = m.counter("readmits")
+        self._c_preempt = m.counter("preemptions")
+        self._c_evict = m.counter("host_evictions")
+        self._c_rounds = m.counter("rounds")
+        self._c_prod = m.counter("productive_slot_steps")
+        self._c_emitted = m.counter("emitted_tokens")
+        self._g_steps = m.gauge("steps")
+        self._g_occ = m.gauge("slot_occupancy")
+        self._g_active = m.gauge("slots_active")
+        self._h_ttft = m.histogram("ttft_ms", 1e-2, 1e6)
+        self._h_tbt = m.histogram("tbt_ms", 1e-3, 1e5)
+        self._h_queue = m.histogram("queue_wait_ms", 1e-3, 1e6)
+        # per-request wall-clock samples (perf_counter_ns) keyed by uid:
+        # visible (first admissible), first_tok
         self._rt: dict[int, dict[str, int]] = {}
-        self._reset_counts()
 
     # -- stats ---------------------------------------------------------------
-    def _reset_counts(self):
-        self._n = {k: 0 for k in ("prefills", "prefill_calls", "readmits",
-                                  "preemptions", "host_evictions", "rounds",
-                                  "productive_slot_steps", "emitted_tokens")}
-        self._steps = 0
-        self._occupancy = 0.0
-        self._queue_waits_ms: list[float] = []
-
     @property
     def stats(self) -> dict[str, Any]:
-        """The reference's stats keys: event keys (prefills, readmits, ...)
-        appear once nonzero; counts are exact ints."""
+        """The reference's stats dict, a view over the registry's exact
+        shadows: event keys (prefills, readmits, ...) appear only once
+        nonzero; counts are exact ints, never F2P estimates."""
         d: dict[str, Any] = {
-            "steps": self._steps,
-            "rounds": self._n["rounds"],
-            "productive_slot_steps": self._n["productive_slot_steps"],
-            "emitted_tokens": self._n["emitted_tokens"],
-            "slot_occupancy": self._occupancy,
+            "steps": int(self._g_steps.value),
+            "rounds": self._c_rounds.exact,
+            "productive_slot_steps": self._c_prod.exact,
+            "emitted_tokens": self._c_emitted.exact,
+            "slot_occupancy": self._g_occ.value,
         }
-        for key in ("prefills", "prefill_calls", "readmits", "preemptions",
-                    "host_evictions"):
-            if self._n[key]:
-                d[key] = self._n[key]
+        for key, c in (("prefills", self._c_prefills),
+                       ("prefill_calls", self._c_prefill_calls),
+                       ("readmits", self._c_readmits),
+                       ("preemptions", self._c_preempt),
+                       ("host_evictions", self._c_evict)):
+            if c.exact:
+                d[key] = c.exact
         d["pool"] = self.pool.stats()
         d["reserved_pages"] = 1 if self.paged else 0
         return d
@@ -223,6 +248,7 @@ class BatchedEngine:
         caches = self._pf_caches.get((N, S_pf))
         if caches is None:
             caches = init_caches(self.cfg, N, S_pf, quantized_kv=True,
+                                 kv_policy=self.bscfg.kv_policy,
                                  device=self.device)
             self._pf_caches[(N, S_pf)] = caches
         return caches
@@ -238,7 +264,7 @@ class BatchedEngine:
                                torch.as_tensor(toks, device=self.device),
                                caches, torch.as_tensor(last,
                                                        device=self.device))
-        self._n["prefill_calls"] += 1
+        self._c_prefill_calls.inc()
         tok0 = torch.argmax(logits, -1).cpu().numpy()
         return tok0[:len(prompts)], caches
 
@@ -277,14 +303,17 @@ class BatchedEngine:
                table: PageTable, results: dict):
         """Admission tail: bind the KV (adopt or copy in) and register the
         slot, or retire at once when the first token finishes it."""
-        self._rt[r.uid]["first_tok"] = time.perf_counter_ns()
+        rt = self._rt[r.uid]
+        t1 = time.perf_counter_ns()
+        rt["first_tok"] = t1
+        self._h_ttft.observe((t1 - rt["visible"]) / 1e6)
         self._set_slot_io(slot, first, L, r.uid)
-        self._n["prefills"] += 1
+        self._c_prefills.inc()
         if r.max_new == 1 or (self.bscfg.eos >= 0
                               and first == self.bscfg.eos):
             results[r.uid] = np.asarray([first], np.int32)
             self.pool.free(table.pages)
-            self._retire(r.uid)
+            self._retire(r.uid, 1)
             return
         if self.paged:
             self._adopt_table(slot, table)
@@ -297,7 +326,7 @@ class BatchedEngine:
     def _note_admission(self, r: Request):
         t0 = time.perf_counter_ns()
         rt = self._rt.setdefault(r.uid, {"visible": t0})
-        self._queue_waits_ms.append((t0 - rt["visible"]) / 1e6)
+        self._h_queue.observe((t0 - rt["visible"]) / 1e6)
 
     def _admit_batch(self, pairs: list[tuple[Request, int]], results: dict):
         """Admit requests into slots, fusing compatible prompts into
@@ -313,19 +342,49 @@ class BatchedEngine:
             grp = by_bucket[bucket]
             while grp:
                 chunk, grp = grp[:cap], grp[cap:]
-                for r, _ in chunk:
+                for r, s in chunk:
                     self._note_admission(r)
+                    obs.instant("admit", uid=r.uid, slot=s)
                 prompts = [np.asarray(r.tokens) for r, _ in chunk]
-                tok0, pf = self._run_prefill(prompts, self._group_size(
-                    len(chunk)), bucket)
-                for i, (r, s) in enumerate(chunk):
-                    L = len(prompts[i])
-                    table = self.pool.store_prefill(pf, L, row=i)
-                    self._place(r, s, int(tok0[i]), L, table, results)
+                # the reference's trace names: a batch-1 "prefill" span, a
+                # "prefill_group" span for a fused group
+                span = (obs.span("prefill", uid=chunk[0][0].uid,
+                                 L=len(prompts[0])) if len(chunk) == 1 else
+                        obs.span("prefill_group", n=len(chunk),
+                                 bucket=bucket))
+                with span:
+                    tok0, pf = self._run_prefill(prompts, self._group_size(
+                        len(chunk)), bucket)
+                    for i, (r, s) in enumerate(chunk):
+                        L = len(prompts[i])
+                        table = self.pool.store_prefill(pf, L, row=i)
+                        self._place(r, s, int(tok0[i]), L, table, results)
 
-    def _retire(self, uid: int):
-        self._rt.pop(uid, None)
+    def _retire(self, uid: int, n_tokens: int):
+        """Fold a finished request's timing into the histograms and, when
+        tracing is armed, emit its trace row: a ``ttft`` span from first
+        visibility to the prefill token and a ``decode`` span from first
+        token to retirement carrying the mean TBT."""
+        rt = self._rt.pop(uid, None)
         self._sched_skips.pop(uid, None)
+        if rt is None:
+            return
+        now = time.perf_counter_ns()
+        ft = rt.get("first_tok", now)
+        tbt_ms = ((now - ft) / 1e6) / (n_tokens - 1) if n_tokens > 1 else 0.0
+        if n_tokens > 1:
+            self._h_tbt.observe(tbt_ms)
+        s = obs.get()
+        if s is None or s.tracer is None:
+            return
+        tr = s.tracer
+        tid = uid + 1                       # row per request; engine row = 0
+        tr.thread_name(tid, f"req {uid}")
+        tr.complete("ttft", tr.ts_of(rt["visible"]),
+                    (ft - rt["visible"]) / 1e3, tid=tid, uid=uid)
+        tr.complete("decode", tr.ts_of(ft), (now - ft) / 1e3, tid=tid,
+                    uid=uid, tokens=n_tokens, tbt_ms=round(tbt_ms, 4))
+        tr.instant("retire", uid=uid)
 
     def _readmit(self, p: _Parked, slot: int):
         table = p.table if p.table is not None \
@@ -338,7 +397,8 @@ class BatchedEngine:
         self._set_slot_io(slot, int(p.last_tok), p.pos, p.uid)
         self.slots[slot] = _Slot(uid=p.uid, prompt_len=p.prompt_len,
                                  max_new=p.max_new, tokens=p.tokens)
-        self._n["readmits"] += 1
+        self._c_readmits.inc()
+        obs.instant("readmit", uid=p.uid, slot=slot, pos=p.pos)
 
     # -- preemption --------------------------------------------------------
     def _park_slot(self, slot: int) -> _Parked:
@@ -361,9 +421,11 @@ class BatchedEngine:
         if self.bscfg.evict_parked_to_host:
             parked.host = self.pool.evict_to_host(parked.table)
             parked.table = None
-            self._n["host_evictions"] += 1
+            self._c_evict.inc()
+            obs.instant("evict", uid=st.uid, slot=slot)
         self.slots[slot] = None
-        self._n["preemptions"] += 1
+        self._c_preempt.inc()
+        obs.instant("preempt", uid=st.uid, slot=slot, pos=pos)
         return parked
 
     def preempt(self, uid: int) -> _Parked:
@@ -508,15 +570,16 @@ class BatchedEngine:
                     self.slots[s] = None
                     if self.paged:
                         self._release_slot(s)
-                    self._retire(st.uid)
+                    self._retire(st.uid, len(results[st.uid]))
                     break
 
     def _select_admissions(self, pending: list[Request], step_no: int,
                            k: int) -> list[Request]:
         """Pick up to ``k`` admissible requests: FIFO, or (``"slo"``) by
-        queue-wait age normalised by min(slo_ttft_ms, observed median queue
-        wait) minus a projected-tail penalty; a request passed over
-        ``preempt_patience`` times scores +inf (the starvation floor)."""
+        queue-wait age normalised by min(slo_ttft_ms, the p50 of the
+        queue-wait histogram, log-linear inside its bucket) minus a
+        projected-tail penalty; a request passed over ``preempt_patience``
+        times scores +inf (the starvation floor)."""
         adm = [r for r in pending if r.arrival <= step_no]
         if not adm or k <= 0:
             return []
@@ -525,9 +588,8 @@ class BatchedEngine:
         else:
             now = time.perf_counter_ns()
             slo = max(float(self.bscfg.slo_ttft_ms), 1e-3)
-            q50 = (float(np.median(self._queue_waits_ms))
-                   if self._queue_waits_ms else 0.0)
-            norm = min(slo, q50) if q50 > 0 else slo
+            q50 = float(self._h_queue.quantile(0.5, exact=True))
+            norm = min(slo, q50) if np.isfinite(q50) and q50 > 0 else slo
             floor = max(1, self.bscfg.preempt_patience)
 
             def score(r: Request) -> float:
@@ -547,7 +609,7 @@ class BatchedEngine:
         return chosen
 
     def run(self, requests: list[Request]) -> dict[int, np.ndarray]:
-        self._reset_counts()
+        self.metrics.reset()
         self._rt = {}
         self._sched_skips = {}
         pending = sorted(requests, key=lambda r: (r.arrival, r.uid))
@@ -556,6 +618,9 @@ class BatchedEngine:
         results: dict[int, np.ndarray] = {}
         step_no = 0
         starve_rounds = 0
+        tracing = obs.get() is not None and obs.get().tracer is not None
+        if tracing:
+            obs.get().tracer.thread_name(0, "engine")
         while pending or parked or self._n_active():
             now = time.perf_counter_ns()
             for r in pending:
@@ -579,16 +644,21 @@ class BatchedEngine:
                     step_no = max(step_no, pending[0].arrival)
                     continue
                 break
-            chunk = self._rounds()
+            with obs.span("round", step=step_no):
+                chunk = self._rounds()
             n_act = self._n_active()
             step_no += self.bscfg.sync_every
-            self._steps = step_no
-            self._n["rounds"] += 1
-            self._n["productive_slot_steps"] += n_act * self.bscfg.sync_every
+            self._g_steps.set(step_no)
+            self._g_active.set(n_act)
+            self._c_rounds.inc()
+            self._c_prod.inc(n_act * self.bscfg.sync_every)
+            if tracing:
+                obs.counter_event("slots", active=n_act,
+                                  pool_used=self.pool.stats()["used"])
             before = len(results)
             self._harvest(chunk, results)
             if self.bscfg.defrag_every and \
-                    self._n["rounds"] % self.bscfg.defrag_every == 0:
+                    self._c_rounds.exact % self.bscfg.defrag_every == 0:
                 self.compact_pool()
             # starvation -> preempt the longest-remaining-tail slot
             waiting = (any(r.arrival <= step_no for r in pending)
@@ -611,10 +681,10 @@ class BatchedEngine:
                 results[st.uid] = np.asarray(st.tokens[:st.max_new], np.int32)
                 if self.paged:
                     self._release_slot(s)
-                self._retire(st.uid)
+                self._retire(st.uid, len(results[st.uid]))
         self.slots = [None] * self.bscfg.slots
-        self._n["emitted_tokens"] += sum(len(v) for v in results.values())
-        denom = self.bscfg.slots * self._n["rounds"] * self.bscfg.sync_every
-        self._occupancy = (self._n["productive_slot_steps"] / denom
-                           if denom else 0.0)
+        self._c_emitted.inc(sum(len(v) for v in results.values()))
+        denom = self.bscfg.slots * self._c_rounds.exact \
+            * self.bscfg.sync_every
+        self._g_occ.set(self._c_prod.exact / denom if denom else 0.0)
         return results

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -31,6 +32,9 @@ class ServeConfig:
     quantized_kv: bool = False
     temperature: float = 0.0   # 0 = greedy
     seed: int = 0              # sampling stream root
+    # per-layer KV formats (repro_torch.autotune.FormatPolicy | None);
+    # None keeps attention.KV_FMT everywhere
+    kv_policy: Any = None
     # decode attends the packed KV with the fused kernel (else the whole
     # cache is dequantized each step and attended by naive attention)
     fused_attention: bool = False
@@ -69,6 +73,7 @@ class Engine:
                                device=self.device)
         caches = init_caches(self.cfg, Bc, self.scfg.max_seq,
                              quantized_kv=self.scfg.quantized_kv,
+                             kv_policy=self.scfg.kv_policy,
                              device=self.device)
         model, cfg = self.model, self.cfg
         tokens = torch.as_tensor(prompts, device=self.device).to(torch.int64)

@@ -23,6 +23,7 @@ import torch
 from repro_torch.core.qtensor import QTensor
 from repro_torch.models import attention as A
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import kv_format
 
 
 class PoolExhausted(RuntimeError):
@@ -55,10 +56,11 @@ class PagedKVPool:
     slot row of a dense decode cache (``load_into_slot`` /
     ``store_from_slot``), the pool slabs (``store_prefill``, ``relocate``,
     ``compact``), and host memory (``evict_to_host`` /
-    ``restore_from_host``)."""
+    ``restore_from_host``). The slabs hold the F2P format that
+    ``kv_policy`` sets for ``kv/b0`` (``models.kv_format``)."""
 
     def __init__(self, cfg: ModelConfig, page_tokens: int, n_pages: int, *,
-                 device="cuda"):
+                 kv_policy=None, device="cuda"):
         if page_tokens < 1:
             raise ValueError(f"page_tokens must be >= 1, got {page_tokens}")
         if n_pages < 1:
@@ -71,9 +73,9 @@ class PagedKVPool:
         self.peak_used = 0
         shape = (cfg.n_layers, n_pages, page_tokens, cfg.n_kv_heads,
                  cfg.head_dim)
+        fmt = kv_format(kv_policy)
         self.slabs: dict[str, QTensor] = {
-            kv: A.empty_packed(shape, A.KV_FMT, self.device)
-            for kv in ("k", "v")}
+            kv: A.empty_packed(shape, fmt, self.device) for kv in ("k", "v")}
 
     # -- allocation --------------------------------------------------------
     def pages_for(self, length: int) -> int:

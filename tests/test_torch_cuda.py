@@ -15,8 +15,10 @@ import torch
 from repro_torch.core import qtensor as QT
 from repro_torch.core.f2p import F2PFormat, Flavor
 from repro_torch.core.formats import named_format
+from repro_torch.kernels import cuda as C
 from repro_torch.kernels import f2p_attention as A
 from repro_torch.kernels import f2p_counter as FC
+from repro_torch.kernels import f2p_matmul as MM
 from repro_torch.kernels import f2p_quant as Q
 
 pytestmark = pytest.mark.cuda
@@ -182,3 +184,67 @@ def test_counter_estimate_kernel_bitwise_vs_plain(gen):
                        FC.counter_estimate_plain(state, glut))
     with pytest.raises(TypeError):
         FC.counter_estimate(state.long(), glut)
+
+
+def _bits_any(t):
+    view = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+    return t.view(view.get(t.dtype, t.dtype))
+
+
+@pytest.mark.parametrize("name", ["f2p_sr_2_6s", "f2p_sr_2_8s",
+                                  "f2p_lr_2_8s", "f2p_sr_2_10s"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_quantize_weight_on_card_matches_cpu(gen, name, packed):
+    fmt = named_format(name)
+    w = torch.randn(512, 384, generator=gen, device="cuda") * 0.02
+    w[:128, 5] = 0.0
+    for x in (w, w.to(torch.bfloat16)):
+        c, s = MM.quantize_weight(x, fmt, packed=packed)
+        pc, ps = MM.quantize_weight(x.cpu(), fmt, packed=packed)
+        assert c.dtype == pc.dtype and c.shape == pc.shape
+        assert torch.equal(_bits_any(c).cpu(), _bits_any(pc))
+        assert torch.equal(s.cpu(), ps)
+
+
+@pytest.mark.parametrize("M", [1, 5, 8, 13, 64, 100, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,packed", [("f2p_sr_2_8s", False),
+                                         ("f2p_sr_2_10s", False),
+                                         ("f2p_sr_2_16s", False),
+                                         ("f2p_sr_2_6s", True),
+                                         ("f2p_lr_2_8s", True),
+                                         ("f2p_sr_2_12s", True)])
+def test_dequant_matmul_kernels_vs_plain(gen, M, dtype, name, packed):
+    """B8 (uint8 / uint16 codes) and B7 (packed words, fields straddling
+    words) against the plain version on the card, at decode, odd and
+    prefill M; K split across CTAs at the small M."""
+    fmt = named_format(name)
+    K, N = 512, 256
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(K, N, generator=gen, device="cuda") * 0.05
+    codes, scales = MM.quantize_weight(w, fmt)
+    C.reset_launches()
+    if packed:
+        words, _ = MM.quantize_weight(w, fmt, packed=True)
+        y = MM.dequant_matmul(x, words, scales, fmt=fmt, packed=True)
+        assert C.LAUNCHES["dequant_matmul_packed"] == 1
+    else:
+        y = MM.dequant_matmul(x, codes, scales, fmt=fmt)
+        assert C.LAUNCHES["dequant_matmul"] == 1
+    ref = MM.ref_dequant_matmul(x, codes, scales, fmt)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == (M, N)
+    torch.testing.assert_close(y, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+def test_dequant_matmul_kernel_raises_on_bad_inputs(gen):
+    fmt = named_format("f2p_sr_2_8s")
+    w = torch.randn(256, 256, generator=gen, device="cuda")
+    codes, scales = MM.quantize_weight(w, fmt)
+    with pytest.raises(TypeError):
+        MM.dequant_matmul(torch.zeros(8, 256, device="cuda",
+                                      dtype=torch.float16), codes, scales)
+    with pytest.raises(ValueError, match="contiguous"):
+        MM.dequant_matmul(torch.zeros(256, 8, device="cuda").T, codes,
+                          scales)

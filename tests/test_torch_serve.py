@@ -203,5 +203,6 @@ def test_import_hygiene_no_jax_no_reference():
     *names, count = proc.stdout.split()
     assert int(count) >= 36
     for sub in ("sketch", "obs", "telemetry", "autotune", "optim", "train",
-                "launch", "data", "faults"):
+                "launch", "data", "faults", "kernels.f2p_matmul",
+                "autotune.calibrate"):
         assert f"repro_torch.{sub}" in names, sub
