@@ -2,7 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase, ends with {"ok": ...}
+    python3 chip_smoke.py --only matmul  # phases 1-2 and the dequant matmul
+
+With ``--only matmul`` the script runs the device and build phases and
+phase 3's dequant matmul (B7/B8), prints their lines and ends without the
+final ``{"ok": ...}`` line, so it never stands in for a full run.
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -28,11 +33,14 @@ Phases (any failed check raises, so the script exits non-zero):
    dequant matmul (B8 on f2p_sr_2_8s uint8 codes, B7 on 6- and 8-bit
    packed words) at llama3.2-3b's projection shapes (K, N) in (3072,
    3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256): M = 8
-   with bf16 x, plus M = 2048 with f32 x at (3072, 8192); weights randn x
-   0.02 (torch.Generator seed 3) quantized on the card by quantize_weight
-   and held bitwise to the plain quantizer; each call within rtol=1e-4,
-   atol=1e-4 x max|y_plain| of ref_dequant_matmul; the yardstick is
-   torch.matmul on the weight dequantized up front (f32, TF32 off). No
+   with bf16 x (the decode route), plus M = 2048 with f32 x at (3072,
+   8192) (the tile route); weights randn x 0.02 (torch.Generator seed 3)
+   quantized on the card by quantize_weight and held bitwise to the plain
+   quantizer; each call within rtol=1e-4, atol=1e-4 x max|y_plain| of
+   ref_dequant_matmul; the yardstick is torch.matmul on the weight
+   dequantized up front (f32, TF32 off). At M = 8 each row also has the
+   device time per call of the kernels alone and of torch.matmul, from
+   torch.profiler over the same loop (the ms column includes the host). No
    model path calls B7/B8 (the reference's only caller is its benchmark
    folder), so their launches are those of one drive pass of
    dequant_matmul over the five shapes at M = 8, and the kernels line
@@ -178,6 +186,38 @@ def cuda_ms(fn, iters=30, warm=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, tries=3):
+    """Device time per call of everything ``fn`` launches (kernels only, no
+    host time), from torch.profiler over ``iters`` calls after a warm-up,
+    in ``tries`` profiled runs. The profiler can drop device events: a run
+    counts only if it kept ``iters`` times the events of one call (the
+    most per call that any run kept). None (not measured) where no run
+    kept them all, or where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return len(ev), sum(e.time_range.end - e.time_range.start for e in ev)
+
+    fn()
+    torch.cuda.synchronize()
+    runs = [run() for _ in range(tries)]
+    per_call = max(n // iters for n, _ in runs)
+    for n, tot in runs:
+        if per_call and n == iters * per_call:
+            return tot / iters / 1e3
+    log(f"device   : the profiler kept {[n for n, _ in runs]} device events "
+        f"of {iters} calls; device time not measured")
+    return None
 
 
 def bound_ms(nbytes: int) -> float:
@@ -505,9 +545,9 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     kv_len = torch.randint(512, S + 1, (B,), generator=g, device=dev)
     q = torch.randn(B, 1, K * G, hd, generator=g, device=dev)
     slab_k = QT.quantize(torch.randn(P, T, K, hd, generator=g, device=dev),
-                         fmt, block=hd)
+                         fmt, block=hd, packed=True)
     slab_v = QT.quantize(torch.randn(P, T, K, hd, generator=g, device=dev),
-                         fmt, block=hd)
+                         fmt, block=hd, packed=True)
     perm = torch.randperm(P, generator=g, device=dev)
     pages = perm[:B * maxp].reshape(B, maxp).to(torch.int32)
     dense_k = A.gather_pages_to_dense(slab_k, pages)
@@ -752,9 +792,13 @@ def check_matmul(dev):
     x), the library path that stands in for the missing model caller; then
     every call is held to the plain version (rtol 1e-4, atol 1e-4 x
     max|y_plain|) and timed beside its bound and torch.matmul on the
-    weight dequantized up front (f32, TF32 off). M = 2048 with f32 x runs
-    at (3072, 8192). The kernels line reports one decode step of the full
-    model at M = 8 (the per-shape times x decode_step_counts)."""
+    weight dequantized up front (f32, TF32 off): ``ms`` with CUDA events
+    around the Python wrapper in a loop (host included, as the kernels
+    line has always reported it) and, at M = 8, ``device_ms`` from
+    torch.profiler over the same loop (the kernels alone). M = 8 takes the
+    decode route, M = 2048 with f32 x (at (3072, 8192)) the tile route.
+    The kernels line reports one decode step of the full model at M = 8
+    (the per-shape times x decode_step_counts)."""
     import torch
 
     from repro_torch.configs import full_config
@@ -796,11 +840,15 @@ def check_matmul(dev):
                 nbytes = code_bytes + scales.numel() * 4 \
                     + x.numel() * x.element_size() + M * N * 4
                 ops = 2 * M * K * N
+                def call():
+                    return MM.dequant_matmul(x, q, scales, fmt=fmt,
+                                             packed=packed)
+
                 rows.append(dict(
                     kind=kind, K=K, N=N, M=M, x=str(dt).split(".")[-1],
-                    ms=cuda_ms(lambda: MM.dequant_matmul(
-                        x, q, scales, fmt=fmt, packed=packed),
-                        iters=5 if M > 8 else 20),
+                    route=MM.matmul_route(M, 128),
+                    ms=cuda_ms(call, iters=5 if M > 8 else 20),
+                    device_ms=device_ms(call) if M == 8 else None,
                     plain_ms=cuda_ms(lambda: plain_matmul(
                         x, q, scales, fmt, packed), iters=2 if big else 5,
                         warm=1),
@@ -814,17 +862,25 @@ def check_matmul(dev):
         wd = torch.cat([MM.dequantize_weight(
             q[:, j0:j1].contiguous(), scales[:, j0:j1].contiguous(),
             kinds[0][1]) for j0, j1 in _col_chunks(N)], dim=1)
-        for r in rows:
-            if (r["K"], r["N"]) == (K, N) and "library_ms" not in r:
-                xf = xs[r["M"]].float()
-                r["library_ms"] = cuda_ms(lambda: torch.matmul(xf, wd),
-                                          iters=5 if r["M"] > 8 else 20)
+        lib = {}
+        for M, _ in cases:
+            xf = xs[M].float()
+
+            def mm():
+                return torch.matmul(xf, wd)
+
+            lib[M] = (cuda_ms(mm, iters=5 if M > 8 else 20),
+                      device_ms(mm) if M == 8 else None)
         for r in rows[-3 * len(cases):]:
+            r["library_ms"], r["library_device_ms"] = lib[r["M"]]
+            dev_note = ("" if r["device_ms"] is None else
+                        f"; device {_ms(r['device_ms'])} vs "
+                        f"{_ms(r['library_device_ms'])}")
             log(f"matmul   : {r['kind']:27s} M={r['M']:4d} {r['x']:8s} "
-                f"K={K} N={N}: {r['ms']:.5f} ms (bound "
+                f"K={K} N={N} {r['route']:6s}: {r['ms']:.5f} ms (bound "
                 f"{max(r['bytes_ms'], r['ops_ms']):.5f}, plain "
-                f"{r['plain_ms']:.3f}, torch.matmul {r['library_ms']:.5f}),"
-                f" max |err| {r['max_abs_err']:.2e}")
+                f"{r['plain_ms']:.3f}, torch.matmul {r['library_ms']:.5f}"
+                f"{dev_note}), max |err| {r['max_abs_err']:.2e}")
         del w, q, scales, wd, xs
         torch.cuda.empty_cache()
     log("matmul   : B8 and B7 (6/8-bit) == plain within rtol 1e-4 at every "
@@ -833,8 +889,11 @@ def check_matmul(dev):
     for name, kind in (("dequant_matmul", "dequant_matmul"),
                        ("dequant_matmul_packed", "dequant_matmul_packed")):
         step = [r for r in rows if r["kind"] == kind and r["M"] == 8]
-        tot = {k: sum(counts[(r["K"], r["N"])] * r[k] for r in step)
-               for k in ("ms", "plain_ms", "library_ms", "bytes", "ops")}
+        keys = ("ms", "plain_ms", "library_ms", "bytes", "ops", "device_ms",
+                "library_device_ms")
+        tot = {k: (None if any(r[k] is None for r in step) else
+                   sum(counts[(r["K"], r["N"])] * r[k] for r in step))
+               for k in keys}
         b_ms = bound_ms(tot["bytes"])
         o_ms = tot["ops"] / F32_OPS_PER_S * 1e3
         out[name] = dict(
@@ -843,7 +902,8 @@ def check_matmul(dev):
             library_ms=tot["library_ms"],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["kind"] == kind),
-            launches=launches[name],
+            launches=launches[name], device_ms=tot["device_ms"],
+            library_device_ms=tot["library_device_ms"],
             shape=f"one decode step of {ARCH} at M = 8 (bf16 x): "
                   f"{sum(counts.values())} projections over "
                   f"{len(MATMUL_SHAPES)} shapes, "
@@ -853,9 +913,15 @@ def check_matmul(dev):
         log(f"matmul   : {name}: {tot['ms']:.3f} ms per decode step (bound "
             f"{max(b_ms, o_ms):.3f} ms by "
             f"{out[name]['bound_by']}, torch.matmul {tot['library_ms']:.3f}"
-            f" ms, plain {tot['plain_ms']:.1f} ms); {launches[name]} "
+            f" ms, plain {tot['plain_ms']:.1f} ms; device only "
+            f"{_ms(tot['device_ms'])} vs torch.matmul "
+            f"{_ms(tot['library_device_ms'])} ms); {launches[name]} "
             "launches in the drive pass")
     return out
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.5f}"
 
 
 # ---------------------------------------------------------------------------
@@ -1699,10 +1765,17 @@ def train_resume_phase(dev) -> dict:
 
 
 def main():
+    import argparse
     import gc
 
     import torch
 
+    ap = argparse.ArgumentParser(description="chip smoke test of the port")
+    ap.add_argument("--only", choices=("matmul",),
+                    help="matmul: phases 1-2 and the dequant matmul of phase "
+                         "3 only (the quick loop for B7/B8); prints no final "
+                         "ok line")
+    only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
                          "run only on an NVIDIA GPU")
@@ -1723,6 +1796,17 @@ def main():
     for line in C.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas  :", line.strip())
+    if only == "matmul":
+        mm = check_matmul(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_matmul.json").write_text(json.dumps(
+            {"device": smi, "matmul": mm}, indent=1, default=str))
+        print(json.dumps({"matmul": {k: {f: v[f] for f in (
+            "ms", "device_ms", "library_ms", "library_device_ms",
+            "bound_ms", "launches", "max_abs_err")} for k, v in mm.items()}}))
+        print(smi)
+        return
 
     t0 = time.perf_counter()
     trace = make_trace(N_PACKETS, N_FLOWS, seed=0)

@@ -20,8 +20,11 @@ Only the LAST axis is blocked and leading dims are never merged with it.
 here (the KV cache and the pool slabs are updated where they live, the
 torch counterpart of buffer donation).
 
-``quantize`` defaults to ``packed=True`` (the port's caches are always
-packed, ROADMAP C1); the reference's ``packed=None`` config fields resolve
+``quantize``, ``QTensor`` and ``QTensor.from_parts`` default to
+``packed=False``, as the reference does, so a call ported line for line
+gets the same storage and the same bytes; the port's KV caches ask for
+packed words explicitly (``models.attention.quantize_kv``,
+``empty_packed``). The reference's ``packed=None`` config fields resolve
 through :func:`resolve_packed`, which has no ``F2P_PACKED`` environment
 default in the port: ``None`` means unpacked, as the reference with the
 variable unset.
@@ -83,11 +86,11 @@ class QTensor:
     fmt: F2PFormat
     block: int
     shape: tuple
-    packed: bool = True
+    packed: bool = False
 
     @classmethod
     def from_parts(cls, codes, scales, fmt: F2PFormat, block: int, shape,
-                   packed: bool = True) -> "QTensor":
+                   packed: bool = False) -> "QTensor":
         """Zero-copy reassembly with the reference's shape validation:
         packed codes carry exactly ``packed_words(npad, n_bits)`` uint32
         words per row, unpacked codes ``npad`` codes of the format's code
@@ -209,7 +212,7 @@ def _pad_last(x: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def quantize(x: torch.Tensor, fmt: F2PFormat, *, block: int = 128,
-             scale_mode: str = "f32", packed: bool = True) -> QTensor:
+             scale_mode: str = "f32", packed: bool = False) -> QTensor:
     """Blockwise absmax-scaled F2P quantization of any-rank ``x`` along its
     last axis (padded to the block multiple; leading dims kept). CPU
     tensors run the plain versions, CUDA tensors the ``quantize`` (B5,

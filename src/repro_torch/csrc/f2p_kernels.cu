@@ -14,6 +14,8 @@
 //   counter_estimate_kernel   <- repro/kernels/f2p_counter.py::_estimate_kernel
 //   dequant_matmul_kernel<UnpackedW>  <- repro/kernels/f2p_matmul.py::_kernel
 //   dequant_matmul_kernel<PackedW>    <- repro/kernels/f2p_matmul.py::_packed_kernel
+//     (M > 8; dequant_matmul_decode_kernel<DecU8 | DecU16 | DecPacked>
+//      takes M <= 8, the decode batch)
 //
 // Built with route (b): nvcc into a shared library with a plain C interface,
 // loaded with ctypes (repro_torch/kernels/cuda.py). Every entry takes the
@@ -602,10 +604,11 @@ __global__ void counter_estimate_kernel(const int* __restrict__ state,
 // in registers. Formats of at most 10 bits decode through a table in
 // shared memory built with f2p_decode (the same values bit for bit), wider
 // ones call f2p_decode per element. When the output tiles alone leave the
-// card idle (decode shapes), K is split across `splits` CTAs, each writing
-// its partial tile to part[split]; sum_splits_kernel then adds the
-// partials in split order, so the result does not depend on scheduling.
-// Later: wgmma, TMA staging and a pipelined packed stream.
+// card idle, K is split across `splits` CTAs, each writing its partial
+// tile to part[split]; sum_splits_kernel then adds the partials in split
+// order, so the result does not depend on scheduling. This tile kernel
+// serves M above the decode route's 8 rows (a prefill batch); a decode
+// batch goes to dequant_matmul_decode_kernel below.
 // ---------------------------------------------------------------------------
 constexpr int kMmBN = 128, kMmBK = 32, kMmThreads = 256, kMmLut = 1024;
 
@@ -746,6 +749,455 @@ static void launch_matmul_in(int x_bf16, const void* x, WSrc w,
   else
     launch_matmul<float>(x, w, scales, part, M, N, K, block, bm, k_chunk,
                          splits, f, stream);
+}
+
+// ---------------------------------------------------------------------------
+// dequant_matmul, decode route (M <= 8): the same function as
+// dequant_matmul_kernel, y[M, N] f32 = f32(x) @ (decode(code) * scale), for
+// a decode batch, where the kernel has to stream the weight at the card's
+// memory rate and do M f32 FMAs per weight on the way.
+//
+// Layout of the work. Lane l of every warp owns a strip of 8 consecutive
+// columns n0 = 256 * blockIdx.x + 8 l and keeps 8 x 8 f32 sums in
+// registers, one row of them per row of x (rows >= M read x as zero).
+// The CTA's 8 warps share those 256 columns and take consecutive ranges of
+// the CTA's K chunk (blockIdx.y); at the end they are added in a fixed
+// tree order through shared memory. With K split over several CTAs, each
+// writes its partial to part[split], and the last CTA of a column group
+// to finish (an atomic count per group, reset by that CTA) adds the
+// partials in split order into y: the result does not depend on
+// scheduling, and no second kernel is launched. The grid (column groups x
+// K splits) is planned by repro_torch.kernels.f2p_matmul.decode_plan.
+//
+// The stream. Each warp keeps a ring of dec_stages() units of 4 K rows (its
+// 256 columns of each row: 256 B of uint8 codes, 512 B of uint16 codes,
+// 32 n_bits bytes of packed words) in shared memory, filled with 16-byte
+// cp.async copies: all but one unit are in flight while one is consumed
+// (a ring of about 5 KB per warp). Where a row's span is not 16-byte
+// aligned (a row stride that is not a multiple of 16 bytes) the warp copies
+// its units with plain loads instead. Packed fields: the lane's 8 fields
+// start at bit 8 * n_bits * l of the span, a multiple of 8, so the lane
+// reads the 3 (n_bits <= 8) or 5 words that cover them, funnel-shifts the
+// window to its first field and cuts the fields out (any n_bits <= 16).
+//
+// Decode and scale. Formats of at most 8 bits decode through a table in
+// shared memory replicated once per bank (entry c of lane l at c * 32 + l,
+// so random codes never collide on a bank), wider ones with f2p_decode.
+// Every W element is the correctly rounded f32 product decode * scale (as
+// the plain version's W); a unit lies in one scale block (block % 4 == 0),
+// and the next block's scales are loaded while the unit before it is
+// consumed, with no divide. x[:, chunk] is staged once per CTA as f32,
+// k-major, and read as broadcast 16-byte loads.
+// ---------------------------------------------------------------------------
+constexpr int kDecStrip = 8, kDecCols = 32 * kDecStrip, kDecUnit = 4, kDecWarps = 8;
+constexpr int kDecRows = 8;           // rows of x: the route's M <= 8
+constexpr int kDecRingBytes = 5120;   // about one warp's ring of units
+constexpr int kDecMaxStages = 8;
+static_assert(32 * kDecWarps == kDecCols, "the last CTA adds one column per thread");
+
+// slots of a warp's ring for K rows of row_bytes bytes each
+__host__ __device__ constexpr int dec_stages(int row_bytes) {
+  const int s = kDecRingBytes / (kDecUnit * row_bytes);
+  return s < 2 ? 2 : s > kDecMaxStages ? kDecMaxStages : s;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// wait until at most n (1 to kDecMaxStages - 1) groups of copies are in flight
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<kDecMaxStages - 1>(); break;
+  }
+}
+
+extern __shared__ float4 dec_smem4[];   // the decode kernel's shared memory; its table first
+
+// A weight source: the byte span of column group cg in K row 0 (`span0`,
+// with the bytes of it that lie in the row; row k's is `stride` bytes
+// further per row), of `pieces()` 16-byte pieces, and the 8 codes of lane l
+// from that span staged in shared memory (`fields`), or for a table decode
+// their byte offsets in the bank-replicated table, c * 128 + 4 l
+// (`lut_offsets`). kTable: 1 always the table (byte codes), 0 never
+// (uint16 codes hold more than 8 bits), -1 up to 8 bits (packed words).
+struct DecU8 {
+  static constexpr int kTable = 1;
+  static constexpr int kPieces = 16, kElem = 1;
+  const uint8_t* __restrict__ p;
+  int N;
+  __host__ __device__ long long stride() const { return N; }
+  __host__ __device__ int pieces() const { return kPieces; }
+  __device__ __forceinline__ const uint8_t* span0(int cg, int& valid) const {
+    valid = min(16 * kPieces, N - cg * kDecCols);
+    return p + cg * kDecCols;
+  }
+  __device__ __forceinline__ void lut_offsets(const uint8_t* row, uint32_t* o, int lane) const {
+    const uint2 v = *reinterpret_cast<const uint2*>(row + 8 * lane);
+    const uint32_t l4 = 4u * lane;
+    o[0] = ((v.x << 7) & 0x7F80u) | l4;
+    o[1] = ((v.x >> 1) & 0x7F80u) | l4;
+    o[2] = ((v.x >> 9) & 0x7F80u) | l4;
+    o[3] = ((v.x >> 17) & 0x7F80u) | l4;
+    o[4] = ((v.y << 7) & 0x7F80u) | l4;
+    o[5] = ((v.y >> 1) & 0x7F80u) | l4;
+    o[6] = ((v.y >> 9) & 0x7F80u) | l4;
+    o[7] = ((v.y >> 17) & 0x7F80u) | l4;
+  }
+};
+
+struct DecU16 {
+  static constexpr int kTable = 0;
+  static constexpr int kElem = 2;
+  const uint16_t* __restrict__ p;
+  int N;
+  __host__ __device__ long long stride() const { return 2LL * N; }
+  __host__ __device__ int pieces() const { return 32; }
+  __device__ __forceinline__ const uint8_t* span0(int cg, int& valid) const {
+    valid = 2 * min(kDecCols, N - cg * kDecCols);
+    return reinterpret_cast<const uint8_t*>(p + cg * kDecCols);
+  }
+  __device__ __forceinline__ void fields(const uint8_t* row, uint32_t* c, int lane) const {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + 16 * lane);
+    const uint32_t h[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      c[2 * j] = h[j] & 0xFFFFu;
+      c[2 * j + 1] = h[j] >> 16;
+    }
+  }
+};
+
+// bit-packed words, any n_bits <= 16
+struct DecPacked {
+  static constexpr int kTable = -1;
+  static constexpr int kElem = 4;
+  const uint32_t* __restrict__ words;
+  int W, nb;
+  __host__ __device__ long long stride() const { return 4LL * W; }
+  __host__ __device__ int pieces() const { return 2 * nb; }
+  __device__ __forceinline__ const uint8_t* span0(int cg, int& valid) const {
+    const int w0 = cg * 8 * nb;
+    valid = 4 * min(8 * nb, W - w0);
+    return reinterpret_cast<const uint8_t*>(words + w0);
+  }
+  // n_bits <= 8: the 8 fields fill at most 64 bits of the window, 4 in
+  // each word; one funnel shift moves field j of a word to bit 7 (c * 128)
+  __device__ __forceinline__ void lut_offsets(const uint8_t* row, uint32_t* o, int lane) const {
+    const int bit = 8 * nb * lane, s = bit & 31;   // s is 0, 8, 16 or 24
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(row) + (bit >> 5);
+    const uint32_t a = __funnelshift_r(q[0], q[1], s);
+    const uint32_t h = __funnelshift_rc(a, __funnelshift_r(q[1], q[2], s), 4 * nb);
+    const uint32_t m7 = ((1u << nb) - 1u) << 7, l4 = 4u * lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      o[j] = (__funnelshift_r(a << 7, a >> 25, j * nb) & m7) | l4;
+      o[4 + j] = (__funnelshift_r(h << 7, h >> 25, j * nb) & m7) | l4;
+    }
+  }
+  __device__ __forceinline__ void fields(const uint8_t* row, uint32_t* c, int lane) const {
+    const int bit = 8 * nb * lane, s = bit & 31;
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(row) + (bit >> 5);
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __funnelshift_r(q[i], q[i + 1], s);
+    // fields 0-3 in the low 64 bits of the window, 4-7 from bit 4 nb on
+    const uint64_t lo = ((uint64_t)v[1] << 32) | v[0];
+    const uint64_t hi = ((uint64_t)v[3] << 32) | v[2];
+    const uint64_t mid = nb == 16 ? hi : (lo >> (4 * nb)) | (hi << (64 - 4 * nb));
+    const uint32_t mask = (1u << nb) - 1u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      c[j] = (uint32_t)(lo >> (j * nb)) & mask;
+      c[4 + j] = (uint32_t)(mid >> (j * nb)) & mask;
+    }
+  }
+};
+
+__device__ __forceinline__ float x_at(const void* x, int x_bf16, size_t i) {
+  return x_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[i])
+                : reinterpret_cast<const float*>(x)[i];
+}
+
+__device__ __forceinline__ void load_scales(float* s, const float* __restrict__ row,
+                                            int n0, int N, int vec) {
+  if (vec && n0 < N) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(row + n0));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(row + n0) + 1);
+    s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+    s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kDecStrip; ++j) s[j] = n0 + j < N ? __ldg(row + n0 + j) : 0.0f;
+  }
+}
+
+// One warp copies the spans of the unit's kDecUnit K rows (the first at
+// row0, the next `stride` bytes apart; `valid` bytes of each lie in its
+// row) into a ring slot of kDecUnit rows of 16 * pieces bytes (pieces <=
+// 32): 16-byte cp.async copies (the bytes past the row's end read as
+// zero), or plain element copies where the spans are not 16-byte aligned.
+// Lane l takes pieces l, l + 32, ..., piece i in row i / pieces, found as
+// (i * inv) >> 16 with inv = ceil(2^16 / pieces) (exact for i < 2^9).
+template <typename Src>
+__device__ __forceinline__ void dec_fill(uint8_t* slot, const uint8_t* row0, long long stride,
+                                         int valid, int lane, int pieces, int inv, int async) {
+#pragma unroll
+  for (int t = 0; t < kDecUnit; ++t) {
+    const int i = lane + 32 * t;
+    if (i >= kDecUnit * pieces) break;
+    const int r = (i * inv) >> 16, off = (i - r * pieces) << 4;
+    const uint8_t* src = row0 + r * stride + off;
+    uint8_t* dst = slot + r * (pieces << 4) + off;
+    const int n = min(max(valid - off, 0), 16);
+    if (async) {
+      cp_async16(dst, n > 0 ? src : row0, n);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; e += Src::kElem) {
+        if (Src::kElem == 1) dst[e] = e < n ? src[e] : 0;
+        if (Src::kElem == 2)
+          *reinterpret_cast<uint16_t*>(dst + e) =
+              e < n ? *reinterpret_cast<const uint16_t*>(src + e) : 0;
+        if (Src::kElem == 4)
+          *reinterpret_cast<uint32_t*>(dst + e) =
+              e < n ? *reinterpret_cast<const uint32_t*>(src + e) : 0u;
+      }
+    }
+  }
+}
+
+// One unit: kDecUnit staged rows of row_bytes bytes of codes into the sums.
+template <typename Src>
+__device__ __forceinline__ void dec_unit(const Src& w, const uint8_t* slot, int row_bytes,
+                                         const float* sc, const float* xr, int lane,
+                                         int lut_bits, const F2PConsts& f,
+                                         float (&acc)[kDecRows][kDecStrip]) {
+#pragma unroll
+  for (int r = 0; r < kDecUnit; ++r) {
+    const uint8_t* row = slot + r * row_bytes;
+    float wv[kDecStrip];
+    const bool table = Src::kTable == 1 || (Src::kTable == -1 && lut_bits);
+    if constexpr (Src::kTable != 1) {
+      if (!table) {
+        uint32_t c[kDecStrip];
+        w.fields(row, c, lane);
+#pragma unroll
+        for (int j = 0; j < kDecStrip; ++j) wv[j] = __fmul_rn(f2p_decode(c[j], f), sc[j]);
+      }
+    }
+    if constexpr (Src::kTable != 0) {
+      if (table) {
+        uint32_t o[kDecStrip];
+        w.lut_offsets(row, o, lane);
+#pragma unroll
+        for (int j = 0; j < kDecStrip; ++j)
+          wv[j] = __fmul_rn(*reinterpret_cast<const float*>(
+                                reinterpret_cast<const uint8_t*>(dec_smem4) + o[j]), sc[j]);
+      }
+    }
+    const float4 x0 = reinterpret_cast<const float4*>(xr + r * kDecRows)[0];
+    const float4 x1 = reinterpret_cast<const float4*>(xr + r * kDecRows)[1];
+    const float xm[kDecRows] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+    for (int m = 0; m < kDecRows; ++m)
+#pragma unroll
+      for (int j = 0; j < kDecStrip; ++j) acc[m][j] = fmaf(xm[m], wv[j], acc[m][j]);
+  }
+}
+
+template <typename Src>
+__global__ void __launch_bounds__(32 * kDecWarps, 2)
+dequant_matmul_decode_kernel(const void* __restrict__ x, int x_bf16, Src w,
+                             const float* __restrict__ scales, float* __restrict__ part,
+                             float* __restrict__ y, int* __restrict__ counts, int M,
+                             int N, int K, int lb, int k_chunk, int splits, int lut_bits,
+                             int vec, int async, F2PConsts f) {
+  const int pieces = w.pieces(), row_bytes = 16 * pieces, inv = (0xFFFF + pieces) / pieces;
+  const int S = dec_stages(row_bytes);
+  const int slot = kDecUnit * row_bytes + 16;   // +16: a lane's word window may run past
+  float* smem = reinterpret_cast<float*>(dec_smem4);
+  float* xs = smem + (lut_bits ? 32 << lut_bits : 0);   // [chunk rows][8], after the table
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(xs + (size_t)k_chunk * kDecRows) +
+                  (size_t)warp * S * slot;
+  const int cg = blockIdx.x, n0 = cg * kDecCols + lane * kDecStrip;
+  const int kb = blockIdx.y * k_chunk, ke = min(K, kb + k_chunk);
+  const int per = ((ke - kb) / kDecUnit + kDecWarps - 1) / kDecWarps * kDecUnit;
+  const int wk0 = min(ke, kb + warp * per), wk1 = min(ke, wk0 + per);
+  const int nunits = (wk1 - wk0) / kDecUnit;
+  const long long stride = w.stride();
+  int valid;
+  const uint8_t* span0 = w.span0(cg, valid);
+
+  // the first S - 1 units go in flight before the table and x are staged
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nunits)
+      dec_fill<Src>(ring + i * slot, span0 + (wk0 + i * kDecUnit) * stride, stride, valid,
+                    lane, pieces, inv, async);
+    cp_async_commit();
+  }
+  float sc[kDecStrip], sn[kDecStrip];
+  if (nunits > 0) load_scales(sc, scales + (size_t)(wk0 >> lb) * N, n0, N, vec);
+  if (lut_bits) {
+    const uint32_t cmask = (1u << f.n_bits) - 1u;
+    for (int c = threadIdx.x; c < (1 << lut_bits); c += blockDim.x) {
+      const float d = f2p_decode((uint32_t)c & cmask, f);
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j) smem[c * 32 + ((j + lane) & 31)] = d;
+    }
+  }
+  for (int kk = threadIdx.x; kk < ke - kb; kk += blockDim.x) {
+    float v[kDecRows];
+#pragma unroll
+    for (int m = 0; m < kDecRows; ++m)
+      v[m] = m < M ? x_at(x, x_bf16, (size_t)m * K + kb + kk) : 0.0f;
+    reinterpret_cast<float4*>(xs + kk * kDecRows)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(xs + kk * kDecRows)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  __syncthreads();
+
+  float acc[kDecRows][kDecStrip];
+#pragma unroll
+  for (int m = 0; m < kDecRows; ++m)
+#pragma unroll
+    for (int j = 0; j < kDecStrip; ++j) acc[m][j] = 0.0f;
+  for (int u = 0, use = 0; u < nunits; ++u, use = use + 1 == S ? 0 : use + 1) {
+    // refill the slot consumed one unit ago, then wait for unit u
+    if (u + S - 1 < nunits)
+      dec_fill<Src>(ring + (use ? use - 1 : S - 1) * slot,
+                    span0 + (wk0 + (u + S - 1) * kDecUnit) * stride, stride, valid, lane,
+                    pieces, inv, async);
+    cp_async_commit();
+    cp_async_wait_n(S - 1);
+    __syncwarp();
+    const int k0 = wk0 + u * kDecUnit, kn = k0 + kDecUnit;
+    const bool next_block = u + 1 < nunits && (kn >> lb) != (k0 >> lb);
+    if (next_block) load_scales(sn, scales + (size_t)(kn >> lb) * N, n0, N, vec);
+    dec_unit<Src>(w, ring + use * slot, row_bytes, sc, xs + (k0 - kb) * kDecRows, lane,
+                  lut_bits, f, acc);
+    if (next_block) {
+#pragma unroll
+      for (int j = 0; j < kDecStrip; ++j) sc[j] = sn[j];
+    }
+    __syncwarp();   // every lane is done with the slot before it is refilled
+  }
+
+  // warps w and w + half add in a fixed tree: warp 0 ends with the CTA's sum
+  float* red = smem;   // [half][8 * 8][32], after every warp is done
+  for (int half = kDecWarps >> 1; half; half >>= 1) {
+    __syncthreads();
+    if (warp >= half && warp < 2 * half) {
+      float* dst = red + (size_t)(warp - half) * kDecRows * kDecStrip * 32 + lane;
+#pragma unroll
+      for (int m = 0; m < kDecRows; ++m)
+#pragma unroll
+        for (int j = 0; j < kDecStrip; ++j) dst[(m * kDecStrip + j) * 32] = acc[m][j];
+    }
+    __syncthreads();
+    if (warp < half) {
+      const float* src = red + (size_t)warp * kDecRows * kDecStrip * 32 + lane;
+#pragma unroll
+      for (int m = 0; m < kDecRows; ++m)
+#pragma unroll
+        for (int j = 0; j < kDecStrip; ++j) acc[m][j] += src[(m * kDecStrip + j) * 32];
+    }
+  }
+  const bool live = n0 < N;
+  if (warp == 0 && live) {
+    float* out = (splits > 1 ? part + (size_t)blockIdx.y * M * N : y) + n0;
+#pragma unroll
+    for (int m = 0; m < kDecRows; ++m) {
+      if (m >= M) break;
+      float* o = out + (size_t)m * N;
+      if (vec) {
+        reinterpret_cast<float4*>(o)[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+        reinterpret_cast<float4*>(o)[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kDecStrip; ++j)
+          if (n0 + j < N) o[j] = acc[m][j];
+      }
+    }
+  }
+  if (splits <= 1) return;
+  // the last CTA of this column group to finish adds the partials, in
+  // split order, into y
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counts + cg, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x == 0) counts[cg] = 0;   // ready for the next launch on this stream
+  // thread t takes column t of the group and its M rows: the loads of
+  // several splits are in flight at once, each sum runs in split order
+  const int n = cg * kDecCols + threadIdx.x;
+  if (n >= N) return;
+  float t[kDecRows];
+#pragma unroll
+  for (int m = 0; m < kDecRows; ++m) t[m] = m < M ? __ldcg(part + (size_t)m * N + n) : 0.0f;
+#pragma unroll 8
+  for (int p = 1; p < splits; ++p) {
+    const float* pp = part + (size_t)p * M * N + n;
+#pragma unroll
+    for (int m = 0; m < kDecRows; ++m)
+      if (m < M) t[m] += __ldcg(pp + (size_t)m * N);
+  }
+#pragma unroll
+  for (int m = 0; m < kDecRows; ++m)
+    if (m < M) y[(size_t)m * N + n] = t[m];
+}
+
+// shared memory of one decode CTA: the table, the x chunk and the warps'
+// rings; after the main loop the reduction buffer of half the warps reuses
+// the first bytes
+static size_t decode_smem(int row_bytes, int lut_bits, int k_chunk) {
+  const size_t lut = lut_bits ? (32u << lut_bits) : 0u;
+  const size_t ring =
+      (size_t)kDecWarps * dec_stages(row_bytes) * (kDecUnit * row_bytes + 16);
+  const size_t main = (lut + (size_t)k_chunk * kDecRows) * sizeof(float) + ring;
+  const size_t red = (size_t)(kDecWarps / 2) * kDecRows * kDecStrip * 32 * sizeof(float);
+  return main > red ? main : red;
+}
+
+constexpr int kMaxDevices = 64;
+
+template <typename Src>
+static int launch_decode(const void* x, int x_bf16, Src w, const float* scales,
+                         float* part, float* y, int* counts, int M, int N, int K, int lb,
+                         int k_chunk, int splits, int lut_bits, int vec, int async,
+                         F2PConsts f, cudaStream_t stream) {
+  auto k = dequant_matmul_decode_kernel<Src>;
+  const size_t smem = decode_smem(16 * w.pieces(), lut_bits, k_chunk);
+  // past the 48 KB default the kernel must opt in, on each device (the
+  // attribute is the current device's)
+  static size_t opted[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > opted[dev])) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDevices) opted[dev] = smem;
+  }
+  const dim3 grid((N + kDecCols - 1) / kDecCols, splits);
+  k<<<grid, 32 * kDecWarps, smem, stream>>>(x, x_bf16, w, scales, part, y, counts, M, N, K,
+                                            lb, k_chunk, splits, lut_bits, vec, async, f);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -890,13 +1342,15 @@ int f2p_attention(const float* q3, const uint32_t* kw, const float* ks,
   a.nt = (S + tile - 1) / tile;
   a.scale = scale; a.fk = fk; a.fv = fv;
   const size_t smem = f2p_attention_smem(R, hd, tile, max(Wk, Wv));
-  static bool opted_in = false;   // once per process: allow up to 227 KB
-  if (!opted_in) {
+  static bool opted_in[kMaxDevices] = {};   // once per device: allow up to 227 KB
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices || !opted_in[dev]) {
     cudaFuncSetAttribute(attention_kernel<true>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     cudaFuncSetAttribute(attention_kernel<false>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    opted_in = true;
+    if (dev < kMaxDevices) opted_in[dev] = true;
   }
   if (pages)
     attention_kernel<true><<<B * K, kAttnThreads, smem, stream>>>(a);
@@ -939,6 +1393,40 @@ int f2p_dequant_matmul(const void* x, int x_bf16, const void* w, int code_bytes,
     sum_splits_kernel<<<grid, 256, 0, stream>>>(part, y, mn, splits);
   }
   return (int)cudaGetLastError();
+}
+
+// the decode route (M <= 8) of the same function: the plan (k_chunk,
+// splits) comes from f2p_matmul.decode_plan; block is a power of two and a
+// multiple of kDecUnit. With splits > 1, part holds splits x M x N floats
+// and counts one int per column group, zero before the launch and zero
+// again after it.
+int f2p_dequant_matmul_decode(const void* x, int x_bf16, const void* w,
+                              int code_bytes, int W, const float* scales,
+                              float* part, float* y, int* counts, int M, int N,
+                              int K, int block, int k_chunk, int splits,
+                              F2PConsts f, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (M > kDecRows) return (int)cudaErrorInvalidValue;
+  const int nb = f.n_bits;
+  // byte codes: a table of every byte value; packed words: a table up to 8
+  // bits; f2p_decode above (and for uint16 codes, which hold more)
+  const int lut_bits = code_bytes == 1 ? 8 : code_bytes == 0 && nb <= 8 ? nb : 0;
+  int lb = 0;
+  while ((1 << lb) < block) ++lb;
+  const float* out = splits > 1 ? part : y;
+  const int vec = N % 8 == 0 && (uintptr_t)scales % 16 == 0 && (uintptr_t)out % 16 == 0 &&
+                  (uintptr_t)y % 16 == 0;
+  const long long stride = code_bytes ? (long long)N * code_bytes : 4LL * W;
+  const int async = (uintptr_t)w % 16 == 0 && stride % 16 == 0;
+  if (code_bytes == 1)
+    return launch_decode(x, x_bf16, DecU8{(const uint8_t*)w, N}, scales, part, y, counts,
+                         M, N, K, lb, k_chunk, splits, lut_bits, vec, async, f, stream);
+  if (code_bytes == 2)
+    return launch_decode(x, x_bf16, DecU16{(const uint16_t*)w, N}, scales, part, y, counts,
+                         M, N, K, lb, k_chunk, splits, lut_bits, vec, async, f, stream);
+  return launch_decode(x, x_bf16, DecPacked{(const uint32_t*)w, W, nb}, scales, part, y,
+                       counts, M, N, K, lb, k_chunk, splits, lut_bits, vec, async, f,
+                       stream);
 }
 
 int f2p_counter_estimate(const int* state, const float* grid_lut, float* out,

@@ -116,10 +116,12 @@ def lib():
         L.f2p_counter_estimate.argtypes = [P, P, P, LL, P]
         L.f2p_dequant_matmul.argtypes = [P, I, P, I, I, P, P, P] + [I] * 7 + [
             F2PConsts, P]
+        L.f2p_dequant_matmul_decode.argtypes = [P, I, P, I, I, P, P, P, P] + [
+            I] * 6 + [F2PConsts, P]
         for fn in (L.f2p_quantize_packed, L.f2p_dequantize_packed,
                    L.f2p_quantize, L.f2p_dequantize, L.f2p_attention,
                    L.f2p_counter_advance, L.f2p_counter_estimate,
-                   L.f2p_dequant_matmul):
+                   L.f2p_dequant_matmul, L.f2p_dequant_matmul_decode):
             fn.restype = I
         _lib = L
     return _lib
@@ -132,7 +134,9 @@ def check(rc: int, what: str) -> None:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current stream, as the raw handle (the cheap
+    query: the kernels launch on it from ctypes)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def require_cuda(t: torch.Tensor, what: str, dtype=None) -> None:

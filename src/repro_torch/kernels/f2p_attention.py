@@ -322,7 +322,7 @@ def gather_pages_to_dense(qt: QTensor, pages) -> QTensor:
     return QTensor.from_parts(
         codes.reshape((B, mp * T) + tuple(codes.shape[3:])),
         scales.reshape((B, mp * T) + tuple(scales.shape[3:])),
-        qt.fmt, qt.block, (B, mp * T) + tuple(qt.shape[-2:]))
+        qt.fmt, qt.block, (B, mp * T) + tuple(qt.shape[-2:]), packed=True)
 
 
 def attention_paged_reference(q, kq: QTensor, vq: QTensor, pages, *,

@@ -12,15 +12,21 @@ K-row's N codes bit-packed into the port's uint32 word layout
 ``repro/kernels/f2p_matmul.py::_kernel`` (B8) and
 ``f2p_dequant_matmul_packed`` replaces ``_packed_kernel`` (B7). On a CPU
 tensor each runs its plain version (:func:`ref_dequant_matmul`, after
-``unpack_bits`` for B7); on a CUDA tensor each launches
-``dequant_matmul_kernel`` of ``csrc/f2p_kernels.cu`` or raises. The kernel
-computes in f32 only (f32 products, f32 FMA accumulation; no TF32 and no
-bf16 tensor cores), as the reference does with
-``preferred_element_type=float32``. At a decode batch (M = 8) it is bound
-by the weight bytes it streams (n_bits/8 per weight plus 4/block for the
-scales); at a prefill batch by its f32 operations. The kernel's design
-(one CTA per output tile, K split across CTAs when the tiles alone do not
-fill the card) is described in the CUDA source.
+``unpack_bits`` for B7); on a CUDA tensor each launches a kernel of
+``csrc/f2p_kernels.cu`` or raises. Two routes compute the same function
+(:func:`matmul_route`): a decode batch (M <= ``MM_DECODE_ROWS``) goes to
+``dequant_matmul_decode_kernel``, which streams the weight with each lane
+owning 8 columns and 8 x 8 sums in registers (rows past M are zero),
+planned by
+:func:`decode_plan`; a larger M goes to the tile kernel
+``dequant_matmul_kernel`` (one CTA per output tile), planned by
+:func:`matmul_split`. Both split K across CTAs when the columns alone do
+not fill the card and add the partials in split order. Both compute in f32
+only (f32 products, f32 FMA accumulation; no TF32 and no bf16 tensor
+cores), as the reference does with ``preferred_element_type=float32``. At
+a decode batch the work is bound by the weight bytes streamed (n_bits/8
+per weight plus 4/block for the scales) and the M f32 FMAs per weight; at
+a prefill batch by the f32 operations.
 
 The reference's per-(backend, n_bits) tile table and
 ``autotune_matmul_tiles`` tune Pallas tiles and have no counterpart yet
@@ -43,7 +49,8 @@ from repro_torch.kernels.f2p_quant import (_int32_to_codes, code_dtype,
 __all__ = ["WEIGHT_FMT", "quantize_weight", "quantize_weight_plain",
            "dequantize_weight", "ref_dequant_matmul",
            "f2p_dequant_matmul", "f2p_dequant_matmul_packed",
-           "dequant_matmul", "matmul_split"]
+           "dequant_matmul", "matmul_split", "matmul_route", "decode_plan",
+           "MM_DECODE_ROWS"]
 
 WEIGHT_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
 
@@ -51,8 +58,16 @@ WEIGHT_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
 # both packages accept the same calls
 M_T, N_T, K_T = 128, 256, 256
 
-# the CUDA kernel's output tile width and its K step (csrc kMmBN, kMmBK)
+# the tile kernel's output tile width and its K step (csrc kMmBN, kMmBK)
 _BN, _BK = 128, 32
+
+# the decode route: M at or below MM_DECODE_ROWS. A CTA of 8 warps covers
+# _DEC_COLS columns (csrc kDecCols: 32 lanes x 8) and its K chunk in units
+# of _DEC_UNIT rows (kDecUnit); the x chunk staged in shared memory caps
+# the chunk at _DEC_MAX_CHUNK rows (32 KB at 8 rows of x), so that two
+# CTAs (table, x and the warps' rings) fit an SM.
+MM_DECODE_ROWS = 8
+_DEC_COLS, _DEC_UNIT, _DEC_MAX_CHUNK = 256, 4, 1024
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +144,7 @@ def _check(x, K2, N, block):
 
 
 def matmul_split(M: int, N: int, K: int, n_sm: int) -> tuple[int, int]:
-    """(rows per CTA, K splits) of the kernel's launch: the smallest row
+    """(rows per CTA, K splits) of the tile kernel's launch: the smallest row
     tile of 8, 16, 32, 64 or 128 covering M, and K split across CTAs until
     the output tiles make two waves on ``n_sm`` SMs (at most 32 splits,
     each at least one K step)."""
@@ -139,29 +154,93 @@ def matmul_split(M: int, N: int, K: int, n_sm: int) -> tuple[int, int]:
     return bm, splits
 
 
+def matmul_route(M: int, block: int) -> str:
+    """Which kernel serves an M-row call: ``"decode"`` for a decode batch
+    (M <= MM_DECODE_ROWS, and scale blocks of whole 4-row units), else
+    ``"tile"``."""
+    return ("decode" if M <= MM_DECODE_ROWS and block % _DEC_UNIT == 0
+            else "tile")
+
+
+def decode_plan(M: int, N: int, K: int, n_sm: int) -> tuple[int, int]:
+    """(K chunk, K splits) of the decode route's launch: a grid of
+    ceil(N / 256) column groups x splits, with K split while the grid fits
+    one wave of one CTA per SM (on the H100 as fast as two per SM or faster
+    at every llama3.2-3b projection shape, PERF.md) and at most 32 ways
+    (the last CTA of a column group adds the partials), and at least until
+    a chunk is at most _DEC_MAX_CHUNK rows (a multiple of 16 rows). Every
+    CTA holds MM_DECODE_ROWS rows of x, rows past M read as zero."""
+    groups = -(-N // _DEC_COLS)
+    splits = max(-(-K // _DEC_MAX_CHUNK), min(32, n_sm // groups))
+    chunk = -(-K // min(splits, K // 16))
+    chunk = -(-chunk // 16) * 16
+    return chunk, -(-K // chunk)
+
+
+_N_SM: dict[int, int] = {}
+_CONSTS: dict = {}
+_WS: dict = {}
+
+
+def _workspace(dev, stream: int, n_part: int, groups: int):
+    """The decode route's split workspace on (device, stream): room for the
+    partial sums and one count per column group, grown on demand. The
+    counts start at zero and every launch leaves them at zero; launches on
+    one stream are ordered, so one workspace serves them all."""
+    ws = _WS.get((dev.index, stream))
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < groups:
+        n_part = max(n_part, 0 if ws is None else ws[0].numel())
+        groups = max(groups, 0 if ws is None else ws[1].numel())
+        ws = _WS[(dev.index, stream)] = (
+            torch.empty(n_part, dtype=torch.float32, device=dev),
+            torch.zeros(groups, dtype=torch.int32, device=dev))
+    return ws
+
+
 def _launch(x, w, scales, fmt, block, N, code_bytes, W):
     """One kernel launch: (y [M, N] f32). ``code_bytes`` 1 / 2 for uint8 /
-    uint16 codes, 0 for packed words of ``W`` words per row."""
+    uint16 codes, 0 for packed words of ``W`` words per row. The SM count
+    and the format's kernel constants are cached; the decode route adds
+    its K splits inside the kernel, in a cached workspace."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes f32 or bf16 x, got {x.dtype}")
     C.require_cuda(x, "x")
     C.require_cuda(w, "codes" if code_bytes else "words")
     C.require_cuda(scales, "scales", torch.float32)
     M, K = x.shape
-    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    dev = x.device
+    y = torch.empty((M, N), dtype=torch.float32, device=dev)
     if not (M and N):
         return y
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_sm = _N_SM.get(dev.index)
+    if n_sm is None:
+        n_sm = _N_SM[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    consts = _CONSTS.get(fmt)
+    if consts is None:
+        consts = _CONSTS[fmt] = cuda_consts(fmt)
+    what = "dequant_matmul" if code_bytes else "dequant_matmul_packed"
+    stream = C.stream()
+    if matmul_route(M, block) == "decode":
+        k_chunk, splits = decode_plan(M, N, K, n_sm)
+        groups = -(-N // _DEC_COLS)
+        part, counts = (_workspace(dev, stream, splits * M * N, groups)
+                        if splits > 1 else (y, y))
+        C.check(C.lib().f2p_dequant_matmul_decode(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+            code_bytes, W, scales.data_ptr(), part.data_ptr(), y.data_ptr(),
+            counts.data_ptr(), M, N, K, block, k_chunk, splits, consts,
+            stream), what)
+        return y
     bm, splits = matmul_split(M, N, K, n_sm)
     k_chunk = -(-(K // _BK) // splits) * _BK
     splits = -(-K // k_chunk)
-    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
             if splits > 1 else y)
     C.check(C.lib().f2p_dequant_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
         code_bytes, W, scales.data_ptr(), part.data_ptr(), y.data_ptr(), M,
-        N, K, block, bm, k_chunk, splits, cuda_consts(fmt), C.stream()),
-        "dequant_matmul" if code_bytes else "dequant_matmul_packed")
+        N, K, block, bm, k_chunk, splits, consts, stream), what)
     return y
 
 

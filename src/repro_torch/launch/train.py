@@ -9,9 +9,14 @@ committed step, bitwise.
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_3b \\
         --full --steps 8 --ckpt-dir /path/to/run1
 
-The flags and defaults are the reference's. Only ``--mesh-shape 1,1``
-runs: data and model parallelism over several cards is ROADMAP A12
-(sharded part). ``main`` parses the flags; :func:`run` takes a config, so a
+The flags are the reference's, and so are the defaults apart from two:
+``--arch`` defaults to ``llama3_2_3b`` (the reference's is ``xlstm_125m``,
+whose recurrent family the port does not have yet, ROADMAP A13e), and
+``--ckpt-dir`` to ``<tempdir>/repro_torch_train_ckpt`` (the reference's is
+``/tmp/repro_train_ckpt``: the port's checkpoints go to a directory of
+their own, under the process's temporary directory). Only
+``--mesh-shape 1,1`` runs: data and model parallelism over several cards
+is ROADMAP A12 (sharded part). ``main`` parses the flags; :func:`run` takes a config, so a
 caller can train a configuration of its own choosing (fewer layers, a
 narrower batch) through the same loop.
 """

@@ -29,7 +29,7 @@ KV_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
 
 
 def quantize_kv(k: torch.Tensor, fmt: F2PFormat = KV_FMT) -> QTensor:
-    return QT.quantize(k, fmt, block=k.shape[-1])
+    return QT.quantize(k, fmt, block=k.shape[-1], packed=True)
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +141,7 @@ def empty_packed(shape, fmt: F2PFormat, device) -> QTensor:
     return QTensor.from_parts(
         codes.view(torch.uint32),
         torch.ones(*shape[:-1], 1, dtype=torch.float32, device=device),
-        fmt, hd, shape)
+        fmt, hd, shape, packed=True)
 
 
 def init_cache(cfg, batch: int, max_seq: int, quantized: bool, dtype,

@@ -32,7 +32,8 @@ def _qkv(B, Sq, H, S, K, hd, seed):
 def _both(x, fmt_args, hd):
     jq = QT.quantize(jnp.asarray(x), JF2PFormat(*fmt_args), block=hd,
                      backend="xla", packed=True)
-    tq = TQ.quantize(torch.from_numpy(x), F2PFormat(*fmt_args), block=hd)
+    tq = TQ.quantize(torch.from_numpy(x), F2PFormat(*fmt_args), block=hd,
+                     packed=True)
     return jq, tq
 
 

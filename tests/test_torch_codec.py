@@ -100,7 +100,7 @@ def test_packed_quantize_dequantize_bitwise(name, shape, block, mode, zero,
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
     want = QT.quantize(jx, jfmt, block=block, scale_mode=mode, backend="xla",
                        packed=True)
-    got = TQ.quantize(tx, fmt, block=block, scale_mode=mode)
+    got = TQ.quantize(tx, fmt, block=block, scale_mode=mode, packed=True)
     np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
     np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
     assert got.nbytes == want.nbytes
@@ -132,8 +132,8 @@ def test_tile_math_codes_match_reference_tile_math():
 
 def test_dynamic_update_in_place_and_validation():
     fmt = F2PFormat(8, 2, Flavor.SR, signed=True)
-    base = TQ.quantize(torch.zeros(2, 6, 3, 16), fmt, block=16)
-    upd = TQ.quantize(torch.ones(2, 1, 3, 16), fmt, block=16)
+    base = TQ.quantize(torch.zeros(2, 6, 3, 16), fmt, block=16, packed=True)
+    upd = TQ.quantize(torch.ones(2, 1, 3, 16), fmt, block=16, packed=True)
     codes = base.codes
     out = base.dynamic_update(upd, 4, axis=1)
     assert out is base and out.codes.data_ptr() == codes.data_ptr()
@@ -143,7 +143,7 @@ def test_dynamic_update_in_place_and_validation():
                                   np.ones((2, 3, 16), np.float32))
     with pytest.raises(ValueError):
         TQ.QTensor.from_parts(base.codes[..., :3], base.scales, fmt, 16,
-                              base.shape)
+                              base.shape, packed=True)
     # the unpacked layout validates its code dtype and padded width
     flat = TQ.quantize(torch.zeros(2, 16), fmt, block=16, packed=False)
     with pytest.raises(ValueError, match="codes must be"):
@@ -302,3 +302,38 @@ def test_ops_and_tree_helpers_match_reference():
     jd = QT.dequantize_tree(jq, backend="xla")
     np.testing.assert_array_equal(d["w"].numpy(), np.asarray(jd["w"]))
     assert d["n"][0] is tree["n"][0]
+
+
+@pytest.mark.parametrize("name", ["f2p_sr_2_6s", "f2p_sr_2_8s",
+                                  "f2p_lr_2_16s"])
+def test_quantize_default_storage_matches_reference(name, monkeypatch):
+    """``quantize`` with no ``packed=`` gives the reference's storage: the
+    same flag, code dtype and codes, bitwise (the reference reads
+    ``F2P_PACKED`` for its default; unset, that is unpacked)."""
+    monkeypatch.delenv("F2P_PACKED", raising=False)
+    x = _case((3, 5, 200), seed=11, zero_block=True, scale=2.0)
+    want = QT.quantize(jnp.asarray(x), jnamed(name), block=64, backend="xla")
+    got = TQ.quantize(torch.from_numpy(x), named_format(name), block=64)
+    assert got.packed == want.packed is False
+    assert str(got.codes.dtype).split(".")[-1] == str(
+        np.asarray(want.codes).dtype)
+    np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
+    np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
+    flat = TQ.QTensor.from_parts(got.codes, got.scales, got.fmt, 64,
+                                 got.shape)
+    assert flat.packed is False
+
+
+def test_quantize_kv_stores_packed_words():
+    """The KV cache's quantizer asks for packed words itself: uint32 words
+    equal to the reference's ``packed=True`` quantize, bitwise."""
+    from repro_torch.models.attention import KV_FMT, quantize_kv
+
+    x = _case((2, 7, 3, 64), seed=4, zero_block=False, scale=1.5)
+    got = quantize_kv(torch.from_numpy(x))
+    want = QT.quantize(jnp.asarray(x), jnamed("f2p_sr_2_8s"), block=64,
+                       backend="xla", packed=True)
+    assert KV_FMT == named_format("f2p_sr_2_8s")
+    assert got.packed and got.codes.dtype == torch.uint32
+    np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
+    np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))

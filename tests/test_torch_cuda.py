@@ -124,9 +124,11 @@ def test_attention_kernels_vs_plain_and_paged_equals_dense(gen, tile):
     B, K, G, hd, T, P, maxp = 3, 2, 3, 64, 8, 40, 12
     q = torch.randn(B, 2, K * G, hd, generator=gen, device="cuda")
     slab_k = QT.quantize(torch.randn(P, T, K, hd, generator=gen,
-                                     device="cuda"), fmt, block=hd)
+                                     device="cuda"), fmt, block=hd,
+                         packed=True)
     slab_v = QT.quantize(torch.randn(P, T, K, hd, generator=gen,
-                                     device="cuda"), fmt, block=hd)
+                                     device="cuda"), fmt, block=hd,
+                         packed=True)
     pages = torch.randperm(P, generator=gen, device="cuda")[:B * maxp]
     pages = pages.reshape(B, maxp).to(torch.int32)
     kv_len = torch.tensor([96, 40, 0], device="cuda")
@@ -236,6 +238,75 @@ def test_dequant_matmul_kernels_vs_plain(gen, M, dtype, name, packed):
     assert y.dtype == torch.float32 and y.shape == (M, N)
     torch.testing.assert_close(y, ref, rtol=1e-4,
                                atol=1e-4 * float(ref.abs().max()))
+
+
+_DECODE_KINDS = [("f2p_sr_2_8s", False), ("f2p_sr_2_6s", False),
+                 ("f2p_sr_2_10s", False), ("f2p_sr_2_16s", False),
+                 ("f2p_sr_2_6s", True), ("f2p_sr_2_7s", True),
+                 ("f2p_lr_2_8s", True), ("f2p_sr_2_10s", True),
+                 ("f2p_sr_2_12s", True)]
+
+
+@pytest.mark.parametrize("M", sorted({1, 3, 5, 8, MM.MM_DECODE_ROWS}))
+@pytest.mark.parametrize("N", [100, 256, 768])
+@pytest.mark.parametrize("K", [256, 3072])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,packed", _DECODE_KINDS)
+def test_dequant_matmul_decode_route_vs_plain(gen, M, N, K, dtype, name,
+                                              packed):
+    """The decode route (M <= MM_DECODE_ROWS) against the plain version:
+    N < 256 leaves a partial strip of columns (and, packed, a row's tail
+    word); N = 100 takes the per-element loads; uint8 codes of 6 and 8
+    bits (the byte table), uint16 codes (f2p_decode), packed words of 6, 7
+    and 8 bits (the table) and 10 and 12 bits (f2p_decode); K split across
+    CTAs."""
+    assert MM.matmul_route(M, 128) == "decode"
+    fmt = named_format(name)
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(K, N, generator=gen, device="cuda") * 0.05
+    codes, scales = MM.quantize_weight(w, fmt)
+    q = MM.quantize_weight(w, fmt, packed=True)[0] if packed else codes
+    key = "dequant_matmul_packed" if packed else "dequant_matmul"
+    C.reset_launches()
+    y = MM.dequant_matmul(x, q, scales, fmt=fmt, packed=packed)
+    assert C.LAUNCHES[key] == 1
+    ref = MM.ref_dequant_matmul(x, codes, scales, fmt)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == (M, N)
+    torch.testing.assert_close(y, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("name,packed", _DECODE_KINDS)
+def test_dequant_matmul_past_decode_rows_takes_tile_route(gen, name, packed):
+    """One row past MM_DECODE_ROWS the tile kernel still serves the call."""
+    M = MM.MM_DECODE_ROWS + 1
+    assert MM.matmul_route(M, 128) == "tile"
+    fmt = named_format(name)
+    x = torch.randn(M, 512, generator=gen, device="cuda")
+    w = torch.randn(512, 768, generator=gen, device="cuda") * 0.05
+    codes, scales = MM.quantize_weight(w, fmt)
+    q = MM.quantize_weight(w, fmt, packed=True)[0] if packed else codes
+    y = MM.dequant_matmul(x, q, scales, fmt=fmt, packed=packed)
+    ref = MM.ref_dequant_matmul(x, codes, scales, fmt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+def test_calibration_state_follows_the_data_to_the_card(gen):
+    """A calibration started from ``empty_state()`` (on the host) folds
+    CUDA data into a state on the card, equal to the CPU fold."""
+    from repro_torch.autotune import NORM_SPEC, empty_state, update
+
+    x = torch.randn(6, 256, generator=gen, device="cuda") * 3
+    st = update(empty_state(NORM_SPEC), x, NORM_SPEC, block=128)
+    assert all(v.device.type == "cuda" for v in st.values())
+    st = update(st, x * 0.5, NORM_SPEC, block=128)
+    ref = update(update(empty_state(NORM_SPEC), x.cpu(), NORM_SPEC,
+                        block=128), x.cpu() * 0.5, NORM_SPEC, block=128)
+    for k, v in ref.items():
+        torch.testing.assert_close(st[k].cpu(), v, rtol=1e-6, atol=0)
 
 
 def test_dequant_matmul_kernel_raises_on_bad_inputs(gen):

@@ -204,3 +204,37 @@ def test_matmul_split_covers_the_card():
     assert TM.matmul_split(5, 256, 256, 132) == (8, 8)
     bm, splits = TM.matmul_split(130, 1024, 8192, 132)
     assert bm == 128 and 1 <= splits <= 32
+
+
+# llama3.2-3b's projections (K, N) -> the decode route's (rows, K chunk,
+# splits) at M = 8 on 132 SMs
+_DECODE_PLANS = {(3072, 3072): (288, 11), (3072, 1024): (96, 32),
+                 (3072, 8192): (768, 4), (8192, 3072): (752, 11),
+                 (3072, 128256): (1024, 3)}
+
+
+@pytest.mark.parametrize("K,N", sorted(_DECODE_PLANS))
+def test_decode_plan_covers_the_card(K, N):
+    """The decode route's launch: ceil(N / 256) column groups x K splits
+    fill one wave of a CTA per SM to within a column group (more only
+    where a chunk would pass 1024 rows), each chunk a whole number of
+    16-row steps, and the chunks cover K exactly once."""
+    chunk, splits = TM.decode_plan(8, N, K, 132)
+    assert (chunk, splits) == _DECODE_PLANS[(K, N)]
+    assert chunk % 16 == 0 and chunk <= 1024
+    assert (splits - 1) * chunk < K <= splits * chunk
+    groups = -(-N // 256)
+    assert 132 - groups <= groups * splits <= 132 or splits == -(-K // 1024)
+
+
+def test_matmul_route_by_rows():
+    """M up to MM_DECODE_ROWS takes the decode route, whose plan does not
+    depend on M, a larger M the tile route; a scale block that is not a
+    whole number of 4-row units keeps the tile route."""
+    assert TM.MM_DECODE_ROWS == 8
+    for M in range(1, TM.MM_DECODE_ROWS + 1):
+        assert TM.matmul_route(M, 128) == "decode"
+        assert TM.decode_plan(M, 256, 512, 132) == TM.decode_plan(8, 256, 512, 132)
+    for M in (TM.MM_DECODE_ROWS + 1, 64, 2048):
+        assert TM.matmul_route(M, 128) == "tile"
+    assert TM.matmul_route(8, 2) == "tile"

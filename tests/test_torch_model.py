@@ -113,7 +113,8 @@ def test_paged_decode_logits_bitwise_vs_dense(both):
         scales[:, pages.flatten().long()] = src.scales.reshape(
             L, B * maxp, T, K, 1)
         slabs[kv] = type(dst)(codes.view(torch.uint32), scales, dst.fmt,
-                              dst.block, (L, P, T, K, cfg.head_dim))
+                              dst.block, (L, P, T, K, cfg.head_dim),
+                              packed=True)
     tok = torch.tensor([[5], [7], [9]])
     pos = torch.tensor([11, 11, 11])
     for _ in range(3):
