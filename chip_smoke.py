@@ -4,10 +4,12 @@ NVIDIA GPU.
 
     python3 chip_smoke.py                # every phase, ends with {"ok": ...}
     python3 chip_smoke.py --only matmul  # phases 1-2 and the dequant matmul
+    python3 chip_smoke.py --only attention  # phases 1-2 and B1/B2
 
-With ``--only matmul`` the script runs the device and build phases and
-phase 3's dequant matmul (B7/B8), prints their lines and ends without the
-final ``{"ok": ...}`` line, so it never stands in for a full run.
+With ``--only matmul`` (``--only attention``) the script runs the device
+and build phases and phase 3's dequant matmul, B7/B8 (attention, B1/B2),
+prints their lines and ends without the final ``{"ok": ...}`` line, so it
+never stands in for a full run.
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -19,8 +21,10 @@ Phases (any failed check raises, so the script exits non-zero):
    (B5/B6) bitwise at the train path's leaf shapes ([3072, 8192],
    [8192, 3072], [3072, 1024], [128256, 3072] and a [3072] norm; 8-bit
    gradient and 16-bit checkpoint formats, f32 and pow2 scales, f32 and
-   bf16 outputs), attention within
-   rtol=atol=1e-5 in f32 plus paged == dense-over-gathered-pages bitwise,
+   bf16 outputs), attention (B1/B2: 8 rows x 8 kv heads, G = 3, head_dim
+   128, kv_len 512..1024) within rtol=atol=1e-5 in f32 plus paged ==
+   dense-over-gathered-pages bitwise (also on the page table cut to the
+   live span),
    the counter advance bitwise (state and leftover; 8/12/16-bit LI^2 and
    16-bit SR^2 cells, [4, 2^20] state, the budget of the trace's first
    2^20-packet batch, sweep0 0 and 32) and the estimate gather bitwise.
@@ -29,7 +33,10 @@ Phases (any failed check raises, so the script exits non-zero):
    rate, and the f32 operations this run's data needs / 67 TFLOP/s), its
    plain version and, where one PyTorch call computes the same function, a
    yardstick the port never calls: scaled_dot_product_attention on K/V
-   dequantized up front; grid_lut[state] for the estimate. Then the
+   dequantized up front; grid_lut[state] for the estimate. B1/B2 also
+   report their device time per call (torch.profiler, the kernel alone),
+   a cold-L2 device time (a 64 MB write before each launch), the plan's
+   splits and live CTAs and the device kernels per call. Then the
    dequant matmul (B8 on f2p_sr_2_8s uint8 codes, B7 on 6- and 8-bit
    packed words) at llama3.2-3b's projection shapes (K, N) in (3072,
    3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256): M = 8
@@ -70,9 +77,10 @@ Phases (any failed check raises, so the script exits non-zero):
    and copy-in under kv_policy: bitwise-equal tokens, every request
    finished, B1 and B3 launched; tokens/s and the pool's bytes against
    the 8-bit run.
-6. profile — torch.profiler over a short paged run: the device's busy
-   share of the wall time and each kernel's device time per call (the
-   phase-3 times include the Python wrapper; these do not).
+6. profile — torch.profiler over a short paged run (8 requests of 64
+   tokens: spans of 64-81 positions): the device's busy share of the wall
+   time and each kernel's device time per call (the phase-3 ``ms`` times
+   include the Python wrapper; these do not).
 7. sketch  — the measurement path: a 2^25-packet Zipf-1.2 trace over 2^24
    flows (examples/sketch_zipf_trace.py's generator, numpy seed 0) streamed
    twice in odd chunks (numpy seed 1) through SketchIngestEngine(batch
@@ -188,6 +196,24 @@ def cuda_ms(fn, iters=30, warm=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_events(fn, iters, flush=None):
+    """(name, duration in us) of every device event of ``iters`` calls of
+    ``fn`` under torch.profiler (``flush`` runs before each call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.end - e.time_range.start)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def device_ms(fn, iters=20, tries=3):
     """Device time per call of everything ``fn`` launches (kernels only, no
     host time), from torch.profiler over ``iters`` calls after a warm-up,
@@ -196,28 +222,45 @@ def device_ms(fn, iters=20, tries=3):
     most per call that any run kept). None (not measured) where no run
     kept them all, or where the profiler saw no device activity."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def run():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        return len(ev), sum(e.time_range.end - e.time_range.start for e in ev)
 
     fn()
     torch.cuda.synchronize()
-    runs = [run() for _ in range(tries)]
-    per_call = max(n // iters for n, _ in runs)
-    for n, tot in runs:
-        if per_call and n == iters * per_call:
-            return tot / iters / 1e3
-    log(f"device   : the profiler kept {[n for n, _ in runs]} device events "
-        f"of {iters} calls; device time not measured")
+    runs = [_device_events(fn, iters) for _ in range(tries)]
+    per_call = max(len(ev) // iters for ev in runs)
+    for ev in runs:
+        if per_call and len(ev) == iters * per_call:
+            return sum(d for _, d in ev) / iters / 1e3
+    log(f"device   : the profiler kept {[len(ev) for ev in runs]} device "
+        f"events of {iters} calls; device time not measured")
     return None
+
+
+def device_calls(fn, name: str, iters=20, flush=None, tries=3):
+    """(device ms per call of the kernels whose name contains ``name``,
+    device kernels per call of everything ``fn`` launches), after a
+    warm-up; with ``flush`` (a callable that evicts the L2, one kernel),
+    flush before each call, so each launch finds its inputs in device
+    memory. The profiler can drop device events: the kernels per call come
+    from a run that kept one ``name`` kernel per call (up to ``tries``
+    runs), else None; the time is the mean of the launches a run kept, if
+    it kept at least half. (None, None) where none did."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    kept = []
+    for _ in range(tries):
+        ev = _device_events(fn, iters, flush)
+        ours = [d for n, d in ev if name in n]
+        if len(ours) == iters:
+            return (sum(ours) / iters / 1e3,
+                    (len(ev) - (iters if flush is not None else 0)) / iters)
+        kept = max(kept, ours, key=len)
+    log(f"device   : the profiler kept at most {len(kept)} of {iters} "
+        f"{name} launches")
+    if 2 * len(kept) >= iters:
+        return sum(kept) / len(kept) / 1e3, None
+    return None, None
 
 
 def bound_ms(nbytes: int) -> float:
@@ -530,6 +573,17 @@ def check_unpacked_codec(dev):
 
 
 def check_attention(dev, fmt_name="f2p_sr_2_8s"):
+    """B1 and B2 at the serving decode shape (8 rows x 8 kv heads, G = 3,
+    head_dim 128, kv_len 512..1024 over 8-token pages), held to their
+    plain versions (rtol = atol = 1e-5) and to each other (bitwise), also
+    for a causal multi-query call and a page table cut to the live span;
+    then timed: ``ms`` with CUDA events around the wrapper in a loop (the
+    host included), ``device_ms`` (the kernel alone, torch.profiler, the
+    slabs L2-resident as in that loop), ``cold_ms`` (the kernel alone with
+    the L2 flushed by a 64 MB write before each launch: in serving the 28
+    layers' pools far exceed the 50 MB L2), SDPA on K/V dequantized up
+    front as the yardstick, the bound, the plan's split and CTA counts and
+    the device kernels per call."""
     import torch
     import torch.nn.functional as F
 
@@ -557,6 +611,10 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     dense = A.attention_packed(q, dense_k, dense_v, kv_len=kv_len)
     assert torch.equal(paged, dense), \
         "paged != dense-over-gathered-pages on the card"
+    span = int(-(-kv_len.max() // T))
+    assert torch.equal(A.attention_paged(
+        q, slab_k, slab_v, pages[:, :span].contiguous(), kv_len=kv_len),
+        dense), "paged on the live span != dense on the full cache"
     # causal multi-query through both addressing modes
     qm = torch.randn(B, 4, K * G, hd, generator=g, device=dev)
     cm = dict(kv_len=kv_len, causal=True, q_offset=kv_len - 4)
@@ -565,11 +623,14 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     torch.testing.assert_close(pm, A.attention_paged_plain(
         qm, slab_k, slab_v, pages, **cm), rtol=1e-5, atol=1e-5)
 
-    # bytes this call needs: live K/V words + scales of every (row, head),
-    # q in, out, the live page ids and the lens
+    # bytes this call needs: live K/V words + scales of every (row, head)
+    # at this format's row width, q in, out, the live page ids and the lens
     live = int(kv_len.sum())
-    nb = live * K * 2 * (32 * 4 + 4) + 2 * B * K * G * hd * 4 \
+    row_bytes = (slab_k.codes.shape[-1] + slab_v.codes.shape[-1]) * 4 + 8
+    nb = live * K * row_bytes + 2 * B * K * G * hd * 4 \
         + int(((kv_len + T - 1) // T).sum()) * 4 + B * 8
+    plan = A.attention_plan(B, K, G, hd, S)
+    ctas = int((-(-kv_len // A.ATTN_SPLIT)).sum()) * K * plan.groups
     # yardstick: SDPA over K/V dequantized up front (f32, GQA expanded)
     kd = dense_k.dequantize().repeat_interleave(G, dim=2).transpose(1, 2)
     vd = dense_v.dequantize().repeat_interleave(G, dim=2).transpose(1, 2)
@@ -578,6 +639,7 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     qs = q.transpose(1, 2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, kd, vd, attn_mask=mask))
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for name, fn, plain, got in (
             ("attention_paged",
              lambda: A.attention_paged(q, slab_k, slab_v, pages,
@@ -590,14 +652,28 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
                                               kv_len=kv_len), dense)):
         ref = plain()
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        dms, per_call = device_calls(fn, "attention_decode_kernel")
+        cold, _ = device_calls(fn, "attention_decode_kernel",
+                               flush=scratch.zero_)
         out[name] = dict(
-            ms=cuda_ms(fn, iters=100), plain_ms=cuda_ms(plain, iters=10),
+            ms=cuda_ms(fn, iters=100), device_ms=dms, cold_ms=cold,
+            plain_ms=cuda_ms(plain, iters=10),
             bound_ms=bound_ms(nb), library_ms=lib_ms,
             max_abs_err=float((got - ref).abs().max()),
+            split=A.ATTN_SPLIT, splits=plan.nsplit, grid=list(plan.grid),
+            live_ctas=ctas, device_kernels_per_call=per_call,
             shape=f"B={B} K={K} R={G} hd={hd} span {S} kv_len 512..{S} "
-                  f"(live {live}) tile 128 page {T}")
-    log(f"attention: {fmt_name}: paged == dense-over-gathered bitwise; both "
-        "within 1e-5 of the plain version (decode and causal multi-query)")
+                  f"(live {live}) page {T}, split {A.ATTN_SPLIT}: grid "
+                  f"{plan.grid}, {ctas} live CTAs")
+        r = out[name]
+        log(f"attention: {name:16s} {r['ms']:.5f} ms (device "
+            f"{_ms(dms)}, cold L2 {_ms(cold)}; bound {r['bound_ms']:.5f}, "
+            f"SDPA {lib_ms:.5f}, plain {r['plain_ms']:.3f}); {per_call} "
+            f"device kernels per call; max |err| {r['max_abs_err']:.2e}")
+    del scratch
+    log(f"attention: {fmt_name}: paged == dense-over-gathered bitwise (and "
+        "on the live span); both within 1e-5 of the plain version (decode "
+        "and causal multi-query)")
     return out
 
 
@@ -1192,7 +1268,7 @@ def profile_decode(cfg, model, bs) -> dict:
         eng.run(reqs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    res = device_profile(prof, wall_us, ("attention_kernel",
+    res = device_profile(prof, wall_us, ("attention_decode_kernel",
                                          "quantize_packed"))
     log_profile("2 prefill calls + 16 decode steps", res)
     return res
@@ -1771,9 +1847,10 @@ def main():
     import torch
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
-    ap.add_argument("--only", choices=("matmul",),
-                    help="matmul: phases 1-2 and the dequant matmul of phase "
-                         "3 only (the quick loop for B7/B8); prints no final "
+    ap.add_argument("--only", choices=("matmul", "attention"),
+                    help="matmul / attention: phases 1-2 and phase 3's "
+                         "dequant matmul (B7/B8) or attention (B1/B2) only, "
+                         "the quick loop for those kernels; prints no final "
                          "ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
@@ -1796,6 +1873,18 @@ def main():
     for line in C.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas  :", line.strip())
+    if only == "attention":
+        att = check_attention(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_attention.json").write_text(json.dumps(
+            {"device": smi, "attention": att}, indent=1, default=str))
+        print(json.dumps({"attention": {k: {f: v[f] for f in (
+            "ms", "device_ms", "cold_ms", "library_ms", "bound_ms",
+            "splits", "live_ctas", "device_kernels_per_call",
+            "max_abs_err")} for k, v in att.items()}}))
+        print(smi)
+        return
     if only == "matmul":
         mm = check_matmul(dev)
         out_dir = ROOT / "chiprun_out"
@@ -1860,6 +1949,8 @@ def main():
          "sketch": sketch_res, "train": train_res,
          "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
+         "attention_rows": {k: res[k] for k in ("attention_paged",
+                                                "attention_packed")},
          "matmul_rows": res["dequant_matmul"]["rows"]}, indent=1,
         default=str))
     print(json.dumps({"sketch": sketch_res}))

@@ -8,8 +8,8 @@
 //   dequantize_packed_kernel  <- repro/kernels/f2p_quant.py::_dequant_packed_kernel
 //   quantize_kernel           <- repro/kernels/f2p_quant.py::_quant_kernel
 //   dequantize_kernel         <- repro/kernels/f2p_quant.py::_dequant_kernel
-//   attention_kernel<false>   <- repro/kernels/f2p_attention.py::_fused_kernel
-//   attention_kernel<true>    <- repro/kernels/f2p_attention.py::_paged_kernel
+//   attention_decode_kernel   <- repro/kernels/f2p_attention.py::_fused_kernel (dense)
+//                                and ::_paged_kernel (paged), split KV
 //   counter_advance_kernel    <- repro/kernels/f2p_counter.py::_advance_kernel
 //   counter_estimate_kernel   <- repro/kernels/f2p_counter.py::_estimate_kernel
 //   dequant_matmul_kernel<UnpackedW>  <- repro/kernels/f2p_matmul.py::_kernel
@@ -32,6 +32,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 // Format constants, as repro_torch.kernels.f2p_quant._fmt_consts gives them.
 struct F2PConsts {
@@ -347,164 +350,6 @@ __global__ void dequantize_kernel(const TCode* __restrict__ codes,
       store(out + idx, __fmul_rn(f2p_decode((uint32_t)codes[idx], f),
                                  __ldg(scales + idx / block)));
   }
-}
-
-// ---------------------------------------------------------------------------
-// attention over packed KV, dense ([B, S, K, W]) or paged ([P, T, K, W]
-// slabs through a [B, maxp] page table). One CTA per (batch row, kv head);
-// the R = G*Sq folded query rows live in shared memory. Per kv tile:
-// decode K into f32 shared memory, fp32 dot products, mask, online-softmax
-// update (the reference's -inf-guarded _online_step), decode V into the
-// same buffer, acc += p V. Both addressing modes run the same tile loop, so
-// paged == dense-over-gathered-pages bitwise. Tiles wholly past a row's
-// kv_len are skipped: with a finite running max such a tile leaves
-// (acc, m, l) bitwise unchanged (p = 0, corr = exp(0) = 1).
-// ---------------------------------------------------------------------------
-constexpr int kAttnThreads = 256;
-
-struct AttnArgs {
-  const float* q3;      // [B, K, R, hd]
-  const uint32_t* kw;   // dense [B, S, K, Wk] | paged [P, T, K, Wk]
-  const float* ks;      // same leading dims, last dim 1
-  const uint32_t* vw;
-  const float* vs;
-  const int* pages;     // paged: [B, maxp]
-  const int* lens;      // [B, 2] (kv_len, q_offset)
-  float* out;           // [B, K, R, hd]
-  int K, R, hd, Wk, Wv;
-  int S;                // logical per-row length (paged: maxp * T)
-  int T, P, maxp;       // paged only
-  int sq, causal, tile, nt;
-  float scale;
-  F2PConsts fk, fv;
-};
-
-template <bool PAGED>
-__device__ __forceinline__ long long kv_row(const AttnArgs& a, int b, int h, int kpos) {
-  if (PAGED) {
-    int pid = a.pages[(long long)b * a.maxp + kpos / a.T];
-    pid = min(max(pid, 0), a.P - 1);
-    return ((long long)pid * a.T + kpos % a.T) * a.K + h;
-  }
-  return ((long long)b * a.S + kpos) * a.K + h;
-}
-
-// Stage one kv tile in three passes separated by barriers: (1) each
-// position's row index and scale, (2) the tile's packed words, loaded with
-// independent coalesced reads (one long dependent chain per element was
-// latency bound), (3) unpack + decode + scale from shared memory into the
-// f32 tile buf [tile, hd+1]. Positions >= S read as zero words x scale 0.
-template <bool PAGED>
-__device__ __forceinline__ void decode_tile(const AttnArgs& a,
-                                            const uint32_t* __restrict__ w,
-                                            const float* __restrict__ sc, int W,
-                                            const F2PConsts& f, int b, int h,
-                                            int j, float* buf, uint32_t* raw,
-                                            float* rsc, long long* rrow) {
-  const int hd = a.hd, ld = hd + 1, tile = a.tile;
-  for (int p = threadIdx.x; p < tile; p += blockDim.x) {
-    const int kpos = j * tile + p;
-    const long long row = kpos < a.S ? kv_row<PAGED>(a, b, h, kpos) : -1;
-    rrow[p] = row;
-    rsc[p] = row >= 0 ? sc[row] : 0.0f;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < tile * W; e += blockDim.x) {
-    const int p = e / W;
-    const long long row = rrow[p];
-    raw[e] = row >= 0 ? w[row * W + (e - p * W)] : 0u;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < tile * hd; e += blockDim.x) {
-    const int p = e / hd, d = e - p * hd;
-    buf[p * ld + d] =
-        __fmul_rn(f2p_decode(get_field(raw + p * W, d, f.n_bits), f), rsc[p]);
-  }
-}
-
-template <bool PAGED>
-__global__ void attention_kernel(AttnArgs a) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / a.K, h = blockIdx.x % a.K;
-  const int R = a.R, hd = a.hd, tile = a.tile, ld = hd + 1;
-  float* kv = smem;                  // [tile, hd+1]
-  float* qs = kv + tile * ld;        // [R, hd]
-  float* acc = qs + R * hd;          // [R, hd]
-  float* ss = acc + R * hd;          // [R, tile] scores, then p
-  float* mrow = ss + R * tile;       // [R]
-  float* lrow = mrow + R;            // [R]
-  float* corr = lrow + R;            // [R]
-  float* rsc = corr + R;             // [tile] staged scales
-  long long* rrow = (long long*)(((uintptr_t)(rsc + tile) + 7) & ~(uintptr_t)7);
-  uint32_t* raw = (uint32_t*)(rrow + tile);   // [tile, max(Wk, Wv)] words
-  const float* qg = a.q3 + ((long long)b * a.K + h) * R * hd;
-  for (int i = threadIdx.x; i < R * hd; i += blockDim.x) {
-    qs[i] = qg[i];
-    acc[i] = 0.0f;
-  }
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    mrow[r] = -INFINITY;
-    lrow[r] = 0.0f;
-  }
-  const int kvlen = min(a.lens[2 * b], a.S), qoff = a.lens[2 * b + 1];
-  const int nt = min(a.nt, kvlen > 0 ? (kvlen + tile - 1) / tile : 0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int j = 0; j < nt; ++j) {
-    __syncthreads();
-    decode_tile<PAGED>(a, a.kw, a.ks, a.Wk, a.fk, b, h, j, kv, raw, rsc, rrow);
-    __syncthreads();
-    for (int i = threadIdx.x; i < R * tile; i += blockDim.x) {
-      const int r = i / tile, t = i - r * tile;
-      const int kpos = j * tile + t;
-      const float* qr = qs + r * hd;
-      const float* kr = kv + t * ld;
-      float dot = 0.0f;
-      for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-      bool valid = kpos < kvlen;
-      if (a.causal) valid = valid && (kpos <= qoff + r % a.sq);
-      ss[i] = valid ? dot * a.scale : -INFINITY;
-    }
-    __syncthreads();
-    for (int r = warp; r < R; r += nwarps) {
-      float* sr = ss + r * tile;
-      float mx = -INFINITY;
-      for (int t = lane; t < tile; t += 32) mx = fmaxf(mx, sr[t]);
-      for (int off = 16; off; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = mrow[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float safe_m = isfinite(m_new) ? m_new : 0.0f;
-      float sum = 0.0f;
-      for (int t = lane; t < tile; t += 32) {
-        const float p = expf(sr[t] - safe_m);
-        sr[t] = p;
-        sum += p;
-      }
-      for (int off = 16; off; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float c = isfinite(m_old) ? expf(m_old - safe_m) : 0.0f;
-        corr[r] = c;
-        lrow[r] = lrow[r] * c + sum;
-        mrow[r] = m_new;
-      }
-    }
-    __syncthreads();
-    decode_tile<PAGED>(a, a.vw, a.vs, a.Wv, a.fv, b, h, j, kv, raw, rsc, rrow);
-    __syncthreads();
-    for (int i = threadIdx.x; i < R * hd; i += blockDim.x) {
-      const int r = i / hd, d = i - r * hd;
-      const float* pr = ss + r * tile;
-      float pv = 0.0f;
-      for (int t = 0; t < tile; ++t) pv = fmaf(pr[t], kv[t * ld + d], pv);
-      acc[i] = acc[i] * corr[r] + pv;
-    }
-  }
-  __syncthreads();
-  float* og = a.out + ((long long)b * a.K + h) * R * hd;
-  for (int i = threadIdx.x; i < R * hd; i += blockDim.x)
-    og[i] = acc[i] / fmaxf(lrow[i / hd], 1e-37f);
 }
 
 // ---------------------------------------------------------------------------
@@ -1201,6 +1046,551 @@ static int launch_decode(const void* x, int x_bf16, Src w, const float* scales,
 }
 
 // ---------------------------------------------------------------------------
+// attention over packed KV (B1 paged, B2 dense): a split-KV decode kernel
+//
+// Replaces repro/kernels/f2p_attention.py::_paged_kernel (paged: [P, T, K,
+// W] slabs read through a [B, maxp] page table) and ::_fused_kernel (dense
+// [B, S, K, W]); one kernel, the addressing mode chosen at run time.
+//
+// What bounds it. Decode attention moves every live packed K/V word and
+// scale once (about 2 * (hd * n_bits / 8 + 4) bytes per position and kv
+// head) and does 4 R hd f32 operations per position, so at R = 3 it is
+// bound by bytes and, on the way, by instruction issue: each element is
+// cut from its word, decoded, scaled and used in R FMAs (about 60
+// instructions per position and warp). What it must not be bound by is
+// latency: at the serving lengths (64 to 1024 positions) one (batch row,
+// kv head) holds too little work for one CTA, or for one warp.
+//
+// The design.
+// - Split KV. The grid is (split, kv head x row group, batch row). A CTA
+//   takes kAttnSplit consecutive positions (a constant of the design,
+//   mirrored by f2p_attention.ATTN_SPLIT), kAttnChunk of them per warp of
+//   kAttnWarps: warp w takes
+//   positions kAttnChunk * w + lane, lanes past the chunk idle there.
+//   Splits and warps past a row's kv_len do nothing, and no K/V word past
+//   kv_len is read, so the result is a function of the row's kv_len and
+//   the words below it only: not of S, the span bucket, B or the SM
+//   count. Dense and paged run the same loop on the same words, so paged
+//   == dense bitwise.
+// - Row groups. The R = G * Sq folded query rows are cut into ng groups of
+//   RG = 3 or 4 rows (a template parameter), one group per CTA: the q rows
+//   and sums of a lane stay in registers. Rows past R (R < 3, or a last
+//   group not full) load q = 0 and are not stored.
+// - Staging. Each warp reads its positions' page ids (lanes of one page
+//   read one address, issued with the kv_len load), then copies its K rows
+//   and scales, and its V rows and scales, into shared memory as two
+//   cp.async groups (16-byte pieces where rows are 16-byte aligned, else
+//   4-byte), so the warp's bytes are all in flight at once while the CTA
+//   builds the decode tables; V lands during QK. (Each warp stages its one
+//   chunk whole: there is no ring to cycle.)
+// - Decode once per element, in registers. Lane l owns D = hd / 32 (1, 2
+//   or 4) consecutive dims: it cuts their fields out of a window of 1-3
+//   words at a fixed bit offset, decodes each through a table (n_bits <=
+//   8: every payload code, replicated once per bank, entry c of lane l at
+//   32 c + l, so random codes never collide; the sign bit of a signed
+//   format flips the value's sign bit) or f2p_decode (above 8 bits), and
+//   multiplies by the position's scale with __fmul_rn, as the plain
+//   version does. The table and f2p_decode get a loop each: with a select
+//   per element the compiler runs both.
+// - QK without serial chains: each lane forms D-long partial dots for 8
+//   positions x RG rows, then a transposing butterfly (xor 16, 8, 4 keep
+//   half of the values, xor 2, 1 add) leaves the full dot of position
+//   (lane >> 2) & 7 in lanes 4k..4k+3: 9 shuffles per row per 8
+//   positions. A lane then holds its own position's score; the softmax
+//   max and sum are warp reductions (-inf guarded as the reference's
+//   _online_step), and p goes to shared memory.
+// - PV: lanes own dims; each lane decodes only its own V fields and runs
+//   RG x D FMAs per position, reading p as one broadcast 16-byte load.
+// - Merges in a fixed order. The CTA merges its warps' (acc, m, l) in
+//   warp order; with one live split it writes o, else the split's partial
+//   goes to the workspace and the last CTA of the (row, head, group) to
+//   finish (an atomic count, reset by that CTA, as the matmul's decode
+//   route does) merges the partials in split order. That costs no second
+//   launch, and no host step between two. Every merge is m = max m_i,
+//   o = sum_i acc_i exp(m_i - m) / max(sum_i l_i exp(m_i - m), 1e-37),
+//   in f32 with expf and no fast math; the factors exp(m_i - m) are
+//   computed once per row.
+// - q is read in its caller layout [B, Sq, H, hd] and dtype (f32 or bf16,
+//   strided), and o written as [B, Sq, H, hd] in that dtype
+//   (__float2bfloat16_rn, what .to(torch.bfloat16) gives): no fold or
+//   unfold launches around the call. kv_len = 0 writes exact zeros.
+// No tensor cores: at R = 3 a decode call fills 3 of an mma's 16 rows, and
+// bf16 or TF32 inputs would break the 1e-5 f32 tolerance.
+// ---------------------------------------------------------------------------
+constexpr int kAttnRows = 4;        // most query rows one CTA holds
+constexpr int kAttnChunk = 16;      // positions per warp: 8, 16 or 32
+constexpr int kAttnWarps = 8;
+constexpr int kAttnSplit = kAttnChunk * kAttnWarps;   // positions per CTA
+constexpr int kAttnMaxThreads = 32 * kAttnWarps;
+
+// kv_len or q_offset: an int32 / int64 tensor read at b * stride (stride 0:
+// one value for every row), or `value` when p is null
+struct AttnLen {
+  const void* p;
+  long long stride;
+  int is64;
+  int value;
+};
+
+__device__ __forceinline__ long long attn_len(const AttnLen& a, int b) {
+  if (!a.p) return a.value;
+  const long long i = (long long)b * a.stride;
+  return a.is64 ? reinterpret_cast<const long long*>(a.p)[i]
+                : (long long)reinterpret_cast<const int*>(a.p)[i];
+}
+
+struct AttnArgs {
+  const void* q;             // [B, Sq, H, hd] f32 | bf16, dims contiguous
+  long long qsb, qss, qsh;   // its strides, in elements
+  const uint32_t* kw;        // dense [B, S, K, Wk] | paged [P, T, K, Wk]
+  const float* ks;           // one scale per row of words
+  const uint32_t* vw;
+  const float* vs;
+  const int* pages;          // paged: [B, maxp]; dense: null
+  void* out;                 // [B, Sq, H, hd], q's dtype
+  float* part;               // split partials [B * K * ng, nsplit, RG * hd + 2 RG]
+  int* counts;               // finished splits per (b, h, group), 0 between launches
+  AttnLen kvlen, qoff;
+  int bf16, Sq, H, K, G, R, hd, S, T, P, maxp, causal, ng;
+  int Wk, Wv, win_k, win_v, vec_k, vec_v;
+  int tab_k, tab_v;          // table bits (n_bits <= 8); 0: f2p_decode
+  int tv_off, build_v;       // V's table: its offset; 0 when it is K's
+  int tables, kreg, vreg;    // floats: the tables, a warp's K and V stages
+  int warp_floats;           // one warp's region
+  float scale;
+  F2PConsts fk, fv;
+};
+
+// a warp's region, after the tables: K stage (then the warp's acc [RG][hd]),
+// V stage, and for up to 32 positions row indices, K and V scales and p
+// [32][4], then m [4] and l [4]
+__host__ __device__ constexpr int attn_misc_floats() { return 32 * 3 + 32 * 4 + 8; }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+
+// copy the rows of words of the warp's n positions into its stage (row t at
+// t * W words): 16-byte pieces, or 4-byte ones where rows are not aligned
+__device__ __forceinline__ void attn_stage(uint32_t* dst, const uint32_t* __restrict__ src,
+                                           int W, int vec, const int* rows, int n, int lane) {
+  const int pieces = vec ? W >> 2 : W;
+  const float inv = 1.0f / (float)pieces;
+  for (int e = lane; e < n * pieces; e += 32) {
+    // e / pieces: exact, the quotient's distance from a boundary (>= 0.5 /
+    // pieces) is far above the float error (n * pieces <= 32 * 64)
+    const int t = (int)(((float)e + 0.5f) * inv);
+    const int o = e - t * pieces;
+    const uint32_t* s = src + (size_t)rows[t] * W;
+    if (vec)
+      cp_async16(dst + t * W + 4 * o, s + 4 * o, 16);
+    else
+      cp_async4(dst + t * W + o, s + o);
+  }
+}
+
+// the D fields of a lane from its window of `win` words at word w0 of a
+// staged row, the first field at bit sh of word w0 (D * nb <= 64)
+template <int D>
+__device__ __forceinline__ void attn_fields(const uint32_t* row, int w0, int sh, int win,
+                                            int nb, uint32_t (&c)[D]) {
+  const uint32_t a = row[w0];
+  const uint32_t b = win > 1 ? row[w0 + 1] : 0u;
+  const uint32_t e = win > 2 ? row[w0 + 2] : 0u;
+  const uint64_t x = ((uint64_t)__funnelshift_r(b, e, sh) << 32) | __funnelshift_r(a, b, sh);
+  const uint32_t mask = (1u << nb) - 1u;
+#pragma unroll
+  for (int j = 0; j < D; ++j) c[j] = (uint32_t)(x >> (j * nb)) & mask;
+}
+
+// a lane's D values of a staged row: decode(field) * the position's scale
+// (0 for a lane past head_dim). TAB: n_bits <= 8, so the fields lie in the
+// low 32 bits of the window and decode through the table, which holds the
+// payload codes only for a signed format: the sign bit flips the value's,
+// bitwise what f2p_decode's negation gives (-0.0 for 0)
+template <int D, bool TAB>
+__device__ __forceinline__ void attn_values(const uint32_t* row, int w0, int sh, int win,
+                                            int nb, const float* tab, int lane,
+                                            const F2PConsts& f, float sc, bool live,
+                                            float (&v)[D]) {
+  if constexpr (TAB) {
+    const uint32_t a = row[w0];
+    const uint32_t x = win > 1 ? __funnelshift_r(a, row[w0 + 1], sh) : a >> sh;
+    const uint32_t tmask = (1u << (f.is_signed ? f.nu : nb)) - 1u;
+    const uint32_t smask = f.is_signed ? 0x80000000u : 0u;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const uint32_t c = x >> (j * nb);
+      const uint32_t flip = (c << (31 - f.nu)) & smask;
+      v[j] = __fmul_rn(__uint_as_float(__float_as_uint(tab[((c & tmask) << 5) + lane]) ^ flip),
+                       sc);
+    }
+  } else {
+    uint32_t c[D];
+    attn_fields<D>(row, w0, sh, win, nb, c);
+#pragma unroll
+    for (int j = 0; j < D; ++j) v[j] = __fmul_rn(f2p_decode(c[j], f), sc);
+  }
+#pragma unroll
+  for (int j = 0; j < D; ++j) v[j] = live ? v[j] : 0.0f;
+}
+
+// the value of every code below 2^bits, replicated 32 times (entry c of
+// lane l at 32 c + l)
+__device__ __forceinline__ void attn_table(float* tab, int bits, const F2PConsts& f) {
+  const int lane = threadIdx.x & 31;
+  for (int c = threadIdx.x; c < (1 << bits); c += blockDim.x) {
+    const float d = f2p_decode((uint32_t)c, f);
+    float4* row = reinterpret_cast<float4*>(tab + (c << 5));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) row[(j + lane) & 7] = make_float4(d, d, d, d);
+  }
+}
+
+// 8 partial dots of a lane -> the warp's sum for position (lane >> 2) & 7
+__device__ __forceinline__ float attn_reduce8(const float (&v)[8], int lane) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float u[4], w[2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    u[k] = (h16 ? v[k + 4] : v[k]) + __shfl_xor_sync(0xffffffffu, h16 ? v[k] : v[k + 4], 16);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    w[k] = (h8 ? u[k + 2] : u[k]) + __shfl_xor_sync(0xffffffffu, h8 ? u[k] : u[k + 2], 8);
+  float x = (h4 ? w[1] : w[0]) + __shfl_xor_sync(0xffffffffu, h4 ? w[0] : w[1], 4);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x;
+}
+
+__device__ __forceinline__ void attn_store(const AttnArgs& a, int b, int h, int row, int d,
+                                           float v) {
+  if (row >= a.R) return;
+  const int g = row / a.Sq, s = row - g * a.Sq;
+  const size_t o = (((size_t)b * a.Sq + s) * a.H + h * a.G + g) * a.hd + d;
+  if (a.bf16)
+    reinterpret_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16_rn(v);
+  else
+    reinterpret_cast<float*>(a.out)[o] = v;
+}
+
+extern __shared__ float4 attn_smem4[];
+
+template <int RG, int D>
+__global__ void __launch_bounds__(kAttnMaxThreads)
+attention_decode_kernel(AttnArgs a) {
+  float* smem = reinterpret_cast<float*>(attn_smem4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = kAttnWarps;
+  const int L = kAttnSplit;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.y / a.ng, grp = blockIdx.y - h * a.ng, r0 = grp * RG;
+  const int bhg = (b * a.K + h) * a.ng + grp;
+  const int hdg = RG * a.hd;
+  const int c0 = split * L + warp * kAttnChunk, pos = c0 + lane;
+  // the page id goes out with the kv_len load (ids past S are not read)
+  int pid = 0;
+  if (a.pages && lane < kAttnChunk && pos < a.S)
+    pid = __ldg(a.pages + (size_t)b * a.maxp + pos / a.T);
+  const int kvlen = (int)max(0LL, min(attn_len(a.kvlen, b), (long long)a.S));
+  const int ns = (kvlen + L - 1) / L;   // the row's live splits
+  if (split >= max(ns, 1)) return;
+  if (ns == 0) {                        // kv_len <= 0: exact zeros
+    for (int i = threadIdx.x; i < hdg; i += blockDim.x)
+      attn_store(a, b, h, r0 + i / a.hd, i % a.hd, 0.0f);
+    return;
+  }
+  float* wr = smem + a.tables + warp * a.warp_floats;
+  uint32_t* kraw = reinterpret_cast<uint32_t*>(wr);
+  uint32_t* vraw = kraw + a.kreg;
+  int* rows = reinterpret_cast<int*>(vraw + a.vreg);
+  float* ksc = reinterpret_cast<float*>(rows + 32);
+  float* vsc = ksc + 32;
+  float* pb = vsc + 32;   // [32][4]
+  float* ml = pb + 128;   // m [4], l [4]
+
+  // stage this warp's n live positions: K rows and scales, then V's (the
+  // scales of positions past n are 0, so a stale word there decodes to 0)
+  const int n = max(0, min(kAttnChunk, kvlen - c0));
+  if (lane < n) {
+    long long row;
+    if (a.pages) {
+      pid = min(max(pid, 0), a.P - 1);   // a garbage id stays inside the slab
+      row = ((long long)pid * a.T + pos % a.T) * a.K + h;
+    } else {
+      row = ((long long)b * a.S + pos) * a.K + h;
+    }
+    rows[lane] = (int)row;
+  } else {
+    ksc[lane] = 0.0f;
+    vsc[lane] = 0.0f;
+  }
+  __syncwarp();
+  attn_stage(kraw, a.kw, a.Wk, a.vec_k, rows, n, lane);
+  if (lane < n) cp_async4(ksc + lane, a.ks + rows[lane]);
+  cp_async_commit();
+  attn_stage(vraw, a.vw, a.Wv, a.vec_v, rows, n, lane);
+  if (lane < n) cp_async4(vsc + lane, a.vs + rows[lane]);
+  cp_async_commit();
+
+  // while the copies fly: the tables and this lane's q (its D dims of RG rows)
+  if (a.tab_k) attn_table(smem, a.tab_k, a.fk);
+  if (a.build_v) attn_table(smem + a.tv_off, a.tab_v, a.fv);
+  const float* tabk = a.tab_k ? smem : nullptr;
+  const float* tabv = a.tab_v ? smem + a.tv_off : nullptr;
+  const int dl = lane * D;
+  const bool live_lane = dl < a.hd;
+  float qr[RG][D];
+#pragma unroll
+  for (int r = 0; r < RG; ++r) {
+    const int row = r0 + r;
+#pragma unroll
+    for (int j = 0; j < D; ++j) qr[r][j] = 0.0f;
+    if (row < a.R && live_lane) {
+      const int g = row / a.Sq, s = row - g * a.Sq;
+      const size_t o = b * a.qsb + s * a.qss + (h * a.G + g) * a.qsh + dl;
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        qr[r][j] = a.bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(a.q)[o + j])
+                          : reinterpret_cast<const float*>(a.q)[o + j];
+    }
+  }
+  cp_async_wait<1>();
+  __syncthreads();   // the tables are built, every warp's K stage has landed
+
+  // QK: lane t ends with the scores of position c0 + t. The table and
+  // f2p_decode get a loop each: a select per element would run both.
+  // Positions past n in a group read stale stage words; their scores are
+  // masked below, and each position's dot is summed apart.
+  const int nbk = a.fk.n_bits, bitk = dl * nbk;
+  const int wk0 = live_lane ? bitk >> 5 : 0, shk = bitk & 31;
+  float s[RG];
+#pragma unroll
+  for (int r = 0; r < RG; ++r) s[r] = 0.0f;
+  auto qk = [&](auto table) {
+    constexpr bool TAB = decltype(table)::value;
+#pragma unroll
+    for (int gi = 0; gi < kAttnChunk / 8; ++gi) {
+      if (gi * 8 >= n) break;
+      float pd[RG][8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int t = gi * 8 + k;
+        float kv[D];
+        attn_values<D, TAB>(kraw + t * a.Wk, wk0, shk, a.win_k, nbk, tabk, lane, a.fk, ksc[t],
+                            live_lane, kv);
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          pd[r][k] = 0.0f;
+#pragma unroll
+          for (int j = 0; j < D; ++j) pd[r][k] = fmaf(qr[r][j], kv[j], pd[r][k]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const float x = __shfl_sync(0xffffffffu, attn_reduce8(pd[r], lane), (lane & 7) << 2);
+        if ((lane >> 3) == gi) s[r] = x;
+      }
+    }
+  };
+  if (tabk)
+    qk(std::true_type());
+  else
+    qk(std::false_type());
+
+  // softmax over the warp's positions, one row at a time
+  const long long qo = a.causal ? attn_len(a.qoff, b) : 0;
+  float m[RG], l[RG];
+#pragma unroll
+  for (int r = 0; r < RG; ++r) {
+    bool valid = lane < n;
+    if (a.causal) valid = valid && (long long)(c0 + lane) <= qo + (r0 + r) % a.Sq;
+    const float sv = valid ? s[r] * a.scale : -INFINITY;
+    float mx = sv;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float p = expf(sv - (isfinite(mx) ? mx : 0.0f));
+    float sum = p;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    pb[lane * 4 + r] = p;
+    m[r] = mx;
+    l[r] = sum;
+  }
+  cp_async_wait<0>();
+  __syncwarp();   // the V stage has landed and p is visible to the warp
+
+  // PV: lane l's dims, positions in order
+  const int nbv = a.fv.n_bits, bitv = dl * nbv;
+  const int wv0 = live_lane ? bitv >> 5 : 0, shv = bitv & 31;
+  float acc[RG][D];
+#pragma unroll
+  for (int r = 0; r < RG; ++r)
+#pragma unroll
+    for (int j = 0; j < D; ++j) acc[r][j] = 0.0f;
+  // groups of 8 positions; past n, p = 0 and the value is 0 (scale 0)
+  auto pv = [&](auto table) {
+    constexpr bool TAB = decltype(table)::value;
+#pragma unroll
+    for (int gi = 0; gi < kAttnChunk / 8; ++gi) {
+      if (gi * 8 >= n) break;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int t = gi * 8 + k;
+        float v[D];
+        attn_values<D, TAB>(vraw + t * a.Wv, wv0, shv, a.win_v, nbv, tabv, lane, a.fv,
+                            vsc[t], live_lane, v);
+        const float4 p4 = reinterpret_cast<const float4*>(pb)[t];
+        const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int j = 0; j < D; ++j)
+#pragma unroll
+          for (int r = 0; r < RG; ++r) acc[r][j] = fmaf(pr[r], v[j], acc[r][j]);
+      }
+    }
+  };
+  if (tabv)
+    pv(std::true_type());
+  else
+    pv(std::false_type());
+  float* wacc = wr;   // the K stage is spent: the warp's acc [RG][hd]
+  if (live_lane)
+#pragma unroll
+    for (int r = 0; r < RG; ++r)
+#pragma unroll
+      for (int j = 0; j < D; ++j) wacc[r * a.hd + dl + j] = acc[r][j];
+  if (lane == 0)
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+      ml[r] = m[r];
+      ml[4 + r] = l[r];
+    }
+  __syncthreads();
+
+  // the CTA's warps, merged in warp order: one thread per row finds the
+  // max and each warp's factor exp(m_w - max) once, then every element is
+  // a sum of FMAs in warp order
+  __shared__ float cf[(kAttnMaxThreads / 32) * kAttnRows];   // [warp][row]
+  __shared__ float mlt[2 * kAttnRows];                        // max, sum per row
+  __shared__ int last;
+  const int live = min(nw, (kvlen - split * L + kAttnChunk - 1) / kAttnChunk);
+  const int mo = a.kreg + a.vreg + 32 * 3 + 128;   // ml's offset in a region
+  float* w0 = smem + a.tables;
+  if (threadIdx.x < RG) {
+    const int r = threadIdx.x;
+    float M = -INFINITY;
+    for (int w = 0; w < live; ++w) M = fmaxf(M, w0[w * a.warp_floats + mo + r]);
+    const float safe = isfinite(M) ? M : 0.0f;
+    float Ls = 0.0f;
+    for (int w = 0; w < live; ++w) {
+      const float mw = w0[w * a.warp_floats + mo + r];
+      const float c = isfinite(mw) ? expf(mw - safe) : 0.0f;
+      cf[w * kAttnRows + r] = c;
+      Ls = fmaf(w0[w * a.warp_floats + mo + 4 + r], c, Ls);
+    }
+    mlt[r] = M;
+    mlt[kAttnRows + r] = Ls;
+  }
+  __syncthreads();
+  const size_t ps = (size_t)hdg + 2 * RG;
+  float* mine = ns > 1 ? a.part + ((size_t)bhg * gridDim.x + split) * ps : nullptr;
+  for (int i = threadIdx.x; i < hdg; i += blockDim.x) {
+    const int r = i / a.hd, d = i - r * a.hd;
+    float O = 0.0f;
+    for (int w = 0; w < live; ++w) O = fmaf(w0[w * a.warp_floats + i], cf[w * kAttnRows + r], O);
+    if (ns == 1)
+      attn_store(a, b, h, r0 + r, d, O / fmaxf(mlt[kAttnRows + r], 1e-37f));
+    else
+      mine[i] = O;
+  }
+  if (ns == 1) return;
+  if (threadIdx.x < RG) {
+    mine[hdg + threadIdx.x] = mlt[threadIdx.x];
+    mine[hdg + RG + threadIdx.x] = mlt[kAttnRows + threadIdx.x];
+  }
+
+  // the last CTA of this (row, head, group) to finish merges the partials
+  // in split order, the same way: each split's (m, l) to shared memory (the
+  // warp regions are free; attention_plan bounds the splits so they fit),
+  // the factors once per row, then FMAs with 8 partials in flight
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.counts + bhg, 1) == ns - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x == 0) a.counts[bhg] = 0;   // ready for the next launch on this stream
+  const float* pp = a.part + (size_t)bhg * gridDim.x * ps;
+  float* sml = w0;   // [ns][2 RG]: m (then the factor) and l of each split
+  for (int e = threadIdx.x; e < ns * 2 * RG; e += blockDim.x) {
+    const int j = e / (2 * RG);
+    sml[e] = __ldcg(pp + j * ps + hdg + (e - j * 2 * RG));
+  }
+  __syncthreads();
+  if (threadIdx.x < RG) {
+    const int r = threadIdx.x;
+    float M = -INFINITY;
+    for (int j = 0; j < ns; ++j) M = fmaxf(M, sml[j * 2 * RG + r]);
+    const float safe = isfinite(M) ? M : 0.0f;
+    float Ls = 0.0f;
+    for (int j = 0; j < ns; ++j) {
+      const float mj = sml[j * 2 * RG + r];
+      const float c = isfinite(mj) ? expf(mj - safe) : 0.0f;
+      sml[j * 2 * RG + r] = c;
+      Ls = fmaf(sml[j * 2 * RG + RG + r], c, Ls);
+    }
+    mlt[kAttnRows + r] = Ls;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < hdg; i += blockDim.x) {
+    const int r = i / a.hd, d = i - r * a.hd;
+    float O = 0.0f;
+    for (int j0 = 0; j0 < ns; j0 += 8) {
+      float o[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[k] = j0 + k < ns ? __ldcg(pp + (j0 + k) * ps + i) : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (j0 + k < ns) O = fmaf(o[k], sml[(j0 + k) * 2 * RG + r], O);
+    }
+    attn_store(a, b, h, r0 + r, d, O / fmaxf(mlt[kAttnRows + r], 1e-37f));
+  }
+}
+
+template <int RG, int D>
+static int launch_attention(const AttnArgs& a, dim3 grid, int threads, size_t smem,
+                            cudaStream_t stream) {
+  auto k = attention_decode_kernel<RG, D>;
+  static size_t opted[kMaxDevices] = {};   // past 48 KB, once per device and size
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > opted[dev])) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDevices) opted[dev] = smem;
+  }
+  k<<<grid, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+static int launch_attention_rg(int rg, const AttnArgs& a, dim3 grid, int threads,
+                               size_t smem, cudaStream_t stream) {
+  return rg == 3 ? launch_attention<3, D>(a, grid, threads, smem, stream)
+                 : launch_attention<4, D>(a, grid, threads, smem, stream);
+}
+
+// words of the widest lane window: D fields of nb bits from bit l * D * nb
+static int attn_window(int hd, int D, int nb) {
+  int win = 1;
+  for (int l = 0; l * D < hd; ++l) {
+    const int sh = (l * D * nb) & 31;
+    win = max(win, (sh + D * nb + 31) / 32);
+  }
+  return win;
+}
+
+// ---------------------------------------------------------------------------
 // B5 / B6 launchers: the vectorized kernels where the block and the
 // pointers' alignment allow, the per-element ones otherwise
 // ---------------------------------------------------------------------------
@@ -1318,45 +1708,60 @@ int f2p_dequantize(const void* codes, int code_bytes, const float* scales,
   return (int)cudaGetLastError();
 }
 
-size_t f2p_attention_smem(int R, int hd, int tile, int W) {
-  // kv tile, q, acc, scores, (m, l, corr), staged scales, then 8-aligned
-  // row indices and staged words
-  size_t fl = (size_t)tile * (hd + 1) + 2 * (size_t)R * hd + (size_t)R * tile +
-              3 * (size_t)R + tile;
-  return ((fl * sizeof(float) + 7) & ~(size_t)7) + (size_t)tile * 8 +
-         (size_t)tile * W * sizeof(uint32_t);
-}
-
-int f2p_attention(const float* q3, const uint32_t* kw, const float* ks,
-                  const uint32_t* vw, const float* vs, const int* pages,
-                  const int* lens, float* out, int B, int K, int R, int hd,
-                  int Wk, int Wv, int S, int T, int P, int maxp, int sq,
-                  int causal, int tile, F2PConsts fk, F2PConsts fv, float scale,
-                  cudaStream_t stream) {
+// B1 / B2: one launch of attention_decode_kernel. q [B, Sq, H, hd] (f32
+// or bf16 by q_bf16; strides qsb, qss, qsh, dims contiguous) -> out [B, Sq,
+// H, hd] contiguous in q's dtype. pages null: dense [B, S, K, W] words;
+// else [P, T, K, W] slabs through pages [B, maxp] (S = maxp * T). The plan
+// (nsplit = ceil(S / kAttnSplit); rg = 3 or 4 rows per CTA in ng groups)
+// comes from f2p_attention.attention_plan. With nsplit > 1, part holds B *
+// K * ng * nsplit * (rg * hd + 2 rg) floats and counts B * K * ng ints,
+// zero before the launch and zero again after it.
+int f2p_attention(const void* q, int q_bf16, long long qsb, long long qss, long long qsh,
+                  const uint32_t* kw, const float* ks, const uint32_t* vw, const float* vs,
+                  const int* pages, AttnLen kvlen, AttnLen qoff, void* out, float* part,
+                  int* counts, int B, int Sq, int H, int K, int hd, int Wk, int Wv, int S,
+                  int T, int P, int maxp, int causal, int nsplit, int rg, int ng,
+                  F2PConsts fk, F2PConsts fv, float scale, cudaStream_t stream) {
+  const int D = hd <= 32 ? 1 : hd <= 64 ? 2 : 4;
+  if (hd < 1 || hd > 128 || hd % D || fk.n_bits > 16 || fv.n_bits > 16 ||
+      nsplit != max(1, (S + kAttnSplit - 1) / kAttnSplit) || (rg != 3 && rg != 4) ||
+      (nsplit > 1 && (!part || !counts)))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   AttnArgs a;
-  a.q3 = q3; a.kw = kw; a.ks = ks; a.vw = vw; a.vs = vs;
-  a.pages = pages; a.lens = lens; a.out = out;
-  a.K = K; a.R = R; a.hd = hd; a.Wk = Wk; a.Wv = Wv;
-  a.S = S; a.T = T; a.P = P; a.maxp = maxp;
-  a.sq = sq; a.causal = causal; a.tile = tile;
-  a.nt = (S + tile - 1) / tile;
+  a.q = q; a.qsb = qsb; a.qss = qss; a.qsh = qsh;
+  a.kw = kw; a.ks = ks; a.vw = vw; a.vs = vs; a.pages = pages;
+  a.out = out; a.part = part; a.counts = counts; a.kvlen = kvlen; a.qoff = qoff;
+  a.bf16 = q_bf16; a.Sq = Sq; a.H = H; a.K = K; a.G = H / K; a.R = (H / K) * Sq;
+  a.hd = hd; a.S = S; a.T = T; a.P = P; a.maxp = maxp; a.causal = causal; a.ng = ng;
+  a.Wk = Wk; a.Wv = Wv;
+  a.win_k = attn_window(hd, D, fk.n_bits);
+  a.win_v = attn_window(hd, D, fv.n_bits);
+  a.vec_k = Wk % 4 == 0 && (uintptr_t)kw % 16 == 0;
+  a.vec_v = Wv % 4 == 0 && (uintptr_t)vw % 16 == 0;
+  // the table covers the payload codes (the sign is a bit flip)
+  a.tab_k = fk.n_bits <= 8 ? (fk.is_signed ? fk.nu : fk.n_bits) : 0;
+  a.tab_v = fv.n_bits <= 8 ? (fv.is_signed ? fv.nu : fv.n_bits) : 0;
+  const bool share = a.tab_k && a.tab_v && memcmp(&fk, &fv, sizeof(F2PConsts)) == 0;
+  const int tk = a.tab_k ? 32 << a.tab_k : 0;
+  a.build_v = a.tab_v && !share;
+  a.tv_off = share ? 0 : tk;
+  a.tables = tk + (a.build_v ? 32 << a.tab_v : 0);
+  // +4: a lane's window may run past the last row
+  const int kst = max(kAttnChunk * Wk, rg * hd), vst = kAttnChunk * Wv + 4;
+  a.kreg = (kst + 3) & ~3;
+  a.vreg = (vst + 3) & ~3;
+  a.warp_floats = a.kreg + a.vreg + attn_misc_floats();
   a.scale = scale; a.fk = fk; a.fv = fv;
-  const size_t smem = f2p_attention_smem(R, hd, tile, max(Wk, Wv));
-  static bool opted_in[kMaxDevices] = {};   // once per device: allow up to 227 KB
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= kMaxDevices || !opted_in[dev]) {
-    cudaFuncSetAttribute(attention_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    cudaFuncSetAttribute(attention_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    if (dev < kMaxDevices) opted_in[dev] = true;
-  }
-  if (pages)
-    attention_kernel<true><<<B * K, kAttnThreads, smem, stream>>>(a);
-  else
-    attention_kernel<false><<<B * K, kAttnThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  const int nw = kAttnWarps;
+  const size_t smem = sizeof(float) * ((size_t)a.tables + (size_t)nw * a.warp_floats);
+  // the last CTA stages every split's (m, l) in the warp regions
+  if (smem > 232448 || (size_t)nsplit * 2 * rg > (size_t)nw * a.warp_floats)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(nsplit, K * ng, B);
+  if (D == 1) return launch_attention_rg<1>(rg, a, grid, 32 * nw, smem, stream);
+  if (D == 2) return launch_attention_rg<2>(rg, a, grid, 32 * nw, smem, stream);
+  return launch_attention_rg<4>(rg, a, grid, 32 * nw, smem, stream);
 }
 
 int f2p_counter_advance(const int* state, const float* budget, int* state_out,

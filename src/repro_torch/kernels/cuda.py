@@ -57,6 +57,34 @@ class F2PConsts(ctypes.Structure):
                  "is_signed", "n_bits")]
 
 
+class AttnLen(ctypes.Structure):
+    """Mirror of ``struct AttnLen``: a per-row int32 / int64 tensor read at
+    ``b * stride`` (stride 0: one value for every row), or ``value`` when
+    ``p`` is null."""
+    _fields_ = [("p", ctypes.c_void_p), ("stride", ctypes.c_longlong),
+                ("is64", ctypes.c_int), ("value", ctypes.c_int)]
+
+
+_WS: dict = {}
+
+
+def workspace(dev, stream: int, n_part: int, groups: int):
+    """The split workspace of the kernels that merge partials in their last
+    CTA (the matmul's decode route, attention) on (device, stream): room
+    for ``n_part`` f32 partials and ``groups`` int32 counts, grown on
+    demand. The counts start at zero and every launch leaves them at zero;
+    launches on one stream are ordered, so one workspace serves them
+    all."""
+    ws = _WS.get((dev.index, stream))
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < groups:
+        n_part = max(n_part, 0 if ws is None else ws[0].numel())
+        groups = max(groups, 0 if ws is None else ws[1].numel())
+        ws = _WS[(dev.index, stream)] = (
+            torch.empty(n_part, dtype=torch.float32, device=dev),
+            torch.zeros(groups, dtype=torch.int32, device=dev))
+    return ws
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -108,10 +136,9 @@ def lib():
         L.f2p_quantize.argtypes = [P, I, P, I, P, LL, I, I, F2PConsts, F, I,
                                    P]
         L.f2p_dequantize.argtypes = [P, I, P, P, I, LL, I, F2PConsts, P]
-        L.f2p_attention_smem.argtypes = [I, I, I, I]
-        L.f2p_attention_smem.restype = ctypes.c_size_t
-        L.f2p_attention.argtypes = [P] * 8 + [I] * 13 + [
-            F2PConsts, F2PConsts, F, P]
+        L.f2p_attention.argtypes = [P, I, LL, LL, LL] + [P] * 5 + [
+            AttnLen, AttnLen, P, P, P] + [I] * 15 + [F2PConsts, F2PConsts,
+                                                    F, P]
         L.f2p_counter_advance.argtypes = [P] * 7 + [LL, I, U, U, I, P]
         L.f2p_counter_estimate.argtypes = [P, P, P, LL, P]
         L.f2p_dequant_matmul.argtypes = [P, I, P, I, I, P, P, P] + [I] * 7 + [

@@ -3,9 +3,8 @@
 
 Port of ``repro.kernels.f2p_attention`` (DESIGN.md §11, §14). GQA folds
 q ``[B, Sq, H, hd]`` (H = K*G) to rows ``[B, K, R = G*Sq, hd]`` (row
-r = g*Sq + s), so one program per (batch row, kv head) feeds all G query
-heads against a single streamed KV tile; causal masks recover the query
-position as ``q_offset + r % Sq``.
+r = g*Sq + s), so the G query heads of a kv head share each decoded K/V
+element; causal masks recover the query position as ``q_offset + r % Sq``.
 
 The plain version keeps the reference's tile loop and its -inf-guarded
 online softmax (``_online_step``) op for op: per kv tile, unpack the n-bit
@@ -13,21 +12,34 @@ fields, decode, scale, then one (acc, m, l) update. The paged plain version
 gathers each tile's pages straight from the slabs, so with the same tile it
 is bitwise equal to the dense one over :func:`gather_pages_to_dense`.
 
-Device routing: CPU tensors run the plain version; CUDA tensors launch the
-templated kernel of ``csrc/f2p_kernels.cu`` (or raise). That kernel
-replaces ``repro/kernels/f2p_attention.py::_fused_kernel`` (dense) and
-``::_paged_kernel`` (paged). On an H100 decode attention is bound by bytes:
-it must read every live packed K/V word and scale once (n_bits/8 bytes per
-element instead of 2 for bf16), and does only 4*R*hd flops per position.
-The kernel runs one CTA per (batch row, kv head), decodes each K and V tile
-into f32 shared memory once and reuses it for all R rows, and skips tiles
-past the row's kv_len; both addressing modes share one tile loop, so paged
-== dense-over-gathered-pages bitwise on the card too. Its grid (B*K CTAs)
-does not fill 132 SMs at decode batch 8; split-KV and TMA are later work.
+Device routing: CPU tensors run the plain version; CUDA tensors launch
+``attention_decode_kernel`` of ``csrc/f2p_kernels.cu`` (or raise). That
+kernel replaces ``repro/kernels/f2p_attention.py::_fused_kernel`` (dense)
+and ``::_paged_kernel`` (paged). On an H100 decode attention is bound by
+bytes and instruction issue: it reads every live packed K/V word and scale
+once (n_bits/8 bytes per element instead of 2 for bf16) and does 4*R*hd
+flops per position. The kernel splits KV across CTAs: a CTA takes
+:data:`ATTN_SPLIT` consecutive positions (16 per warp, one per lane) of
+one (batch row, kv head, group of 3 or 4 query rows), stages their
+packed words with ``cp.async``, decodes each element once in registers (a
+bank-replicated table up to 8 bits), forms the QK dots by a transposing
+warp butterfly and PV with lanes owning dims, and merges warps, then
+splits, in a fixed order (the last CTA of a row merges the splits). The
+split is a constant of the design, not the caller's
+``tile``, and no K/V word past a row's kv_len is read: the result depends
+on each row's kv_len and words only, not on S, the span bucket, B or the
+SM count, so paged == dense-over-gathered-pages bitwise on the card too,
+and a paged call on a page table cut to a span bucket equals the dense
+call on the full cache. q is read and o written in the caller's layout
+and dtype (f32 or bf16) by the kernel, and kv_len / q_offset / the page
+ids are read (and the ids clamped) there: one launch per call. The
+wrapper's host-side plan is :func:`attention_plan`.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,9 +53,16 @@ from repro_torch.kernels.f2p_quant import cuda_consts, dequantize_tile_math
 __all__ = ["attention_packed", "attention_paged", "attention_packed_plain",
            "attention_paged_plain", "gather_pages_to_dense",
            "attention_reference", "attention_packed_reference",
-           "attention_paged_reference", "DEFAULT_TILE"]
+           "attention_paged_reference", "attention_plan", "AttnPlan",
+           "DEFAULT_TILE", "ATTN_SPLIT"]
 
-DEFAULT_TILE = 128
+DEFAULT_TILE = 128      # the plain version's kv tile
+# kv positions per CTA of the kernel: its kAttnSplit (8 warps of
+# kAttnChunk = 16), which the C entry checks the plan's nsplit against
+ATTN_SPLIT = 128
+ATTN_ROWS = (3, 4)      # query rows per CTA: the kernel's instances
+ATTN_MAX_HEAD_DIM = 128   # a lane holds at most 4 dims of a row
+ATTN_MAX_SPLITS = 256   # the last CTA stages every split's (m, l)
 
 
 # ---------------------------------------------------------------------------
@@ -148,37 +167,118 @@ def _to_tiles(x, B: int, nt: int, tile: int):
 # ---------------------------------------------------------------------------
 # Kernel wrapper (both addressing modes)
 # ---------------------------------------------------------------------------
-def _attention_cuda(q3, kw, ks, vw, vs, lens, fmt_k, fmt_v, sq, causal,
-                    tile, pages=None):
-    B, K, R, hd = q3.shape
-    paged = pages is not None
-    for t, what, dt in ((q3, "q", torch.float32), (kw, "k words", torch.uint32),
+class AttnPlan(NamedTuple):
+    """The kernel's launch: query rows in ``groups`` groups of ``rows``
+    per CTA (rows past R are masked), ``nsplit`` splits of
+    :data:`ATTN_SPLIT` positions, grid (nsplit, K * groups, B), and the
+    split workspace (``n_part`` f32 partials, ``n_counts`` counts; none
+    with one split)."""
+    rows: int
+    groups: int
+    nsplit: int
+    grid: tuple
+    n_part: int
+    n_counts: int
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_plan(B: int, K: int, R: int, hd: int, S: int) -> AttnPlan:
+    """The kernel's launch plan from shapes only: batch rows, kv heads,
+    folded query rows R = G*Sq, head_dim and the per-row length S the
+    cache can hold (paged: max_pages * page_tokens). It never reads kv_len
+    (a device value): the grid covers S, and the kernel retires the splits
+    past each row's kv_len itself. Raises ValueError on a head_dim or a
+    length the kernel cannot take."""
+    if not 1 <= hd <= ATTN_MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel takes head_dim 1..{ATTN_MAX_HEAD_DIM},"
+                         f" got {hd}")
+    lane_dims = 1 if hd <= 32 else 2 if hd <= 64 else 4
+    if hd % lane_dims:
+        raise ValueError(f"attention kernel: head_dim {hd} is not a multiple "
+                         f"of the {lane_dims} dims a lane holds")
+    groups = -(-R // ATTN_ROWS[-1])
+    rows = max(ATTN_ROWS[0], -(-R // groups))
+    nsplit = max(1, -(-S // ATTN_SPLIT))
+    if nsplit > ATTN_MAX_SPLITS:
+        raise ValueError(f"attention kernel takes at most {ATTN_MAX_SPLITS} "
+                         f"splits of {ATTN_SPLIT} positions (S <= "
+                         f"{ATTN_MAX_SPLITS * ATTN_SPLIT}), got S = {S}")
+    many = nsplit > 1
+    return AttnPlan(rows, groups, nsplit,
+                    (nsplit, K * groups, B),
+                    B * K * groups * nsplit * (rows * hd + 2 * rows) if many
+                    else 0, B * K * groups if many else 0)
+
+
+def _len_arg(v, B: int, default: int, dev):
+    """``kv_len`` / ``q_offset`` as the kernel reads them: a Python int (or
+    None: ``default``) by value, a tensor of one or B values in place
+    (int32 / int64; other dtypes cast), with no copy and no sync. Returns
+    (AttnLen, the tensor to keep alive)."""
+    if v is None or isinstance(v, (int, np.integer)):
+        x = default if v is None else int(v)
+        return C.AttnLen(None, 0, 0, max(-2 ** 31, min(x, 2 ** 31 - 1))), None
+    t = v
+    if not (isinstance(v, torch.Tensor) and v.device == torch.device(dev)
+            and v.dtype in (torch.int32, torch.int64)):
+        t = torch.as_tensor(v, device=dev)
+        if t.dtype not in (torch.int32, torch.int64):
+            t = t.to(torch.int32)
+    if t.ndim > 1 or t.numel() not in (1, B):
+        raise ValueError(f"kv_len / q_offset must be a scalar or [B={B}], "
+                         f"got {tuple(t.shape)}")
+    return C.AttnLen(t.data_ptr(), t.stride(0) if t.numel() > 1 else 0,
+                     int(t.dtype == torch.int64), 0), t
+
+
+def _attention_cuda(q, kq: QTensor, vq: QTensor, kv_len, q_offset, causal,
+                    pages=None):
+    """One launch of the kernel; o ``[B, Sq, H, hd]`` in q's dtype."""
+    B, Sq, H, hd = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention kernel takes f32 or bf16 q, got {q.dtype}")
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    kw, ks, vw, vs = kq.codes, kq.scales, vq.codes, vq.scales
+    for t, what, dt in ((kw, "k words", torch.uint32),
                         (ks, "k scales", torch.float32),
                         (vw, "v words", torch.uint32),
-                        (vs, "v scales", torch.float32),
-                        (lens, "lens", torch.int32)):
+                        (vs, "v scales", torch.float32)):
         C.require_cuda(t, what, dt)
-    if paged:
+    K = kw.shape[2]
+    if pages is not None:
         C.require_cuda(pages, "pages", torch.int32)
         P, T = kw.shape[0], kw.shape[1]
         maxp = pages.shape[1]
         S = maxp * T
+        n_rows = P * T * K
     else:
         P, T, maxp, S = 0, 0, 0, kw.shape[1]
-    smem = C.lib().f2p_attention_smem(R, hd, tile,
-                                      max(kw.shape[-1], vw.shape[-1]))
-    if smem > C.MAX_SMEM:
-        raise ValueError(f"attention tile needs {smem} B of shared memory "
-                         f"(R={R}, hd={hd}, tile={tile}); max {C.MAX_SMEM}")
-    out = torch.empty_like(q3)
+        n_rows = B * S * K
+    if n_rows >= 2 ** 31:
+        raise ValueError(f"attention kernel indexes < 2^31 cache rows, got "
+                         f"{n_rows}")
+    plan = attention_plan(B, K, (H // K) * Sq, hd, S)
+    dev = q.device
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    stream = C.stream()
+    part = counts = None
+    if plan.nsplit > 1:
+        part, counts = C.workspace(dev, stream, plan.n_part, plan.n_counts)
+    lens, keep_l = _len_arg(kv_len, B, S, dev)
+    qoff, keep_q = _len_arg(q_offset, B, 0, dev)
+    what = "attention_paged" if pages is not None else "attention_packed"
     C.check(C.lib().f2p_attention(
-        q3.data_ptr(), kw.data_ptr(), ks.data_ptr(), vw.data_ptr(),
-        vs.data_ptr(), pages.data_ptr() if paged else None, lens.data_ptr(),
-        out.data_ptr(), B, K, R, hd, kw.shape[-1], vw.shape[-1], S, T, P,
-        maxp, sq, int(causal), tile, cuda_consts(fmt_k), cuda_consts(fmt_v),
-        1.0 / math.sqrt(hd), C.stream()),
-        "attention_paged" if paged else "attention_packed")
-    C.LAUNCHES["attention_paged" if paged else "attention_packed"] += 1
+        q.data_ptr(), int(q.dtype == torch.bfloat16), q.stride(0),
+        q.stride(1), q.stride(2), kw.data_ptr(), ks.data_ptr(),
+        vw.data_ptr(), vs.data_ptr(),
+        None if pages is None else pages.data_ptr(), lens, qoff,
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        None if counts is None else counts.data_ptr(), B, Sq, H, K, hd,
+        kw.shape[-1], vw.shape[-1], S, T, P, maxp, int(causal), plan.nsplit,
+        plan.rows, plan.groups, cuda_consts(kq.fmt), cuda_consts(vq.fmt),
+        1.0 / math.sqrt(hd), stream), what)
+    C.LAUNCHES[what] += 1
     return out
 
 
@@ -195,25 +295,36 @@ def _check_cache(qt: QTensor, hd: int, what: str, ndim: int) -> None:
                          f"block={qt.block} shape={qt.shape}")
 
 
-def _dense_args(q, kq: QTensor, vq: QTensor, kv_len, q_offset, tile):
-    B, Sq, H, hd = q.shape
+def _dense_check(q, kq: QTensor, vq: QTensor, tile) -> int:
+    """Argument checks of the dense call (both routes); the plain tile."""
+    H, hd = q.shape[2], q.shape[3]
     _check_cache(kq, hd, "kq", 4)
     _check_cache(vq, hd, "vq", 4)
     S, K = kq.codes.shape[1], kq.codes.shape[2]
     if H % K:
         raise ValueError(f"n_heads {H} not a multiple of kv heads {K}")
-    tile = max(1, min(int(tile or DEFAULT_TILE), S))
-    return _fold_q(q, K), _make_lens(kv_len, q_offset, B, S, q.device), tile
+    return max(1, min(int(tile or DEFAULT_TILE), S))
 
 
-def _paged_args(q, kq: QTensor, vq: QTensor, pages, kv_len, q_offset, tile):
-    B, Sq, H, hd = q.shape
+def _dense_args(q, kq: QTensor, vq: QTensor, kv_len, q_offset, tile):
+    tile = _dense_check(q, kq, vq, tile)
+    S, K = kq.codes.shape[1], kq.codes.shape[2]
+    return (_fold_q(q, K), _make_lens(kv_len, q_offset, q.shape[0], S,
+                                      q.device), tile)
+
+
+def _paged_check(q, kq: QTensor, vq: QTensor, pages, tile):
+    """Argument checks of the paged call (both routes): (the page table as
+    contiguous int32 on q's device, the plain tile)."""
+    B, H, hd = q.shape[0], q.shape[2], q.shape[3]
     _check_cache(kq, hd, "kq", 4)
     _check_cache(vq, hd, "vq", 4)
-    P, T, K = kq.codes.shape[:3]
+    T, K = kq.codes.shape[1], kq.codes.shape[2]
     if H % K:
         raise ValueError(f"n_heads {H} not a multiple of kv heads {K}")
-    pages = torch.as_tensor(pages, dtype=torch.int32, device=q.device)
+    if not (isinstance(pages, torch.Tensor) and pages.dtype == torch.int32
+            and pages.device == q.device):
+        pages = torch.as_tensor(pages, dtype=torch.int32, device=q.device)
     if pages.ndim != 2 or pages.shape[0] != B:
         raise ValueError(f"pages must be [B={B}, max_pages], got "
                          f"{tuple(pages.shape)}")
@@ -222,10 +333,17 @@ def _paged_args(q, kq: QTensor, vq: QTensor, pages, kv_len, q_offset, tile):
     if tile % T:
         raise ValueError(f"kv tile {tile} not a multiple of page_tokens {T}: "
                          "paged tiles must span whole pages")
+    return pages.contiguous(), tile
+
+
+def _paged_args(q, kq: QTensor, vq: QTensor, pages, kv_len, q_offset, tile):
+    pages, tile = _paged_check(q, kq, vq, pages, tile)
+    P, T, K = kq.codes.shape[:3]
     # garbage ids are clamped into the slab (their positions are masked)
-    pages = torch.clamp(pages, 0, P - 1).contiguous()
+    pages = torch.clamp(pages, 0, P - 1)
     return (_fold_q(q, K), pages,
-            _make_lens(kv_len, q_offset, B, S, q.device), tile)
+            _make_lens(kv_len, q_offset, q.shape[0], pages.shape[1] * T,
+                       q.device), tile)
 
 
 def attention_packed(q, kq: QTensor, vq: QTensor, *, kv_len=None,
@@ -236,16 +354,15 @@ def attention_packed(q, kq: QTensor, vq: QTensor, *, kv_len=None,
     shape ``[B, S, K, hd]`` with block = hd. ``kv_len`` masks positions
     >= kv_len; ``causal`` masks positions past ``q_offset + s``. Both take a
     scalar or a per-batch ``[B]`` vector. Returns ``[B, Sq, H, hd]`` in q's
-    dtype. CUDA tensors launch the kernel, CPU tensors run
-    :func:`attention_packed_plain`."""
+    dtype. CUDA tensors launch the kernel (f32 or bf16 q; ``tile`` is the
+    plain version's and only checked there: the kernel's split is
+    :data:`ATTN_SPLIT`), CPU tensors run :func:`attention_packed_plain`."""
     if q.device.type != "cuda":
         return attention_packed_plain(q, kq, vq, kv_len=kv_len,
                                       causal=causal, q_offset=q_offset,
                                       tile=tile)
-    q3, lens, tile = _dense_args(q, kq, vq, kv_len, q_offset, tile)
-    o3 = _attention_cuda(q3, kq.codes, kq.scales, vq.codes, vq.scales, lens,
-                         kq.fmt, vq.fmt, q.shape[1], bool(causal), tile)
-    return _unfold_o(o3, q.shape[1], q.dtype)
+    _dense_check(q, kq, vq, tile)
+    return _attention_cuda(q, kq, vq, kv_len, q_offset, bool(causal))
 
 
 def attention_packed_plain(q, kq: QTensor, vq: QTensor, *, kv_len=None,
@@ -270,19 +387,16 @@ def attention_paged(q, kq: QTensor, vq: QTensor, pages, *, kv_len=None,
     ``pages`` ``[B, max_pages]`` int32 orders each row's pages (ids are
     clamped to the slab, positions >= kv_len contribute exactly 0.0). The
     tile must span whole pages. With the same tile the output is bitwise
-    equal to :func:`attention_packed` over :func:`gather_pages_to_dense`.
-    CUDA tensors launch the kernel, CPU tensors run
+    equal to :func:`attention_packed` over :func:`gather_pages_to_dense`
+    (on the card for any tile, and for a page table cut to any span that
+    covers kv_len). CUDA tensors launch the kernel, CPU tensors run
     :func:`attention_paged_plain`."""
     if q.device.type != "cuda":
         return attention_paged_plain(q, kq, vq, pages, kv_len=kv_len,
                                      causal=causal, q_offset=q_offset,
                                      tile=tile)
-    q3, pages, lens, tile = _paged_args(q, kq, vq, pages, kv_len, q_offset,
-                                        tile)
-    o3 = _attention_cuda(q3, kq.codes, kq.scales, vq.codes, vq.scales, lens,
-                         kq.fmt, vq.fmt, q.shape[1], bool(causal), tile,
-                         pages=pages)
-    return _unfold_o(o3, q.shape[1], q.dtype)
+    pages, _ = _paged_check(q, kq, vq, pages, tile)
+    return _attention_cuda(q, kq, vq, kv_len, q_offset, bool(causal), pages)
 
 
 def attention_paged_plain(q, kq: QTensor, vq: QTensor, pages, *,

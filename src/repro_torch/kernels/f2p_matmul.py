@@ -178,23 +178,6 @@ def decode_plan(M: int, N: int, K: int, n_sm: int) -> tuple[int, int]:
 
 
 _N_SM: dict[int, int] = {}
-_CONSTS: dict = {}
-_WS: dict = {}
-
-
-def _workspace(dev, stream: int, n_part: int, groups: int):
-    """The decode route's split workspace on (device, stream): room for the
-    partial sums and one count per column group, grown on demand. The
-    counts start at zero and every launch leaves them at zero; launches on
-    one stream are ordered, so one workspace serves them all."""
-    ws = _WS.get((dev.index, stream))
-    if ws is None or ws[0].numel() < n_part or ws[1].numel() < groups:
-        n_part = max(n_part, 0 if ws is None else ws[0].numel())
-        groups = max(groups, 0 if ws is None else ws[1].numel())
-        ws = _WS[(dev.index, stream)] = (
-            torch.empty(n_part, dtype=torch.float32, device=dev),
-            torch.zeros(groups, dtype=torch.int32, device=dev))
-    return ws
 
 
 def _launch(x, w, scales, fmt, block, N, code_bytes, W):
@@ -216,15 +199,13 @@ def _launch(x, w, scales, fmt, block, N, code_bytes, W):
     if n_sm is None:
         n_sm = _N_SM[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    consts = _CONSTS.get(fmt)
-    if consts is None:
-        consts = _CONSTS[fmt] = cuda_consts(fmt)
+    consts = cuda_consts(fmt)
     what = "dequant_matmul" if code_bytes else "dequant_matmul_packed"
     stream = C.stream()
     if matmul_route(M, block) == "decode":
         k_chunk, splits = decode_plan(M, N, K, n_sm)
         groups = -(-N // _DEC_COLS)
-        part, counts = (_workspace(dev, stream, splits * M * N, groups)
+        part, counts = (C.workspace(dev, stream, splits * M * N, groups)
                         if splits > 1 else (y, y))
         C.check(C.lib().f2p_dequant_matmul_decode(
             x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),

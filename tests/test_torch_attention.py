@@ -127,3 +127,90 @@ def test_paged_rejects_tiles_that_split_pages():
     q = torch.zeros(1, 1, 4, 16)
     with pytest.raises(ValueError, match="whole pages"):
         TA.attention_paged(q, tk, tv, torch.tensor([[0, 1]]), tile=12)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's host-side plan (the kernel itself runs only on the card:
+# tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,K,R,hd,S", [
+    (8, 8, 3, 128, 1024),    # serving decode, copy-in (the full max_seq)
+    (8, 8, 3, 128, 80),      # paged, a 10-page span bucket
+    (3, 2, 12, 64, 96),      # causal multi-query, R = 12
+    (2, 2, 6, 16, 257),      # smoke head_dim, one position past a split
+    (1, 4, 5, 96, 256),      # R = 5 -> two groups of 3 rows
+    (4, 1, 1, 32, 1),        # R = 1 -> one group of 3, two rows masked
+    (2, 2, 2, 64, 200),      # R = 2
+    (2, 8, 7, 128, 128),     # R = 7 -> two groups of 4
+])
+def test_attention_plan_arithmetic(B, K, R, hd, S):
+    """Grid (splits, K x row groups, B); each CTA takes ATTN_SPLIT
+    positions and 3 or 4 rows (the kernel's instances; rows past R are
+    masked); the split workspace holds one (acc, m, l) partial per (row,
+    head, group, split) and one count per (row, head, group), and there is
+    none with one split."""
+    p = TA.attention_plan(B, K, R, hd, S)
+    assert p.nsplit == max(1, -(-S // TA.ATTN_SPLIT))
+    assert p.grid == (p.nsplit, K * p.groups, B)
+    assert p.rows in TA.ATTN_ROWS and p.rows * p.groups >= R
+    assert (p.groups - 1) * p.rows < R     # no group is empty
+    assert p.groups == -(-R // max(TA.ATTN_ROWS))
+    if p.nsplit > 1:
+        assert p.n_part == B * K * p.groups * p.nsplit * (
+            p.rows * hd + 2 * p.rows)
+        assert p.n_counts == B * K * p.groups
+    else:
+        assert p.n_part == p.n_counts == 0
+
+
+def test_attention_plan_reads_only_shapes_and_no_kv_len():
+    """The plan takes shapes only (no tensor, no kv_len: the host never
+    reads a device value, so a call never synchronises), and a row's live
+    splits ceil(kv_len / split) are the same whatever S the grid covers:
+    the paged engine's span bucket and the copy-in engine's max_seq give
+    the same split plan for every row, so the same bits."""
+    import inspect
+
+    params = inspect.signature(TA.attention_plan).parameters
+    assert list(params) == ["B", "K", "R", "hd", "S"]
+    split = TA.ATTN_SPLIT
+    for kv in (1, split - 1, split, split + 1, 4 * split + 37):
+        live = -(-kv // split)
+        for S in (kv, -(-kv // 8) * 8, 1024 * 8):
+            p = TA.attention_plan(8, 8, 3, 128, S)
+            assert live <= p.nsplit and p.rows == 3 and p.groups == 1
+    # one split per (b, h, group) below the split length: no workspace
+    assert TA.attention_plan(8, 8, 3, 128, split).n_part == 0
+
+
+@pytest.mark.parametrize("hd,S,what", [
+    (256, 64, "head_dim"),
+    (66, 64, "head_dim"),     # not a multiple of the 4 dims a lane holds
+    (128, TA.ATTN_MAX_SPLITS * TA.ATTN_SPLIT + 1, "splits"),
+])
+def test_attention_plan_names_its_limits(hd, S, what):
+    with pytest.raises(ValueError, match=what):
+        TA.attention_plan(2, 2, 3, hd, S)
+    TA.attention_plan(2, 2, 3, 96 if hd == 66 else 128, 64)   # takes these
+
+
+def test_len_arg_passes_values_and_tensors_in_place():
+    """kv_len / q_offset reach the kernel without a copy: an int (or None)
+    by value, clamped to int32; a [B] or one-element int32 / int64 tensor
+    by pointer and stride (0 broadcasts); another dtype is cast; a wrong
+    shape raises."""
+    a, keep = TA._len_arg(None, 3, 77, "cpu")
+    assert (a.p, a.value, keep) == (None, 77, None)
+    a, _ = TA._len_arg(np.int64(2 ** 40), 3, 0, "cpu")
+    assert a.p is None and a.value == 2 ** 31 - 1
+    t = torch.tensor([5, 6, 7])
+    a, keep = TA._len_arg(t, 3, 0, "cpu")
+    assert keep is t and a.p == t.data_ptr() and a.stride == 1 and a.is64
+    a, keep = TA._len_arg(torch.tensor(9, dtype=torch.int32), 3, 0, "cpu")
+    assert a.stride == 0 and not a.is64 and keep.dtype == torch.int32
+    a, keep = TA._len_arg(torch.tensor([4.0]), 3, 0, "cpu")
+    assert keep.dtype == torch.int32 and a.stride == 0
+    a, keep = TA._len_arg(torch.arange(6)[::2], 3, 0, "cpu")
+    assert a.stride == 2 and a.p == keep.data_ptr()
+    with pytest.raises(ValueError, match="scalar or"):
+        TA._len_arg(torch.tensor([1, 2]), 3, 0, "cpu")

@@ -118,29 +118,131 @@ def test_unpacked_qtensor_on_card_matches_cpu(gen):
         assert torch.equal(_codes_i(back.codes), _codes_i(q.codes))
 
 
-@pytest.mark.parametrize("tile", [8, 32, 128])
-def test_attention_kernels_vs_plain_and_paged_equals_dense(gen, tile):
-    fmt = named_format("f2p_sr_2_8s")
-    B, K, G, hd, T, P, maxp = 3, 2, 3, 64, 8, 40, 12
-    q = torch.randn(B, 2, K * G, hd, generator=gen, device="cuda")
-    slab_k = QT.quantize(torch.randn(P, T, K, hd, generator=gen,
-                                     device="cuda"), fmt, block=hd,
-                         packed=True)
-    slab_v = QT.quantize(torch.randn(P, T, K, hd, generator=gen,
-                                     device="cuda"), fmt, block=hd,
-                         packed=True)
+# (format, head_dim, G, Sq, kv_len per row, causal, tile). R = G * Sq query
+# rows; the kernel's split is A.ATTN_SPLIT (128) positions.
+_ATTN_CASES = [
+    ("f2p_sr_2_8s", 64, 3, 2, (96, 40, 0), True, 8),
+    ("f2p_sr_2_8s", 64, 3, 2, (96, 40, 0), True, 32),
+    ("f2p_sr_2_8s", 64, 3, 2, (96, 40, 0), True, 128),
+    ("f2p_sr_2_8s", 128, 3, 1, (549, 300, 1), False, 128),   # 5 splits
+    ("f2p_sr_2_8s", 128, 3, 1, (128, 127, 129), False, 64),  # a split, +-1
+    ("f2p_sr_2_6s", 128, 3, 1, (549, 128, 0), False, 128),
+    ("f2p_lr_2_16s", 128, 3, 1, (549, 129, 1), False, 128),
+    ("f2p_sr_2_6s", 64, 3, 4, (300, 127, 5), True, 16),      # R = 12
+    ("f2p_lr_2_16s", 64, 6, 2, (257, 1, 0), True, 128),      # R = 12
+    ("f2p_sr_2_8s", 128, 4, 1, (640, 33, 31), False, 128),   # R = 4
+    ("f2p_sr_2_8s", 16, 3, 1, (40, 13, 0), False, 8),        # smoke head_dim
+    # rows past R masked: R = 1 and 2 on the 3-row instance, R = 5 as two
+    # groups of 3
+    ("f2p_sr_2_8s", 128, 1, 1, (300, 1, 0), False, 128),     # R = 1
+    ("f2p_sr_2_6s", 64, 1, 2, (129, 40, 2), True, 64),       # R = 2
+    ("f2p_lr_2_16s", 128, 5, 1, (257, 128, 0), False, 128),  # R = 5
+]
+
+
+def _attn_inputs(gen, name, hd, G, Sq, kv, K=2, T=8):
+    fmt = named_format(name)
+    B = len(kv)
+    maxp = -(-max(kv) // T) + 2
+    P = B * maxp + 3
+    q = torch.randn(B, Sq, K * G, hd, generator=gen, device="cuda")
+    slab_k, slab_v = (QT.quantize(torch.randn(P, T, K, hd, generator=gen,
+                                              device="cuda"), fmt, block=hd,
+                                  packed=True) for _ in range(2))
     pages = torch.randperm(P, generator=gen, device="cuda")[:B * maxp]
-    pages = pages.reshape(B, maxp).to(torch.int32)
-    kv_len = torch.tensor([96, 40, 0], device="cuda")
-    kw = dict(kv_len=kv_len, causal=True, q_offset=kv_len - 2, tile=tile)
+    return q, slab_k, slab_v, pages.reshape(B, maxp).to(torch.int32)
+
+
+@pytest.mark.parametrize("name,hd,G,Sq,kv,causal,tile", _ATTN_CASES)
+def test_attention_kernels_vs_plain_and_paged_equals_dense(
+        gen, name, hd, G, Sq, kv, causal, tile):
+    """B1 and B2 against the plain version (rtol = atol = 1e-5) and
+    against each other (bitwise): kv_len over several splits, one split
+    length and one either side, 1 and 0 (exact zeros); head_dim 16, 64 and
+    128; R = 1, 2, 3, 4, 5, 6 and 12 (3- and 4-row CTAs, rows past R
+    masked); 6- and 8-bit formats (the decode table) and
+    16-bit (f2p_decode); garbage page ids past kv_len change nothing; a
+    paged call on the page table cut to a span bucket equals the dense
+    call on the full cache, bitwise (the kernel's result depends on each
+    row's kv_len, not on S)."""
+    q, slab_k, slab_v, pages = _attn_inputs(gen, name, hd, G, Sq, kv)
+    kv_len = torch.tensor(kv, device="cuda")
+    kw = dict(kv_len=kv_len, causal=causal, q_offset=kv_len - Sq, tile=tile)
+    dense_k = A.gather_pages_to_dense(slab_k, pages)
+    dense_v = A.gather_pages_to_dense(slab_v, pages)
+    C.reset_launches()
     got = A.attention_paged(q, slab_k, slab_v, pages, **kw)
-    dense = A.attention_packed(q, A.gather_pages_to_dense(slab_k, pages),
-                               A.gather_pages_to_dense(slab_v, pages), **kw)
+    dense = A.attention_packed(q, dense_k, dense_v, **kw)
+    assert C.LAUNCHES["attention_paged"] == 1
+    assert C.LAUNCHES["attention_packed"] == 1
     assert torch.equal(got, dense)
-    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    for b, n in enumerate(kv):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
     torch.testing.assert_close(
         got, A.attention_paged_plain(q, slab_k, slab_v, pages, **kw),
         rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        dense, A.attention_packed_plain(q, dense_k, dense_v, **kw),
+        rtol=1e-5, atol=1e-5)
+    T = slab_k.codes.shape[1]
+    junk = pages.clone()
+    for b, n in enumerate(kv):   # ids past each row's live pages: garbage
+        tail = junk[b, -(-n // T):]
+        tail[0::2] = -5
+        tail[1::2] = 10 ** 6
+    assert torch.equal(A.attention_paged(q, slab_k, slab_v, junk, **kw), got)
+    span = max(1, -(-max(kv) // T))
+    cut = dict(kw, tile=None)
+    assert torch.equal(A.attention_paged(
+        q, slab_k, slab_v, pages[:, :span].contiguous(), **cut), dense)
+
+
+@pytest.mark.parametrize("name", ["f2p_sr_2_8s", "f2p_lr_2_16s"])
+@pytest.mark.parametrize("paged", [True, False])
+def test_attention_kernel_bf16_and_strided_q(gen, name, paged):
+    """q in bf16 (serving's dtype): the output is bf16, bitwise the
+    kernel's own f32 result on q.float() rounded to bf16 (q's bf16 -> f32
+    is exact; o is rounded once, as .to(torch.bfloat16) rounds). A q whose
+    heads are not laid out [B, Sq, H, hd] (a transposed view) gives the
+    bits of its contiguous copy; a row's output does not depend on the
+    batch it came in; an int32 kv_len and a scalar agree with int64."""
+    q, slab_k, slab_v, pages = _attn_inputs(gen, name, 128, 3, 2, (300, 77))
+
+    def call(q, rows=slice(None), **kw):
+        if paged:
+            return A.attention_paged(q, slab_k, slab_v, pages[rows], **kw)
+        return A.attention_packed(
+            q, A.gather_pages_to_dense(slab_k, pages[rows]),
+            A.gather_pages_to_dense(slab_v, pages[rows]), **kw)
+
+    kv = torch.tensor([300, 77], device="cuda")
+    qb = q.to(torch.bfloat16)
+    ob = call(qb, kv_len=kv)
+    assert ob.dtype == torch.bfloat16 and ob.shape == qb.shape
+    assert torch.equal(ob, call(qb.float(), kv_len=kv).to(torch.bfloat16))
+    o = call(q, kv_len=kv)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not qt.is_contiguous()
+    assert torch.equal(call(qt, kv_len=kv), o)
+    assert torch.equal(call(q[:1], slice(0, 1), kv_len=300)[0], o[0])
+    assert torch.equal(call(q, kv_len=kv.to(torch.int32)), o)
+
+
+def test_attention_kernel_raises_on_shapes_it_cannot_take(gen):
+    """The kernel names its limits (head_dim <= 128, f32 or bf16 q) and
+    never hands a call to another route."""
+    fmt = named_format("f2p_sr_2_8s")
+    q = torch.randn(1, 1, 2, 256, generator=gen, device="cuda")
+    kq = QT.quantize(torch.randn(1, 8, 2, 256, generator=gen, device="cuda"),
+                     fmt, block=256, packed=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.attention_packed(q, kq, kq, kv_len=8)
+    q = torch.randn(1, 1, 2, 64, generator=gen, device="cuda")
+    kq = QT.quantize(torch.randn(1, 8, 2, 64, generator=gen, device="cuda"),
+                     fmt, block=64, packed=True)
+    with pytest.raises(TypeError):
+        A.attention_packed(q.half(), kq, kq, kv_len=8)
 
 
 def _cuda_luts(grid):

@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Times one tree's attention kernels (B1/B2) and its serving path, so
+that two trees can be set beside each other in one run on the card. Needs
+an NVIDIA GPU and the CUDA toolkit.
+
+    python3 tools/attn_bench.py compare ROOT TAG
+
+ROOT is the root of a checkout (this one, or an older one unpacked with
+``git archive`` into a git-ignored directory); its ``src/repro_torch`` is
+the code under test, and builds its own kernels. Run the trees in the
+order A, B, B, A in one call: the host's noise then shows as the spread
+between a tree's two runs.
+
+Kernels: B1/B2 at chip_smoke phase 3's shape (8 rows x 8 kv heads, G = 3,
+head_dim 128, kv_len 512..1024 over 8-token pages, ``f2p_sr_2_8s``; f32
+and bf16 q) and at phase 6's spans (kv_len 64..81, bf16 q, the page table
+cut to 11 pages; and the copy-in call on the full 1024): ``ms`` with CUDA
+events around the wrapper (the host included), and from torch.profiler
+the attention kernel's device time, all device time and device kernels
+per call (the glue launches around the kernel).
+
+Serving: chip_smoke phase 5's workload (full-width llama3.2-3b, random
+weights from seed 0, 16 requests of 16-256 prompt tokens and 32 new
+tokens, an arrival every 4 steps, 8 slots, max_seq 1024) through
+``BatchedEngine`` paged and copy-in after a paged warm-up: decode
+tokens/s (wall, prefill included) and TBT p50 / p99 from the engine's
+obs registry; and phase 6's profile (8 requests of 64 tokens, 2 prefill
+calls + 16 decode steps): wall, device busy share, and the attention
+kernel's device time per call. Prints one line per measurement, tagged.
+"""
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def _inputs(QT, named_format):
+    import torch
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+    fmt = named_format("f2p_sr_2_8s")
+    B, K, G, hd, T, S = 8, 8, 3, 128, 8, 1024
+    maxp = S // T
+    P = (B + 1) * maxp + 1
+    x = dict(kv_len=torch.randint(512, S + 1, (B,), generator=g, device=dev),
+             q=torch.randn(B, 1, K * G, hd, generator=g, device=dev))
+    x["slab_k"], x["slab_v"] = (QT.quantize(
+        torch.randn(P, T, K, hd, generator=g, device=dev), fmt, block=hd,
+        packed=True) for _ in range(2))
+    x["pages"] = torch.randperm(P, generator=g, device=dev)[
+        :B * maxp].reshape(B, maxp).to(torch.int32)
+    x["short"] = torch.randint(64, 82, (B,), generator=g, device=dev)
+    x["qb"] = x["q"].to(torch.bfloat16)
+    return x
+
+
+def kernels(tag: str) -> None:
+    import torch
+
+    from chip_smoke import _device_events, cuda_ms
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_attention as A
+
+    x = _inputs(QT, named_format)
+    q, qb, sk, sv, pages = x["q"], x["qb"], x["slab_k"], x["slab_v"], \
+        x["pages"]
+    dk, dv = A.gather_pages_to_dense(sk, pages), A.gather_pages_to_dense(
+        sv, pages)
+    span = pages[:, :11].contiguous()
+    kv, short = x["kv_len"], x["short"]
+    cases = {
+        "B1 phase 3, f32 q": lambda: A.attention_paged(q, sk, sv, pages,
+                                                       kv_len=kv),
+        "B2 phase 3, f32 q": lambda: A.attention_packed(q, dk, dv, kv_len=kv),
+        "B1 phase 3, bf16 q": lambda: A.attention_paged(qb, sk, sv, pages,
+                                                        kv_len=kv),
+        "B1 phase 6 span": lambda: A.attention_paged(qb, sk, sv, span,
+                                                     kv_len=short),
+        "B2 phase 6 copy-in": lambda: A.attention_packed(qb, dk, dv,
+                                                         kv_len=short),
+    }
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        ev = _device_events(fn, 20)
+        att = [d for n, d in ev if "attention" in n]
+        print(f"{tag:8s} {name:20s} ms {cuda_ms(fn, iters=100):.5f}  "
+              f"attention kernel {sum(att) / max(len(att), 1):8.2f} us  "
+              f"all device {sum(d for _, d in ev) / 20:8.2f} us  "
+              f"device kernels per call {len(ev) / 20:.1f}", flush=True)
+
+
+def serving(tag: str) -> None:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import device_profile
+    from repro_torch.configs import full_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import BatchedEngine, BatchedServeConfig, Request
+
+    cfg = full_config("llama3_2_3b")
+    model = init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=u + 1,
+                    tokens=rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(16, 257))
+                                        ).astype(np.int32),
+                    max_new=32, arrival=4 * u) for u in range(16)]
+    bs = dict(slots=8, max_seq=1024)
+    for name, kw in (("warm-up", {}), ("paged", {}),
+                     ("copy-in", dict(paged_decode=False))):
+        eng = BatchedEngine(cfg, BatchedServeConfig(**bs, **kw), model)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        ntok = sum(len(v) for v in out.values())
+        h = eng.metrics["tbt_ms"]
+        print(f"{tag:8s} phase 5 {name:8s} {ntok / dt:8.2f} tok/s  TBT p50 "
+              f"{h.quantile(0.5, exact=True):7.2f} / p99 "
+              f"{h.quantile(0.99, exact=True):7.2f} ms", flush=True)
+
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=u + 1, tokens=rng.integers(0, cfg.vocab_size, 64),
+                    max_new=17) for u in range(8)]
+    eng = BatchedEngine(cfg, BatchedServeConfig(**bs), model)
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    res = device_profile(prof, wall_us, ("attention",))
+    att = list(res["kernels"].values())
+    calls = sum(v["calls"] for v in att)
+    per = sum(v["calls"] * v["device_ms_per_call"] for v in att)
+    busy = res["device_busy_share"]
+    print(f"{tag:8s} phase 6 wall {res['wall_ms']:.1f} ms, device busy "
+          f"{res['device_busy_ms']:.1f} ms "
+          f"({'not measured' if busy is None else f'{100 * busy:.1f}%'}), "
+          f"attention {calls} calls, "
+          f"{1e3 * per / max(calls, 1):.2f} us per call", flush=True)
+
+
+def compare(root: Path, tag: str) -> None:
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.configs import full_config  # noqa: F401
+    from repro_torch.core import qtensor  # noqa: F401
+    from repro_torch.core import formats  # noqa: F401
+    from repro_torch.kernels import cuda as C
+    from repro_torch.kernels import f2p_attention  # noqa: F401
+    from repro_torch.models import init_params  # noqa: F401
+    from repro_torch.serve import BatchedEngine  # noqa: F401
+
+    # after ROOT's package is loaded: chip_smoke puts this tree's src first
+    sys.path.insert(0, str(HERE))
+    t0 = time.perf_counter()
+    C.build()
+    C.lib()
+    print(f"{tag:8s} {root}: build {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    kernels(tag)
+    serving(tag)
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("attn_bench.py: no CUDA device")
+    if sys.argv[1:2] == ["compare"] and len(sys.argv) == 4:
+        compare(Path(sys.argv[2]).resolve(), sys.argv[3])
+    else:
+        raise SystemExit(__doc__)
+
+
+if __name__ == "__main__":
+    main()
