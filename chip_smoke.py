@@ -5,11 +5,13 @@ NVIDIA GPU.
     python3 chip_smoke.py                # every phase, ends with {"ok": ...}
     python3 chip_smoke.py --only matmul  # phases 1-2 and the dequant matmul
     python3 chip_smoke.py --only attention  # phases 1-2 and B1/B2
+    python3 chip_smoke.py --only codec   # phases 1-2 and B3/B4
 
-With ``--only matmul`` (``--only attention``) the script runs the device
-and build phases and phase 3's dequant matmul, B7/B8 (attention, B1/B2),
-prints their lines and ends without the final ``{"ok": ...}`` line, so it
-never stands in for a full run.
+With ``--only matmul`` (``--only attention``, ``--only codec``) the script
+runs the device and build phases and phase 3's dequant matmul, B7/B8
+(attention, B1/B2; the packed codec, B3/B4), prints their lines and ends
+without the final ``{"ok": ...}`` line, so it never stands in for a full
+run.
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -17,7 +19,15 @@ Phases (any failed check raises, so the script exits non-zero):
 2. build   — nvcc builds csrc/f2p_kernels.cu from the checkout (sm_90a).
 3. kernels — each hand-written kernel at its main path's shapes against
    its plain PyTorch version ON THE CARD: the packed codec bitwise (words,
-   scales, values; 6/8/16-bit formats, f32 and bf16), the unpacked codec
+   scales, values; 6/8/16-bit formats, f32 and bf16), B3's KV write
+   (one launch for a layer's K and V into the cache) bitwise outside the
+   dump page in both addressing modes at the serving cache (8 slots,
+   1024 positions over 8-token pages, 8 kv heads x 128; f2p_sr_2_8s and
+   f2p_lr_1_6s) and timed per decode layer write beside the composition
+   it replaced (two packed quantizes, four index_put_ scatters and the
+   page arithmetic: old_paged_cache_write / old_cache_write), with the
+   host, on the device and in device kernels per call, and at a prefill
+   call's write and contiguous [8192, 128] rows; the unpacked codec
    (B5/B6) bitwise at the train path's leaf shapes ([3072, 8192],
    [8192, 3072], [3072, 1024], [128256, 3072] and a [3072] norm; 8-bit
    gradient and 16-bit checkpoint formats, f32 and pow2 scales, f32 and
@@ -63,24 +73,26 @@ Phases (any failed check raises, so the script exits non-zero):
    Engine replay whose token agreement is printed, not asserted (cuBLAS may
    sum batch-1 and batch-8 products in different orders at bf16). Every
    kernel's launch counter is zeroed just before the path that runs it and
-   read just after; each must be > 0. Each engine run prints TTFT, TBT and
-   queue-wait p50 / p99 from the engine's obs registry (exact shadows and
-   the F2P cells' estimate) and its admit / preempt / evict / readmit
-   counts.
+   read just after; each must be > 0, and B3's KV write must launch
+   exactly once per layer per decode step and per prefill call, paged and
+   copy-in (its contiguous mode has no caller on the serving path). Each
+   engine run prints TTFT, TBT and queue-wait p50 / p99 from the engine's
+   obs registry (exact shadows and the F2P cells' estimate) and its admit
+   / preempt / evict / readmit counts.
 5b. policy — the same model and workload under a solved KV format: the K
    and V of all 28 layers from a prefill of the first 4 requests are
    calibrated into one state for kv/b0 (calibrate.update, NORM_SPEC, block
    = head_dim); solve picks over candidate_formats(n_bits=(6, 8)) at 6.25
    bits/elem, i.e. the lowest-error 6-bit F2P partition (asserted), and
-   prints each candidate's modeled error. B3/B4 bitwise and B1/B2 within
-   1e-5 of their plain versions at that format; then BatchedEngine paged
-   and copy-in under kv_policy: bitwise-equal tokens, every request
-   finished, B1 and B3 launched; tokens/s and the pool's bytes against
-   the 8-bit run.
+   prints each candidate's modeled error. B3/B4 (and B3's KV write)
+   bitwise and B1/B2 within 1e-5 of their plain versions at that format;
+   then BatchedEngine paged and copy-in under kv_policy: bitwise-equal
+   tokens, every request finished, B1/B2 and B3's KV write launched;
+   tokens/s and the pool's bytes against the 8-bit run.
 6. profile — torch.profiler over a short paged run (8 requests of 64
    tokens: spans of 64-81 positions): the device's busy share of the wall
-   time and each kernel's device time per call (the phase-3 ``ms`` times
-   include the Python wrapper; these do not).
+   time and each kernel's device time per call, B3's KV write among them
+   (the phase-3 ``ms`` times include the Python wrapper; these do not).
 7. sketch  — the measurement path: a 2^25-packet Zipf-1.2 trace over 2^24
    flows (examples/sketch_zipf_trace.py's generator, numpy seed 0) streamed
    twice in odd chunks (numpy seed 1) through SketchIngestEngine(batch
@@ -214,13 +226,14 @@ def _device_events(fn, iters, flush=None):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters=20, tries=3):
-    """Device time per call of everything ``fn`` launches (kernels only, no
-    host time), from torch.profiler over ``iters`` calls after a warm-up,
-    in ``tries`` profiled runs. The profiler can drop device events: a run
-    counts only if it kept ``iters`` times the events of one call (the
-    most per call that any run kept). None (not measured) where no run
-    kept them all, or where the profiler saw no device activity."""
+def device_ms_kernels(fn, iters=20, tries=3):
+    """(device time per call of everything ``fn`` launches, device kernels
+    per call): kernels only, no host time, from torch.profiler over
+    ``iters`` calls after a warm-up, in ``tries`` profiled runs. The
+    profiler can drop device events: a run counts only if it kept ``iters``
+    times the events of one call (the most per call that any run kept).
+    (None, None) (not measured) where no run kept them all, or where the
+    profiler saw no device activity."""
     import torch
 
     fn()
@@ -229,10 +242,16 @@ def device_ms(fn, iters=20, tries=3):
     per_call = max(len(ev) // iters for ev in runs)
     for ev in runs:
         if per_call and len(ev) == iters * per_call:
-            return sum(d for _, d in ev) / iters / 1e3
+            return sum(d for _, d in ev) / iters / 1e3, per_call
     log(f"device   : the profiler kept {[len(ev) for ev in runs]} device "
         f"events of {iters} calls; device time not measured")
-    return None
+    return None, None
+
+
+def device_ms(fn, iters=20, tries=3):
+    """Device time per call of everything ``fn`` launches (see
+    :func:`device_ms_kernels`); None where not measured."""
+    return device_ms_kernels(fn, iters, tries)[0]
 
 
 def device_calls(fn, name: str, iters=20, flush=None, tries=3):
@@ -382,6 +401,9 @@ def codec_bitwise(dev, g, fmt) -> None:
 
 
 def check_codec(dev):
+    """B3 and B4: the codec bitwise at the serving shapes (6/8/16-bit,
+    contiguous rows), B3's KV write bitwise and timed (check_kv_write),
+    the prefill quantize timed, and B4 at the unfused cache read."""
     import torch
 
     from repro_torch.core.formats import named_format
@@ -395,23 +417,16 @@ def check_codec(dev):
         "(6/8/16-bit, f32+bf16 in, f32+bf16 out)")
     fmt = named_format("f2p_sr_2_8s")
     W = 32
-    # quantize at the decode shape (every layer, every step, k and v)
-    x = torch.randn(64, 128, generator=g, device=dev).to(torch.bfloat16)
-    nb = 64 * 128 * 2 + 64 * W * 4 + 64 * 4
-    got = Q.dequantize_packed_plain(*Q.f2p_quantize_packed(x, fmt), fmt, 128)
-    ref = Q.dequantize_packed_plain(*Q.quantize_packed_plain(x, fmt, 128),
-                                    fmt, 128)
-    out["quantize_packed"] = dict(
-        ms=cuda_ms(lambda: Q.f2p_quantize_packed(x, fmt), iters=200),
-        plain_ms=cuda_ms(lambda: Q.quantize_packed_plain(x, fmt, 128)),
-        bound_ms=bound_ms(nb), library_ms=None,
-        max_abs_err=float((got - ref).abs().max()),
-        shape="x [64, 128] bf16 -> words [64, 32], scales [64, 1]")
+    out["quantize_packed"] = check_kv_write(dev)
+    # B3's contiguous mode at a prefill group's rows (4 prompts x 256
+    # positions x 8 kv heads), beside its bytes bound
     xp = torch.randn(8192, 128, generator=g, device=dev).to(torch.bfloat16)
-    log(f"quantize : decode [64,128] {out['quantize_packed']['ms']:.5f} ms; "
-        f"prefill [8192,128] "
-        f"{cuda_ms(lambda: Q.f2p_quantize_packed(xp, fmt)):.5f} ms "
-        f"(bound {bound_ms(8192 * (256 + 128 + 4)):.5f} ms)")
+    pf = dict(ms=cuda_ms(lambda: Q.f2p_quantize_packed(xp, fmt), iters=100),
+              device_ms=device_ms(lambda: Q.f2p_quantize_packed(xp, fmt)),
+              bound_ms=bound_ms(8192 * (256 + W * 4 + 4)))
+    out["quantize_packed"]["prefill_quantize"] = pf
+    log(f"quantize : contiguous rows [8192,128] bf16 {pf['ms']:.5f} ms "
+        f"(device {_ms(pf['device_ms'])}; bound {pf['bound_ms']:.5f} ms)")
     # dequantize at the Engine(fused_attention=False) cache read: the
     # whole [1, 1024, 8] cache of one layer, bf16 out
     rows = 1024 * 8
@@ -429,6 +444,217 @@ def check_codec(dev):
         max_abs_err=float((d.float() - pd.float()).abs().max()),
         shape="words [8192, 32] + scales -> [8192, 128] bf16")
     return out
+
+
+# the serving cache: 8 slots, max_seq 1024 over 8-token pages, 8 kv heads
+# of head_dim 128; the paged pool holds (slots + 1) x 128 pages + the dump
+KV_SLOTS, KV_MAX_SEQ, KV_PAGE, KV_HEADS, KV_HD = 8, 1024, 8, 8, 128
+
+
+def kv_write_inputs(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
+                    dtype="bf16"):
+    """(cache, k, v, pos, pages) of one layer's KV write at the serving
+    cache: a paged pool (page table of random distinct pages; the last two
+    slots retired onto the dump page 0) or a dense [B, 1024] cache; k, v
+    [B, S, 8, 128] randn x 3; pos [B] int64 in [0, 1024 - S]."""
+    import torch
+
+    from repro_torch.models.attention import empty_packed
+
+    maxp = KV_MAX_SEQ // KV_PAGE
+    P = (KV_SLOTS + 1) * maxp + 1
+    lead = (P, KV_PAGE) if paged else (B, KV_MAX_SEQ)
+    cache = {kv: empty_packed((*lead, KV_HEADS, KV_HD), fmt, dev)
+             for kv in ("k", "v")}
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    k, v = ((torch.randn(B, S, KV_HEADS, KV_HD, generator=g, device=dev)
+             * 3).to(dt) for _ in range(2))
+    pos = torch.randint(0, KV_MAX_SEQ - S + 1, (B,), generator=g, device=dev)
+    pages = None
+    if paged:
+        pages = (1 + torch.randperm(P - 1, generator=g, device=dev)[
+            :B * maxp]).reshape(B, maxp).to(torch.int32)
+        pages[-2:] = 0
+    return cache, k, v, pos, pages
+
+
+def _clone_cache(cache):
+    from repro_torch.core.qtensor import QTensor
+
+    return {kv: QTensor(c.codes.clone(), c.scales.clone(), c.fmt, c.block,
+                        c.shape, True) for kv, c in cache.items()}
+
+
+def old_paged_cache_write(cache, k, v, pos, pages):
+    """The composition B3's KV write replaced in the paged decode write
+    (models/attention.py before the fused write): the page arithmetic, then
+    for K and V a packed quantize (B3's contiguous mode) and two
+    ``index_put_`` scatters."""
+    import torch
+
+    from repro_torch.models.attention import quantize_kv
+
+    T = cache["k"].codes.shape[1]
+    B = pages.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=pages.device)
+    pos = pos.expand(B)
+    col = torch.clamp(pos // T, max=pages.shape[1] - 1)
+    pidx = pages[torch.arange(B, device=pages.device), col].to(torch.int64)
+    off = pos % T
+    for name, x in (("k", k), ("v", v)):
+        slab = cache[name]
+        up = quantize_kv(x, slab.fmt)
+        slab.codes.view(torch.int32)[pidx, off] = up.codes[:, 0].view(
+            torch.int32)
+        slab.scales[pidx, off] = up.scales[:, 0]
+
+
+def old_cache_write(cache, k, v, idx):
+    """The composition B3's KV write replaced in the dense (copy-in) write:
+    for K and V a packed quantize, then a per-slot ``index_put_`` (a [B]
+    start) or a slice copy (an int start)."""
+    import torch
+
+    from repro_torch.models.attention import quantize_kv
+
+    for name, x in (("k", k), ("v", v)):
+        c = cache[name]
+        up = quantize_kv(x, c.fmt)
+        dst_w, src_w = c.codes.view(torch.int32), up.codes.view(torch.int32)
+        if isinstance(idx, torch.Tensor) and idx.ndim:
+            B, S = x.shape[0], x.shape[1]
+            rows = torch.arange(B, device=k.device)[:, None]
+            cols = idx[:, None].to(torch.int64) + torch.arange(
+                S, device=k.device)
+            dst_w[rows, cols] = src_w
+            c.scales[rows, cols] = up.scales
+        else:
+            start, n = int(idx), x.shape[1]
+            dst_w[:, start:start + n].copy_(src_w)
+            c.scales[:, start:start + n].copy_(up.scales)
+
+
+def kv_write_bitwise(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
+                     dtype="bf16", start=None) -> float:
+    """B3's KV write against kv_write_plain on the same inputs, words and
+    scales bitwise outside the dump page; returns max |dequantized
+    difference| over the written cache (0.0 when bitwise)."""
+    import torch
+
+    from repro_torch.core import qtensor as QT
+    from repro_torch.kernels import f2p_quant as Q
+
+    cache, k, v, pos, pages = kv_write_inputs(dev, g, fmt, paged, B, S,
+                                              dtype)
+    if start is not None:
+        pos = start
+    ref = _clone_cache(cache)
+    Q.f2p_kv_write(k, v, cache, pos, pages)
+    Q.kv_write_plain(k, v, ref, pos, pages)
+    keep = slice(1, None) if paged else slice(None)
+    err = 0.0
+    for kv in ("k", "v"):
+        assert torch.equal(cache[kv].codes.view(torch.int32)[keep],
+                           ref[kv].codes.view(torch.int32)[keep]), \
+            f"kv_write {kv} words differ: {fmt} paged={paged} S={S} {dtype}"
+        assert torch.equal(cache[kv].scales[keep], ref[kv].scales[keep]), \
+            f"kv_write {kv} scales differ: {fmt} paged={paged} S={S}"
+        if not paged:
+            err = max(err, float((QT.dequantize(cache[kv]) - QT.dequantize(
+                ref[kv])).abs().max()))
+    return err
+
+
+def kv_write_bytes(k, W: int, paged: bool) -> int:
+    """Bytes one layer write must move: K and V read once, their words and
+    scales written once, the start positions and (paged) one page id per
+    slot read."""
+    B, S, K, _ = k.shape
+    per_side = k.numel() * k.element_size() + B * S * K * (4 * W + 4)
+    return 2 * per_side + 8 * B + (4 * B if paged else 0)
+
+
+def check_kv_write(dev, names=("f2p_sr_2_8s", "f2p_lr_1_6s")) -> dict:
+    """B3's KV write (one launch for a layer's K and V into the cache) on
+    the card: bitwise against kv_write_plain in both addressing modes and
+    both serving formats (8-bit, and 5b's solved 6-bit), at the decode
+    write (8 slots x 8 kv heads x 128, bf16; f32 too), a paged write of 16
+    positions per slot (crossing pages) and a prefill call's write (4
+    prompts x 256 positions from 0, dense); then, per format and mode, a
+    decode layer write through the model's ``_paged_cache_write`` /
+    ``_cache_write`` against the composition it replaced (old_*), timed
+    the same way: ms with CUDA events around the call (the host
+    included), device ms and device kernels per call from torch.profiler,
+    beside the bytes bound."""
+    import torch
+
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_quant as Q
+    from repro_torch.models import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    err = 0.0
+    for name in names:
+        fmt = named_format(name)
+        for paged in (True, False):
+            err = max(err, kv_write_bitwise(dev, g, fmt, paged))
+            err = max(err, kv_write_bitwise(dev, g, fmt, paged,
+                                            dtype="f32"))
+        kv_write_bitwise(dev, g, fmt, True, S=16)
+        err = max(err, kv_write_bitwise(dev, g, fmt, False, B=4, S=256,
+                                        start=0))
+    log(f"kv write : B3 KV write == kv_write_plain, bitwise outside the "
+        f"dump page ({', '.join(names)}; paged and dense; decode bf16 and "
+        f"f32, 16 positions across pages, a prefill call from 0)")
+    rows = {}
+    for name in names:
+        fmt = named_format(name)
+        for mode in ("paged", "copy-in"):
+            paged = mode == "paged"
+            cache, k, v, pos, pages = kv_write_inputs(dev, g, fmt, paged)
+            if paged:
+                new = lambda: A._paged_cache_write(cache, k, v, pos, pages)
+                old = lambda: old_paged_cache_write(cache, k, v, pos, pages)
+                plain = lambda: Q.kv_write_plain(k, v, cache, pos, pages)
+            else:
+                new = lambda: A._cache_write(cache, k, v, pos)
+                old = lambda: old_cache_write(cache, k, v, pos)
+                plain = lambda: Q.kv_write_plain(k, v, cache, pos)
+            r = dict(bound_ms=bound_ms(kv_write_bytes(
+                k, cache["k"].codes.shape[-1], paged)))
+            for tag, fn in (("", new), ("old_", old)):
+                r[tag + "ms"] = cuda_ms(fn, iters=200)
+                r[tag + "device_ms"], r[tag + "kernels"] = \
+                    device_ms_kernels(fn, iters=50)
+            r["plain_ms"] = cuda_ms(plain, iters=10)
+            rows[f"{name} {mode}"] = r
+            log(f"kv write : {name:12s} {mode:7s} decode layer write "
+                f"{r['ms']:.5f} ms (device {_ms(r['device_ms'])}, "
+                f"{r['kernels']} kernels) vs the old composition "
+                f"{r['old_ms']:.5f} ms (device {_ms(r['old_device_ms'])}, "
+                f"{r['old_kernels']} kernels); bound {r['bound_ms']:.7f} "
+                f"ms, plain {r['plain_ms']:.3f} ms")
+    # a prefill call's write: 4 prompts x 256 positions from 0, dense
+    fmt = named_format(names[0])
+    cache, k, v, _, _ = kv_write_inputs(dev, g, fmt, False, B=4, S=256)
+    pf = dict(bound_ms=bound_ms(kv_write_bytes(
+        k, cache["k"].codes.shape[-1], False)))
+    for tag, fn in (("", lambda: A._cache_write(cache, k, v, 0)),
+                    ("old_", lambda: old_cache_write(cache, k, v, 0))):
+        pf[tag + "ms"] = cuda_ms(fn, iters=50)
+        pf[tag + "device_ms"], pf[tag + "kernels"] = device_ms_kernels(fn)
+    log(f"kv write : {names[0]} prefill write [4, 256, 8, 128] bf16 "
+        f"{pf['ms']:.5f} ms (device {_ms(pf['device_ms'])}, {pf['kernels']}"
+        f" kernels) vs old {pf['old_ms']:.5f} ms (device "
+        f"{_ms(pf['old_device_ms'])}, {pf['old_kernels']} kernels); bound "
+        f"{pf['bound_ms']:.5f} ms")
+    main = rows[f"{names[0]} paged"]
+    return dict(ms=main["ms"], device_ms=main["device_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by="bytes", library_ms=None, max_abs_err=err,
+                rows=rows, prefill_write=pf,
+                shape=f"one layer's K and V [8, 1, 8, 128] bf16 into the "
+                      f"paged pool (8-token pages, {names[0]}), one launch")
 
 
 # ---------------------------------------------------------------------------
@@ -1080,6 +1306,11 @@ def serve(dev, launches):
             assert len(o) == r.max_new, f"{tag}: request {r.uid} short"
             assert ((o >= 0) & (o < cfg.vocab_size)).all()
         st = eng.stats
+        # B3's KV write: one launch per layer per decode step and per
+        # prefill call, in both modes
+        writes = cfg.n_layers * (st["steps"] + st.get("prefill_calls", 0))
+        assert counts["kv_write"] == writes, \
+            f"{tag}: {counts['kv_write']} kv_write launches, not {writes}"
         log(f"serve    : {tag}: {len(out)} requests, {ntok} tokens in "
             f"{dt:.2f} s = {ntok / dt:.1f} tok/s (wall, prefill included); "
             f"{st['rounds']} rounds, {st.get('prefill_calls', 0)} prefill "
@@ -1098,7 +1329,11 @@ def serve(dev, launches):
             f"request {r.uid}: paged != copy-in"
     log("serve    : paged == copy-in, token for token, all 16 requests")
     launches["attention_paged"] = cnt_p["attention_paged"]
-    launches["quantize_packed"] = cnt_p["quantize_packed"]
+    # B3's two modes: the KV write (every cache write of the engine) and
+    # contiguous rows
+    launches["quantize_packed"] = cnt_p["kv_write"] + cnt_p["quantize_packed"]
+    launches["quantize_packed_modes"] = {
+        m: cnt_p[m] for m in ("kv_write", "quantize_packed")}
     launches["attention_packed"] = cnt_c["attention_packed"]
 
     eng = Engine(cfg, ServeConfig(batch=1, max_seq=1024, quantized_kv=True),
@@ -1120,8 +1355,10 @@ def serve(dev, launches):
         total += r.max_new
     log(f"serve    : sequential Engine agreement {agree}/{total} tokens "
         "(printed, not asserted)")
+    assert cnt_p["kv_write"] > 0 and cnt_c["kv_write"] > 0
     for name, n in launches.items():
-        assert n > 0, f"kernel {name} never launched on its path"
+        if name != "quantize_packed_modes":
+            assert n > 0, f"kernel {name} never launched on its path"
     policy = serve_policy(dev, cfg, model, reqs, bs, run, paged, st_p)
     return dict(paged_tok_s=tps_p, copy_in_tok_s=tps_c,
                 seq_agreement=f"{agree}/{total}", rounds=st_p["rounds"],
@@ -1214,9 +1451,11 @@ def serve_policy(dev, cfg, model, reqs, bs, run, base_out, base_st) -> dict:
     # B1 and B3 at the solved format, against their plain versions
     g = torch.Generator(device=dev).manual_seed(5)
     codec_bitwise(dev, g, named_format(fmt))
+    for paged in (True, False):
+        kv_write_bitwise(dev, g, named_format(fmt), paged)
     attn = check_attention(dev, fmt)
-    log(f"policy   : {fmt}: quantize/dequantize kernels == plain, bitwise; "
-        f"attention within 1e-5")
+    log(f"policy   : {fmt}: quantize/dequantize kernels and the KV write == "
+        f"plain, bitwise; attention within 1e-5")
 
     kw = dict(kv_policy=pol)
     paged, cnt_p, tps_p, st_p = run(f"paged, kv/b0 {fmt}", **kw)
@@ -1225,8 +1464,8 @@ def serve_policy(dev, cfg, model, reqs, bs, run, base_out, base_st) -> dict:
     for r in reqs:
         assert np.array_equal(paged[r.uid], copy_in[r.uid]), \
             f"request {r.uid}: paged != copy-in under {fmt}"
-    assert cnt_p["attention_paged"] > 0 and cnt_p["quantize_packed"] > 0
-    assert cnt_c["attention_packed"] > 0
+    assert cnt_p["attention_paged"] > 0 and cnt_p["kv_write"] > 0
+    assert cnt_c["attention_packed"] > 0 and cnt_c["kv_write"] > 0
     agree = sum(int((paged[r.uid] == base_out[r.uid]).sum()) for r in reqs)
     total = sum(r.max_new for r in reqs)
     pb, pb8 = st_p["pool"]["pool_bytes_packed"], \
@@ -1847,11 +2086,11 @@ def main():
     import torch
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
-    ap.add_argument("--only", choices=("matmul", "attention"),
-                    help="matmul / attention: phases 1-2 and phase 3's "
-                         "dequant matmul (B7/B8) or attention (B1/B2) only, "
-                         "the quick loop for those kernels; prints no final "
-                         "ok line")
+    ap.add_argument("--only", choices=("matmul", "attention", "codec"),
+                    help="matmul / attention / codec: phases 1-2 and phase "
+                         "3's dequant matmul (B7/B8), attention (B1/B2) or "
+                         "packed codec (B3/B4) only, the quick loop for "
+                         "those kernels; prints no final ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
@@ -1883,6 +2122,17 @@ def main():
             "ms", "device_ms", "cold_ms", "library_ms", "bound_ms",
             "splits", "live_ctas", "device_kernels_per_call",
             "max_abs_err")} for k, v in att.items()}}))
+        print(smi)
+        return
+    if only == "codec":
+        cod = check_codec(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_codec.json").write_text(json.dumps(
+            {"device": smi, "codec": cod}, indent=1, default=str))
+        print(json.dumps({"codec": {k: {f: v.get(f) for f in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")}
+            for k, v in cod.items()}}))
         print(smi)
         return
     if only == "matmul":
@@ -1939,6 +2189,9 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r.get("bound_by", "bytes"),
             "library_ms": r["library_ms"]})
+        if name == "quantize_packed":
+            kernels[-1]["launches_by_mode"] = launches[
+                "quantize_packed_modes"]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -1951,6 +2204,7 @@ def main():
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "attention_rows": {k: res[k] for k in ("attention_paged",
                                                 "attention_packed")},
+         "kv_write_rows": res["quantize_packed"],
          "matmul_rows": res["dequant_matmul"]["rows"]}, indent=1,
         default=str))
     print(json.dumps({"sketch": sketch_res}))

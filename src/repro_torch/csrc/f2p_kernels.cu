@@ -4,7 +4,8 @@
 // Ten kernels replace the ten Pallas TPU kernels of src/repro (the JAX
 // reference):
 //
-//   quantize_packed_kernel    <- repro/kernels/f2p_quant.py::_quant_packed_kernel
+//   quantize_packed_write_kernel <- repro/kernels/f2p_quant.py::_quant_packed_kernel
+//                                   and the KV-cache scatter that follows it
 //   dequantize_packed_kernel  <- repro/kernels/f2p_quant.py::_dequant_packed_kernel
 //   quantize_kernel           <- repro/kernels/f2p_quant.py::_quant_kernel
 //   dequantize_kernel         <- repro/kernels/f2p_quant.py::_dequant_kernel
@@ -40,6 +41,23 @@
 struct F2PConsts {
   int nu, h, sgn, vmax, v_sub, v_top, bias, is_signed, n_bits;
 };
+
+// A per-row int32 / int64 value read in place from a tensor at b * stride
+// (stride 0: one value for every row), or ``value`` when p is null: the
+// attention lengths and offsets, the KV write's start positions.
+struct AttnLen {
+  const void* p;
+  long long stride;
+  int is64;
+  int value;
+};
+
+__device__ __forceinline__ long long attn_len(const AttnLen& a, int b) {
+  if (!a.p) return a.value;
+  const long long i = (long long)b * a.stride;
+  return a.is64 ? reinterpret_cast<const long long*>(a.p)[i]
+                : (long long)reinterpret_cast<const int*>(a.p)[i];
+}
 
 // ---------------------------------------------------------------------------
 // Shared device helpers
@@ -143,53 +161,6 @@ __device__ __forceinline__ float block_scale(float amax, bool nan,
   float scale = __fmul_rn(amax, inv_max);
   if (pow2) scale = pow2_round_up(scale > 0.0f ? scale : 1.0f);
   return amax > 0.0f ? scale : 1.0f;
-}
-
-// ---------------------------------------------------------------------------
-// quantize_packed: x [rows, cols] -> words [rows, W] u32, scales [rows, cols/block]
-// One CTA per row; warp w takes scale blocks w, w+nwarps, ...: warp-shuffle
-// absmax, per-lane encode into shared memory. Then each output word is
-// assembled by one thread from the fields that overlap it, so any n_bits in
-// 1..16 and any block width pack correctly.
-// ---------------------------------------------------------------------------
-template <typename TIn>
-__global__ void quantize_packed_kernel(const TIn* __restrict__ x,
-                                       uint32_t* __restrict__ words,
-                                       float* __restrict__ scales, int cols,
-                                       int block, int W, F2PConsts f,
-                                       float inv_max, int pow2) {
-  extern __shared__ uint32_t codes[];
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int nblk = cols / block;
-  const TIn* xr = x + (size_t)row * cols;
-  for (int bi = warp; bi < nblk; bi += nwarps) {
-    const TIn* xb = xr + (size_t)bi * block;
-    float amax = 0.0f;
-    bool nan = false;
-    for (int i = lane; i < block; i += 32) {
-      const float a = fabsf(to_f32(xb[i]));
-      amax = fmaxf(amax, a);
-      nan |= a != a;
-    }
-    const float scale = block_scale(amax, nan, inv_max, pow2);
-    if (lane == 0) scales[(size_t)row * nblk + bi] = scale;
-    for (int i = lane; i < block; i += 32)
-      codes[bi * block + i] = f2p_encode(__fdiv_rn(to_f32(xb[i]), scale), f);
-  }
-  __syncthreads();
-  const int nb = f.n_bits;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const int b0 = w * 32;
-    const int i0 = b0 / nb, i1 = min((b0 + 31) / nb, cols - 1);
-    uint32_t word = 0;
-    for (int i = i0; i <= i1; ++i) {
-      const int o = i * nb - b0;
-      word |= o >= 0 ? (codes[i] << o) : (codes[i] >> (-o));
-    }
-    words[(size_t)row * W + w] = word;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -298,6 +269,175 @@ __global__ void quantize_kernel(const TIn* __restrict__ x,
       for (int i = lane; i < block; i += 32)
         cb[i] = (TCode)f2p_encode(__fdiv_rn(to_f32(xb[i]), scale), f);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B3, quantize_packed_write_kernel: rows of one or two inputs (a layer's K
+// and V) -> packed F2P words + block scales, each row stored at its cache
+// position. Replaces repro/kernels/f2p_quant.py::_quant_packed_kernel
+// together with the scatter that follows it in repro/models/attention.py
+// (_paged_cache_write, _cache_write: quantize, then .at[page, off].set).
+//
+// What bounds it: at the decode shape (K and V of 8 slots x 8 kv heads x
+// head_dim 128, bf16) the call moves ~50 KB, 15 ns at 3.35 TB/s, far below
+// one launch. So a layer's KV write is bound by launch latency and the
+// host, not by bytes, and the design spends exactly one launch on it: K and
+// V, the page and offset arithmetic (position p = pos[b] + s, page =
+// pages[b, min(p / T, maxp - 1)], offset p % T; with no table, page b and
+// offset p), the encode and the store into the cache, with no temporaries.
+// Contiguous output rows (f2p_quantize_packed) are the same call with
+// T = 1, pos 0 and no table.
+//
+// Work unit: one warp per (input, row, chunk), kKVWarps warps per CTA, so a
+// decode call's 2 x 64 rows fill 32 CTAs and a [8192, 128] prefill 2048. A
+// chunk is the fewest whole scale blocks whose packed bits end on a word
+// boundary (one block whenever block * n_bits % 32 == 0, as at block 128),
+// so no two warps write one word. At block 128 with 4-element-aligned rows
+// (vec), lane l loads elements 4l..4l+3 in one 16-byte (f32) or 8-byte
+// (bf16) load and keeps them in registers through the shuffle absmax and
+// the encode; at 8 bits its 4 codes are its output word, stored straight
+// from registers (direct). Other widths stage the warp's codes in its own
+// shared-memory slice and assemble each word in one lane; other blocks and
+// unaligned or strided rows take one element per lane. A row whose
+// destination lies outside the cache is skipped.
+// ---------------------------------------------------------------------------
+constexpr int kKVWarps = 4;
+
+// One input as the C entry takes it: x [B, S, Kh, cols] at strides (in
+// elements), its destination rows of W words and cols / block scales.
+struct KVSideIn {
+  const void* x;
+  long long sb, ss, sh, sd;
+  uint32_t* words;
+  float* scales;
+  int W;
+  F2PConsts f;
+  float inv_max;
+};
+
+struct KVSide {
+  KVSideIn in;
+  int chunk, nchunk;   // scale blocks per chunk, chunks per row
+  int vec, direct;     // direct: 8-bit codes stored from registers
+};
+
+struct KVWriteArgs {
+  KVSide side[2];
+  int tasks0, tasks;         // side 0's warp tasks, all warp tasks
+  const int* pages;          // [B, maxp] int32, or null: page b, offset p
+  AttnLen pos;               // start positions
+  int S, Kh, block, nblk, T, P, maxp, pow2, stage;
+};
+
+template <typename TIn>
+__global__ void __launch_bounds__(kKVWarps * 32)
+quantize_packed_write_kernel(const __grid_constant__ KVWriteArgs a) {
+  extern __shared__ uint32_t kv_stage[];
+  const int lane = threadIdx.x & 31;
+  uint32_t* stage = kv_stage + (size_t)(threadIdx.x >> 5) * a.stage;
+  // 32-bit index math (the entry keeps tasks and positions below 2^31):
+  // a 64-bit divide costs several times a 32-bit one on this chain
+  const int nwarps = (gridDim.x * blockDim.x) >> 5;
+  for (int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; t < a.tasks;
+       t += nwarps) {
+    const int si = t >= a.tasks0;
+    const KVSide& io = a.side[si];
+    const int u = t - (si ? a.tasks0 : 0);
+    const int row = u / io.nchunk;
+    const int c = u - row * io.nchunk;
+    const int bs = row / a.Kh;
+    const int h = row - bs * a.Kh;
+    const int b = bs / a.S;
+    const int s = bs - b * a.S;
+    const TIn* xr = reinterpret_cast<const TIn*>(io.in.x) + b * io.in.sb +
+                    s * io.in.ss + h * io.in.sh;
+    const long long sd = io.in.sd;
+    const int b0 = c * io.chunk, b1 = min(b0 + io.chunk, a.nblk);
+    // a vec row's values are loaded first, so that their latency overlaps
+    // the dependent position -> page-id loads (vec: block 128, one block
+    // per chunk)
+    float v[kQuantVals];
+    if (io.vec) load4(xr + (long long)b0 * a.block + 4 * lane, v);
+    const int p = (int)attn_len(a.pos, b) + s;
+    int page = b, off = p;
+    if (a.pages) {
+      const int col = min(p / a.T, a.maxp - 1);
+      page = col < 0 ? -1 : a.pages[(long long)b * a.maxp + col];
+      off = p - (p / a.T) * a.T;
+    }
+    if (off < 0 || off >= a.T || page < 0 || page >= a.P) continue;  // warp-uniform
+    const long long dst = ((long long)page * a.T + off) * a.Kh + h;
+    const int nb = io.in.f.n_bits;
+    const long long w0 = (long long)b0 * a.block * nb / 32;
+    uint32_t* wr = io.in.words + dst * io.in.W + w0;
+    float* sr = io.in.scales + dst * a.nblk;
+    const bool in_regs = io.vec || a.block <= 32 * kQuantVals;
+    for (int bi = b0; bi < b1; ++bi) {
+      const long long e0 = (long long)bi * a.block;
+      uint32_t* cs = stage + (bi - b0) * a.block;
+      float amax = 0.0f;
+      bool nan = false;
+      if (in_regs) {
+        if (!io.vec) {   // (a vec row's values were loaded above)
+#pragma unroll
+          for (int k = 0; k < kQuantVals; ++k) {
+            const int i = lane + 32 * k;
+            v[k] = i < a.block ? to_f32(xr[(e0 + i) * sd]) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kQuantVals; ++k) {
+          amax = fmaxf(amax, fabsf(v[k]));
+          nan |= v[k] != v[k];
+        }
+      } else {
+        for (int i = lane; i < a.block; i += 32) {
+          const float x = fabsf(to_f32(xr[(e0 + i) * sd]));
+          amax = fmaxf(amax, x);
+          nan |= x != x;
+        }
+      }
+      const float scale = block_scale(amax, nan, io.in.inv_max, a.pow2);
+      if (lane == 0) sr[bi] = scale;
+      if (io.vec) {
+        uint32_t q[kQuantVals];
+#pragma unroll
+        for (int k = 0; k < kQuantVals; ++k) q[k] = f2p_encode(__fdiv_rn(v[k], scale), io.in.f);
+        if (io.direct) {
+          wr[lane] = q[0] | (q[1] << 8) | (q[2] << 16) | (q[3] << 24);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kQuantVals; ++k) cs[4 * lane + k] = q[k];
+        }
+      } else if (in_regs) {
+#pragma unroll
+        for (int k = 0; k < kQuantVals; ++k) {
+          const int i = lane + 32 * k;
+          if (i < a.block) cs[i] = f2p_encode(__fdiv_rn(v[k], scale), io.in.f);
+        }
+      } else {
+        for (int i = lane; i < a.block; i += 32)
+          cs[i] = f2p_encode(__fdiv_rn(to_f32(xr[(e0 + i) * sd]), scale), io.in.f);
+      }
+    }
+    if (io.direct) continue;
+    // assemble the chunk's words from the staged codes: word w holds the
+    // fields that overlap bits [32w, 32w + 32) of the chunk
+    __syncwarp();
+    const int n = (b1 - b0) * a.block;
+    const long long wend = min(((long long)b1 * a.block * nb + 31) / 32, (long long)io.in.W);
+    for (int w = lane; w < (int)(wend - w0); w += 32) {
+      const int bit0 = w * 32;
+      const int i0 = bit0 / nb, i1 = min((bit0 + 31) / nb, n - 1);
+      uint32_t word = 0;
+      for (int i = i0; i <= i1; ++i) {
+        const int o = i * nb - bit0;
+        word |= o >= 0 ? (stage[i] << o) : (stage[i] >> (-o));
+      }
+      wr[w] = word;
+    }
+    __syncwarp();
   }
 }
 
@@ -1125,20 +1265,6 @@ constexpr int kAttnMaxThreads = 32 * kAttnWarps;
 
 // kv_len or q_offset: an int32 / int64 tensor read at b * stride (stride 0:
 // one value for every row), or `value` when p is null
-struct AttnLen {
-  const void* p;
-  long long stride;
-  int is64;
-  int value;
-};
-
-__device__ __forceinline__ long long attn_len(const AttnLen& a, int b) {
-  if (!a.p) return a.value;
-  const long long i = (long long)b * a.stride;
-  return a.is64 ? reinterpret_cast<const long long*>(a.p)[i]
-                : (long long)reinterpret_cast<const int*>(a.p)[i];
-}
-
 struct AttnArgs {
   const void* q;             // [B, Sq, H, hd] f32 | bf16, dims contiguous
   long long qsb, qss, qsh;   // its strides, in elements
@@ -1610,6 +1736,16 @@ static void launch_quantize(const void* x, void* codes, float* scales,
         (const TIn*)x, (TCode*)codes, scales, nblocks, block, f, inv_max, pow2);
 }
 
+template <typename TIn>
+static int launch_kv_write(const KVWriteArgs& a, int grid, size_t smem,
+                           cudaStream_t stream) {
+  auto k = quantize_packed_write_kernel<TIn>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  k<<<grid, kKVWarps * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename TCode, typename TOut>
 static void launch_dequantize(const void* codes, const float* scales, void* out,
                               long long total, int block, F2PConsts f,
@@ -1634,26 +1770,54 @@ extern "C" {
 
 const char* f2p_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }
 
-int f2p_quantize_packed(const void* x, int x_bf16, uint32_t* words, float* scales,
-                        int rows, int cols, int block, int W, F2PConsts f,
-                        float inv_max, int pow2, cudaStream_t stream) {
-  const int nblk = cols / block;
-  const int threads = 32 * min(4, max(1, nblk));
-  const size_t smem = (size_t)cols * sizeof(uint32_t);
-  if (x_bf16) {
-    auto k = quantize_packed_kernel<__nv_bfloat16>;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    k<<<rows, threads, smem, stream>>>((const __nv_bfloat16*)x, words, scales, cols,
-                                        block, W, f, inv_max, pow2);
-  } else {
-    auto k = quantize_packed_kernel<float>;
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    k<<<rows, threads, smem, stream>>>((const float*)x, words, scales, cols, block,
-                                        W, f, inv_max, pow2);
+// B3: one launch of quantize_packed_write_kernel. k (and v when nside is
+// 2) is [B, S, Kh, cols], f32 or bf16 (x_bf16), at its strides in elements;
+// row (b, s, h) goes to row (page * T + off) * Kh + h of its side's words
+// [.., W] and scales [.., cols / block], with p = pos[b] + s and page =
+// pages[b, min(p / T, maxp - 1)], off = p % T, or, with pages null, page =
+// b and off = p. Rows whose destination lies outside [0, P) x [0, T) are
+// skipped. A staged side needs kKVWarps x chunk x block codes of shared
+// memory per CTA (block 128: 2 KB).
+int f2p_kv_write(KVSideIn k, KVSideIn v, int nside, int x_bf16, const int* pages,
+                 AttnLen pos, int B, int S, int Kh, int cols, int block, int T,
+                 int P, int maxp, int pow2, cudaStream_t stream) {
+  if (nside < 1 || nside > 2 || block < 1 || cols % block || T < 1 ||
+      (pages && maxp < 1))
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * S * Kh;
+  if (rows <= 0 || cols <= 0) return 0;
+  KVWriteArgs a;
+  a.S = S; a.Kh = Kh; a.block = block; a.nblk = cols / block; a.T = T; a.P = P;
+  a.maxp = maxp; a.pow2 = pow2; a.pages = pages; a.pos = pos; a.stage = 0;
+  const int esize = x_bf16 ? 2 : 4;
+  long long tasks[2] = {0, 0};
+  for (int i = 0; i < nside; ++i) {
+    KVSide& sd = a.side[i];
+    sd.in = i ? v : k;
+    const int nb = sd.in.f.n_bits;
+    if (nb < 1 || nb > 16 || sd.in.W != (int)(((long long)cols * nb + 31) / 32))
+      return (int)cudaErrorInvalidValue;
+    // the fewest blocks whose bits end on a word: 32 / gcd(block * nb, 32)
+    int tz = 0;
+    while (tz < 5 && !((((long long)block * nb) >> tz) & 1)) ++tz;
+    sd.chunk = min(32 >> tz, a.nblk);
+    sd.nchunk = (a.nblk + sd.chunk - 1) / sd.chunk;
+    sd.vec = block == 128 && sd.in.sd == 1 &&
+             (uintptr_t)sd.in.x % (4 * esize) == 0 && (B == 1 || sd.in.sb % 4 == 0) &&
+             (S == 1 || sd.in.ss % 4 == 0) && (Kh == 1 || sd.in.sh % 4 == 0);
+    sd.direct = sd.vec && nb == 8;
+    if (!sd.direct) a.stage = max(a.stage, sd.chunk * block);
+    tasks[i] = rows * sd.nchunk;
   }
-  return (int)cudaGetLastError();
+  if (nside == 1) a.side[1] = a.side[0];
+  if (tasks[0] + tasks[1] >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  a.tasks0 = (int)tasks[0];
+  a.tasks = (int)(tasks[0] + tasks[1]);
+  const size_t smem = (size_t)kKVWarps * a.stage * sizeof(uint32_t);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const int grid = min((a.tasks + kKVWarps - 1) / kKVWarps, 1 << 20);
+  if (x_bf16) return launch_kv_write<__nv_bfloat16>(a, grid, smem, stream);
+  return launch_kv_write<float>(a, grid, smem, stream);
 }
 
 int f2p_dequantize_packed(const uint32_t* words, const float* scales, void* out,

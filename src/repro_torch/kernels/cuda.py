@@ -24,6 +24,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -34,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 MAX_SMEM = 232448   # bytes of shared memory one CTA may use on Hopper
 
-LAUNCHES: dict[str, int] = {"quantize_packed": 0, "dequantize_packed": 0,
+LAUNCHES: dict[str, int] = {"quantize_packed": 0, "kv_write": 0,
+                            "dequantize_packed": 0,
                             "quantize": 0, "dequantize": 0,
                             "attention_packed": 0, "attention_paged": 0,
                             "counter_advance": 0, "counter_estimate": 0,
@@ -63,6 +65,36 @@ class AttnLen(ctypes.Structure):
     ``p`` is null."""
     _fields_ = [("p", ctypes.c_void_p), ("stride", ctypes.c_longlong),
                 ("is64", ctypes.c_int), ("value", ctypes.c_int)]
+
+
+class KVSideIn(ctypes.Structure):
+    """Mirror of ``struct KVSideIn``: one input of the KV write, x ``[B, S,
+    Kh, cols]`` at strides (elements), and its destination words / scales."""
+    _fields_ = [("x", ctypes.c_void_p)] + [
+        (n, ctypes.c_longlong) for n in ("sb", "ss", "sh", "sd")] + [
+        ("words", ctypes.c_void_p), ("scales", ctypes.c_void_p),
+        ("W", ctypes.c_int), ("f", F2PConsts), ("inv_max", ctypes.c_float)]
+
+
+def len_arg(v, B: int, default: int, dev):
+    """A per-row length or position as the kernels read it: a Python int
+    (or None: ``default``) by value, a tensor of one or B values in place
+    (int32 / int64; other dtypes cast), with no copy and no sync. Returns
+    (AttnLen, the tensor to keep alive)."""
+    if v is None or isinstance(v, (int, np.integer)):
+        x = default if v is None else int(v)
+        return AttnLen(None, 0, 0, max(-2 ** 31, min(x, 2 ** 31 - 1))), None
+    t = v
+    if not (isinstance(v, torch.Tensor) and v.device == torch.device(dev)
+            and v.dtype in (torch.int32, torch.int64)):
+        t = torch.as_tensor(v, device=dev)
+        if t.dtype not in (torch.int32, torch.int64):
+            t = t.to(torch.int32)
+    if t.ndim > 1 or t.numel() not in (1, B):
+        raise ValueError(f"a length or position must be a scalar or [B={B}], "
+                         f"got {tuple(t.shape)}")
+    return AttnLen(t.data_ptr(), t.stride(0) if t.numel() > 1 else 0,
+                   int(t.dtype == torch.int64), 0), t
 
 
 _WS: dict = {}
@@ -128,8 +160,8 @@ def lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L.f2p_error_string.argtypes = [I]
         L.f2p_error_string.restype = ctypes.c_char_p
-        L.f2p_quantize_packed.argtypes = [P, I, P, P, I, I, I, I, F2PConsts,
-                                          F, I, P]
+        L.f2p_kv_write.argtypes = [KVSideIn, KVSideIn, I, I, P, AttnLen] + [
+            I] * 9 + [P]
         L.f2p_dequantize_packed.argtypes = [P, P, P, I, I, I, I, I, F2PConsts,
                                             P]
         LL, U = ctypes.c_longlong, ctypes.c_uint32
@@ -145,7 +177,7 @@ def lib():
             F2PConsts, P]
         L.f2p_dequant_matmul_decode.argtypes = [P, I, P, I, I, P, P, P, P] + [
             I] * 6 + [F2PConsts, P]
-        for fn in (L.f2p_quantize_packed, L.f2p_dequantize_packed,
+        for fn in (L.f2p_kv_write, L.f2p_dequantize_packed,
                    L.f2p_quantize, L.f2p_dequantize, L.f2p_attention,
                    L.f2p_counter_advance, L.f2p_counter_estimate,
                    L.f2p_dequant_matmul, L.f2p_dequant_matmul_decode):

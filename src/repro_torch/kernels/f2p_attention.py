@@ -210,27 +210,6 @@ def attention_plan(B: int, K: int, R: int, hd: int, S: int) -> AttnPlan:
                     else 0, B * K * groups if many else 0)
 
 
-def _len_arg(v, B: int, default: int, dev):
-    """``kv_len`` / ``q_offset`` as the kernel reads them: a Python int (or
-    None: ``default``) by value, a tensor of one or B values in place
-    (int32 / int64; other dtypes cast), with no copy and no sync. Returns
-    (AttnLen, the tensor to keep alive)."""
-    if v is None or isinstance(v, (int, np.integer)):
-        x = default if v is None else int(v)
-        return C.AttnLen(None, 0, 0, max(-2 ** 31, min(x, 2 ** 31 - 1))), None
-    t = v
-    if not (isinstance(v, torch.Tensor) and v.device == torch.device(dev)
-            and v.dtype in (torch.int32, torch.int64)):
-        t = torch.as_tensor(v, device=dev)
-        if t.dtype not in (torch.int32, torch.int64):
-            t = t.to(torch.int32)
-    if t.ndim > 1 or t.numel() not in (1, B):
-        raise ValueError(f"kv_len / q_offset must be a scalar or [B={B}], "
-                         f"got {tuple(t.shape)}")
-    return C.AttnLen(t.data_ptr(), t.stride(0) if t.numel() > 1 else 0,
-                     int(t.dtype == torch.int64), 0), t
-
-
 def _attention_cuda(q, kq: QTensor, vq: QTensor, kv_len, q_offset, causal,
                     pages=None):
     """One launch of the kernel; o ``[B, Sq, H, hd]`` in q's dtype."""
@@ -265,8 +244,8 @@ def _attention_cuda(q, kq: QTensor, vq: QTensor, kv_len, q_offset, causal,
     part = counts = None
     if plan.nsplit > 1:
         part, counts = C.workspace(dev, stream, plan.n_part, plan.n_counts)
-    lens, keep_l = _len_arg(kv_len, B, S, dev)
-    qoff, keep_q = _len_arg(q_offset, B, 0, dev)
+    lens, keep_l = C.len_arg(kv_len, B, S, dev)
+    qoff, keep_q = C.len_arg(q_offset, B, 0, dev)
     what = "attention_paged" if pages is not None else "attention_packed"
     C.check(C.lib().f2p_attention(
         q.data_ptr(), int(q.dtype == torch.bfloat16), q.stride(0),

@@ -10,17 +10,21 @@ tensors so it is bitwise identical to the JAX functions:
            exact fractional part -> field assembly with variable shifts.
   decode:  field split with variable shifts -> ldexp by bit assembly.
 
-Four entry points, each routed by the tensor's device (no registry, no
+Five entry points, each routed by the tensor's device (no registry, no
 environment override): a CPU tensor runs the plain PyTorch version, a CUDA
 tensor launches the hand-written kernel of ``csrc/f2p_kernels.cu`` or raises.
 
-``f2p_quantize_packed`` replaces the TPU kernel
-``repro/kernels/f2p_quant.py::_quant_packed_kernel``. On an H100 it is
-bound by bytes: it reads ``x`` once and writes n_bits/8 bytes per element
-plus one f32 scale per block. The kernel gives one warp to each scale block
-(shuffle absmax, per-lane encode into shared memory) and assembles each
-output word in one thread, so the only device-memory traffic is that one
-read and that one write.
+``f2p_kv_write`` and ``f2p_quantize_packed`` are the two addressing modes
+of one kernel (B3), which replaces the TPU kernel
+``repro/kernels/f2p_quant.py::_quant_packed_kernel`` together with the
+KV-cache scatter that follows it in ``repro.models.attention``.
+``f2p_kv_write`` quantizes a layer's new K and V rows and stores words and
+scales straight into the cache: a paged pool's slabs through a page table,
+or a dense cache at per-slot positions, page and offset computed in the
+kernel, one launch per layer write. ``f2p_quantize_packed`` writes
+contiguous output rows. At the decode shape the bytes take nanoseconds, so
+launches and the host bound the write; the kernel's note in
+``csrc/f2p_kernels.cu`` says how it spends one launch on it.
 
 ``f2p_dequantize_packed`` replaces
 ``repro/kernels/f2p_quant.py::_dequant_packed_kernel``. Also bound by bytes
@@ -46,6 +50,7 @@ arithmetic on them goes through an int16 view.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -55,8 +60,9 @@ from repro_torch.kernels import cuda as C
 from repro_torch.kernels.bits import pack_bits, packed_words, unpack_bits
 
 __all__ = ["quantize_tile_math", "dequantize_tile_math",
-           "f2p_quantize_packed", "f2p_dequantize_packed",
+           "f2p_quantize_packed", "f2p_dequantize_packed", "f2p_kv_write",
            "quantize_packed_plain", "dequantize_packed_plain",
+           "kv_write_plain",
            "f2p_quantize_codes", "f2p_dequantize_codes", "quantize_plain",
            "dequantize_plain", "code_dtype", "codes_to_int32"]
 
@@ -83,8 +89,11 @@ def cuda_consts(fmt: F2PFormat) -> C.F2PConsts:
     return C.F2PConsts(*_fmt_consts(fmt), int(fmt.signed), fmt.n_bits)
 
 
+@functools.lru_cache(maxsize=64)
 def inv_max_value(fmt: F2PFormat) -> float:
-    """f32(1 / max_value): block scales MULTIPLY by this constant."""
+    """f32(1 / max_value): block scales MULTIPLY by this constant (cached:
+    every KV write and quantize call needs it, and ``max_value`` is
+    recomputed from the format's fields on each access)."""
     return float(np.float32(1.0 / fmt.max_value))
 
 
@@ -241,31 +250,139 @@ def f2p_quantize_packed(x2: torch.Tensor, fmt: F2PFormat, *, block: int = 128,
                         scale_mode: str = "f32"):
     """Blocked F2P quantization of ``[r, c]`` straight into packed words:
     (words ``[r, W]`` uint32, scales ``[r, c/block]`` f32). Bitwise equal
-    on both devices and to the JAX reference."""
+    on both devices and to the JAX reference. On the card, B3 with
+    contiguous output rows (x at its strides)."""
     _check_2d(x2, block, "x")
     if scale_mode not in ("f32", "pow2"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
     if x2.device.type != "cuda":
         return quantize_packed_plain(x2, fmt, block, scale_mode)
-    if x2.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"kernel takes f32 or bf16 input, got {x2.dtype}")
-    C.require_cuda(x2, "x")
+    _check_kernel_input(x2, "x")
     r, c = x2.shape
-    if 4 * c > C.MAX_SMEM:
-        raise ValueError(f"row of {c} codes exceeds the kernel's shared "
-                         "memory stage")
     W = packed_words(c, fmt.n_bits)
     words = torch.empty((r, W), dtype=torch.uint32, device=x2.device)
     scales = torch.empty((r, c // block), dtype=torch.float32,
                          device=x2.device)
-    if r:
-        C.check(C.lib().f2p_quantize_packed(
-            x2.data_ptr(), int(x2.dtype == torch.bfloat16), words.data_ptr(),
-            scales.data_ptr(), r, c, block, W, cuda_consts(fmt),
-            inv_max_value(fmt), int(scale_mode == "pow2"), C.stream()),
-            "quantize_packed")
+    if r and c:
+        side = _kv_side(x2[:, None, None], words, scales, fmt, block)
+        C.check(C.lib().f2p_kv_write(
+            side, side, 1, int(x2.dtype == torch.bfloat16), None,
+            C.AttnLen(None, 0, 0, 0), r, 1, 1, c, block, 1, r, 0,
+            int(scale_mode == "pow2"), C.stream()), "quantize_packed")
         C.LAUNCHES["quantize_packed"] += 1
     return words, scales
+
+
+def _check_kernel_input(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} must be a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes f32 or bf16 {what}, got {x.dtype}")
+
+
+def _kv_side(x: torch.Tensor, words: torch.Tensor, scales: torch.Tensor,
+             fmt: F2PFormat, block: int) -> C.KVSideIn:
+    """One input of B3: x ``[B, S, Kh, cols]`` at its strides and its
+    destination rows."""
+    consts = cuda_consts(fmt)   # raises for n_bits > 16 or h_bits > 2
+    stage = (32 // math.gcd(block * fmt.n_bits, 32)) * block
+    if 4 * 4 * min(stage, x.shape[-1]) > C.MAX_SMEM:
+        raise ValueError(f"{fmt.n_bits}-bit fields in blocks of {block} "
+                         "exceed the kernel's shared-memory stage")
+    return C.KVSideIn(x.data_ptr(), *x.stride(), words.data_ptr(),
+                      scales.data_ptr(), words.shape[-1], consts,
+                      inv_max_value(fmt))
+
+
+def kv_write_plain(k: torch.Tensor, v: torch.Tensor, cache: dict, pos,
+                   pages=None) -> None:
+    """The plain version of :func:`f2p_kv_write`: ``quantize_packed_plain``
+    of K and of V, then the page arithmetic and a scatter of words and
+    scales into the cache, in place."""
+    B, S = k.shape[:2]
+    T, dev = cache["k"].codes.shape[1], cache["k"].codes.device
+    # position p = pos[b] + s: page pages[b, min(p // T, maxp - 1)] at
+    # offset p % T (retired slots' table rows point at a dump page), or,
+    # with no table, cache row b at position p
+    p = torch.as_tensor(pos, dtype=torch.int64, device=dev).reshape(-1, 1) \
+        + torch.arange(S, device=dev)
+    p = p.expand(B, S)
+    if pages is None:
+        page, off = torch.arange(B, device=dev)[:, None].expand(B, S), p
+    else:
+        col = torch.clamp(p // T, max=pages.shape[1] - 1)
+        page, off = pages.to(dev).gather(1, col).to(torch.int64), p % T
+    for name, x in (("k", k), ("v", v)):
+        c = cache[name]
+        words, scales = quantize_packed_plain(x.reshape(-1, x.shape[-1]),
+                                              c.fmt, c.block)
+        c.codes.view(torch.int32)[page, off] = words.view(torch.int32) \
+            .reshape(B, S, *c.codes.shape[2:])
+        c.scales[page, off] = scales.reshape(B, S, *c.scales.shape[2:])
+
+
+def _check_kv(k, v, cache, pages) -> None:
+    if k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k and v must both be [B, S, K, hd], got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    B, _, K, hd = k.shape
+    ck = cache["k"]
+    for name in ("k", "v"):
+        c = cache[name]
+        if not c.packed or c.codes.ndim != 4:
+            raise ValueError(f"cache {name} must be packed [P, T, K, W]")
+        if c.block != hd or tuple(c.codes.shape) != (
+                *ck.codes.shape[:2], K, packed_words(hd, c.fmt.n_bits)):
+            raise ValueError(
+                f"cache {name} codes {tuple(c.codes.shape)} (block "
+                f"{c.block}) do not hold rows of k {tuple(k.shape)}")
+    if pages is not None:
+        if pages.ndim != 2 or pages.shape[0] != B:
+            raise ValueError(f"pages must be [B={B}, maxp], got "
+                             f"{tuple(pages.shape)}")
+    elif ck.codes.shape[0] != B:
+        raise ValueError(f"dense cache holds {ck.codes.shape[0]} rows, k "
+                         f"{B}")
+
+
+def f2p_kv_write(k: torch.Tensor, v: torch.Tensor, cache: dict, pos,
+                 pages=None) -> None:
+    """Quantize a layer's new K and V ``[B, S, K, hd]`` (f32 or bf16, any
+    strides) into the packed cache ``cache = {"k", "v"}`` (QTensors: words
+    ``[P, T, K, W]`` uint32, scales ``[P, T, K, 1]`` f32, block = hd), in
+    place. Row (b, s) lands at position p = pos + s (``pos`` an int or a
+    ``[B]`` tensor): with a ``[B, maxp]`` int32 page table ``pages`` in page
+    ``pages[b, min(p // T, maxp - 1)]`` at offset ``p % T``, else in cache
+    row b at position p. Words and scales are bitwise those of
+    :func:`kv_write_plain`; where slots share a page (a dump page), which
+    write lands there is not defined. On the card: one launch of B3 for K
+    and V, no host sync."""
+    _check_kv(k, v, cache, pages)
+    if k.device.type != "cuda":
+        return kv_write_plain(k, v, cache, pos, pages)
+    _check_kernel_input(k, "k")
+    _check_kernel_input(v, "v")
+    if v.dtype != k.dtype or v.device != k.device:
+        raise TypeError("k and v must share dtype and device")
+    ck, cv = cache["k"], cache["v"]
+    for t, what, dt in ((ck.codes, "k words", torch.uint32),
+                        (ck.scales, "k scales", torch.float32),
+                        (cv.codes, "v words", torch.uint32),
+                        (cv.scales, "v scales", torch.float32)):
+        C.require_cuda(t, what, dt)
+    B, S, K, hd = k.shape
+    P, T = ck.codes.shape[:2]
+    if pages is not None:
+        C.require_cuda(pages, "pages", torch.int32)
+    posarg, keep = C.len_arg(pos, B, 0, k.device)
+    C.check(C.lib().f2p_kv_write(
+        _kv_side(k, ck.codes, ck.scales, ck.fmt, hd),
+        _kv_side(v, cv.codes, cv.scales, cv.fmt, hd), 2,
+        int(k.dtype == torch.bfloat16),
+        None if pages is None else pages.data_ptr(), posarg, B, S, K, hd, hd,
+        T, P, 0 if pages is None else pages.shape[1], 0, C.stream()),
+        "kv_write")
+    C.LAUNCHES["kv_write"] += 1
 
 
 def f2p_dequantize_packed(words: torch.Tensor, scales: torch.Tensor,

@@ -8,8 +8,8 @@ or packed :class:`~repro_torch.core.qtensor.QTensor` s (uint32 words
 ``[B, Smax, K, W]`` + per-(position, head) f32 scales, block = head_dim).
 Where the reference returns updated caches from pure functions (and the
 engine donates the buffers), the port writes the new KV into the cache or
-pool-slab storage IN PLACE (``index_put_``/``copy_``) and returns the same
-objects.
+pool-slab storage IN PLACE (packed caches through ``f2p_kv_write``, dense
+ones by ``index_put_``/``copy_``) and returns the same objects.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.core.f2p import F2PFormat, Flavor
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.bits import pack_bits_np
 from repro_torch.kernels.f2p_attention import attention_packed, attention_paged
+from repro_torch.kernels.f2p_quant import f2p_kv_write
 from repro_torch.models.common import apply_rope
 
 KV_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
@@ -157,49 +158,33 @@ def init_cache(cfg, batch: int, max_seq: int, quantized: bool, dtype,
 
 def _cache_write(cache, k, v, idx):
     """Write k/v ``[B, S, K, hd]`` at token position ``idx`` (an int, or a
-    per-slot ``[B]`` tensor), in place."""
+    per-slot ``[B]`` tensor), in place: a packed cache in one
+    :func:`f2p_kv_write` (B3 on the card: K and V, one launch), a dense one
+    by copy."""
+    if isinstance(cache["k"], QTensor):
+        f2p_kv_write(k, v, cache, idx)
+        return
     for name, x in (("k", k), ("v", v)):
         c = cache[name]
-        if isinstance(c, QTensor):
-            up = quantize_kv(x, c.fmt)
-            dst_w, src_w = c.codes.view(torch.int32), up.codes.view(torch.int32)
-            dst_s, src_s = c.scales, up.scales
-        else:
-            dst_w, src_w, dst_s, src_s = c, x.to(c.dtype), None, None
+        src = x.to(c.dtype)
         if isinstance(idx, torch.Tensor) and idx.ndim:   # per-slot [B]
             B, S = x.shape[0], x.shape[1]
             rows = torch.arange(B, device=k.device)[:, None]
             cols = idx[:, None].to(torch.int64) + torch.arange(
                 S, device=k.device)
-            dst_w[rows, cols] = src_w
-            if dst_s is not None:
-                dst_s[rows, cols] = src_s
+            c[rows, cols] = src
         else:
             start, n = int(idx), x.shape[1]
-            dst_w[:, start:start + n].copy_(src_w)
-            if dst_s is not None:
-                dst_s[:, start:start + n].copy_(src_s)
+            c[:, start:start + n].copy_(src)
 
 
 def _paged_cache_write(cache, k, v, pos, pages):
-    """Decode write straight into the pool slabs: quantize the new token's
-    k/v ``[B, 1, K, hd]`` and scatter its words into slab page
-    ``pages[b, pos // T]`` at offset ``pos % T``. The page index is clamped
-    to the table (retired slots point at the dump page, whose contents are
-    never read)."""
-    T = cache["k"].codes.shape[1]
-    B = pages.shape[0]
-    pos = torch.as_tensor(pos, dtype=torch.int64, device=pages.device)
-    pos = pos.expand(B)
-    col = torch.clamp(pos // T, max=pages.shape[1] - 1)
-    pidx = pages[torch.arange(B, device=pages.device), col].to(torch.int64)
-    off = pos % T
-    for name, x in (("k", k), ("v", v)):
-        slab = cache[name]
-        up = quantize_kv(x, slab.fmt)
-        slab.codes.view(torch.int32)[pidx, off] = up.codes[:, 0].view(
-            torch.int32)
-        slab.scales[pidx, off] = up.scales[:, 0]
+    """Decode write straight into the pool slabs: the new token's k/v
+    ``[B, 1, K, hd]`` are quantized into slab page ``pages[b, pos // T]`` at
+    offset ``pos % T``, in one :func:`f2p_kv_write`. The page index is
+    clamped to the table (retired slots point at the dump page, whose
+    contents are never read)."""
+    f2p_kv_write(k, v, cache, pos, pages)
 
 
 def _cache_read(cache, cfg):

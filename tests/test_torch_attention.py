@@ -18,6 +18,7 @@ from repro.core.f2p import F2PFormat as JF2PFormat
 from repro.kernels import f2p_attention as JA
 from repro_torch.core import qtensor as TQ
 from repro_torch.core.f2p import F2PFormat
+from repro_torch.kernels import cuda as C
 from repro_torch.kernels import f2p_attention as TA
 
 
@@ -195,22 +196,22 @@ def test_attention_plan_names_its_limits(hd, S, what):
 
 
 def test_len_arg_passes_values_and_tensors_in_place():
-    """kv_len / q_offset reach the kernel without a copy: an int (or None)
-    by value, clamped to int32; a [B] or one-element int32 / int64 tensor
-    by pointer and stride (0 broadcasts); another dtype is cast; a wrong
-    shape raises."""
-    a, keep = TA._len_arg(None, 3, 77, "cpu")
+    """kv_len / q_offset (and the KV write's positions) reach the kernel
+    without a copy: an int (or None) by value, clamped to int32; a [B] or
+    one-element int32 / int64 tensor by pointer and stride (0 broadcasts);
+    another dtype is cast; a wrong shape raises."""
+    a, keep = C.len_arg(None, 3, 77, "cpu")
     assert (a.p, a.value, keep) == (None, 77, None)
-    a, _ = TA._len_arg(np.int64(2 ** 40), 3, 0, "cpu")
+    a, _ = C.len_arg(np.int64(2 ** 40), 3, 0, "cpu")
     assert a.p is None and a.value == 2 ** 31 - 1
     t = torch.tensor([5, 6, 7])
-    a, keep = TA._len_arg(t, 3, 0, "cpu")
+    a, keep = C.len_arg(t, 3, 0, "cpu")
     assert keep is t and a.p == t.data_ptr() and a.stride == 1 and a.is64
-    a, keep = TA._len_arg(torch.tensor(9, dtype=torch.int32), 3, 0, "cpu")
+    a, keep = C.len_arg(torch.tensor(9, dtype=torch.int32), 3, 0, "cpu")
     assert a.stride == 0 and not a.is64 and keep.dtype == torch.int32
-    a, keep = TA._len_arg(torch.tensor([4.0]), 3, 0, "cpu")
+    a, keep = C.len_arg(torch.tensor([4.0]), 3, 0, "cpu")
     assert keep.dtype == torch.int32 and a.stride == 0
-    a, keep = TA._len_arg(torch.arange(6)[::2], 3, 0, "cpu")
+    a, keep = C.len_arg(torch.arange(6)[::2], 3, 0, "cpu")
     assert a.stride == 2 and a.p == keep.data_ptr()
     with pytest.raises(ValueError, match="scalar or"):
-        TA._len_arg(torch.tensor([1, 2]), 3, 0, "cpu")
+        C.len_arg(torch.tensor([1, 2]), 3, 0, "cpu")

@@ -65,6 +65,123 @@ def test_codec_kernels_bitwise_vs_plain(gen, name, dtype):
                 _bits(Q.dequantize_packed_plain(w, s, fmt, 64, out)))
 
 
+@pytest.mark.parametrize("name,block,cols,layout", [
+    ("f2p_sr_2_8s", 128, 384, "offset"),     # one element per lane
+    ("f2p_sr_2_8s", 128, 384, "columns"),    # a strided column view
+    ("f2p_sr_2_6s", 8, 48, "contiguous"),    # two blocks per chunk
+    ("f2p_lr_2_16s", 200, 600, "contiguous"),  # a block read twice
+    ("f2p_sr_2_6s", 128, 384, "contiguous"),  # staged words at block 128
+])
+def test_quantize_packed_kernel_layouts(gen, name, block, cols, layout):
+    """B3's contiguous mode on inputs read at their strides, and on blocks
+    whose packed bits do not end on a word (a chunk of several blocks)."""
+    fmt = named_format(name)
+    n = 40 * cols
+    flat = torch.randn(2 * n + 1, generator=gen, device="cuda") * 3
+    if layout == "offset":
+        x = flat[1:n + 1].view(40, cols)
+    elif layout == "columns":
+        x = flat[:2 * n].view(40, 2 * cols)[:, ::2]
+    else:
+        x = flat[:n].view(40, cols)
+    _non_finite(x, block)
+    C.reset_launches()
+    w, s = Q.f2p_quantize_packed(x, fmt, block=block)
+    assert C.LAUNCHES["quantize_packed"] == 1
+    pw, ps = Q.quantize_packed_plain(x, fmt, block)
+    assert torch.equal(w.view(torch.int32), pw.view(torch.int32))
+    assert torch.equal(_bits(s), _bits(ps))
+
+
+def _kv_rows(gen, B, S, K, hd, dtype, layout):
+    """k or v [B, S, K, hd] in ``layout``: contiguous, offset by one element
+    (unaligned), or a head slice of a wider tensor (strided)."""
+    wide = 2 if layout == "strided" else 1
+    x = (torch.randn(B, S, wide * K, hd, generator=gen, device="cuda")
+         * 3).to(dtype)
+    if layout == "strided":
+        x = x[:, :, 1::2]
+    elif layout == "offset":
+        buf = x.new_empty(x.numel() + 1)
+        buf[1:] = x.flatten()
+        x = buf[1:].view(B, S, K, hd)
+    x[0, 0, 0, 5] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("name", ["f2p_sr_2_6s", "f2p_sr_2_8s",
+                                  "f2p_lr_2_16s"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("per_slot", [True, False], ids=["pos_b", "pos_int"])
+@pytest.mark.parametrize("S", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "strided"])
+def test_kv_write_kernel_bitwise_vs_plain(gen, name, paged, per_slot, S,
+                                          dtype, layout):
+    """B3's KV write (one launch for K and V) against kv_write_plain on the
+    card, words and scales bitwise outside the dump page: 6/8/16-bit
+    formats, a page table or a dense cache, an int or a [B] start, S = 1
+    and S = 5 (positions crossing 4-token pages), f32 and bf16 rows,
+    aligned (the vector path), unaligned and strided (one element per
+    lane), a NaN block, two retired slots on the dump page."""
+    fmt = named_format(name)
+    B, K, hd, T, maxp = 6, 8, 128, 4, 5
+    smax = maxp * T
+    P = B * maxp + 1
+    k = _kv_rows(gen, B, S, K, hd, dtype, layout)
+    v = _kv_rows(gen, B, S, K, hd, dtype, layout)
+    lead = (P, T) if paged else (B, smax)
+    cache = {kv: QT.quantize(torch.randn(*lead, K, hd, generator=gen,
+                                         device="cuda"), fmt, block=hd,
+                             packed=True) for kv in ("k", "v")}
+    ref = {kv: QT.QTensor(c.codes.clone(), c.scales.clone(), c.fmt, c.block,
+                          c.shape, True) for kv, c in cache.items()}
+    hi = smax - S + 1
+    pos = (torch.randint(0, hi, (B,), generator=gen, device="cuda")
+           if per_slot else int(torch.randint(0, hi, (1,), generator=gen,
+                                              device="cuda")[0]))
+    pages = None
+    if paged:
+        pages = (1 + torch.randperm(P - 1, generator=gen, device="cuda")[
+            :B * maxp]).reshape(B, maxp).to(torch.int32)
+        pages[-2:] = 0          # retired slots: every entry the dump page
+    C.reset_launches()
+    Q.f2p_kv_write(k, v, cache, pos, pages)
+    assert C.LAUNCHES["kv_write"] == 1
+    assert C.LAUNCHES["quantize_packed"] == 0
+    Q.kv_write_plain(k, v, ref, pos, pages)
+    torch.cuda.synchronize()
+    keep = slice(1, None) if paged else slice(None)
+    for kv in ("k", "v"):
+        assert torch.equal(cache[kv].codes.view(torch.int32)[keep],
+                           ref[kv].codes.view(torch.int32)[keep])
+        assert torch.equal(_bits(cache[kv].scales[keep]),
+                           _bits(ref[kv].scales[keep]))
+
+
+def test_kv_write_kernel_raises_on_bad_inputs(gen):
+    fmt = named_format("f2p_sr_2_8s")
+    k = torch.randn(2, 1, 8, 128, generator=gen, device="cuda")
+    cache = {kv: QT.quantize(torch.zeros(9, 8, 8, 128, device="cuda"), fmt,
+                             block=128, packed=True) for kv in ("k", "v")}
+    pages = torch.zeros(2, 4, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        Q.f2p_kv_write(k.half(), k.half(), cache, 0, pages)
+    with pytest.raises(TypeError):
+        Q.f2p_kv_write(k, k.bfloat16(), cache, 0, pages)
+    with pytest.raises(TypeError):
+        Q.f2p_kv_write(k, k, cache, 0, pages.long())
+    with pytest.raises(ValueError):
+        Q.f2p_kv_write(k, k, cache, torch.zeros(3, dtype=torch.int64,
+                                               device="cuda"), pages)
+    with pytest.raises(ValueError):
+        Q.f2p_kv_write(k[:, :, :4], k[:, :, :4], cache, 0, pages)
+    host = {kv: QT.QTensor(c.codes.cpu(), c.scales.cpu(), c.fmt, c.block,
+                           c.shape, True) for kv, c in cache.items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        Q.f2p_kv_write(k, k, host, 0, pages)
+
+
 def _codes_i(c):
     return c.view(torch.int16) if c.dtype == torch.uint16 else c
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times one tree's attention kernels (B1/B2) and its serving path, so
-that two trees can be set beside each other in one run on the card. Needs
-an NVIDIA GPU and the CUDA toolkit.
+"""Times one tree's attention kernels (B1/B2), its KV-cache writes (B3)
+and its serving path, so that two trees can be set beside each other in
+one run on the card. Needs an NVIDIA GPU and the CUDA toolkit.
 
     python3 tools/attn_bench.py compare ROOT TAG
 
@@ -19,14 +19,23 @@ events around the wrapper (the host included), and from torch.profiler
 the attention kernel's device time, all device time and device kernels
 per call (the glue launches around the kernel).
 
+KV writes: one layer's decode write at the serving cache (8 slots x 8 kv
+heads x head_dim 128, bf16, ``f2p_sr_2_8s``) through the tree's own
+``models.attention._paged_cache_write`` (a pool of 1153 8-token pages)
+and ``_cache_write`` (copy-in: a [8, 1024] cache, per-slot positions), a
+prefill call's write (4 x 256 positions from 0) and B3 on contiguous
+[8192, 128] rows (``f2p_quantize_packed``): the same columns, with B3's
+kernels (names holding ``quantize_packed``) in place of attention's.
+
 Serving: chip_smoke phase 5's workload (full-width llama3.2-3b, random
 weights from seed 0, 16 requests of 16-256 prompt tokens and 32 new
 tokens, an arrival every 4 steps, 8 slots, max_seq 1024) through
 ``BatchedEngine`` paged and copy-in after a paged warm-up: decode
 tokens/s (wall, prefill included) and TBT p50 / p99 from the engine's
 obs registry; and phase 6's profile (8 requests of 64 tokens, 2 prefill
-calls + 16 decode steps): wall, device busy share, and the attention
-kernel's device time per call. Prints one line per measurement, tagged.
+calls + 16 decode steps): wall, device busy share, device kernels, and the
+attention and B3 kernels' device time per call. Prints one line per
+measurement, tagged.
 """
 import sys
 import time
@@ -57,9 +66,6 @@ def _inputs(QT, named_format):
 
 
 def kernels(tag: str) -> None:
-    import torch
-
-    from chip_smoke import _device_events, cuda_ms
     from repro_torch.core import qtensor as QT
     from repro_torch.core.formats import named_format
     from repro_torch.kernels import f2p_attention as A
@@ -82,21 +88,75 @@ def kernels(tag: str) -> None:
         "B2 phase 6 copy-in": lambda: A.attention_packed(qb, dk, dv,
                                                          kv_len=short),
     }
+    _report(tag, cases, "attention")
+
+
+def _report(tag: str, cases: dict, kernel: str) -> None:
+    """ms per call with CUDA events around the call (the host included);
+    from torch.profiler over 20 calls, the device time of the kernels whose
+    names hold ``kernel`` per launch, all device time per call and device
+    kernels per call."""
+    import torch
+
+    from chip_smoke import _device_events, cuda_ms
+
     for name, fn in cases.items():
         fn()
         torch.cuda.synchronize()
         ev = _device_events(fn, 20)
-        att = [d for n, d in ev if "attention" in n]
-        print(f"{tag:8s} {name:20s} ms {cuda_ms(fn, iters=100):.5f}  "
-              f"attention kernel {sum(att) / max(len(att), 1):8.2f} us  "
+        ours = [d for n, d in ev if kernel in n]
+        print(f"{tag:8s} {name:24s} ms {cuda_ms(fn, iters=100):.5f}  "
+              f"{kernel} kernel {sum(ours) / max(len(ours), 1):8.2f} us "
+              f"x {len(ours) / 20:.1f}  "
               f"all device {sum(d for _, d in ev) / 20:8.2f} us  "
               f"device kernels per call {len(ev) / 20:.1f}", flush=True)
+
+
+def kv_writes(tag: str) -> None:
+    """B3 through the tree's own cache writes and contiguous quantize."""
+    import torch
+
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_quant as Q
+    from repro_torch.models import attention as A
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(6)
+    fmt = named_format("f2p_sr_2_8s")
+    B, K, hd, T, S = 8, 8, 128, 8, 1024
+    maxp = S // T
+    P = (B + 1) * maxp + 1
+
+    def cache(*lead):
+        return {kv: A.empty_packed((*lead, K, hd), fmt, dev)
+                for kv in ("k", "v")}
+
+    def rows(*lead):
+        return (torch.randn(*lead, K, hd, generator=g, device=dev) * 3).to(
+            torch.bfloat16)
+
+    slabs, dense, pf = cache(P, T), cache(B, S), cache(4, 256)
+    k, v, kp, vp = rows(B, 1), rows(B, 1), rows(4, 256), rows(4, 256)
+    xp = (torch.randn(8192, hd, generator=g, device=dev) * 3).to(
+        torch.bfloat16)
+    pos = torch.randint(0, S, (B,), generator=g, device=dev)
+    pages = (1 + torch.randperm(P - 1, generator=g, device=dev)[
+        :B * maxp]).reshape(B, maxp).to(torch.int32)
+    _report(tag, {
+        "B3 paged decode write": lambda: A._paged_cache_write(
+            slabs, k, v, pos, pages),
+        "B3 copy-in decode write": lambda: A._cache_write(dense, k, v, pos),
+        "B3 prefill write": lambda: A._cache_write(pf, kp, vp, 0),
+        "B3 rows [8192, 128]": lambda: Q.f2p_quantize_packed(xp, fmt),
+    }, "quantize_packed")
 
 
 def serving(tag: str) -> None:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from torch.autograd import DeviceType
 
     from chip_smoke import device_profile
     from repro_torch.configs import full_config
@@ -138,16 +198,20 @@ def serving(tag: str) -> None:
         eng.run(reqs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    res = device_profile(prof, wall_us, ("attention",))
-    att = list(res["kernels"].values())
-    calls = sum(v["calls"] for v in att)
-    per = sum(v["calls"] * v["device_ms_per_call"] for v in att)
+    res = device_profile(prof, wall_us, ("attention", "quantize_packed"))
+    n_dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
     busy = res["device_busy_share"]
-    print(f"{tag:8s} phase 6 wall {res['wall_ms']:.1f} ms, device busy "
-          f"{res['device_busy_ms']:.1f} ms "
-          f"({'not measured' if busy is None else f'{100 * busy:.1f}%'}), "
-          f"attention {calls} calls, "
-          f"{1e3 * per / max(calls, 1):.2f} us per call", flush=True)
+    line = (f"{tag:8s} phase 6 wall {res['wall_ms']:.1f} ms, device busy "
+            f"{res['device_busy_ms']:.1f} ms "
+            f"({'not measured' if busy is None else f'{100 * busy:.1f}%'}), "
+            f"{n_dev} device kernels")
+    for kernel in ("attention", "quantize_packed"):
+        ours = [v for k, v in res["kernels"].items() if kernel in k]
+        calls = sum(v["calls"] for v in ours)
+        per = sum(v["calls"] * v["device_ms_per_call"] for v in ours)
+        line += (f", {kernel} {calls} calls, "
+                 f"{1e3 * per / max(calls, 1):.2f} us per call")
+    print(line, flush=True)
 
 
 def compare(root: Path, tag: str) -> None:
@@ -168,6 +232,7 @@ def compare(root: Path, tag: str) -> None:
     print(f"{tag:8s} {root}: build {time.perf_counter() - t0:.1f} s",
           flush=True)
     kernels(tag)
+    kv_writes(tag)
     serving(tag)
 
 
