@@ -6,10 +6,12 @@ NVIDIA GPU.
     python3 chip_smoke.py --only matmul  # phases 1-2 and the dequant matmul
     python3 chip_smoke.py --only attention  # phases 1-2 and B1/B2
     python3 chip_smoke.py --only codec   # phases 1-2 and B3/B4
+    python3 chip_smoke.py --only unpacked  # phases 1-2, B5, its round trip, B6
 
-With ``--only matmul`` (``--only attention``, ``--only codec``) the script
-runs the device and build phases and phase 3's dequant matmul, B7/B8
-(attention, B1/B2; the packed codec, B3/B4), prints their lines and ends
+With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
+unpacked``) the script runs the device and build phases and phase 3's
+dequant matmul, B7/B8 (attention, B1/B2; the packed codec, B3/B4; the
+unpacked codec, B5 and its round trip and B6), prints their lines and ends
 without the final ``{"ok": ...}`` line, so it never stands in for a full
 run.
 
@@ -27,15 +29,25 @@ Phases (any failed check raises, so the script exits non-zero):
    it replaced (two packed quantizes, four index_put_ scatters and the
    page arithmetic: old_paged_cache_write / old_cache_write), with the
    host, on the device and in device kernels per call, and at a prefill
-   call's write and contiguous [8192, 128] rows; the unpacked codec
-   (B5/B6) bitwise at the train path's leaf shapes ([3072, 8192],
-   [8192, 3072], [3072, 1024], [128256, 3072] and a [3072] norm; 8-bit
-   gradient and 16-bit checkpoint formats, f32 and pow2 scales, f32 and
-   bf16 outputs), attention (B1/B2: 8 rows x 8 kv heads, G = 3, head_dim
-   128, kv_len 512..1024) within rtol=atol=1e-5 in f32 plus paged ==
-   dense-over-gathered-pages bitwise (also on the page table cut to the
-   live span),
-   the counter advance bitwise (state and leftover; 8/12/16-bit LI^2 and
+   call's write and contiguous [8192, 128] rows; the unpacked codec:
+   B5's table encode over all 2^32 f32 patterns against the arithmetic
+   f2p_encode (code and value; f2p_sr_2_8s, f2p_sr_2_16s, f2p_lr_1_6s) and
+   its pow2 reciprocal against the IEEE divide at scales 2^-126, 2^-3,
+   2^127 (zero mismatches), B5/B6 bitwise at the train path's leaf shapes
+   ([3072, 8192], [8192, 3072], [3072, 1024], [128256, 3072] and a [3072]
+   norm; 8-bit gradient and 16-bit checkpoint formats, f32 and pow2
+   scales, f32 and bf16 outputs, bf16 input), B5's round trip (one launch)
+   bitwise in gradients and residuals against ef_roundtrip_plain (bf16 and
+   f32 g, error feedback on and off; one leaf of each train shape, a
+   ragged and a cols % 4 != 0 leaf, zero, NaN and inf blocks; NaNs by
+   position), and per train step (255 leaves) B5 at 8 and 16 bits (per
+   leaf shape, the median of 3 timed runs with the host) and the round
+   trip, with the host and on the device, the round trip beside the
+   composition it replaced (old_compression); attention (B1/B2: 8 rows x
+   8 kv heads, G = 3, head_dim 128, kv_len 512..1024) within
+   rtol=atol=1e-5 in f32 plus paged == dense-over-gathered-pages bitwise
+   (also on the page table cut to the live span), the counter advance
+   bitwise (state and leftover; 8/12/16-bit LI^2 and
    16-bit SR^2 cells, [4, 2^20] state, the budget of the trace's first
    2^20-packet batch, sweep0 0 and 32) and the estimate gather bitwise.
    Each is timed with CUDA events after a warm-up, beside its bound (the
@@ -114,15 +126,16 @@ Phases (any failed check raises, so the script exits non-zero):
    torch.Generator seed 0): 8 steps of make_train_step on
    data.host_batch (batch 8 x seq 128) with F2P8 gradient compression
    (the arch's default policy, min_size 512) and AdamW (lr 1e-3, warmup
-   10). Asserts finite losses, B5 and B6 launched once per compressed
-   leaf in every step, and at step 0 every compressed gradient equal,
-   bitwise, to the plain codec applied on the card to the same g + r
-   (captured by post-accumulate-grad hooks). Prints ms per step and
-   tokens/s over steps 2-7, the peak of max_memory_allocated, each step's
-   caching-allocator retries, cudaMalloc / cudaFree calls and garbage-
-   collector time (what a slow step spent outside its work), and, from
-   torch.profiler over step 1, the device's busy share and B5/B6 device
-   time per step (the profiler's garbage is collected before step 2).
+   10). Asserts finite losses, exactly one launch of B5's round trip and
+   no per-leaf B5 / B6 launch in every step, and at step 0 every
+   compressed gradient and residual equal, bitwise, to the plain round
+   trip applied on the card to the same g and r (captured by
+   post-accumulate-grad hooks). Prints ms per step and tokens/s over steps
+   2-7, the peak of max_memory_allocated, each step's caching-allocator
+   retries, cudaMalloc / cudaFree calls and garbage-collector time (what a
+   slow step spent outside its work), and, from torch.profiler over step
+   1, the device's busy share and the round trip's device time per step
+   (the profiler's garbage is collected before step 2).
    (b) the same trainer through launch.train.run at full width with
    depth cut to 2 layers: 2 steps, the run's AsyncCheckpointer(compress=
    True, policy=default_policy) writes step 2 into a tempfile.mkdtemp()
@@ -134,7 +147,9 @@ Phases (any failed check raises, so the script exits non-zero):
    removed.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
-line, one ``{"kernels": [...]}`` JSON line (all ten kernels), then the
+line, one ``{"kernels": [...]}`` JSON line (all ten kernels and B5's
+round-trip mode, ``ef_roundtrip``, as a row of its own; B5's codes mode and
+B6 count the launches of phase 8's checkpoint save and restore), then the
 nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
 copy of the results goes to chiprun_out/chip_smoke.json.
 """
@@ -156,6 +171,7 @@ REPLACES = {
     "quantize_packed": "src/repro/kernels/f2p_quant.py:341",
     "dequantize_packed": "src/repro/kernels/f2p_quant.py:352",
     "quantize": "src/repro/kernels/f2p_quant.py:186",
+    "ef_roundtrip": "src/repro/kernels/f2p_quant.py:186",
     "dequantize": "src/repro/kernels/f2p_quant.py:197",
     "attention_packed": "src/repro/kernels/f2p_attention.py:183",
     "attention_paged": "src/repro/kernels/f2p_attention.py:385",
@@ -174,6 +190,9 @@ KV_CANDIDATE_BITS, KV_BUDGET_BITS = (6, 8), 6.25
 SKETCH = dict(depth=4, width=1 << 20, n_bits=16, h_bits=2, flavor="li",
               seed=0)
 N_PACKETS, N_FLOWS, BATCH = 1 << 25, 1 << 24, 1 << 20
+# phase 3: the exhaustive check of B5's table encode
+ENC_CHECK_FORMATS = ("f2p_sr_2_8s", "f2p_sr_2_16s", "f2p_lr_1_6s")
+POW2_CHECK_SCALES = (2.0 ** -126, 2.0 ** -3, 2.0 ** 127)
 # phase 8: the train path of launch/train.py's defaults
 ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "llama3_2_3b", 8, 8, 128
 # f32 operations of one live sweep of the advance (min, sub, log, div,
@@ -206,6 +225,16 @@ def cuda_ms(fn, iters=30, warm=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=20, repeats=3) -> float:
+    """The median of ``repeats`` runs of :func:`cuda_ms`: for calls of a
+    few µs, one host stall (the collector, the OS) inside a single run
+    would otherwise stand for every call of a shape."""
+    import statistics
+
+    return statistics.median(cuda_ms(fn, iters=iters)
+                             for _ in range(repeats))
 
 
 def _device_events(fn, iters, flush=None):
@@ -673,27 +702,6 @@ def train_leaf_counts(cfg) -> dict:
     return out
 
 
-def plain_roundtrip(x, fmt, block: int, chunk: int = 1 << 24):
-    """The plain unpacked codec's quantize -> dequantize of ``x`` (f32) on
-    its own device, about ``chunk`` elements of whole rows at a time (rows
-    are independent, and the plain version's temporaries for a whole
-    [128256, 3072] leaf would not fit beside a train state)."""
-    import torch
-
-    from repro_torch.kernels import f2p_quant as Q
-
-    n = x.shape[-1]
-    x2 = x.reshape(-1, n).to(torch.float32)
-    if n % block:
-        x2 = torch.nn.functional.pad(x2, (0, -n % block))
-    out = torch.empty_like(x2)
-    rows = max(1, chunk // x2.shape[1])
-    for i in range(0, x2.shape[0], rows):
-        c, s = Q.quantize_plain(x2[i:i + rows], fmt, block)
-        out[i:i + rows] = Q.dequantize_plain(c, s, fmt, block)
-    return out[:, :n].reshape(x.shape)
-
-
 def _bits(t):
     import torch
 
@@ -701,16 +709,151 @@ def _bits(t):
     return t.contiguous().view(view[t.element_size()])
 
 
+def _same_bits(a, b) -> bool:
+    """Bitwise equal, NaNs compared by position (a NaN's payload may differ
+    between two producers)."""
+    import torch
+
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(na, nb):
+            return False
+        a, b = torch.where(na, 0, a), torch.where(nb, 0, b)
+    return torch.equal(_bits(a), _bits(b))
+
+
+def check_encode_exhaustive(dev) -> dict:
+    """B5's table encode over every f32 bit pattern, code and decoded value
+    against the arithmetic f2p_encode / f2p_decode on the card (the device
+    oracle), for the gradient, checkpoint and one LR format; and the pow2
+    mode's y * (1/s) against the IEEE divide for every y at s = 2^-126,
+    2^-3 and 2^127. Zero mismatches, asserted."""
+    import torch
+
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_quant as Q
+
+    t = time.perf_counter()
+    out = {}
+    for name in ENC_CHECK_FORMATS:
+        n, first = Q.encode_check(named_format(name), device=dev)
+        assert n == 0, (f"table encode != f2p_encode for {name}: {n} "
+                        f"patterns, the first {first:#010x}")
+        out[name] = n
+    for s in POW2_CHECK_SCALES:
+        n, first = Q.encode_check(named_format(ENC_CHECK_FORMATS[0]), s,
+                                  device=dev)
+        assert n == 0, (f"y * (1/{s!r}) != y / {s!r} for {n} patterns, the "
+                        f"first {first:#010x}")
+        out[f"pow2 scale {s!r}"] = n
+    torch.cuda.synchronize()
+    log(f"codec    : B5 table encode == f2p_encode (code and value) over all "
+        f"2^32 f32 patterns for {', '.join(ENC_CHECK_FORMATS)}; pow2 "
+        f"reciprocal == IEEE divide for every y at scales 2^-126, 2^-3, "
+        f"2^127: 0 mismatches ({time.perf_counter() - t:.1f} s)")
+    return out
+
+
+def ef_check_leaves(dev, g, gdtype):
+    """The round trip's bitwise-check leaves: one of each train leaf shape,
+    a ragged [384, 1000] (cols % 128 != 0) and a [7, 130] (cols % 4 != 0:
+    the element-wise form); an all-zero block, a NaN block and an inf block
+    in the ragged leaf, a NaN in the [7, 130] leaf. Gradients randn x 1e-3
+    in ``gdtype``, residuals randn x 1e-5."""
+    import torch
+
+    from repro_torch.configs import full_config
+
+    shapes = list(train_leaf_counts(full_config(ARCH))) + [(384, 1000),
+                                                           (7, 130)]
+    gs = [(torch.randn(*s, generator=g, device=dev) * 1e-3).to(gdtype)
+          for s in shapes]
+    rs = [torch.randn(*s, generator=g, device=dev) * 1e-5 for s in shapes]
+    gs[-2][0, :128] = 0
+    rs[-2][0, :128] = 0
+    gs[-2][1, 900] = float("nan")
+    gs[-2][2, 130] = float("inf")
+    gs[-1][3, 129] = float("nan")
+    return shapes, gs, rs
+
+
+def check_ef_roundtrip(dev, g, fmt) -> int:
+    """B5's round-trip mode against ef_roundtrip_plain, bitwise in the
+    gradients and the residuals (NaNs by position), bf16 and f32 gradients,
+    error feedback on and off, one launch over all leaves of
+    :func:`ef_check_leaves`. Returns the cases checked."""
+    import torch
+
+    from repro_torch.kernels import f2p_quant as Q
+
+    cases = 0
+    for gdtype in (torch.bfloat16, torch.float32):
+        for ef in (True, False):
+            shapes, gs, rs = ef_check_leaves(dev, g, gdtype)
+            pg, pr = [x.clone() for x in gs], [x.clone() for x in rs]
+            Q.f2p_ef_roundtrip(gs, rs, fmt, error_feedback=ef)
+            for a, b in zip(pg, pr):
+                Q.ef_roundtrip_plain(a, b, fmt, 128, ef)
+            for s, a, b, c, d in zip(shapes, gs, rs, pg, pr):
+                assert _same_bits(a, c), \
+                    f"round trip: gradient {s} {gdtype} ef={ef} != plain"
+                assert _same_bits(b, d), \
+                    f"round trip: residual {s} {gdtype} ef={ef} != plain"
+            cases += 1
+            del gs, rs, pg, pr
+    torch.cuda.empty_cache()
+    return cases
+
+
+def step_leaves(dev, g, gdtype=None):
+    """One train step's compressed leaves: the 255 gradient shapes of full
+    llama3.2-3b (bf16, randn x 1e-3) and zero f32 residuals."""
+    import torch
+
+    from repro_torch.configs import full_config
+
+    gdtype = gdtype or torch.bfloat16
+    gs, rs = [], []
+    for shape, count in train_leaf_counts(full_config(ARCH)).items():
+        for _ in range(count):
+            gs.append((torch.randn(*shape, generator=g, device=dev) * 1e-3)
+                      .to(gdtype))
+            rs.append(torch.zeros(shape, dtype=torch.float32, device=dev))
+    return gs, rs
+
+
+def old_compression(gs, rs, fmt, block: int = 128) -> None:
+    """The composition the round trip replaced (compress_decompress on the
+    card before it): per leaf r += g, QT.quantize (B5), dequantize (B6),
+    r -= q, g = q."""
+    import torch
+
+    from repro_torch.core import qtensor as QT
+
+    for g, r in zip(gs, rs):
+        gin = r.add_(g)
+        q = QT.quantize(gin, fmt, block=block, packed=False).dequantize(
+            torch.float32)
+        r.sub_(q)
+        g.copy_(q)
+
+
 def check_unpacked_codec(dev):
-    """B5 and B6 against their plain versions at the train path's leaf
-    shapes, bitwise (row chunks for the plain side), then their time per
-    train step: each step compresses every leaf once (8-bit, f32 in)."""
+    """The unpacked codec: B5's encode over every f32 pattern; B5 and B6
+    against their plain versions at the train path's leaf shapes, bitwise
+    (row chunks for the plain side); B5's round trip bitwise against its
+    plain version; then times per train step (every leaf once): B5 at 8
+    and 16 bits (f32 in) and B6, and the round trip beside the composition
+    it replaced, with the host and on the device."""
+    import gc
+
     import torch
 
     from repro_torch.configs import full_config
     from repro_torch.core.formats import named_format
     from repro_torch.kernels import f2p_quant as Q
 
+    exhaustive = check_encode_exhaustive(dev)
     g = torch.Generator(device=dev).manual_seed(4)
     grad_fmt, ckpt_fmt = named_format("f2p_sr_2_8s"), named_format(
         "f2p_sr_2_16s")
@@ -744,37 +887,58 @@ def check_unpacked_codec(dev):
                 checked += 1
         del x, x2
     xb = (torch.randn(3072, 8192, generator=g, device=dev)).to(torch.bfloat16)
-    c, s = Q.f2p_quantize_codes(xb, grad_fmt)
-    pc, ps = Q.quantize_plain(xb, grad_fmt, 128)
-    assert torch.equal(c, pc) and torch.equal(s, ps), "B5 bf16 input differs"
+    for fmt in (grad_fmt, ckpt_fmt):
+        c, s = Q.f2p_quantize_codes(xb, fmt)
+        pc, ps = Q.quantize_plain(xb, fmt, 128)
+        assert torch.equal(_bits(c), _bits(pc)) and torch.equal(s, ps), \
+            f"B5 bf16 input differs ({fmt.n_bits}-bit)"
+    del xb
+    rt_cases = check_ef_roundtrip(dev, g, grad_fmt)
     log(f"codec    : unpacked quantize/dequantize (B5/B6) == plain, bitwise, "
         f"{checked} shape x format x scale cases at the train leaf shapes "
-        "(8/16-bit, f32+pow2 scales, f32+bf16 out) and bf16 input")
+        "(8/16-bit, f32+pow2 scales, f32+bf16 out) and bf16 input; B5's "
+        f"round trip == plain in gradients and residuals, {rt_cases} cases "
+        "(bf16/f32 g x error feedback on/off) over one leaf of each train "
+        "shape, a ragged and a cols % 4 != 0 leaf, zero/NaN/inf blocks")
 
-    # time per step: one B5 + one B6 per leaf, 8-bit, f32 in and out
+    # time per step: every leaf once
     cfg = full_config(ARCH)
     per_shape = {}
-    tot = dict(q=0.0, d=0.0, qp=0.0, dp=0.0, qb=0, db=0, n=0)
+    tot = dict(q=0.0, qd=0.0, q16=0.0, q16d=0.0, d=0.0, qp=0.0, dp=0.0,
+               qb=0, q16b=0, db=0, n=0)
     for shape, count in train_leaf_counts(cfg).items():
         x = torch.randn(*shape, generator=g, device=dev).reshape(
             -1, shape[-1])
         c, s = Q.f2p_quantize_codes(x, grad_fmt)
         n, nblk = x.numel(), s.numel()
         r = dict(count=count,
-                 quantize_ms=cuda_ms(lambda: Q.f2p_quantize_codes(
-                     x, grad_fmt), iters=20),
-                 dequantize_ms=cuda_ms(lambda: Q.f2p_dequantize_codes(
-                     c, s, grad_fmt), iters=20),
+                 quantize_ms=host_ms(lambda: Q.f2p_quantize_codes(
+                     x, grad_fmt)),
+                 quantize16_ms=host_ms(lambda: Q.f2p_quantize_codes(
+                     x, ckpt_fmt)),
+                 dequantize_ms=host_ms(lambda: Q.f2p_dequantize_codes(
+                     c, s, grad_fmt)),
                  quantize_plain_ms=cuda_ms(lambda: Q.quantize_plain(
                      x, grad_fmt, 128), iters=2, warm=1),
                  dequantize_plain_ms=cuda_ms(lambda: Q.dequantize_plain(
-                     c, s, grad_fmt, 128), iters=2, warm=1))
+                     c, s, grad_fmt, 128), iters=2, warm=1),
+                 quantize_device_ms=device_ms(lambda: Q.f2p_quantize_codes(
+                     x, grad_fmt), iters=10),
+                 quantize16_device_ms=device_ms(lambda: Q.f2p_quantize_codes(
+                     x, ckpt_fmt), iters=10))
+        # the profiler leaves its events behind as Python objects: collect
+        # them here, so that no collector pass lands in the next host timing
+        gc.collect()
         per_shape["x".join(map(str, shape))] = r
         tot["q"] += count * r["quantize_ms"]
+        tot["qd"] += count * (r["quantize_device_ms"] or float("nan"))
+        tot["q16"] += count * r["quantize16_ms"]
+        tot["q16d"] += count * (r["quantize16_device_ms"] or float("nan"))
         tot["d"] += count * r["dequantize_ms"]
         tot["qp"] += count * r["quantize_plain_ms"]
         tot["dp"] += count * r["dequantize_plain_ms"]
         tot["qb"] += count * (5 * n + 4 * nblk)    # f32 in, code + scale out
+        tot["q16b"] += count * (6 * n + 4 * nblk)
         tot["db"] += count * (5 * n + 4 * nblk)    # code + scale in, f32 out
         tot["n"] += count * n
         del x, c, s
@@ -782,19 +946,54 @@ def check_unpacked_codec(dev):
     shape_txt = (f"one train step: {nleaves} leaves, {tot['n']} elements, "
                  "8-bit codes, f32 in/out (per-shape times in "
                  "chip_smoke.json)")
+    log(f"codec    : B5 8-bit {tot['q']:.3f} ms with the host, "
+        f"{tot['qd']:.3f} on the device; 16-bit {tot['q16']:.3f} / "
+        f"{tot['q16d']:.3f}; B6 {tot['d']:.3f} ms per train step (bytes "
+        f"bounds {bound_ms(tot['qb']):.3f} / {bound_ms(tot['q16b']):.3f} / "
+        f"{bound_ms(tot['db']):.3f} ms; plain {tot['qp']:.1f} / "
+        f"{tot['dp']:.1f} ms)")
+
+    # the round trip per step: 255 leaves, bf16 g, f32 r, error feedback
+    gs, rs = step_leaves(dev, g)
+    n_el = sum(x.numel() for x in gs)
+    rt = dict(ms=cuda_ms(lambda: Q.f2p_ef_roundtrip(gs, rs, grad_fmt),
+                         iters=10))
+    rt["device_ms"], rt["device_kernels"] = device_ms_kernels(
+        lambda: Q.f2p_ef_roundtrip(gs, rs, grad_fmt), iters=5)
+    gc.collect()
+    rt["composition_ms"] = cuda_ms(lambda: old_compression(gs, rs, grad_fmt),
+                                   iters=3, warm=1)
+    rt["composition_device_ms"], rt["composition_device_kernels"] = \
+        device_ms_kernels(lambda: old_compression(gs, rs, grad_fmt), iters=2)
+    rt["plain_ms"] = cuda_ms(lambda: [
+        Q.ef_roundtrip_plain(a, b, grad_fmt) for a, b in zip(gs, rs)],
+        iters=1, warm=0)
+    rt.update(bound_ms=bound_ms(12 * n_el), bound_by="bytes",
+              library_ms=None, max_abs_err=0.0,
+              shape=f"one train step: {len(gs)} leaves, {n_el} elements, "
+                    "bf16 g + f32 r, error feedback, one launch")
+    del gs, rs
+    torch.cuda.empty_cache()
+    log(f"codec    : round trip {rt['ms']:.3f} ms per train step with the "
+        f"host, {rt['device_ms']} on the device ({rt['device_kernels']} "
+        f"device kernels), bound {rt['bound_ms']:.3f}; the composition it "
+        f"replaced {rt['composition_ms']:.3f} / "
+        f"{rt['composition_device_ms']} ms "
+        f"({rt['composition_device_kernels']} device kernels); plain "
+        f"{rt['plain_ms']:.1f} ms")
     out = {
-        "quantize": dict(ms=tot["q"], plain_ms=tot["qp"],
-                         bound_ms=bound_ms(tot["qb"]), bound_by="bytes",
-                         library_ms=None, max_abs_err=err, shape=shape_txt,
-                         per_shape=per_shape),
+        "quantize": dict(ms=tot["q"], device_ms=tot["qd"],
+                         ms_16bit=tot["q16"], device_ms_16bit=tot["q16d"],
+                         bound_ms_16bit=bound_ms(tot["q16b"]),
+                         plain_ms=tot["qp"], bound_ms=bound_ms(tot["qb"]),
+                         bound_by="bytes", library_ms=None, max_abs_err=err,
+                         shape=shape_txt, per_shape=per_shape,
+                         exhaustive=exhaustive),
+        "ef_roundtrip": rt,
         "dequantize": dict(ms=tot["d"], plain_ms=tot["dp"],
                            bound_ms=bound_ms(tot["db"]), bound_by="bytes",
                            library_ms=None, max_abs_err=err, shape=shape_txt,
                            per_shape=per_shape)}
-    log(f"codec    : B5 {tot['q']:.3f} ms and B6 {tot['d']:.3f} ms per train "
-        f"step (bytes bounds {bound_ms(tot['qb']):.3f} / "
-        f"{bound_ms(tot['db']):.3f} ms; plain {tot['qp']:.1f} / "
-        f"{tot['dp']:.1f} ms)")
     return out
 
 
@@ -1870,6 +2069,7 @@ def train_phase(dev, launches) -> dict:
     from repro_torch.configs import full_config
     from repro_torch.data import host_batch
     from repro_torch.kernels import cuda as C
+    from repro_torch.kernels import f2p_quant as Q
     from repro_torch.train import init_train_state, make_train_step
 
     cfg = full_config(ARCH)
@@ -1888,15 +2088,16 @@ def train_phase(dev, launches) -> dict:
         f"{len(res)} gradient leaves compressed ({ccfg.fmt.n_bits}-bit, "
         f"block {ccfg.block})")
 
-    # step 0: the plain codec applied to each g + r as autograd hands the
-    # gradient over (before the step compresses it), kept on the host
+    # step 0: the plain round trip applied to each g and r as autograd hands
+    # the gradient over (before the step compresses it): the gradient q(g +
+    # r) and the residual g + r - q, kept on the host
     want = {}
 
     def hook(name):
         def fn(p):
-            gin = p.grad.to(torch.float32) + res[name]
-            want[name] = plain_roundtrip(gin, ccfg.fmt, ccfg.block).to(
-                p.grad.dtype).cpu()
+            wg, wr = p.grad.clone(), res[name].clone()
+            Q.ef_roundtrip_plain(wg, wr, ccfg.fmt, ccfg.block)
+            want[name] = (wg.cpu(), wr.cpu())
         return fn
 
     handles = [p.register_post_accumulate_grad_hook(hook(n))
@@ -1920,7 +2121,8 @@ def train_phase(dev, launches) -> dict:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
         if prof is not None:
-            prof_res = device_profile(prof, dt * 1e6, ("quantize_kernel",))
+            prof_res = device_profile(prof, dt * 1e6, ("ef_roundtrip_kernel",
+                                                       "quantize_kernel"))
             # the profiler leaves millions of Python objects behind: a
             # full collection here keeps a gen-2 pass over them (seconds)
             # out of the timed steps
@@ -1929,26 +2131,32 @@ def train_phase(dev, launches) -> dict:
         step_s.append(dt)
         losses.append(loss)
         stalls.append(watch.take())
+        nrt = C.LAUNCHES["ef_roundtrip"] - before["ef_roundtrip"]
         nq = C.LAUNCHES["quantize"] - before["quantize"]
         nd = C.LAUNCHES["dequantize"] - before["dequantize"]
-        per_step.append((nq, nd))
+        per_step.append((nrt, nq, nd))
         assert math.isfinite(loss), f"step {step}: loss {loss}"
-        assert nq == nd == n_comp, \
-            f"step {step}: B5 {nq} / B6 {nd} launches, {n_comp} leaves"
+        assert nrt == 1 and nq == nd == 0, \
+            (f"step {step}: {nrt} round-trip launches (1 wanted), B5 {nq} / "
+             f"B6 {nd} per-leaf launches (0 wanted), {n_comp} leaves")
         if step == 0:
             for h in handles:
                 h.remove()
             assert len(want) == n_comp
             for n, p in model.named_parameters():
                 if n in want:
-                    assert torch.equal(_bits(p.grad), _bits(want[n].to(dev))), \
+                    wg, wr = want[n]
+                    assert torch.equal(_bits(p.grad), _bits(wg.to(dev))), \
                         f"step 0: compressed gradient of {n} != plain codec"
+                    assert torch.equal(_bits(res[n]), _bits(wr.to(dev))), \
+                        f"step 0: residual of {n} != plain g + r - q"
             want.clear()
-            log(f"train    : step 0 compressed gradients == plain codec on "
-                f"g + r, bitwise, all {n_comp} leaves")
+            log(f"train    : step 0 compressed gradients and residuals == "
+                f"plain round trip on g + r, bitwise, all {n_comp} leaves")
         st = stalls[-1]
         log(f"train    : step {step} loss {loss:.4f} gnorm "
-            f"{float(m['grad_norm']):.3f} {dt * 1e3:.1f} ms, B5 {nq} B6 {nd}"
+            f"{float(m['grad_norm']):.3f} {dt * 1e3:.1f} ms, round trip "
+            f"{nrt} (B5 {nq} B6 {nd})"
             f"; allocator retries {st['alloc_retries']} cudaMalloc "
             f"{st['cuda_mallocs']} cudaFree {st['cuda_frees']}, reserved "
             f"{st['reserved_gib']:.2f} GiB, gc {st['gc_ms']:.1f} ms (longest "
@@ -1956,32 +2164,26 @@ def train_phase(dev, launches) -> dict:
             + (" (profiled)" if step == 1 else ""))
     watch.close()
     counts = dict(C.LAUNCHES)
-    launches["quantize"] = counts["quantize"]
-    launches["dequantize"] = counts["dequantize"]
+    launches["ef_roundtrip"] = counts["ef_roundtrip"]
     peak = torch.cuda.max_memory_allocated()
     steady = step_s[2:]
     ms = 1e3 * sum(steady) / len(steady)
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3)
-    b5 = b6 = 0.0
-    for k, v in prof_res["kernels"].items():
-        dev_ms = v["calls"] * v["device_ms_per_call"]
-        if "dequantize_kernel" in k:
-            b6 += dev_ms
-        elif "quantize_kernel" in k:
-            b5 += dev_ms
+    rt = sum(v["calls"] * v["device_ms_per_call"]
+             for k, v in prof_res["kernels"].items() if "ef_roundtrip" in k)
     log_profile("train step 1", prof_res)
     log(f"train    : steps 2-{TRAIN_STEPS - 1}: {ms:.1f} ms per step, "
         f"{tok_s:.0f} tokens/s; peak allocated {peak / 2**30:.2f} GiB; "
         f"device busy {100 * (prof_res['device_busy_share'] or 0):.1f}% of "
-        f"step 1; B5 {b5:.3f} ms + B6 {b6:.3f} ms device time per step")
+        f"step 1; the round trip {rt:.3f} ms device time per step")
     out = dict(arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=init_s,
                losses=losses, step_ms=[1e3 * x for x in step_s],
                ms_per_step=ms, tokens_per_s=tok_s, peak_alloc_bytes=peak,
                compressed_leaves=n_comp, launches_per_step=per_step,
                stalls_per_step=stalls,
-               launches=counts, b5_device_ms_per_step=b5,
-               b6_device_ms_per_step=b6, profile=prof_res)
+               launches=counts, roundtrip_device_ms_per_step=rt,
+               profile=prof_res)
     del state, model, res, step_fn
     return out
 
@@ -2002,6 +2204,7 @@ def train_resume_phase(dev) -> dict:
     from repro_torch.configs import full_config
     from repro_torch.core.f2p import F2PFormat, Flavor
     from repro_torch.kernels import cuda as C
+    from repro_torch.kernels import f2p_quant as Q
     from repro_torch.launch.train import run
     from repro_torch.train import checkpoint, init_train_state
 
@@ -2043,7 +2246,9 @@ def train_resume_phase(dev) -> dict:
                     fmt = F2PFormat(e["fmt"]["n_bits"], e["fmt"]["h_bits"],
                                     Flavor(e["fmt"]["flavor"]),
                                     e["fmt"]["signed"])
-                    w = plain_roundtrip(a, fmt, e["block"]).to(a.dtype)
+                    w = a.detach().clone(
+                        memory_format=torch.contiguous_format)
+                    Q.ef_roundtrip_plain(w, None, fmt, e["block"], False)
                     assert torch.equal(_bits(b), _bits(w)), \
                         f"restored {name} != plain 16-bit round trip"
                 else:
@@ -2086,10 +2291,12 @@ def main():
     import torch
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
-    ap.add_argument("--only", choices=("matmul", "attention", "codec"),
-                    help="matmul / attention / codec: phases 1-2 and phase "
-                         "3's dequant matmul (B7/B8), attention (B1/B2) or "
-                         "packed codec (B3/B4) only, the quick loop for "
+    ap.add_argument("--only", choices=("matmul", "attention", "codec",
+                                       "unpacked"),
+                    help="matmul / attention / codec / unpacked: phases 1-2 "
+                         "and phase 3's dequant matmul (B7/B8), attention "
+                         "(B1/B2), packed codec (B3/B4) or unpacked codec "
+                         "(B5, its round trip, B6) only, the quick loop for "
                          "those kernels; prints no final ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
@@ -2135,6 +2342,18 @@ def main():
             for k, v in cod.items()}}))
         print(smi)
         return
+    if only == "unpacked":
+        unp = check_unpacked_codec(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_unpacked.json").write_text(json.dumps(
+            {"device": smi, "unpacked": unp}, indent=1, default=str))
+        print(json.dumps({"unpacked": {k: {f: v.get(f) for f in (
+            "ms", "device_ms", "ms_16bit", "device_ms_16bit",
+            "composition_ms", "composition_device_ms", "plain_ms",
+            "bound_ms", "max_abs_err")} for k, v in unp.items()}}))
+        print(smi)
+        return
     if only == "matmul":
         mm = check_matmul(dev)
         out_dir = ROOT / "chiprun_out"
@@ -2172,14 +2391,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_res["resume"] = train_resume_phase(dev)
-    for name in ("quantize", "dequantize"):
-        assert launches[name] > 0, f"kernel {name} never launched"
+    # B5's codes mode and B6 on the train path: the checkpoint's F2P16
+    # snapshot (save) and restore of phase 8(b)
+    launches["quantize"] = train_res["resume"]["save_launches"]["quantize"]
+    launches["dequantize"] = train_res["resume"]["restore_launches"][
+        "dequantize"]
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
-                 "dequantize_packed", "quantize", "dequantize",
-                 "counter_advance", "counter_estimate", "dequant_matmul",
-                 "dequant_matmul_packed"):
+                 "dequantize_packed", "quantize", "ef_roundtrip",
+                 "dequantize", "counter_advance", "counter_estimate",
+                 "dequant_matmul", "dequant_matmul_packed"):
         assert launches[name] > 0, f"kernel {name} never launched"
         r = res[name]
         kernels.append({
@@ -2202,6 +2424,7 @@ def main():
          "sketch": sketch_res, "train": train_res,
          "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
+         "ef_roundtrip_row": res["ef_roundtrip"],
          "attention_rows": {k: res[k] for k in ("attention_paged",
                                                 "attention_packed")},
          "kv_write_rows": res["quantize_packed"],

@@ -7,7 +7,15 @@
 //   quantize_packed_write_kernel <- repro/kernels/f2p_quant.py::_quant_packed_kernel
 //                                   and the KV-cache scatter that follows it
 //   dequantize_packed_kernel  <- repro/kernels/f2p_quant.py::_dequant_packed_kernel
-//   quantize_kernel           <- repro/kernels/f2p_quant.py::_quant_kernel
+//   quantize_kernel           <- repro/kernels/f2p_quant.py::_quant_kernel (codes mode;
+//                                quantize_generic_kernel for other blocks)
+//   ef_roundtrip_kernel       <- the same, in its round-trip mode: _quant_kernel,
+//                                _dequant_kernel and the error-feedback glue of
+//                                repro/optim/compress.py over all of a train
+//                                step's compressed leaves in one launch (bound
+//                                by bytes: 12 B per element, bf16 g and f32 r
+//                                read and written; table-driven encode, codes
+//                                and scales in registers; note at the kernel)
 //   dequantize_kernel         <- repro/kernels/f2p_quant.py::_dequant_kernel
 //   attention_decode_kernel   <- repro/kernels/f2p_attention.py::_fused_kernel (dense)
 //                                and ::_paged_kernel (paged), split KV
@@ -26,9 +34,12 @@
 // Exactness (the codec is held bitwise to the torch plain version and to
 // the JAX reference): no --use_fast_math; the only rounding steps of the
 // encode are written as __fmul_rn (absmax * f32(1/max)) and __fdiv_rn
-// (x / scale), so no contraction or approximate divide can move a code;
-// 2^n is built by bit assembly; half-up mantissa rounding goes through the
-// exact fractional part u - floor(u).
+// (x / scale; in B5's pow2 mode x * (1/scale), exact for a power of two),
+// so no contraction or approximate divide can move a code; 2^n is built by
+// bit assembly; half-up mantissa rounding goes through the exact
+// fractional part u - floor(u) (f2p_encode) or one integer add and shift
+// (B5's table encode, tab_encode, held to f2p_encode over all 2^32 f32
+// patterns by encode_check_kernel).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -148,16 +159,20 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// A scale block's scale from its lane's absmax and NaN flag, reduced over
-// the warp: absmax * f32(1/max), rounded up to a power of two in pow2 mode;
-// 1 for an all-zero block and for a block holding a NaN (the plain
-// version's absmax is NaN there, and NaN > 0 is false; fmaxf alone would
-// drop the NaN and scale by the finite elements).
-__device__ __forceinline__ float block_scale(float amax, bool nan,
-                                             float inv_max, int pow2) {
+// max that returns NaN when either input is NaN (fmaxf drops it)
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// A scale block's scale from its lanes' absmax, taken with fmax_nan and
+// reduced over the warp: absmax * f32(1/max), rounded up to a power of two
+// in pow2 mode; 1 for an all-zero block and for a block holding a NaN (the
+// plain version's absmax is NaN there, and NaN > 0 is false).
+__device__ __forceinline__ float block_scale(float amax, float inv_max, bool pow2) {
   for (int off = 16; off; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if (__any_sync(0xffffffffu, nan)) return 1.0f;
+    amax = fmax_nan(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   float scale = __fmul_rn(amax, inv_max);
   if (pow2) scale = pow2_round_up(scale > 0.0f ? scale : 1.0f);
   return amax > 0.0f ? scale : 1.0f;
@@ -182,20 +197,53 @@ __global__ void dequantize_packed_kernel(const uint32_t* __restrict__ words,
 }
 
 // ---------------------------------------------------------------------------
-// quantize (unpacked): x [rows, cols] -> codes [rows, cols] uint8 (n <= 8) or
-// uint16, scales [rows, cols/block] (B5). Bound by bytes: x is read once
-// from device memory, 1 or 2 bytes per element and 4 per block go out.
-// One warp per scale block, grid-stride over the rows * nblk blocks (block
-// index == scale index, so the scales are written in order). With VEC
-// (block == 128, 16-byte aligned rows) lane l owns elements 4l..4l+3: one
-// 16-byte (f32) or 8-byte (bf16) load and one 4- or 8-byte store of its
-// four codes, so a warp moves its block in one instruction each way.
-// Otherwise lane l takes elements l, l+32, ...: a block of at most 128
-// stays in registers between the shuffle absmax and the encode, a wider
-// one is read twice (the second time from L1/L2). The absmax is a max, so
-// the element order does not change a bit of the result.
+// B5: quantize_kernel, x [rows, cols] -> codes [rows, cols] uint8 (n <= 8) or
+// uint16 + scales [rows, cols / 128] (the codes mode), and ef_roundtrip_kernel,
+// B5's round-trip mode: the gradient round trip with error feedback over all
+// of a train step's compressed leaves in one launch (B5, then B6's decode,
+// then the residual and gradient updates, the codes and scales kept in
+// registers). Replaces repro/kernels/f2p_quant.py::_quant_kernel; the round
+// trip also replaces ::_dequant_kernel on the train path and the eager glue
+// of optim/compress.py around them (r += g, r -= q, g = q).
+//
+// What held the old kernel back (measured on the H100: chip_smoke phase 3 and
+// tools/ef_bench.py): the arithmetic encode f2p_encode, with its runtime
+// shifts, esize_of loop over a runtime h and two overflow passes, took ~160
+// SASS instructions per element, so the kernel was issue bound at ~4x its
+// bytes bound. The design:
+//  * a table-driven encode (tab_encode): |y|'s f32 biased exponent indexes a
+//    256-entry table in shared memory (f2p_quant.encode_table builds it on the
+//    host from the format's constants) whose entry gives the code as off + m
+//    or a saturated code, m = the 24-bit significand rounded half up to the
+//    bucket's width by one add and one shift. f32 subnormals, values below
+//    and above the format's range, the top clamp, inf and NaN are entries of
+//    the same table. About a dozen instructions per element (~30 with the
+//    divide, against ~160), for every format of <= 16 bits; held to
+//    f2p_encode over all 2^32 f32 patterns on the card (encode_check_kernel,
+//    chip_smoke phase 3). The codes mode now runs at ~80% of its bytes bound.
+//  * pow2 scales multiply by the exact reciprocal (1/s is a power of two in
+//    [2^-127, 2^126], so x * (1/s) and x / s round the same real once); f32
+//    scales keep the IEEE divide.
+//  * a persistent grid (as many CTAs of 8 warps as fit on the SMs); each warp
+//    takes kQPass scale blocks per pass (b and b + W), every load in flight
+//    before the first encode; the absmax is a NaN-propagating max.
+// The round trip, per scale block: gin = r + g (error feedback) or g, the
+// block scale and codes exactly as the codes mode makes them, q = decode x
+// scale (the table entry's step: B6's value), r <- gin - q, g <- q rounded to
+// g's dtype. A leaf table (EFLeaf rows, one async copy per step) gives each
+// leaf's pointers, first global block, cols and blocks per row; a warp walks
+// the global block index upward and moves its leaf cursor forward. A row's
+// last block may be ragged: its columns past the row's end read as 0 and are
+// not written. Bound by bytes: 12 B per element for bf16 g with error
+// feedback (read g and r, write both), 4 B without; the eager composition it
+// replaced moved ~38. It runs at ~84% of that bound.
+// Blocks other than 128 and misaligned inputs of the codes mode take
+// quantize_generic_kernel (the arithmetic encode, one element per lane).
 // ---------------------------------------------------------------------------
-constexpr int kQuantVals = 4;   // values a lane keeps in registers
+constexpr int kQuantVals = 4;     // values a lane keeps per scale block of 128
+constexpr int kQWarps = 8;        // warps per CTA of quantize_kernel / ef_roundtrip_kernel
+constexpr int kQPass = 2;         // scale blocks a warp takes per pass
+constexpr int kEncEntries = 256;  // encode-table entries, one per f32 biased exponent
 
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);
@@ -213,53 +261,234 @@ __device__ __forceinline__ void store4(uint8_t* p, const uint32_t* c) {
 __device__ __forceinline__ void store4(uint16_t* p, const uint32_t* c) {
   *reinterpret_cast<uint2*>(p) = make_uint2(c[0] | (c[1] << 16), c[2] | (c[3] << 16));
 }
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<uint32_t*>(&a),
+                                            *reinterpret_cast<uint32_t*>(&b));
+}
 
-template <typename TIn, typename TCode, bool VEC>
-__global__ void quantize_kernel(const TIn* __restrict__ x,
-                                TCode* __restrict__ codes,
-                                float* __restrict__ scales, long long nblocks,
-                                int block, F2PConsts f, float inv_max,
-                                int pow2) {
+// The table-driven encode of y (already divided by its block's scale). Entry
+// e = enc[|y|'s biased exponent] = {off, sat, lim, sh}: with M the 24-bit
+// significand with its implicit bit set (also for exponent 0: the table
+// folds it), m = (M + ((1 << sh) >> 1)) >> sh is |y| rounded half up to the
+// bucket's step, and the payload is m >= lim ? sat : off + m. The sign goes
+// to bit nu of signed formats (sign_mask 0x80000000, sign_shift 31 - nu).
+// With VAL, *value is the code's decoded value: m * step, or sat's value
+// (val[e] = {step, sat value}), signed like y: B6's value, exactly.
+template <bool VAL>
+__device__ __forceinline__ uint32_t tab_encode(float y, const int4* __restrict__ enc,
+                                              const float2* __restrict__ val,
+                                              uint32_t sign_mask, int sign_shift,
+                                              float* value) {
+  const uint32_t bits = __float_as_uint(y);
+  const uint32_t mag = bits & 0x7FFFFFFFu;
+  const uint32_t ex = mag >> 23;
+  const int4 t = enc[ex];
+  const uint32_t sh = (uint32_t)t.w;
+  const uint32_t m = (((mag | 0x800000u) & 0xFFFFFFu) + ((1u << sh) >> 1)) >> sh;
+  const bool sat = m >= (uint32_t)t.z;
+  if constexpr (VAL) {
+    const float2 d = val[ex];
+    // m < 2^23 on this side: 2^23 + m is exact, and so is taking 2^23 away
+    const float mf = __fsub_rn(__uint_as_float(0x4B000000u | m), 8388608.0f);
+    const float v = sat ? d.y : __fmul_rn(mf, d.x);
+    *value = __uint_as_float(__float_as_uint(v) | (bits & sign_mask));
+  }
+  return (sat ? (uint32_t)t.y : (uint32_t)t.x + m) | ((bits & sign_mask) >> sign_shift);
+}
+
+template <typename TIn, typename TCode, bool POW2>
+__global__ void __launch_bounds__(kQWarps * 32)
+quantize_kernel(const TIn* __restrict__ x, TCode* __restrict__ codes,
+                float* __restrict__ scales, int nblocks, const int4* __restrict__ enc_g,
+                uint32_t sign_mask, int sign_shift, float inv_max) {
+  __shared__ int4 enc[kEncEntries];
+  for (int i = threadIdx.x; i < kEncEntries; i += blockDim.x) enc[i] = enc_g[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int nw = (gridDim.x * blockDim.x) >> 5;
+  for (int b0 = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; b0 < nblocks;
+       b0 += kQPass * nw) {
+    float v[kQPass][kQuantVals];
+#pragma unroll
+    for (int p = 0; p < kQPass; ++p) {
+      const int b = b0 + p * nw;
+      if (b < nblocks) load4(x + (size_t)b * 128 + 4 * lane, v[p]);
+    }
+#pragma unroll
+    for (int p = 0; p < kQPass; ++p) {
+      const int b = b0 + p * nw;
+      if (b < nblocks) {   // warp-uniform
+        float amax = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kQuantVals; ++k) amax = fmax_nan(amax, fabsf(v[p][k]));
+        const float scale = block_scale(amax, inv_max, POW2);
+        const float rs = POW2 ? __fdiv_rn(1.0f, scale) : 0.0f;
+        if (lane == 0) scales[b] = scale;
+        uint32_t c[kQuantVals];
+#pragma unroll
+        for (int k = 0; k < kQuantVals; ++k) {
+          const float y = POW2 ? __fmul_rn(v[p][k], rs) : __fdiv_rn(v[p][k], scale);
+          c[k] = tab_encode<false>(y, enc, nullptr, sign_mask, sign_shift, nullptr);
+        }
+        store4(codes + (size_t)b * 128 + 4 * lane, c);
+      }
+    }
+  }
+}
+
+// One compressed leaf of the round trip, as f2p_quant.ef_plan lays it out
+// (32 bytes). The row after a launch's last leaf holds only blk0 = the
+// launch's block count.
+struct EFLeaf {
+  void* g;     // gradient [rows, cols], f32 or bf16 (kLeafBf16), contiguous
+  float* r;    // f32 residual of the same shape (unused without error feedback)
+  int blk0;    // global index of the leaf's first scale block
+  int cols;    // last dim; a row has nbr = ceil(cols / 128) scale blocks
+  int nbr;
+  int flags;   // kLeafBf16 | kLeafVec (cols % 4 == 0 and 16-byte rows of 4)
+};
+constexpr int kLeafBf16 = 1, kLeafVec = 2;
+
+template <bool EF>
+__global__ void __launch_bounds__(kQWarps * 32)
+ef_roundtrip_kernel(const EFLeaf* __restrict__ leaves, int nleaves, int nblocks,
+                    const int4* __restrict__ enc_g, const float2* __restrict__ val_g,
+                    uint32_t sign_mask, int sign_shift, float inv_max) {
+  __shared__ int4 enc[kEncEntries];
+  __shared__ float2 val[kEncEntries];
+  for (int i = threadIdx.x; i < kEncEntries; i += blockDim.x) {
+    enc[i] = enc_g[i];
+    val[i] = val_g[i];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int nw = (gridDim.x * blockDim.x) >> 5;
+  int b0 = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  // the last leaf whose first block is <= b0, then a cursor that only moves up
+  int leaf = 0;
+  for (int hi = nleaves - 1; leaf < hi;) {
+    const int mid = (leaf + hi + 1) >> 1;
+    if (leaves[mid].blk0 <= b0) leaf = mid; else hi = mid - 1;
+  }
+  int lend = leaves[leaf + 1].blk0;
+  for (; b0 < nblocks; b0 += kQPass * nw) {
+    float gv[kQPass][kQuantVals], rv[kQPass][kQuantVals];
+    char* gp[kQPass];
+    float* rp[kQPass];
+    int valid[kQPass], flags[kQPass];
+#pragma unroll
+    for (int p = 0; p < kQPass; ++p) {
+      const int b = b0 + p * nw;
+      valid[p] = 0;
+      flags[p] = 0;
+      gp[p] = nullptr;
+      rp[p] = nullptr;
+#pragma unroll
+      for (int k = 0; k < kQuantVals; ++k) gv[p][k] = rv[p][k] = 0.0f;
+      if (b >= nblocks) continue;   // warp-uniform
+      while (b >= lend) lend = leaves[++leaf + 1].blk0;
+      const EFLeaf L = leaves[leaf];
+      const int local = b - L.blk0;
+      const int row = local / L.nbr;
+      const int j = local - row * L.nbr;
+      const int off = row * L.cols + j * 128;   // < 2^31: ef_plan checks each leaf
+      const bool bf16 = L.flags & kLeafBf16;
+      valid[p] = min(128, L.cols - j * 128);
+      flags[p] = L.flags;
+      gp[p] = reinterpret_cast<char*>(L.g) + (size_t)off * (bf16 ? 2 : 4);
+      rp[p] = EF ? L.r + off : nullptr;
+      const int e = 4 * lane;
+      if (L.flags & kLeafVec) {
+        if (e < valid[p]) {
+          if (bf16) load4(reinterpret_cast<const __nv_bfloat16*>(gp[p]) + e, gv[p]);
+          else load4(reinterpret_cast<const float*>(gp[p]) + e, gv[p]);
+          if (EF) load4(rp[p] + e, rv[p]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kQuantVals; ++k) {
+          if (e + k >= valid[p]) continue;
+          gv[p][k] = bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(gp[p])[e + k])
+                          : reinterpret_cast<const float*>(gp[p])[e + k];
+          if (EF) rv[p][k] = rp[p][e + k];
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kQPass; ++p) {
+      if (!valid[p]) continue;   // warp-uniform
+      float gin[kQuantVals], q[kQuantVals], rn[kQuantVals];
+      float amax = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kQuantVals; ++k) {
+        gin[k] = EF ? __fadd_rn(rv[p][k], gv[p][k]) : gv[p][k];
+        amax = fmax_nan(amax, fabsf(gin[k]));
+      }
+      const float scale = block_scale(amax, inv_max, false);
+#pragma unroll
+      for (int k = 0; k < kQuantVals; ++k) {
+        float v;
+        tab_encode<true>(__fdiv_rn(gin[k], scale), enc, val, sign_mask, sign_shift, &v);
+        q[k] = __fmul_rn(v, scale);
+        rn[k] = __fsub_rn(gin[k], q[k]);
+      }
+      const int e = 4 * lane;
+      const bool bf16 = flags[p] & kLeafBf16;
+      if (flags[p] & kLeafVec) {
+        if (e < valid[p]) {
+          if (bf16) store4(reinterpret_cast<__nv_bfloat16*>(gp[p]) + e, q);
+          else store4(reinterpret_cast<float*>(gp[p]) + e, q);
+          if (EF) store4(rp[p] + e, rn);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kQuantVals; ++k) {
+          if (e + k >= valid[p]) continue;
+          if (bf16) store(reinterpret_cast<__nv_bfloat16*>(gp[p]) + e + k, q[k]);
+          else store(reinterpret_cast<float*>(gp[p]) + e + k, q[k]);
+          if (EF) rp[p][e + k] = rn[k];
+        }
+      }
+    }
+  }
+}
+
+// The codes mode for any block and alignment: one warp per scale block, lane
+// l takes elements l, l + 32, ..., the arithmetic encode. A block of at most
+// 128 stays in registers between the absmax and the encode; a wider one is
+// read twice (the second time from L1/L2).
+template <typename TIn, typename TCode>
+__global__ void quantize_generic_kernel(const TIn* __restrict__ x,
+                                        TCode* __restrict__ codes,
+                                        float* __restrict__ scales, long long nblocks,
+                                        int block, F2PConsts f, float inv_max, int pow2) {
   const int lane = threadIdx.x & 31;
   const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
-  const bool in_regs = VEC || block <= 32 * kQuantVals;
+  const bool in_regs = block <= 32 * kQuantVals;
   for (long long wb = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
        wb < nblocks; wb += nwarps) {
     const TIn* xb = x + wb * block;
     TCode* cb = codes + wb * block;
     float v[kQuantVals];
     float amax = 0.0f;
-    bool nan = false;
-    if (VEC) {
-      load4(xb + 4 * lane, v);
-#pragma unroll
-      for (int k = 0; k < kQuantVals; ++k) {
-        amax = fmaxf(amax, fabsf(v[k]));
-        nan |= v[k] != v[k];
-      }
-    } else if (in_regs) {
+    if (in_regs) {
 #pragma unroll
       for (int k = 0; k < kQuantVals; ++k) {
         const int i = lane + 32 * k;
         v[k] = i < block ? to_f32(xb[i]) : 0.0f;
-        amax = fmaxf(amax, fabsf(v[k]));
-        nan |= v[k] != v[k];
+        amax = fmax_nan(amax, fabsf(v[k]));
       }
     } else {
-      for (int i = lane; i < block; i += 32) {
-        const float a = fabsf(to_f32(xb[i]));
-        amax = fmaxf(amax, a);
-        nan |= a != a;
-      }
+      for (int i = lane; i < block; i += 32) amax = fmax_nan(amax, fabsf(to_f32(xb[i])));
     }
-    const float scale = block_scale(amax, nan, inv_max, pow2);
+    const float scale = block_scale(amax, inv_max, pow2);
     if (lane == 0) scales[wb] = scale;
-    if (VEC) {
-      uint32_t c[kQuantVals];
-#pragma unroll
-      for (int k = 0; k < kQuantVals; ++k) c[k] = f2p_encode(__fdiv_rn(v[k], scale), f);
-      store4(cb + 4 * lane, c);
-    } else if (in_regs) {
+    if (in_regs) {
 #pragma unroll
       for (int k = 0; k < kQuantVals; ++k) {
         const int i = lane + 32 * k;
@@ -270,6 +499,47 @@ __global__ void quantize_kernel(const TIn* __restrict__ x,
         cb[i] = (TCode)f2p_encode(__fdiv_rn(to_f32(xb[i]), scale), f);
     }
   }
+}
+
+// The exhaustive check of the table encode (chip_smoke phase 3): for every
+// 32-bit pattern y in [start, start + count), with s == 0 the table's code
+// and value against f2p_encode and f2p_decode of it; with s a power of two,
+// y * (1/s) against __fdiv_rn(y, s). Mismatches are counted in *bad and the
+// smallest mismatching pattern is kept in *first.
+__global__ void encode_check_kernel(unsigned start, long long count,
+                                    const int4* __restrict__ enc_g,
+                                    const float2* __restrict__ val_g, F2PConsts f,
+                                    float s, unsigned long long* bad, unsigned* first) {
+  __shared__ int4 enc[kEncEntries];
+  __shared__ float2 val[kEncEntries];
+  for (int i = threadIdx.x; i < kEncEntries; i += blockDim.x) {
+    enc[i] = enc_g[i];
+    val[i] = val_g[i];
+  }
+  __syncthreads();
+  const uint32_t sign_mask = f.is_signed ? 0x80000000u : 0u;
+  const int sign_shift = 31 - f.nu;
+  const float rs = s != 0.0f ? __fdiv_rn(1.0f, s) : 0.0f;
+  unsigned n_bad = 0;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
+       i += (long long)gridDim.x * blockDim.x) {
+    const unsigned pat = start + (unsigned)i;
+    const float y = __uint_as_float(pat);
+    bool ok;
+    if (s == 0.0f) {
+      float v;
+      const uint32_t c = tab_encode<true>(y, enc, val, sign_mask, sign_shift, &v);
+      const uint32_t want = f2p_encode(y, f);
+      ok = c == want && __float_as_uint(v) == __float_as_uint(f2p_decode(want, f));
+    } else {
+      ok = __float_as_uint(__fmul_rn(y, rs)) == __float_as_uint(__fdiv_rn(y, s));
+    }
+    if (!ok) {
+      ++n_bad;
+      atomicMin(first, pat);
+    }
+  }
+  if (n_bad) atomicAdd(bad, (unsigned long long)n_bad);
 }
 
 // ---------------------------------------------------------------------------
@@ -377,7 +647,6 @@ quantize_packed_write_kernel(const __grid_constant__ KVWriteArgs a) {
       const long long e0 = (long long)bi * a.block;
       uint32_t* cs = stage + (bi - b0) * a.block;
       float amax = 0.0f;
-      bool nan = false;
       if (in_regs) {
         if (!io.vec) {   // (a vec row's values were loaded above)
 #pragma unroll
@@ -387,18 +656,12 @@ quantize_packed_write_kernel(const __grid_constant__ KVWriteArgs a) {
           }
         }
 #pragma unroll
-        for (int k = 0; k < kQuantVals; ++k) {
-          amax = fmaxf(amax, fabsf(v[k]));
-          nan |= v[k] != v[k];
-        }
+        for (int k = 0; k < kQuantVals; ++k) amax = fmax_nan(amax, fabsf(v[k]));
       } else {
-        for (int i = lane; i < a.block; i += 32) {
-          const float x = fabsf(to_f32(xr[(e0 + i) * sd]));
-          amax = fmaxf(amax, x);
-          nan |= x != x;
-        }
+        for (int i = lane; i < a.block; i += 32)
+          amax = fmax_nan(amax, fabsf(to_f32(xr[(e0 + i) * sd])));
       }
-      const float scale = block_scale(amax, nan, io.in.inv_max, a.pow2);
+      const float scale = block_scale(amax, io.in.inv_max, a.pow2);
       if (lane == 0) sr[bi] = scale;
       if (io.vec) {
         uint32_t q[kQuantVals];
@@ -456,15 +719,6 @@ __device__ __forceinline__ void load_codes4(const uint8_t* p, uint32_t* c) {
 __device__ __forceinline__ void load_codes4(const uint16_t* p, uint32_t* c) {
   const uint2 w = *reinterpret_cast<const uint2*>(p);
   c[0] = w.x & 0xFFFFu; c[1] = w.x >> 16; c[2] = w.y & 0xFFFFu; c[3] = w.y >> 16;
-}
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<uint32_t*>(&a),
-                                            *reinterpret_cast<uint32_t*>(&b));
 }
 
 template <typename TCode, typename TOut, bool VEC>
@@ -1717,23 +1971,54 @@ static int attn_window(int hd, int D, int nb) {
 }
 
 // ---------------------------------------------------------------------------
-// B5 / B6 launchers: the vectorized kernels where the block and the
-// pointers' alignment allow, the per-element ones otherwise
+// B5 / B6 launchers
 // ---------------------------------------------------------------------------
+static int sm_count() {
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!sms[dev & 63]) cudaDeviceGetAttribute(&sms[dev & 63], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev & 63];
+}
+
+// CTAs of a persistent grid of `kernel` (kQWarps warps, kQPass scale blocks
+// per warp and pass): as many as fit on the card at once (per_sm, asked once
+// per instance), no more than `blocks` needs
+template <typename K>
+static int persistent_ctas(K kernel, int* per_sm, long long blocks) {
+  if (!*per_sm) cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kQWarps * 32, 0);
+  const long long need = (blocks + kQWarps * kQPass - 1) / (kQWarps * kQPass);
+  return (int)max(1LL, min(need, (long long)max(*per_sm, 1) * sm_count()));
+}
+
+// B5's codes mode: quantize_kernel for blocks of 128 on aligned pointers,
+// quantize_generic_kernel otherwise
 template <typename TIn, typename TCode>
 static void launch_quantize(const void* x, void* codes, float* scales,
                             long long nblocks, int block, F2PConsts f,
-                            float inv_max, int pow2, cudaStream_t stream) {
-  const int threads = 256;   // 8 warps, one scale block each per pass
-  const int grid = (int)min((nblocks + 7) / 8, (long long)1 << 20);
-  const bool vec = block == 128 && ((uintptr_t)x % 16 == 0) &&
-                   ((uintptr_t)codes % 8 == 0);
-  if (vec)
-    quantize_kernel<TIn, TCode, true><<<grid, threads, 0, stream>>>(
+                            const int4* enc, float inv_max, int pow2,
+                            cudaStream_t stream) {
+  const uint32_t sign_mask = f.is_signed ? 0x80000000u : 0u;
+  const bool fast = block == 128 && nblocks < (1LL << 30) &&
+                    (uintptr_t)x % (4 * sizeof(TIn)) == 0 &&
+                    (uintptr_t)codes % (4 * sizeof(TCode)) == 0;
+  if (fast && pow2) {
+    static int per_sm = 0;
+    auto k = quantize_kernel<TIn, TCode, true>;
+    k<<<persistent_ctas(k, &per_sm, nblocks), kQWarps * 32, 0, stream>>>(
+        (const TIn*)x, (TCode*)codes, scales, (int)nblocks, enc, sign_mask, 31 - f.nu,
+        inv_max);
+  } else if (fast) {
+    static int per_sm = 0;
+    auto k = quantize_kernel<TIn, TCode, false>;
+    k<<<persistent_ctas(k, &per_sm, nblocks), kQWarps * 32, 0, stream>>>(
+        (const TIn*)x, (TCode*)codes, scales, (int)nblocks, enc, sign_mask, 31 - f.nu,
+        inv_max);
+  } else {
+    const int grid = (int)min((nblocks + 7) / 8, (long long)1 << 20);
+    quantize_generic_kernel<TIn, TCode><<<grid, 256, 0, stream>>>(
         (const TIn*)x, (TCode*)codes, scales, nblocks, block, f, inv_max, pow2);
-  else
-    quantize_kernel<TIn, TCode, false><<<grid, threads, 0, stream>>>(
-        (const TIn*)x, (TCode*)codes, scales, nblocks, block, f, inv_max, pow2);
+  }
 }
 
 template <typename TIn>
@@ -1835,23 +2120,64 @@ int f2p_dequantize_packed(const uint32_t* words, const float* scales, void* out,
   return (int)cudaGetLastError();
 }
 
+// B5, codes mode. tab: the format's encode table (f2p_quant.encode_table:
+// 256 int4 entries, then 256 float2 values).
 int f2p_quantize(const void* x, int x_bf16, void* codes, int code_bytes,
                  float* scales, long long rows, int cols, int block,
-                 F2PConsts f, float inv_max, int pow2, cudaStream_t stream) {
+                 F2PConsts f, const void* tab, float inv_max, int pow2,
+                 cudaStream_t stream) {
   const long long nblocks = rows * (cols / block);
   if (nblocks <= 0) return 0;
+  const int4* enc = (const int4*)tab;
   if (x_bf16 && code_bytes == 1)
-    launch_quantize<__nv_bfloat16, uint8_t>(x, codes, scales, nblocks, block, f,
+    launch_quantize<__nv_bfloat16, uint8_t>(x, codes, scales, nblocks, block, f, enc,
                                             inv_max, pow2, stream);
   else if (x_bf16)
-    launch_quantize<__nv_bfloat16, uint16_t>(x, codes, scales, nblocks, block, f,
+    launch_quantize<__nv_bfloat16, uint16_t>(x, codes, scales, nblocks, block, f, enc,
                                              inv_max, pow2, stream);
   else if (code_bytes == 1)
-    launch_quantize<float, uint8_t>(x, codes, scales, nblocks, block, f, inv_max,
+    launch_quantize<float, uint8_t>(x, codes, scales, nblocks, block, f, enc, inv_max,
                                     pow2, stream);
   else
-    launch_quantize<float, uint16_t>(x, codes, scales, nblocks, block, f,
+    launch_quantize<float, uint16_t>(x, codes, scales, nblocks, block, f, enc,
                                      inv_max, pow2, stream);
+  return (int)cudaGetLastError();
+}
+
+// B5, round-trip mode: one launch of ef_roundtrip_kernel over the nleaves
+// EFLeaf rows at `leaves` (on the device; row nleaves holds blk0 = nblocks),
+// blocks of 128, f32 scales; ef: error feedback.
+int f2p_ef_roundtrip(const void* leaves, int nleaves, int nblocks, int ef,
+                     const void* tab, F2PConsts f, float inv_max,
+                     cudaStream_t stream) {
+  if (nleaves < 1 || nblocks < 0 || nblocks >= (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  if (!nblocks) return 0;
+  const int4* enc = (const int4*)tab;
+  const float2* val = (const float2*)(enc + kEncEntries);
+  const uint32_t sign_mask = f.is_signed ? 0x80000000u : 0u;
+  if (ef) {
+    static int per_sm = 0;
+    auto k = ef_roundtrip_kernel<true>;
+    k<<<persistent_ctas(k, &per_sm, nblocks), kQWarps * 32, 0, stream>>>(
+        (const EFLeaf*)leaves, nleaves, nblocks, enc, val, sign_mask, 31 - f.nu, inv_max);
+  } else {
+    static int per_sm = 0;
+    auto k = ef_roundtrip_kernel<false>;
+    k<<<persistent_ctas(k, &per_sm, nblocks), kQWarps * 32, 0, stream>>>(
+        (const EFLeaf*)leaves, nleaves, nblocks, enc, val, sign_mask, 31 - f.nu, inv_max);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The exhaustive check of the table encode over the patterns [start, start +
+// count) (encode_check_kernel); bad and first are device counters.
+int f2p_encode_check(unsigned start, long long count, const void* tab, F2PConsts f,
+                     float s, unsigned long long* bad, unsigned* first,
+                     cudaStream_t stream) {
+  const int4* enc = (const int4*)tab;
+  encode_check_kernel<<<8 * sm_count(), 256, 0, stream>>>(
+      start, count, enc, (const float2*)(enc + kEncEntries), f, s, bad, first);
   return (int)cudaGetLastError();
 }
 

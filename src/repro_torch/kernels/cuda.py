@@ -37,7 +37,8 @@ MAX_SMEM = 232448   # bytes of shared memory one CTA may use on Hopper
 
 LAUNCHES: dict[str, int] = {"quantize_packed": 0, "kv_write": 0,
                             "dequantize_packed": 0,
-                            "quantize": 0, "dequantize": 0,
+                            "quantize": 0, "ef_roundtrip": 0,
+                            "dequantize": 0,
                             "attention_packed": 0, "attention_paged": 0,
                             "counter_advance": 0, "counter_estimate": 0,
                             "dequant_matmul": 0, "dequant_matmul_packed": 0}
@@ -165,8 +166,11 @@ def lib():
         L.f2p_dequantize_packed.argtypes = [P, P, P, I, I, I, I, I, F2PConsts,
                                             P]
         LL, U = ctypes.c_longlong, ctypes.c_uint32
-        L.f2p_quantize.argtypes = [P, I, P, I, P, LL, I, I, F2PConsts, F, I,
-                                   P]
+        L.f2p_quantize.argtypes = [P, I, P, I, P, LL, I, I, F2PConsts, P, F,
+                                   I, P]
+        L.f2p_ef_roundtrip.argtypes = [P, I, I, I, P, F2PConsts, F, P]
+        L.f2p_encode_check.argtypes = [ctypes.c_uint, LL, P, F2PConsts, F, P,
+                                       P, P]
         L.f2p_dequantize.argtypes = [P, I, P, P, I, LL, I, F2PConsts, P]
         L.f2p_attention.argtypes = [P, I, LL, LL, LL] + [P] * 5 + [
             AttnLen, AttnLen, P, P, P] + [I] * 15 + [F2PConsts, F2PConsts,
@@ -178,7 +182,8 @@ def lib():
         L.f2p_dequant_matmul_decode.argtypes = [P, I, P, I, I, P, P, P, P] + [
             I] * 6 + [F2PConsts, P]
         for fn in (L.f2p_kv_write, L.f2p_dequantize_packed,
-                   L.f2p_quantize, L.f2p_dequantize, L.f2p_attention,
+                   L.f2p_quantize, L.f2p_ef_roundtrip, L.f2p_encode_check,
+                   L.f2p_dequantize, L.f2p_attention,
                    L.f2p_counter_advance, L.f2p_counter_estimate,
                    L.f2p_dequant_matmul, L.f2p_dequant_matmul_decode):
             fn.restype = I

@@ -10,7 +10,7 @@ tensors so it is bitwise identical to the JAX functions:
            exact fractional part -> field assembly with variable shifts.
   decode:  field split with variable shifts -> ldexp by bit assembly.
 
-Five entry points, each routed by the tensor's device (no registry, no
+Six entry points, each routed by the tensor's device (no registry, no
 environment override): a CPU tensor runs the plain PyTorch version, a CUDA
 tensor launches the hand-written kernel of ``csrc/f2p_kernels.cu`` or raises.
 
@@ -35,13 +35,21 @@ exist outside registers.
 ``f2p_quantize_codes`` replaces ``repro/kernels/f2p_quant.py::_quant_kernel``
 (B5): the same scales and codes as the packed quantize, stored one code per
 byte (n_bits <= 8, uint8) or per two bytes (uint16). Bound by bytes: x in
-once, 1 or 2 bytes per element and one f32 per block out. One warp per
-scale block; at block 128 a lane loads its 4 consecutive values in one
-vector load, keeps them in registers between the shuffle absmax and the
-encode, and stores its 4 codes at once. ``f2p_dequantize_codes`` replaces
+once, 1 or 2 bytes per element and one f32 per block out. Its encode is
+table driven (:func:`encode_table`, :func:`table_encode`): |y|'s f32
+exponent picks a row that turns the significand into the code with one add
+and one shift, bitwise the arithmetic :func:`quantize_tile_math`; a
+persistent grid of warps takes two blocks of 128 per pass, a lane 4
+consecutive values in one vector load. Other blocks and misaligned tensors
+take a one-element-per-lane form with the arithmetic encode.
+
+``f2p_ef_roundtrip`` is B5's round-trip mode, the train step's gradient
+compression with error feedback: r += g, quantize, dequantize, r -= q,
+g = q, over all of a step's compressed leaves in ONE launch (a leaf table
+from :func:`ef_plan`), codes and scales kept in registers; bitwise
+:func:`ef_roundtrip_plain`. ``f2p_dequantize_codes`` replaces
 ``_dequant_kernel`` (B6): decode times the block's scale, 4 codes per
-thread where aligned, bound by bytes. Other blocks and misaligned tensors
-take the kernels' one-element-per-lane forms.
+thread where aligned, bound by bytes; the checkpoint restore runs it.
 
 torch's uint16 has few operations, so 16-bit codes travel as uint16 tensors
 (the reference's dtype, what the checkpoint writes) and every piece of
@@ -64,7 +72,9 @@ __all__ = ["quantize_tile_math", "dequantize_tile_math",
            "quantize_packed_plain", "dequantize_packed_plain",
            "kv_write_plain",
            "f2p_quantize_codes", "f2p_dequantize_codes", "quantize_plain",
-           "dequantize_plain", "code_dtype", "codes_to_int32"]
+           "dequantize_plain", "code_dtype", "codes_to_int32",
+           "encode_table", "table_encode", "f2p_ef_roundtrip",
+           "ef_roundtrip_plain", "ef_plan", "encode_check"]
 
 def _exp2i(n: torch.Tensor) -> torch.Tensor:
     """Exact 2^n for int32 n in [-126, 127], built by bit assembly."""
@@ -185,6 +195,119 @@ def _int32_to_codes(c: torch.Tensor, fmt: F2PFormat) -> torch.Tensor:
     # fold [32768, 65536) onto the int16 bit pattern, then reinterpret
     return torch.where(c >= 32768, c - 65536, c).to(torch.int16).view(
         torch.uint16)
+
+
+# ---------------------------------------------------------------------------
+# B5's table-driven encode
+# ---------------------------------------------------------------------------
+_SAT_ALWAYS, _NO_SHIFT = 0, 31
+
+
+@functools.lru_cache(maxsize=64)
+def encode_table(fmt: F2PFormat):
+    """B5's encode table for ``fmt`` (``tab_encode`` in csrc/f2p_kernels.cu):
+    (enc int32 ``[256, 4]``, val float32 ``[256, 2]``), one row per f32
+    biased exponent e of |y|. With M the 24-bit significand of |y| with its
+    implicit bit set (also for e = 0), ``m = (M + ((1 << sh) >> 1)) >> sh``
+    and enc[e] = (off, sat, lim, sh), the payload is ``sat if m >= lim else
+    off + m``, and its value ``sat_value if m >= lim else m * step`` with
+    val[e] = (step, sat_value): exactly :func:`quantize_tile_math` and
+    :func:`dequantize_tile_math`, derived here from the same arithmetic one
+    f32 binade at a time (a format bucket spans one binade: rounding is one
+    add and one shift of M; the subnormal bucket, values below and above
+    the range, the top clamp, inf and NaN are rows of the same form).
+    Raises for a format whose buckets reach f32 subnormals (none of <= 16
+    bits does)."""
+    nu, h, sgn, vmax, v_sub, v_top, bias = _fmt_consts(fmt)
+
+    def esize(v):
+        return sum(v >= (1 << j) - 1 for j in range(1, 1 << h))
+
+    def payload(v, m):
+        es = esize(v)
+        return (es << (nu - h)) | ((v - ((1 << es) - 1)) << (nu - h - es)) | m
+
+    dec = dequantize_tile_math(torch.arange(1 << nu, dtype=torch.int32),
+                               fmt).numpy()
+    enc = np.zeros((256, 4), np.int64)
+    val = np.zeros((256, 2), np.float32)
+    for e in range(256):
+        v = v_sub if e == 0 else min(max(sgn * (e - 127 - bias), 0), vmax - 1)
+        mbits = nu - h - esize(v)
+        is_sub = v == v_sub
+        exp_lo = sgn * v + bias + int(is_sub)
+        k = mbits - exp_lo          # the arithmetic scales |y| by 2^k
+        if not -126 <= k <= 127:
+            raise ValueError(f"{fmt}: bucket scale 2^{k} is outside f32")
+        v2 = v if v == v_top else v + sgn     # where an overflow goes
+        sat = payload(v2, (1 << (nu - h - esize(v2))) - 1 if v == v_top
+                      else 0)
+        step = np.float32(2.0 ** (exp_lo - mbits))
+        if e == 255:    # inf: m = 2^23 -> the overflow code; NaN: payload(v, 0)
+            enc[e] = (sat - (1 << 23), payload(v, 0), (1 << 23) + 1, 0)
+            val[e] = (np.float32(dec[sat]) / np.float32(1 << 23),
+                      dec[payload(v, 0)])
+            continue
+        E = (e - 150 if e else -149) + k    # u = M * 2^E (before the lead)
+        const = None
+        if not is_sub:
+            if E == mbits - 23:             # the bucket's own binade
+                enc[e] = (payload(v, 0) - (1 << mbits), sat, 1 << (mbits + 1),
+                          23 - mbits)
+                val[e] = (step, dec[sat])
+                continue
+            const = payload(v, 0) if E < mbits - 23 else sat
+        elif e == 0:
+            if -E < 24:
+                raise ValueError(f"{fmt}: f32 subnormals reach its grid")
+            const = payload(v, 0)
+        elif -E >= 25:
+            const = payload(v, 0)           # rounds to 0 for every M
+        else:
+            enc[e] = (payload(v, 0), sat, 1 << mbits, -E)
+            val[e] = (step, dec[sat])
+            continue
+        enc[e] = (const, const, _SAT_ALWAYS, _NO_SHIFT)
+        val[e] = (0.0, dec[const])
+    return enc.astype(np.int32), val
+
+
+def table_encode(y: torch.Tensor, fmt: F2PFormat):
+    """The card's table encode on torch tensors (f32 ``y`` -> (int32 codes,
+    f32 decoded values)): equal to ``quantize_tile_math`` and
+    ``dequantize_tile_math`` of it, bit for bit (the CPU tests hold it)."""
+    enc, val = (torch.from_numpy(t) for t in encode_table(fmt))
+    bits = y.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    mag = bits & 0x7FFFFFFF
+    ex = mag >> 23
+    off, sat, lim, sh = enc.to(torch.int64)[ex].unbind(-1)
+    m = (((mag | 0x800000) & 0xFFFFFF) + ((1 << sh) >> 1)) >> sh
+    over = m >= lim
+    code = torch.where(over, sat, off + m)
+    step, sat_val = val[ex].unbind(-1)
+    value = torch.where(over, sat_val, m.to(torch.float32) * step)
+    if fmt.signed:
+        neg = (bits >> 31) == 1
+        code = code | (neg.to(torch.int64) << fmt.payload_bits)
+        value = torch.where(neg, -value, value)
+    return code.to(torch.int32), value
+
+
+_TABLES: dict = {}
+
+
+def _b5_args(fmt: F2PFormat, dev: torch.device):
+    """B5's per-format kernel arguments on ``dev``, made once: (F2PConsts,
+    the address of :func:`encode_table` there as the kernels take it, 256
+    int4 entries then 256 float2 values, and f32(1 / max_value))."""
+    args = _TABLES.get((fmt, dev))
+    if args is None:
+        enc, val = encode_table(fmt)
+        tab = torch.from_numpy(np.concatenate(
+            [enc.ravel(), val.view(np.int32).ravel()])).to(dev)
+        args = _TABLES[(fmt, dev)] = (cuda_consts(fmt), tab.data_ptr(),
+                                      inv_max_value(fmt), tab)
+    return args[:3]
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +547,8 @@ def f2p_quantize_codes(x2: torch.Tensor, fmt: F2PFormat, *,
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes f32 or bf16 input, got {x2.dtype}")
     C.require_cuda(x2, "x")
-    consts = cuda_consts(fmt)   # raises for n_bits > 16 or h_bits > 2
+    # raises for n_bits > 16 or h_bits > 2
+    consts, tab, inv_max = _b5_args(fmt, x2.device)
     r, c = x2.shape
     cdt = code_dtype(fmt)
     codes = torch.empty((r, c), dtype=cdt, device=x2.device)
@@ -434,8 +558,7 @@ def f2p_quantize_codes(x2: torch.Tensor, fmt: F2PFormat, *,
         C.check(C.lib().f2p_quantize(
             x2.data_ptr(), int(x2.dtype == torch.bfloat16), codes.data_ptr(),
             codes.element_size(), scales.data_ptr(), r, c, block, consts,
-            inv_max_value(fmt), int(scale_mode == "pow2"), C.stream()),
-            "quantize")
+            tab, inv_max, int(scale_mode == "pow2"), C.stream()), "quantize")
         C.LAUNCHES["quantize"] += 1
     return codes, scales
 
@@ -467,3 +590,145 @@ def f2p_dequantize_codes(codes: torch.Tensor, scales: torch.Tensor,
             consts, C.stream()), "dequantize")
         C.LAUNCHES["dequantize"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# B5's round-trip mode: the gradient round trip with error feedback
+# ---------------------------------------------------------------------------
+EF_MAX_BLOCKS = 1 << 30   # scale blocks per launch (the kernel's int32 index)
+_LEAF_BF16, _LEAF_VEC = 1, 2
+
+
+def ef_roundtrip_plain(g: torch.Tensor, r, fmt: F2PFormat, block: int = 128,
+                       error_feedback: bool = True) -> None:
+    """The plain version of :func:`f2p_ef_roundtrip` for one leaf, IN
+    PLACE, the unpacked codec's composition: with error feedback ``r += g``
+    and gin = r, else gin = f32(g); q = dequantize(quantize(gin)) along the
+    last axis (padded with zeros to the block multiple, f32 scales); then
+    ``r -= q`` (error feedback) and ``g = q`` in g's dtype. Whole rows of
+    about 2^24 elements at a time (rows are independent: the same bits, and
+    temporaries that fit beside a train state on the card)."""
+    n = g.shape[-1] if g.ndim else 1
+    g2 = g.view(-1, n)
+    x2 = r.view(-1, n).add_(g2) if error_feedback else g2.to(torch.float32)
+    step = max(1, (1 << 24) // n)
+    for i in range(0, x2.shape[0], step):
+        xi = x2[i:i + step]
+        xp = torch.nn.functional.pad(xi, (0, -n % block)) if n % block else xi
+        c, s = quantize_plain(xp, fmt, block)
+        q = dequantize_plain(c, s, fmt, block)[:, :n]
+        if error_feedback:
+            xi.sub_(q)
+        g2[i:i + step].copy_(q)
+
+
+def ef_plan(gs, rs, block: int = 128) -> list:
+    """The leaf tables of the round trip's launches, for gradients ``gs``
+    and residuals ``rs`` (None without error feedback): a list of
+    (table, nblocks), one per launch, leaves in order, each launch under
+    ``EF_MAX_BLOCKS`` scale blocks (one launch for any model of this repo).
+    ``table`` is int64 ``[n + 1, 4]``, one ``EFLeaf`` of the CUDA source
+    per leaf: g's and r's addresses, ``blk0 | cols << 32`` (blk0: the
+    launch-global index of the leaf's first scale block), ``nbr | flags <<
+    32`` (nbr = ceil(cols / block) blocks per row; flags bf16 1, vec 2:
+    cols % 4 == 0 and rows of 4 on 16-byte boundaries); row n holds blk0 =
+    nblocks. A leaf of [rows, cols] has rows * nbr blocks, the last of a row
+    ragged when cols % block != 0; empty leaves are left out."""
+    groups, rows, blk = [], [], 0
+
+    def close():
+        if rows:
+            groups.append((np.array(rows + [(0, 0, blk, 0)], dtype=np.int64),
+                           blk))
+
+    for g, r in zip(gs, rs):
+        n = g.numel()
+        if n == 0:
+            continue
+        if n >= 1 << 31:
+            raise ValueError(f"a leaf of {n} elements exceeds the kernel's "
+                             "32-bit index")
+        cols = g.shape[-1] if g.ndim else 1
+        nbr = -(-cols // block)
+        nb = n // cols * nbr
+        if blk + nb > EF_MAX_BLOCKS:
+            close()
+            rows, blk = [], 0
+        esize = g.element_size()
+        vec = (cols % 4 == 0 and g.data_ptr() % (4 * esize) == 0
+               and (r is None or r.data_ptr() % 16 == 0))
+        flags = _LEAF_BF16 * (g.dtype == torch.bfloat16) + _LEAF_VEC * vec
+        rows.append((g.data_ptr(), 0 if r is None else r.data_ptr(),
+                     blk | cols << 32, nbr | flags << 32))
+        blk += nb
+    close()
+    return groups
+
+
+def f2p_ef_roundtrip(gs, rs, fmt: F2PFormat, *, block: int = 128,
+                     error_feedback: bool = True) -> None:
+    """The error-feedback round trip of a train step's compressed leaves,
+    IN PLACE: for each gradient g (f32 or bf16, contiguous) and f32
+    residual r of g's shape, bitwise :func:`ef_roundtrip_plain`. CPU
+    tensors run that plain version leaf by leaf; on the card, one launch of
+    B5's round-trip mode (``ef_roundtrip_kernel``) for all the leaves, the
+    leaf table (:func:`ef_plan`) sent in one async copy, no host sync and no
+    temporaries. Without error feedback ``rs`` may hold None."""
+    gs, rs = list(gs), list(rs)
+    if len(gs) != len(rs):
+        raise ValueError(f"{len(gs)} gradients but {len(rs)} residuals")
+    if not gs:
+        return
+    kinds = {t.device.type for t in gs + rs if t is not None}
+    if kinds == {"cpu"}:
+        for g, r in zip(gs, rs):
+            ef_roundtrip_plain(g, r, fmt, block, error_feedback)
+        return
+    if kinds != {"cuda"}:
+        raise ValueError(f"the leaves lie on {sorted(kinds)}: the round trip "
+                         "takes them all on the card or all on the CPU")
+    if block != 128:
+        raise ValueError(f"the round-trip kernel takes blocks of 128, got "
+                         f"{block}")
+    dev = gs[0].device
+    for g, r in zip(gs, rs):
+        if g.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"kernel takes f32 or bf16 gradients, got "
+                            f"{g.dtype}")
+        if g.device != dev:
+            raise ValueError(f"gradients on {g.device} and {dev}")
+        C.require_cuda(g, "gradient")
+        if error_feedback:
+            if r is None or r.device != dev:
+                raise ValueError("error feedback needs each residual on the "
+                                 "gradient's card")
+            C.require_cuda(r, "residual", torch.float32)
+            if r.shape != g.shape:
+                raise ValueError(f"residual {tuple(r.shape)} != gradient "
+                                 f"{tuple(g.shape)}")
+    consts, tab, inv_max = _b5_args(fmt, dev)
+    plan = ef_plan(gs, rs if error_feedback else [None] * len(gs), block)
+    for table, nblocks in plan:
+        leaves = torch.from_numpy(table).pin_memory().to(dev,
+                                                         non_blocking=True)
+        C.check(C.lib().f2p_ef_roundtrip(
+            leaves.data_ptr(), table.shape[0] - 1, nblocks,
+            int(error_feedback), tab, consts, inv_max, C.stream()),
+            "ef_roundtrip")
+        C.LAUNCHES["ef_roundtrip"] += 1
+
+
+def encode_check(fmt: F2PFormat, scale: float = 0.0, *, device="cuda"):
+    """A check on the card, no path's kernel: over all 2^32 f32 bit
+    patterns, the mismatches of B5's table encode (code and value) against
+    the arithmetic ``f2p_encode`` / ``f2p_decode``, or with a power-of-two
+    ``scale``, of x * (1/scale) against x / scale. Returns (mismatches, the
+    smallest mismatching pattern or None)."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    first = torch.full((1,), -1, dtype=torch.int32, device=device)
+    consts, tab, _ = _b5_args(fmt, bad.device)
+    C.check(C.lib().f2p_encode_check(
+        0, 1 << 32, tab, consts, float(scale), bad.data_ptr(),
+        first.data_ptr(), C.stream()), "encode_check")
+    n = int(bad.item())
+    return n, (int(first.item()) & 0xFFFFFFFF) if n else None

@@ -1,10 +1,10 @@
 """Training launcher (port of ``repro.launch.train``), one card.
 
 Builds the train state, runs the train step with F2P gradient compression
-(B5 + B6 per compressed leaf on the card), writes checkpoints
-asynchronously off the critical path (F2P16 payloads quantized on the card
-through B5), and survives preemption: on restart it resumes from the last
-committed step, bitwise.
+(one launch of B5's round-trip mode per step on the card), writes
+checkpoints asynchronously off the critical path (F2P16 payloads quantized
+on the card through B5), and survives preemption: on restart it resumes
+from the last committed step, bitwise.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_3b \\
         --full --steps 8 --ckpt-dir /path/to/run1

@@ -3,17 +3,19 @@
 
 Each gradient leaf g with residual r is sent as q(g + r) and the residual
 keeps what quantization lost, r' = (g + r) - q(g + r) (error feedback;
-Karimireddy et al. 2019). ``_roundtrip`` is one ``quantize`` /
-``dequantize`` pair of the unpacked codec: on a CUDA tensor it launches B5
-then B6, one launch each per compressed leaf.
+Karimireddy et al. 2019); q is one quantize / dequantize pair of the
+unpacked codec (blocks along the last axis, padded with zeros).
 
-The port updates in place: the residual becomes g + r, then g + r - q, and
-the gradient tensor receives q cast to its dtype. A leaf's temporaries are
-its codes (1 byte per element) and the f32 round trip, never a second copy
-of the whole tree. Leaf sizes are the reference's (stacked) leaf sizes
-(``models.convert.reference_numel``), so ``min_size`` selects exactly the
-leaves the reference compresses; leaves below it carry a ``None``
-residual.
+The port updates in place: the residual becomes g + r - q and the gradient
+tensor receives q cast to its dtype. On the card a step's compressed leaves
+go through ONE launch of B5's round-trip mode
+(``kernels.f2p_quant.f2p_ef_roundtrip``): it reads g and r once and writes
+both, codes and scales never leave registers, and there are no
+temporaries. On the CPU each leaf runs the plain composition
+(``ef_roundtrip_plain``), bitwise the same. Leaf sizes are the reference's
+(stacked) leaf sizes (``models.convert.reference_numel``), so ``min_size``
+selects exactly the leaves the reference compresses
+(:func:`compressed_leaves`); leaves below it carry a ``None`` residual.
 
 ``compressed_psum`` is the reference's data-parallel wire path (reduce
 scatter, quantize the shard, all-gather the codes); it needs several cards
@@ -27,8 +29,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import qtensor as QT
 from repro_torch.core.f2p import F2PFormat, Flavor
+from repro_torch.kernels.f2p_quant import f2p_ef_roundtrip
 from repro_torch.models.convert import reference_numel
 
 GRAD_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
@@ -43,26 +45,17 @@ class CompressionConfig:
     min_size: int = 4096   # leaves smaller than this stay uncompressed
 
 
-def _roundtrip(x: torch.Tensor, fmt: F2PFormat, block: int) -> torch.Tensor:
-    """quantize + dequantize through the unpacked QTensor codec (any shape;
-    last axis blocked and padded, leading dims kept): B5 then B6 on the
-    card, the plain versions on the CPU."""
-    qt = QT.quantize(x.to(torch.float32), fmt, block=block, packed=False)
-    return qt.dequantize(torch.float32)
-
-
-@torch.no_grad()
-def compress_decompress(grads: dict, residuals: dict,
-                        ccfg: CompressionConfig):
-    """Error-feedback compression round trip over name -> tensor dicts, IN
-    PLACE. Returns (grads, residuals), the same dicts."""
-    if not ccfg.enabled:
-        return grads, residuals
+def compressed_leaves(grads: dict, residuals: dict,
+                      ccfg: CompressionConfig) -> list:
+    """The names of the leaves a step compresses, in order: those whose
+    reference (stacked) leaf holds at least ``min_size`` elements and that
+    carry a residual. Raises where the dicts' names or shapes disagree."""
     if set(grads) != set(residuals):
         raise ValueError(
             f"gradient dict has {len(grads)} leaves but residual dict has "
             f"{len(residuals)}: the names must match leaf for leaf")
     sizes = reference_numel(grads)
+    names = []
     for name, g in grads.items():
         r = residuals[name]
         if sizes[name] < ccfg.min_size or r is None:
@@ -77,14 +70,21 @@ def compress_decompress(grads: dict, residuals: dict,
                 f"{name}: residual shape {tuple(r.shape)} != gradient shape "
                 f"{tuple(g.shape)}; residuals must be re-initialized when "
                 "min_size changes")
-        if ccfg.error_feedback:
-            gin = r.add_(g)                  # r <- g + r
-        else:
-            gin = g.to(torch.float32)
-        q = _roundtrip(gin, ccfg.fmt, ccfg.block)
-        if ccfg.error_feedback:
-            r.sub_(q)                        # r <- (g + r) - q(g + r)
-        g.copy_(q)
+        names.append(name)
+    return names
+
+
+@torch.no_grad()
+def compress_decompress(grads: dict, residuals: dict,
+                        ccfg: CompressionConfig):
+    """Error-feedback compression round trip over name -> tensor dicts, IN
+    PLACE. Returns (grads, residuals), the same dicts."""
+    if not ccfg.enabled:
+        return grads, residuals
+    names = compressed_leaves(grads, residuals, ccfg)
+    f2p_ef_roundtrip([grads[n] for n in names], [residuals[n] for n in names],
+                     ccfg.fmt, block=ccfg.block,
+                     error_feedback=ccfg.error_feedback)
     return grads, residuals
 
 

@@ -6,9 +6,10 @@ The train state is a plain dict, as in the reference:
 and residuals keyed by parameter name. The step runs eagerly (no
 ``torch.compile``) and updates the state IN PLACE: autograd writes each
 parameter's ``.grad``, compression rewrites the gradients and residuals
-where they lie (B5 + B6 per compressed leaf on the card) and AdamW updates
-parameters and moments leaf by leaf. The compressed gradients stay in
-``.grad`` until the next step clears them.
+where they lie (one launch of B5's round-trip mode for all compressed
+leaves on the card) and AdamW updates parameters and moments leaf by
+leaf. The compressed gradients stay in ``.grad`` until the next step
+clears them.
 """
 from __future__ import annotations
 

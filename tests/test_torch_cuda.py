@@ -235,6 +235,94 @@ def test_unpacked_qtensor_on_card_matches_cpu(gen):
         assert torch.equal(_codes_i(back.codes), _codes_i(q.codes))
 
 
+@pytest.mark.parametrize("name", ["f2p_sr_2_16s", "f2p_lr_2_16s"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_codes_16bit_at_train_width_vs_plain(gen, name, dtype):
+    """B5 at the checkpoint's 16-bit formats, rows of 3072 (a train leaf's
+    width), f32 and pow2 scales, against the plain quantize."""
+    fmt = named_format(name)
+    x = (torch.randn(96, 3072, generator=gen, device="cuda") * 1e-3).to(dtype)
+    x[0, :128] = 0
+    _non_finite(x, 128)
+    for mode in ("f32", "pow2"):
+        c, s = Q.f2p_quantize_codes(x, fmt, scale_mode=mode)
+        pc, ps = Q.quantize_plain(x, fmt, 128, mode)
+        assert torch.equal(_codes_i(c), _codes_i(pc))
+        assert torch.equal(_bits(s), _bits(ps))
+
+
+@pytest.mark.parametrize("name", ["f2p_sr_2_8s", "f2p_lr_2_16s"])
+def test_table_encode_exhaustive_on_card(gen, name):
+    """B5's table encode against the arithmetic f2p_encode / f2p_decode
+    over every f32 bit pattern, and the pow2 reciprocal against the IEEE
+    divide at the extreme scales."""
+    fmt = named_format(name)
+    assert Q.encode_check(fmt) == (0, None)
+    for scale in (2.0 ** -126, 2.0 ** 127):
+        assert Q.encode_check(fmt, scale) == (0, None)
+
+
+def _same_bits_nan(a, b):
+    """Bitwise equal, NaNs by position."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        _bits(torch.where(na, 0, a)), _bits(torch.where(nb, 0, b)))
+
+
+def _ef_leaves(gen, dtype):
+    """Round-trip leaves: aligned, ragged (cols % 128 != 0), cols % 4 != 0
+    (the element-wise form), 1-D and 3-D, with an all-zero block, NaN, -NaN
+    and inf blocks."""
+    shapes = [(48, 256), (5, 200), (7, 130), (3000,), (2, 3, 384)]
+    gs = [(torch.randn(s, generator=gen, device="cuda") * 1e-2).to(dtype)
+          for s in shapes]
+    rs = [torch.randn(s, generator=gen, device="cuda") * 1e-4
+          for s in shapes]
+    gs[0][0, :128] = 0
+    rs[0][0, :128] = 0
+    gs[0][4, 200] = float("inf")
+    gs[1][1, 150] = float("nan")
+    gs[2][3, 129] = -float("nan")
+    return gs, rs
+
+
+@pytest.mark.parametrize("name", ["f2p_sr_2_8s", "f2p_lr_2_8s",
+                                  "f2p_sr_2_16s"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ef", [True, False], ids=["ef", "no_ef"])
+def test_ef_roundtrip_kernel_bitwise_vs_plain(gen, name, dtype, ef):
+    """B5's round-trip mode: gradients and residuals bitwise against
+    ef_roundtrip_plain (NaNs by position), one launch for all leaves."""
+    fmt = named_format(name)
+    gs, rs = _ef_leaves(gen, dtype)
+    pg, pr = [g.clone() for g in gs], [r.clone() for r in rs]
+    before = C.LAUNCHES["ef_roundtrip"]
+    Q.f2p_ef_roundtrip(gs, rs, fmt, error_feedback=ef)
+    assert C.LAUNCHES["ef_roundtrip"] == before + 1
+    for a, b, c, d in zip(gs, rs, pg, pr):
+        Q.ef_roundtrip_plain(c, d, fmt, 128, ef)
+        assert _same_bits_nan(a, c)
+        assert _same_bits_nan(b, d)
+
+
+def test_ef_roundtrip_raises_on_what_it_cannot_take(gen):
+    fmt = named_format("f2p_sr_2_8s")
+    g = torch.randn(64, 256, generator=gen, device="cuda")
+    r = torch.zeros_like(g)
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.f2p_ef_roundtrip([g.t()], [r.t()], fmt)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        Q.f2p_ef_roundtrip([g.half()], [r], fmt)
+    with pytest.raises(ValueError, match="blocks of 128"):
+        Q.f2p_ef_roundtrip([g], [r], fmt, block=64)
+    with pytest.raises(ValueError, match="all on the card"):
+        Q.f2p_ef_roundtrip([g], [r.cpu()], fmt)
+    with pytest.raises(TypeError, match="float32"):
+        Q.f2p_ef_roundtrip([g], [r.double()], fmt)
+    with pytest.raises(ValueError, match="residual"):
+        Q.f2p_ef_roundtrip([g], [r[:32]], fmt)
+
+
 # (format, head_dim, G, Sq, kv_len per row, causal, tile). R = G * Sq query
 # rows; the kernel's split is A.ATTN_SPLIT (128) positions.
 _ATTN_CASES = [
