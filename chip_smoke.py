@@ -62,19 +62,26 @@ Phases (any failed check raises, so the script exits non-zero):
    dequant matmul (B8 on f2p_sr_2_8s uint8 codes, B7 on 6- and 8-bit
    packed words) at llama3.2-3b's projection shapes (K, N) in (3072,
    3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256): M = 8
-   with bf16 x (the decode route), plus M = 2048 with f32 x at (3072,
-   8192) (the tile route); weights randn x 0.02 (torch.Generator seed 3)
-   quantized on the card by quantize_weight and held bitwise to the plain
-   quantizer; each call within rtol=1e-4, atol=1e-4 x max|y_plain| of
-   ref_dequant_matmul; the yardstick is torch.matmul on the weight
-   dequantized up front (f32, TF32 off). At M = 8 each row also has the
+   with bf16 x (the decode route) and M = 2048, a prefill chunk, with f32
+   and bf16 x (the tile route, on the tensor cores); at (3072, 8192) also
+   M = 16 and 128 with f32 x, and B8 on f2p_sr_2_16s uint16 codes at M =
+   2048 (the f32 SIMT tile kernel, which serves the formats of more than 8
+   significant bits); weights randn x 0.02 (torch.Generator seed 3; the
+   prefill-sized x from seed 5) quantized on the card by quantize_weight
+   and held bitwise to the plain quantizer; each call within rtol=1e-4,
+   atol=1e-4 x max|y_plain| of ref_dequant_matmul; the yardstick is
+   torch.matmul on the weight dequantized up front (f32, TF32 off). Each
+   row names the kernel that served it (decode, mma or simt) and has the
    device time per call of the kernels alone and of torch.matmul, from
-   torch.profiler over the same loop (the ms column includes the host). No
-   model path calls B7/B8 (the reference's only caller is its benchmark
-   folder), so their launches are those of one drive pass of
-   dequant_matmul over the five shapes at M = 8, and the kernels line
-   reports one decode step of the full model at M = 8 (each shape's time x
-   the projections of that shape per step).
+   torch.profiler over the same loop (the ms column includes the host),
+   and its bound: bytes / 3.35 TB/s against f32 operations / 67 TFLOP/s
+   (decode, simt) or passes x 2 M N K / 989 TFLOP/s (mma: 3 bf16 passes
+   for f32 x, 1 for bf16 x). No model path calls B7/B8 (the reference's
+   only caller is its benchmark folder), so their launches are those of
+   one drive pass of dequant_matmul over the five shapes at M = 8, and the
+   kernels line reports one decode step of the full model at M = 8 (each
+   shape's time x the projections of that shape per step); beside it the
+   same sum at M = 2048, one prefill chunk, with f32 and with bf16 x.
 4. small   — smoke llama3.2-3b in f32 on the card (kernels) against the
    same weights on the CPU (plain versions): logits agree within 1e-3.
 5. serve   — full-width llama3.2-3b (28 layers, d_model 3072, bf16, random
@@ -166,6 +173,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 SRC = "src/repro_torch/csrc/f2p_kernels.cu"
 REPLACES = {
     "quantize_packed": "src/repro/kernels/f2p_quant.py:341",
@@ -1284,6 +1292,24 @@ def check_quantize_weight(w, fmt, codes, scales, packed: bool):
             f"quantize_weight scales differ: {tuple(w.shape)}"
 
 
+def matmul_bound(M: int, K: int, N: int, nbytes: int, kernel: str,
+                 x_dtype) -> dict:
+    """A matmul row's bound: the larger of its bytes / 3.35 TB/s and its
+    operations over the rate of the kernel's arithmetic: f32 SIMT (decode
+    and simt: 2 M N K / 67 TFLOP/s) or bf16 tensor cores (mma: passes x 2
+    M N K / 989 TFLOP/s, 3 passes for f32 x, 1 for bf16 x)."""
+    import torch
+
+    ops = 2 * M * K * N
+    passes = (1 if x_dtype == torch.bfloat16 else 3) if kernel == "mma" \
+        else None
+    ops_ms = (passes * ops / BF16_OPS_PER_S if passes else
+              ops / F32_OPS_PER_S) * 1e3
+    return dict(bytes=nbytes, ops=ops, passes=passes,
+                bytes_ms=bound_ms(nbytes), ops_ms=ops_ms,
+                f32_simt_ms=ops / F32_OPS_PER_S * 1e3)
+
+
 def check_matmul(dev):
     """B8 (uint8 f2p_sr_2_8s codes) and B7 (6- and 8-bit packed words) at
     llama3.2-3b's projection shapes, weights randn x 0.02 from
@@ -1292,14 +1318,18 @@ def check_matmul(dev):
     pass of dequant_matmul over the shapes at a decode batch (M = 8, bf16
     x), the library path that stands in for the missing model caller; then
     every call is held to the plain version (rtol 1e-4, atol 1e-4 x
-    max|y_plain|) and timed beside its bound and torch.matmul on the
-    weight dequantized up front (f32, TF32 off): ``ms`` with CUDA events
-    around the Python wrapper in a loop (host included, as the kernels
-    line has always reported it) and, at M = 8, ``device_ms`` from
+    max|y_plain|) and timed beside its bound (:func:`matmul_bound`) and
+    torch.matmul on the weight dequantized up front (f32, TF32 off): ``ms``
+    with CUDA events around the Python wrapper in a loop (host included,
+    as the kernels line has always reported it) and ``device_ms`` from
     torch.profiler over the same loop (the kernels alone). M = 8 takes the
-    decode route, M = 2048 with f32 x (at (3072, 8192)) the tile route.
-    The kernels line reports one decode step of the full model at M = 8
-    (the per-shape times x decode_step_counts)."""
+    decode route; M = 2048 (f32 and bf16 x, x from seed 5, every shape),
+    16 and 128 (f32 x, at (3072, 8192)) the tile route, on the tensor cores
+    for these formats; f2p_sr_2_16s (uint16 codes, f32 x, M = 2048 at
+    (3072, 8192)) the SIMT tile kernel. Each row names the kernel that
+    served it. The kernels line reports one decode step of the full model
+    at M = 8 (the per-shape times x decode_step_counts); the same sum at M
+    = 2048 is one prefill chunk."""
     import torch
 
     from repro_torch.configs import full_config
@@ -1308,55 +1338,70 @@ def check_matmul(dev):
     from repro_torch.kernels import f2p_matmul as MM
 
     g = torch.Generator(device=dev).manual_seed(3)
+    g5 = torch.Generator(device=dev).manual_seed(5)
     counts = decode_step_counts(full_config(ARCH))
     kinds = (("dequant_matmul", named_format("f2p_sr_2_8s"), False),
              ("dequant_matmul_packed", named_format("f2p_sr_2_6s"), True),
              ("dequant_matmul_packed_8bit", named_format("f2p_sr_2_8s"),
               True))
+    simt_kind = ("dequant_matmul_16bit", named_format("f2p_sr_2_16s"), False)
     launches = {"dequant_matmul": 0, "dequant_matmul_packed": 0}
     rows = []
     for K, N in MATMUL_SHAPES:
         w = torch.randn(K, N, generator=g, device=dev) * 0.02
+        wide = (K, N) == (3072, 8192)
         cases = [(8, torch.bfloat16)] + ([(2048, torch.float32)]
-                                         if (K, N) == (3072, 8192) else [])
-        xs = {M: torch.randn(M, K, generator=g, device=dev).to(dt)
+                                         if wide else [])
+        xs = {(M, dt): torch.randn(M, K, generator=g, device=dev).to(dt)
               for M, dt in cases}
-        for kind, fmt, packed in kinds:
+        more = [(2048, torch.bfloat16)] + ([] if wide else [
+            (2048, torch.float32)]) + ([(16, torch.float32),
+                                        (128, torch.float32)] if wide else [])
+        for M, dt in more:
+            xs[(M, dt)] = torch.randn(M, K, generator=g5, device=dev).to(dt)
+        cases += more
+        n_rows = len(rows)
+        for kind, fmt, packed in kinds + ((simt_kind,) if wide else ()):
             q, scales = MM.quantize_weight(w, fmt, packed=packed)
             check_quantize_weight(w, fmt, q, scales, packed)
-            for M, dt in cases:
-                x = xs[M]
+            for M, dt in (cases if kind != simt_kind[0]
+                          else [(2048, torch.float32)]):
+                x = xs[(M, dt)]
                 key = "dequant_matmul_packed" if packed else "dequant_matmul"
-                before = C.LAUNCHES[key]
+                before, served = C.LAUNCHES[key], dict(MM.SERVED)
                 y = MM.dequant_matmul(x, q, scales, fmt=fmt, packed=packed)
+                assert C.LAUNCHES[key] - before == 1, (kind, M)
                 if M == 8:
-                    launches[key] += C.LAUNCHES[key] - before
+                    launches[key] += 1
+                kernel = [k for k in MM.SERVED if MM.SERVED[k] != served[k]]
+                assert len(kernel) == 1, kernel
                 ref = plain_matmul(x, q, scales, fmt, packed)
                 torch.cuda.synchronize()
                 torch.testing.assert_close(
                     y, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
                 err = float((y - ref).abs().max())
+                del y, ref
                 big = N > 16384
                 code_bytes = q.numel() * q.element_size()
                 nbytes = code_bytes + scales.numel() * 4 \
                     + x.numel() * x.element_size() + M * N * 4
-                ops = 2 * M * K * N
+
                 def call():
                     return MM.dequant_matmul(x, q, scales, fmt=fmt,
                                              packed=packed)
 
                 rows.append(dict(
                     kind=kind, K=K, N=N, M=M, x=str(dt).split(".")[-1],
-                    route=MM.matmul_route(M, 128),
+                    route=MM.matmul_route(M, 128), kernel=kernel[0],
                     ms=cuda_ms(call, iters=5 if M > 8 else 20),
-                    device_ms=device_ms(call) if M == 8 else None,
+                    device_ms=device_ms(call, iters=10 if M > 8 else 20),
                     plain_ms=cuda_ms(lambda: plain_matmul(
                         x, q, scales, fmt, packed), iters=2 if big else 5,
                         warm=1),
-                    bytes=nbytes, ops=ops,
-                    bytes_ms=bound_ms(nbytes),
-                    ops_ms=ops / F32_OPS_PER_S * 1e3, max_abs_err=err))
+                    max_abs_err=err,
+                    **matmul_bound(M, K, N, nbytes, kernel[0], dt)))
             del q, scales
+            torch.cuda.empty_cache()
         # the yardstick: one torch.matmul on W dequantized up front (f32,
         # the 8-bit unpacked weight), the same for every kind of a shape
         q, scales = MM.quantize_weight(w, kinds[0][1])
@@ -1364,37 +1409,46 @@ def check_matmul(dev):
             q[:, j0:j1].contiguous(), scales[:, j0:j1].contiguous(),
             kinds[0][1]) for j0, j1 in _col_chunks(N)], dim=1)
         lib = {}
-        for M, _ in cases:
-            xf = xs[M].float()
+        for M in sorted({M for M, _ in cases}):
+            xf = xs[next(c for c in cases if c[0] == M)].float()
 
             def mm():
                 return torch.matmul(xf, wd)
 
             lib[M] = (cuda_ms(mm, iters=5 if M > 8 else 20),
-                      device_ms(mm) if M == 8 else None)
-        for r in rows[-3 * len(cases):]:
+                      device_ms(mm, iters=10 if M > 8 else 20))
+            del xf
+        for r in rows[n_rows:]:
             r["library_ms"], r["library_device_ms"] = lib[r["M"]]
-            dev_note = ("" if r["device_ms"] is None else
-                        f"; device {_ms(r['device_ms'])} vs "
-                        f"{_ms(r['library_device_ms'])}")
+            bound = max(r["bytes_ms"], r["ops_ms"])
+            how = (f"{r['passes']} bf16 pass{'es' if r['passes'] > 1 else ''}"
+                   if r["passes"] else "f32")
             log(f"matmul   : {r['kind']:27s} M={r['M']:4d} {r['x']:8s} "
-                f"K={K} N={N} {r['route']:6s}: {r['ms']:.5f} ms (bound "
-                f"{max(r['bytes_ms'], r['ops_ms']):.5f}, plain "
-                f"{r['plain_ms']:.3f}, torch.matmul {r['library_ms']:.5f}"
-                f"{dev_note}), max |err| {r['max_abs_err']:.2e}")
+                f"K={K} N={N} {r['kernel']:6s}: {r['ms']:.5f} ms, device "
+                f"{_ms(r['device_ms'])} (bound {bound:.5f} by "
+                f"{'bytes' if r['bytes_ms'] >= r['ops_ms'] else how}; f32 "
+                f"SIMT {r['f32_simt_ms']:.5f}), plain {r['plain_ms']:.3f}, "
+                f"torch.matmul {r['library_ms']:.5f} / device "
+                f"{_ms(r['library_device_ms'])}, max |err| "
+                f"{r['max_abs_err']:.2e}")
         del w, q, scales, wd, xs
         torch.cuda.empty_cache()
     log("matmul   : B8 and B7 (6/8-bit) == plain within rtol 1e-4 at every "
-        "projection shape; quantize_weight == plain quantizer, bitwise")
+        "projection shape and M; quantize_weight == plain quantizer, "
+        "bitwise")
+
+    def total(sel, keys):
+        return {k: (None if any(r[k] is None for r in sel) else
+                    sum(counts[(r["K"], r["N"])] * r[k] for r in sel))
+                for k in keys}
+
     out = {}
     for name, kind in (("dequant_matmul", "dequant_matmul"),
                        ("dequant_matmul_packed", "dequant_matmul_packed")):
         step = [r for r in rows if r["kind"] == kind and r["M"] == 8]
         keys = ("ms", "plain_ms", "library_ms", "bytes", "ops", "device_ms",
                 "library_device_ms")
-        tot = {k: (None if any(r[k] is None for r in step) else
-                   sum(counts[(r["K"], r["N"])] * r[k] for r in step))
-               for k in keys}
+        tot = total(step, keys)
         b_ms = bound_ms(tot["bytes"])
         o_ms = tot["ops"] / F32_OPS_PER_S * 1e3
         out[name] = dict(
@@ -1418,6 +1472,24 @@ def check_matmul(dev):
             f"{_ms(tot['device_ms'])} vs torch.matmul "
             f"{_ms(tot['library_device_ms'])} ms); {launches[name]} "
             "launches in the drive pass")
+        for dt in ("float32", "bfloat16"):
+            chunk = [r for r in rows if r["kind"] == kind and r["M"] == 2048
+                     and r["x"] == dt]
+            tp = total(chunk, keys + ("bytes_ms", "ops_ms"))
+            bound = sum(counts[(r["K"], r["N"])] * max(r["bytes_ms"],
+                                                       r["ops_ms"])
+                        for r in chunk)
+            out[name][f"prefill_{dt}"] = dict(
+                ms=tp["ms"], device_ms=tp["device_ms"], bound_ms=bound,
+                plain_ms=tp["plain_ms"], library_ms=tp["library_ms"],
+                library_device_ms=tp["library_device_ms"],
+                kernels=sorted({r["kernel"] for r in chunk}))
+            log(f"matmul   : {name}: {tp['ms']:.3f} ms per prefill chunk "
+                f"(M = 2048, {dt} x; device {_ms(tp['device_ms'])}, bound "
+                f"{bound:.3f}, torch.matmul {tp['library_ms']:.3f} / device "
+                f"{_ms(tp['library_device_ms'])}, plain "
+                f"{tp['plain_ms']:.1f}) on "
+                f"{'/'.join(out[name][f'prefill_{dt}']['kernels'])}")
     return out
 
 
@@ -2362,7 +2434,8 @@ def main():
             {"device": smi, "matmul": mm}, indent=1, default=str))
         print(json.dumps({"matmul": {k: {f: v[f] for f in (
             "ms", "device_ms", "library_ms", "library_device_ms",
-            "bound_ms", "launches", "max_abs_err")} for k, v in mm.items()}}))
+            "bound_ms", "launches", "max_abs_err", "prefill_float32",
+            "prefill_bfloat16")} for k, v in mm.items()}}))
         print(smi)
         return
 

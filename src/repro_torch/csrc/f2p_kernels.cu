@@ -21,10 +21,13 @@
 //                                and ::_paged_kernel (paged), split KV
 //   counter_advance_kernel    <- repro/kernels/f2p_counter.py::_advance_kernel
 //   counter_estimate_kernel   <- repro/kernels/f2p_counter.py::_estimate_kernel
-//   dequant_matmul_kernel<UnpackedW>  <- repro/kernels/f2p_matmul.py::_kernel
-//   dequant_matmul_kernel<PackedW>    <- repro/kernels/f2p_matmul.py::_packed_kernel
-//     (M > 8; dequant_matmul_decode_kernel<DecU8 | DecU16 | DecPacked>
-//      takes M <= 8, the decode batch)
+//   dequant_matmul_mma_kernel<TIn, UnpackedW>  <- repro/kernels/f2p_matmul.py::_kernel
+//   dequant_matmul_mma_kernel<TIn, PackedW>    <- repro/kernels/f2p_matmul.py::_packed_kernel
+//     (M > 8 on the tensor cores, for formats whose decoded values hold at
+//      most 8 significant bits and blocks of 16 rows or more;
+//      dequant_matmul_kernel<UnpackedW | PackedW>, f32 SIMT, takes the other
+//      formats and blocks; dequant_matmul_decode_kernel<DecU8 | DecU16 |
+//      DecPacked> takes M <= 8, the decode batch)
 //
 // Built with route (b): nvcc into a shared library with a plain C interface,
 // loaded with ctypes (repro_torch/kernels/cuda.py). Every entry takes the
@@ -829,13 +832,17 @@ __global__ void counter_estimate_kernel(const int* __restrict__ state,
 // ---------------------------------------------------------------------------
 // dequant_matmul: y[M, N] f32 = x[M, K] (f32 or bf16) @ W, W[k, n] =
 // decode(code[k, n]) * scales[k / block, n] (B8 from uint8 / uint16 codes,
-// B7 from each K-row's bit-packed words). f32 only: every W element is the
-// correctly rounded f32 product decode * scale, as the plain version's, and
-// the sum is f32 FMAs (no TF32, no bf16 tensor cores).
+// B7 from each K-row's bit-packed words). This SIMT kernel is f32 only:
+// every W element is the correctly rounded f32 product decode * scale, as
+// the plain version's, and the sum is f32 FMAs (no TF32, no bf16 tensor
+// cores). It serves M > 8 for the formats and blocks the tensor-core kernel
+// below does not take (decoded values of more than 8 significant bits,
+// f2p_sr_2_12s and f2p_sr_2_16s; n_bits above 10; blocks that are not a
+// multiple of 16): a second kernel chosen up front on the host
+// (f2p_matmul.tile_kernel), not a fallback.
 //
-// At a decode batch (M = 8) the kernel is bound by the weight stream
-// (n_bits/8 bytes per weight + 4/block for the scales), at a prefill batch
-// (M = 2048) by its f32 operations. A simple SIMT design: one CTA of 256
+// At a prefill batch (M = 2048) it is bound by its f32 operations (67
+// TFLOP/s outside the tensor cores). A simple SIMT design: one CTA of 256
 // threads per (BM x 128) output tile, BM = 8 * TM covering M (so a decode
 // batch does not pad to 128 rows); per K step of 32 it stages the x tile
 // (as f32, k-major) and the decoded, scaled W tile in shared memory, and
@@ -845,27 +852,81 @@ __global__ void counter_estimate_kernel(const int* __restrict__ state,
 // ones call f2p_decode per element. When the output tiles alone leave the
 // card idle, K is split across `splits` CTAs, each writing its partial
 // tile to part[split]; sum_splits_kernel then adds the partials in split
-// order, so the result does not depend on scheduling. This tile kernel
-// serves M above the decode route's 8 rows (a prefill batch); a decode
-// batch goes to dequant_matmul_decode_kernel below.
+// order, so the result does not depend on scheduling. A decode batch (M
+// <= 8) goes to dequant_matmul_decode_kernel below.
 // ---------------------------------------------------------------------------
 constexpr int kMmBN = 128, kMmBK = 32, kMmThreads = 256, kMmLut = 1024;
 
+// A weight source. code(k, n): one code (the SIMT kernel). For the
+// tensor-core kernel's staging, per tile of kMmaCols columns: the byte span
+// of tile bx in K row 0 (`span`, with the bytes of it that lie in the row;
+// row k's is stride() bytes further), of pieces() 16-byte pieces, staged
+// at pitch() bytes a row (an odd number of 16-byte units, so that the 8
+// rows a quarter warp decodes lie on distinct banks); and the 8 codes of
+// the tile's 8-column chunk nc from a staged row (`unit`).
+constexpr int kMmaCols = 128;
+
 template <typename TCode>
 struct UnpackedW {
+  static constexpr int kElem = sizeof(TCode);
   const TCode* __restrict__ codes;
   int N;
   __device__ __forceinline__ uint32_t code(int k, int n) const {
     return (uint32_t)codes[(size_t)k * N + n];
   }
+  __host__ __device__ long long stride() const { return (long long)N * kElem; }
+  __host__ __device__ int pieces() const { return kMmaCols * kElem / 16; }
+  __host__ __device__ int pitch() const { return 16 * (pieces() + 1); }   // 9 | 17 units
+  __host__ __device__ bool aligned() const {
+    return (uintptr_t)codes % 16 == 0 && stride() % 16 == 0;
+  }
+  __device__ __forceinline__ const uint8_t* span(int bx, int& valid) const {
+    valid = min(kMmaCols, N - bx * kMmaCols) * kElem;
+    return reinterpret_cast<const uint8_t*>(codes + bx * kMmaCols);
+  }
+  __device__ __forceinline__ void unit(const uint8_t* row, int nc, uint32_t* c) const {
+    if constexpr (kElem == 1) {
+      const uint2 v = *reinterpret_cast<const uint2*>(row + 8 * nc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[j] = (v.x >> (8 * j)) & 0xFFu;
+        c[4 + j] = (v.y >> (8 * j)) & 0xFFu;
+      }
+    } else {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + 16 * nc);
+      const uint32_t h[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[2 * j] = h[j] & 0xFFFFu;
+        c[2 * j + 1] = h[j] >> 16;
+      }
+    }
+  }
 };
 
 struct PackedW {
+  static constexpr int kElem = 4;
   const uint32_t* __restrict__ words;
   int W, nb;
   __device__ __forceinline__ uint32_t code(int k, int n) const {
     return get_field(words + (size_t)k * W, n, nb);
   }
+  __host__ __device__ long long stride() const { return 4LL * W; }
+  // a tile's kMmaCols fields fill 4 nb whole words
+  __host__ __device__ int pieces() const { return nb; }
+  // at least 16 bytes past the span (a unit's word window may read past
+  // it), an odd number of 16-byte units
+  __host__ __device__ int pitch() const { return 16 * (nb + 1 + (nb & 1)); }
+  __host__ __device__ bool aligned() const {
+    return (uintptr_t)words % 16 == 0 && W % 4 == 0;
+  }
+  __device__ __forceinline__ const uint8_t* span(int bx, int& valid) const {
+    const int w0 = bx * 4 * nb;
+    valid = 4 * min(4 * nb, W - w0);
+    return reinterpret_cast<const uint8_t*>(words + w0);
+  }
+  // fields 8 nc .. 8 nc + 7: DecPacked's window cut, at bit 8 nb nc
+  __device__ __forceinline__ void unit(const uint8_t* row, int nc, uint32_t* c) const;
 };
 
 template <typename TIn, typename WSrc, int TM>
@@ -1437,6 +1498,425 @@ static int launch_decode(const void* x, int x_bf16, Src w, const float* scales,
   k<<<grid, 32 * kDecWarps, smem, stream>>>(x, x_bf16, w, scales, part, y, counts, M, N, K,
                                             lb, k_chunk, splits, lut_bits, vec, async, f);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dequant_matmul, tile route on the tensor cores (M > 8): the same function
+// as dequant_matmul_kernel, y[M, N] f32 = x[M, K] @ (decode(code) * scale),
+// on bf16 wgmma for the formats of at most 10 bits whose decoded values
+// hold at most 8 significant bits (every format up to 9 bits; at 10 bits
+// all but h = 1 LR / LI) and blocks of 16 rows or more. Replaces
+// repro/kernels/f2p_matmul.py::_kernel (B8, UnpackedW) and ::_packed_kernel
+// (B7, PackedW).
+//
+// Why it is exact enough. A decoded weight d (before its scale) holds at
+// most 8 significant bits, so d * 2^-e_shift is a bf16 value exactly
+// (e_shift puts the largest |d| in [0.5, 1), so that x * d' cannot
+// overflow where x * d * s would not). An f32 x splits by truncation into
+// x_hi + x_mid + x_lo, each of at most 8 significant bits (split3), and
+// each product x_i * d' is exact in the f32 accumulator. The scale is per
+// (K block, column), so y = sum_kb s'[kb, n] * sum_{k in kb} x * d', with
+// s' = s * 2^e_shift: the tensor cores sum a block into blk, and at the
+// block's end acc += s' * blk (one f32 FMA). The result differs from the
+// plain version's order of rounding (w = d * s rounded first) at the f32
+// rounding level only. What the split loses: bits of x below 2^-133
+// (bf16's least subnormal; only for |x| < 2^-110), and tensor cores may
+// flush subnormal products; both sit far below the tolerance. Two values
+// near FLT_MAX in one row and one block can overflow blk where the plain
+// version's sum of smaller products stays finite. inf and NaN in x go into
+// x_hi alone (mid = lo = 0), so inf * d' gives inf as in the plain version,
+// and not inf - inf = NaN.
+//
+// What bounds it. At M = 2048 with f32 x the tensor cores do 3 bf16 passes
+// of 2 M N K; with bf16 x, 1. Around them each CTA stages, per K step of
+// 64, its x tile (32 KB of f32 at 128 rows) and its codes from L2, and
+// decodes the codes; on an H100 the staging, not the mma, sets the pace
+// (tools/mm_bench.py ablate times the kernel with each part left out). At
+// M = 16 to 128: the weight stream and the mma work of the 64-row minimum
+// tile.
+//
+// The design. One CTA per (BM x kMmaCols) output tile and K chunk (grid
+// z: K split as the SIMT kernel's, partials added in split order by
+// sum_splits_kernel), BM = 64 or 128 rows, a template parameter: a
+// warpgroup per 64 rows, each issuing wgmma.m64n128k16 (64 f32 sums in acc
+// and 64 in blk per thread) with A from registers (warp w's 16 rows, in
+// mma.sync's fragment layout) and B from a decoded W tile in shared
+// memory. Per K step of 64 a ring of 3 (f32 x) or 4 (bf16 x) stages holds,
+// filled with 16-byte cp.async copies (plain copies where a source is not
+// 16-byte aligned; rows past M and columns past N read as zero): the x
+// tile (f32 or bf16, rows padded to 72 elements: conflict-free fragment
+// loads), the tile's codes (kMmaCols per K row: uint8, uint16 or nb-bit
+// packed words, rows at an odd number of 16-byte units: conflict-free
+// decode reads) and the scale rows of the blocks of its four k16 steps.
+// One step ahead of the mma, every thread decodes 8-column units of codes
+// through a table in shared memory (f2p_decode * 2^-e_shift as bf16 bits,
+// each entry replicated per lane: 32 copies up to 8 bits, 2 above) into
+// one of kMmaWBufs W tiles [64][128] bf16, laid out as wgmma's 8 x 8 core
+// matrices without swizzle (k octet o, column octet c at o * 2048 + c *
+// 128 bytes: the descriptor's LBO and SBO), written as whole 16-byte
+// core-matrix rows. A K step: a __syncthreads; per k16 step, A fragments
+// read (f32: split into three bf16 terms; a k16 step whose values hold inf
+// or NaN, seen as a NaN rest, is split again with the non-finite rule) into
+// one of two register buffers, the wgmmas issued (small terms first) and
+// committed as a group; then, while they run, a quarter of the next step's
+// decode (after the first k16 step also the ring's next fill). A group
+// waits for the one before it only when its A buffer comes round again,
+// and for all only where a block ends (blk is read) and at the end; with
+// three W tiles, the one the next step decodes into is never one an mma in
+// flight reads.
+// ---------------------------------------------------------------------------
+constexpr int kMmaBK = 64, kMmaMaxThreads = 256;
+// ring stages: 3 of f32 x, 4 of bf16 x (within 227 KB at 128 rows)
+template <typename TIn>
+__host__ __device__ constexpr int mma_stages() { return sizeof(TIn) == 4 ? 3 : 4; }
+constexpr int kMmaXPitch = kMmaBK + 8;      // elements of a staged x row
+constexpr int kMmaK16 = kMmaBK / 16;        // mma K steps (and scale rows) a K step
+constexpr int kMmaWTile = kMmaBK * kMmaCols;  // bf16 of a decoded W tile
+constexpr int kMmaWBufs = 3;                // W tiles: in use, being decoded, in flight
+
+__device__ __forceinline__ void PackedW::unit(const uint8_t* row, int nc,
+                                              uint32_t* c) const {
+  DecPacked{nullptr, 0, nb}.fields(row, c, nc);
+}
+
+struct MmaArgs {
+  const void* x;          // [M, K], f32 or bf16
+  const float* scales;    // [K / block, N]
+  float* part;            // [splits, M, N] (y when splits is 1)
+  int M, N, K, block, k_chunk, bm;
+  int lut_bits, lrep;     // a table of 2^lut_bits codes x 2^lrep copies
+  int e_shift;            // d' = d * 2^-e_shift, s' = s * 2^e_shift
+  int async_x, async_w, async_s;   // 16-byte cp.async (else plain copies)
+  int vec_out;            // float2 stores of y
+  F2PConsts f;
+};
+
+extern __shared__ float4 mma_smem4[];
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// d += A B for one warpgroup: A [64][16] bf16 from registers (this warp's
+// 16 rows, mma.sync's fragment layout), B [16][128] bf16 by descriptor,
+// N contiguous (the transposed form, the trailing 1); d in the m16n8
+// accumulator layout per n8 chunk
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,\n"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,\n"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},\n"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+// no-swizzle descriptor of a [16 k][128 n] bf16 slab (B, N contiguous:
+// wgmma's transposed B) whose 8 x 8 core matrices lie 2048 bytes apart
+// along k (LBO) and 128 bytes along n (SBO)
+__device__ __forceinline__ uint64_t mma_desc(const void* p) {
+  const uint64_t a = (uint64_t)((__cvta_generic_to_shared(p) & 0x3FFFF) >> 4);
+  return a | ((uint64_t)(2048 >> 4) << 16) | ((uint64_t)(128 >> 4) << 32);
+}
+
+// 16 bytes into shared memory, n of them from src (the rest zero): one
+// cp.async, or plain copies of kElem-byte elements
+template <int kElem>
+__device__ __forceinline__ void mma_copy16(void* dst, const void* src, const void* safe,
+                                           int n, int async) {
+  if (async) {
+    cp_async16(dst, n > 0 ? src : safe, n);
+    return;
+  }
+  uint8_t* d = reinterpret_cast<uint8_t*>(dst);
+  const uint8_t* s = reinterpret_cast<const uint8_t*>(src);
+#pragma unroll
+  for (int e = 0; e < 16; e += kElem) {
+    if constexpr (kElem == 1) d[e] = e < n ? s[e] : 0;
+    if constexpr (kElem == 2)
+      *reinterpret_cast<uint16_t*>(d + e) = e < n ? *reinterpret_cast<const uint16_t*>(s + e) : 0;
+    if constexpr (kElem == 4)
+      *reinterpret_cast<uint32_t*>(d + e) = e < n ? *reinterpret_cast<const uint32_t*>(s + e) : 0u;
+  }
+}
+
+// x = hi + mid + lo for the two values of v, by truncation: hi keeps x's
+// top 16 bits, mid those of the exact rest r = x - hi, lo those of r -
+// mid, each at most 8 significant bits (a bf16 value); packed as bf16x2
+// (the first value in the low half). Returns the rests' sum: NaN exactly
+// when a value is inf or NaN (inf - inf), which split3_nonfinite handles.
+__device__ __forceinline__ float split3(float2 v, uint32_t& hi, uint32_t& mid,
+                                        uint32_t& lo) {
+  const uint32_t u0 = __float_as_uint(v.x), u1 = __float_as_uint(v.y);
+  const float r0 = __fsub_rn(v.x, __uint_as_float(u0 & 0xFFFF0000u));
+  const float r1 = __fsub_rn(v.y, __uint_as_float(u1 & 0xFFFF0000u));
+  const uint32_t q0 = __float_as_uint(r0), q1 = __float_as_uint(r1);
+  const float l0 = __fsub_rn(r0, __uint_as_float(q0 & 0xFFFF0000u));
+  const float l1 = __fsub_rn(r1, __uint_as_float(q1 & 0xFFFF0000u));
+  hi = __byte_perm(u0, u1, 0x7632);
+  mid = __byte_perm(q0, q1, 0x7632);
+  lo = __byte_perm(__float_as_uint(l0), __float_as_uint(l1), 0x7632);
+  return __fadd_rn(r0, r1);
+}
+
+// split3 where a value may be inf or NaN: such a value goes into hi alone
+// (a NaN kept a NaN by its quiet bit, its sign kept), mid = lo = 0
+__device__ __forceinline__ void split3_nonfinite(float2 v, uint32_t& hi, uint32_t& mid,
+                                                 uint32_t& lo) {
+  split3(v, hi, mid, lo);
+  const float e[2] = {v.x, v.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (isfinite(e[i])) continue;
+    const uint32_t h = (__float_as_uint(e[i]) >> 16) | (isnan(e[i]) ? 0x40u : 0u);
+    const uint32_t keep = i ? 0x0000FFFFu : 0xFFFF0000u;
+    hi = (hi & keep) | (h << (16 * i));
+    mid &= keep;
+    lo &= keep;
+  }
+}
+
+template <typename TIn, typename WSrc, int BM>
+__global__ void __launch_bounds__(kMmaMaxThreads, 1)
+dequant_matmul_mma_kernel(MmaArgs a, WSrc w) {
+  constexpr bool kF32 = std::is_same<TIn, float>::value;
+  constexpr int kXE = sizeof(TIn), kS = mma_stages<TIn>();
+  constexpr int kXPieces = kMmaBK * kXE / 16;
+  constexpr int nthr = 2 * BM;                  // a warpgroup per 64 rows
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int x_bytes = BM * kMmaXPitch * kXE, c_pitch = w.pitch();
+  const int stage_bytes = x_bytes + kMmaBK * c_pitch + kMmaK16 * kMmaCols * 4;
+  uint32_t* lut = reinterpret_cast<uint32_t*>(mma_smem4);
+  __nv_bfloat16* wdec = reinterpret_cast<__nv_bfloat16*>(lut + (1 << (a.lut_bits + a.lrep)));
+  uint8_t* ring = reinterpret_cast<uint8_t*>(wdec + kMmaWBufs * kMmaWTile);
+
+  const int n0 = blockIdx.x * kMmaCols, m0 = blockIdx.y * BM;
+  const int kb = blockIdx.z * a.k_chunk, ke = min(a.K, kb + a.k_chunk);
+  const int nsteps = (ke - kb) / kMmaBK;
+  int cvalid;
+  const uint8_t* cspan = w.span(blockIdx.x, cvalid);
+  const long long cstride = w.stride();
+  const int cpieces = w.pieces();
+  const int svalid = min(kMmaCols, a.N - n0) * 4;
+
+  auto fill = [&](int step) {
+    uint8_t* st = ring + (step % kS) * stage_bytes;
+    const int k0 = kb + step * kMmaBK;
+#pragma unroll
+    for (int i = tid; i < BM * kXPieces; i += nthr) {
+      const int r = i / kXPieces, p = i - r * kXPieces, gm = m0 + r;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(a.x) +
+                           ((size_t)min(gm, a.M - 1) * a.K + k0) * kXE + 16 * p;
+      mma_copy16<kXE>(st + r * kMmaXPitch * kXE + 16 * p, src, a.x, gm < a.M ? 16 : 0,
+                      a.async_x);
+    }
+    uint8_t* cs = st + x_bytes;
+    for (int i = tid; i < kMmaBK * cpieces; i += nthr) {
+      const int r = i / cpieces, p = i - r * cpieces;
+      mma_copy16<WSrc::kElem>(cs + r * c_pitch + 16 * p, cspan + (k0 + r) * cstride + 16 * p,
+                              cspan, min(max(cvalid - 16 * p, 0), 16), a.async_w);
+    }
+    uint8_t* ss = cs + kMmaBK * c_pitch;
+    for (int i = tid; i < kMmaK16 * kMmaCols / 4; i += nthr) {
+      const int h = i >> 5, p = i & 31;
+      const float* src = a.scales + (size_t)((k0 + 16 * h) / a.block) * a.N + n0;
+      mma_copy16<4>(ss + h * kMmaCols * 4 + 16 * p, src + 4 * p, a.scales,
+                    min(max(svalid - 16 * p, 0), 16), a.async_s);
+    }
+  };
+
+  // units [k0, k1) of a step: unit u is K row 8 (u >> 7) + (u & 7), columns
+  // 8 ((u >> 3) & 15) + 0..7: one 16-byte row of a core matrix, at
+  // (k / 8) 2048 + (n / 8) 128 + (k % 8) 16 bytes
+  const uint32_t cmask = (1u << a.f.n_bits) - 1u, lsel = lane & ((1 << a.lrep) - 1);
+  constexpr int kPer = kMmaBK * kMmaCols / 8 / nthr;
+  auto decode = [&](int step, int k0, int k1) {
+    const uint8_t* cs = ring + (step % kS) * stage_bytes + x_bytes;
+    uint8_t* wd = reinterpret_cast<uint8_t*>(wdec + (step % kMmaWBufs) * kMmaWTile);
+#pragma unroll
+    for (int k = k0; k < k1; ++k) {
+      const int u = tid + k * nthr;
+      const int r = 8 * (u >> 7) + (u & 7), nc = (u >> 3) & 15;
+      uint32_t c[8], v[8];
+      w.unit(cs + r * c_pitch, nc, c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = lut[((c[j] & cmask) << a.lrep) | lsel];
+      *reinterpret_cast<uint4*>(wd + (r >> 3) * 2048 + nc * 128 + (r & 7) * 16) =
+          make_uint4(__byte_perm(v[0], v[1], 0x5410), __byte_perm(v[2], v[3], 0x5410),
+                     __byte_perm(v[4], v[5], 0x5410), __byte_perm(v[6], v[7], 0x5410));
+    }
+  };
+
+  for (int s = 0; s < kS - 1; ++s) {
+    if (s < nsteps) fill(s);
+    cp_async_commit();
+  }
+  {
+    const int rep = 1 << a.lrep;
+    const float down = exp2i(-a.e_shift);
+    for (int c = tid; c < (1 << a.lut_bits); c += nthr) {
+      const uint32_t d = __float_as_uint(__fmul_rn(f2p_decode((uint32_t)c, a.f), down)) >> 16;
+      for (int j = 0; j < rep; ++j) lut[(c << a.lrep) + ((j + lane) & (rep - 1))] = d;
+    }
+  }
+  cp_async_wait<kS - 2>();
+  __syncthreads();
+  decode(0, 0, kPer);
+
+  // warp w: rows 16 w .. 16 w + 15 of the CTA (warpgroup w / 4 takes 64)
+  const int g = lane >> 2, t = lane & 3;
+  const float up = exp2i(a.e_shift);
+  float acc[64], blk[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = blk[i] = 0.0f;
+
+  auto steps = [&](auto small) {
+    constexpr bool kSmall = decltype(small)::value;
+    for (int step = 0; step < nsteps; ++step) {
+      cp_async_wait<kS - 3>();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      const uint8_t* st = ring + (step % kS) * stage_bytes;
+      const TIn* xs = reinterpret_cast<const TIn*>(st) + warp * 16 * kMmaXPitch;
+      const float* ss = reinterpret_cast<const float*>(st + x_bytes + kMmaBK * c_pitch);
+      const __nv_bfloat16* wd = wdec + (step % kMmaWBufs) * kMmaWTile;
+      const int k0 = kb + step * kMmaBK;
+      uint32_t ah[2][4];
+      [[maybe_unused]] uint32_t am[2][4], al[2][4];
+#pragma unroll
+      for (int h = 0; h < kMmaK16; ++h) {
+        const int kk = 16 * h, buf = h & 1;
+        wgmma_wait<1>();   // the group that read this A buffer is done
+        if constexpr (kF32) {
+          float chk = 0.0f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                xs + (g + 8 * (q & 1)) * kMmaXPitch + kk + 2 * t + 8 * (q >> 1));
+            chk = __fadd_rn(chk, split3(v, ah[buf][q], am[buf][q], al[buf][q]));
+          }
+          if (isnan(chk)) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float2 v = *reinterpret_cast<const float2*>(
+                  xs + (g + 8 * (q & 1)) * kMmaXPitch + kk + 2 * t + 8 * (q >> 1));
+              split3_nonfinite(v, ah[buf][q], am[buf][q], al[buf][q]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            ah[buf][q] = *reinterpret_cast<const uint32_t*>(
+                xs + (g + 8 * (q & 1)) * kMmaXPitch + kk + 2 * t + 8 * (q >> 1));
+        }
+        const uint64_t desc = mma_desc(wd + h * 2048);   // 2 k octets of 1024 bf16
+        wgmma_fence();
+        if constexpr (kF32) {
+          wgmma_m64n128(blk, al[buf], desc);
+          wgmma_m64n128(blk, am[buf], desc);
+        }
+        wgmma_m64n128(blk, ah[buf], desc);
+        wgmma_commit();
+        if (h == 0) {   // the ring's next fill, behind this step's first mma
+          if (step + kS - 1 < nsteps) fill(step + kS - 1);
+          cp_async_commit();
+        }
+        decode(step + 1, h * kPer / kMmaK16, (h + 1) * kPer / kMmaK16);
+        const int kn = k0 + kk + 16;
+        if ((kSmall || h == kMmaK16 - 1) && ((kn & (a.block - 1)) == 0 || kn == ke)) {
+          wgmma_wait<0>();
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const float2 s = *reinterpret_cast<const float2*>(ss + h * kMmaCols + 8 * j + 2 * t);
+            const float s0 = __fmul_rn(s.x, up), s1 = __fmul_rn(s.y, up);
+            acc[4 * j] = fmaf(s0, blk[4 * j], acc[4 * j]);
+            acc[4 * j + 1] = fmaf(s1, blk[4 * j + 1], acc[4 * j + 1]);
+            acc[4 * j + 2] = fmaf(s0, blk[4 * j + 2], acc[4 * j + 2]);
+            acc[4 * j + 3] = fmaf(s1, blk[4 * j + 3], acc[4 * j + 3]);
+            blk[4 * j] = blk[4 * j + 1] = blk[4 * j + 2] = blk[4 * j + 3] = 0.0f;
+          }
+        }
+      }
+    }
+    wgmma_wait<0>();
+  };
+  if (a.block < kMmaBK)
+    steps(std::true_type{});
+  else
+    steps(std::false_type{});
+
+  float* out = a.part + (size_t)blockIdx.z * a.M * a.N;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int gm = m0 + warp * 16 + g + 8 * hr;
+    if (gm >= a.M) continue;
+    float* o = out + (size_t)gm * a.N;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int gn = n0 + 8 * j + 2 * t;
+      if (a.vec_out && gn + 1 < a.N) {
+        *reinterpret_cast<float2*>(o + gn) = make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+      } else {
+        if (gn < a.N) o[gn] = acc[4 * j + 2 * hr];
+        if (gn + 1 < a.N) o[gn + 1] = acc[4 * j + 2 * hr + 1];
+      }
+    }
+  }
+}
+
+template <typename TIn, typename WSrc>
+static size_t mma_smem(const MmaArgs& a, const WSrc& w) {
+  const size_t stage = (size_t)a.bm * kMmaXPitch * sizeof(TIn) +
+                       (size_t)kMmaBK * w.pitch() + kMmaK16 * kMmaCols * 4;
+  return (4u << (a.lut_bits + a.lrep)) + kMmaWBufs * kMmaBK * kMmaCols * 2 +
+         mma_stages<TIn>() * stage;
+}
+
+template <typename TIn, typename WSrc, int BM>
+static int launch_mma(MmaArgs a, WSrc w, int splits, cudaStream_t stream) {
+  auto k = dequant_matmul_mma_kernel<TIn, WSrc, BM>;
+  const size_t smem = mma_smem<TIn>(a, w);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  a.async_w = w.aligned();
+  static size_t opted[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > opted[dev])) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDevices) opted[dev] = smem;
+  }
+  const dim3 grid((a.N + kMmaCols - 1) / kMmaCols, (a.M + BM - 1) / BM, splits);
+  k<<<grid, 2 * BM, smem, stream>>>(a, w);
+  return (int)cudaGetLastError();
+}
+
+template <typename WSrc>
+static int launch_mma_in(int x_bf16, const MmaArgs& a, WSrc w, int splits,
+                         cudaStream_t stream) {
+  if (x_bf16)
+    return a.bm == 64 ? launch_mma<__nv_bfloat16, WSrc, 64>(a, w, splits, stream)
+                      : launch_mma<__nv_bfloat16, WSrc, 128>(a, w, splits, stream);
+  return a.bm == 64 ? launch_mma<float, WSrc, 64>(a, w, splits, stream)
+                    : launch_mma<float, WSrc, 128>(a, w, splits, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -2268,20 +2748,52 @@ int f2p_counter_advance(const int* state, const float* budget, int* state_out,
   return (int)cudaGetLastError();
 }
 
+// The tile route (M > 8) of B7 / B8: the plan (mma: the tensor-core
+// kernel, else the SIMT one; bm, k_chunk, splits; e_shift) comes from
+// f2p_matmul.tile_kernel and mma_plan / matmul_split. With splits > 1, part
+// holds splits x M x N floats, added into y in split order.
 int f2p_dequant_matmul(const void* x, int x_bf16, const void* w, int code_bytes,
                        int W, const float* scales, float* part, float* y, int M,
-                       int N, int K, int block, int bm, int k_chunk, int splits,
-                       F2PConsts f, cudaStream_t stream) {
+                       int N, int K, int block, int mma, int bm, int k_chunk,
+                       int splits, int e_shift, F2PConsts f, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (code_bytes == 1)
+  if (mma) {
+    if (block < 16 || (block & (block - 1)) || K % kMmaBK || k_chunk % kMmaBK ||
+        k_chunk <= 0 || (bm != 64 && bm != 128) || f.n_bits > 10 || e_shift < -126 ||
+        e_shift > 126)
+      return (int)cudaErrorInvalidValue;
+    MmaArgs a;
+    a.x = x; a.scales = scales; a.part = part; a.M = M; a.N = N; a.K = K;
+    a.block = block; a.k_chunk = k_chunk; a.bm = bm;
+    // table copies: 32 up to 8 bits, 2 above (so that f32 x and uint16
+    // codes fit 128 rows)
+    a.lut_bits = f.n_bits; a.lrep = f.n_bits <= 8 ? 5 : 1;
+    a.e_shift = e_shift;
+    a.async_x = (uintptr_t)x % 16 == 0;
+    a.async_w = 0;   // set per source by launch_mma
+    a.async_s = (uintptr_t)scales % 16 == 0 && N % 4 == 0;
+    a.vec_out = (uintptr_t)part % 8 == 0 && N % 2 == 0;
+    a.f = f;
+    int rc;
+    if (code_bytes == 1)
+      rc = launch_mma_in(x_bf16, a, UnpackedW<uint8_t>{(const uint8_t*)w, N}, splits, stream);
+    else if (code_bytes == 2)
+      rc = launch_mma_in(x_bf16, a, UnpackedW<uint16_t>{(const uint16_t*)w, N}, splits,
+                         stream);
+    else
+      rc = launch_mma_in(x_bf16, a, PackedW{(const uint32_t*)w, W, f.n_bits}, splits,
+                         stream);
+    if (rc) return rc;
+  } else if (code_bytes == 1) {
     launch_matmul_in(x_bf16, x, UnpackedW<uint8_t>{(const uint8_t*)w, N}, scales,
                      part, M, N, K, block, bm, k_chunk, splits, f, stream);
-  else if (code_bytes == 2)
+  } else if (code_bytes == 2) {
     launch_matmul_in(x_bf16, x, UnpackedW<uint16_t>{(const uint16_t*)w, N},
                      scales, part, M, N, K, block, bm, k_chunk, splits, f, stream);
-  else
+  } else {
     launch_matmul_in(x_bf16, x, PackedW{(const uint32_t*)w, W, f.n_bits}, scales,
                      part, M, N, K, block, bm, k_chunk, splits, f, stream);
+  }
   if (splits > 1) {
     const long long mn = (long long)M * N;
     const int grid = (int)min((mn + 255) / 256, (long long)1 << 16);

@@ -177,7 +177,7 @@ def lib():
                                                     F, P]
         L.f2p_counter_advance.argtypes = [P] * 7 + [LL, I, U, U, I, P]
         L.f2p_counter_estimate.argtypes = [P, P, P, LL, P]
-        L.f2p_dequant_matmul.argtypes = [P, I, P, I, I, P, P, P] + [I] * 7 + [
+        L.f2p_dequant_matmul.argtypes = [P, I, P, I, I, P, P, P] + [I] * 9 + [
             F2PConsts, P]
         L.f2p_dequant_matmul_decode.argtypes = [P, I, P, I, I, P, P, P, P] + [
             I] * 6 + [F2PConsts, P]

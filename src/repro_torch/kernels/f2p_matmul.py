@@ -13,27 +13,45 @@ K-row's N codes bit-packed into the port's uint32 word layout
 ``f2p_dequant_matmul_packed`` replaces ``_packed_kernel`` (B7). On a CPU
 tensor each runs its plain version (:func:`ref_dequant_matmul`, after
 ``unpack_bits`` for B7); on a CUDA tensor each launches a kernel of
-``csrc/f2p_kernels.cu`` or raises. Two routes compute the same function
-(:func:`matmul_route`): a decode batch (M <= ``MM_DECODE_ROWS``) goes to
-``dequant_matmul_decode_kernel``, which streams the weight with each lane
-owning 8 columns and 8 x 8 sums in registers (rows past M are zero),
-planned by
-:func:`decode_plan`; a larger M goes to the tile kernel
-``dequant_matmul_kernel`` (one CTA per output tile), planned by
-:func:`matmul_split`. Both split K across CTAs when the columns alone do
-not fill the card and add the partials in split order. Both compute in f32
-only (f32 products, f32 FMA accumulation; no TF32 and no bf16 tensor
-cores), as the reference does with ``preferred_element_type=float32``. At
-a decode batch the work is bound by the weight bytes streamed (n_bits/8
-per weight plus 4/block for the scales) and the M f32 FMAs per weight; at
-a prefill batch by the f32 operations.
+``csrc/f2p_kernels.cu`` or raises. Which kernel serves a call is decided
+on the host, up front, by rows (:func:`matmul_route`), format and block
+(:func:`tile_kernel`), never by a failure:
+
+- a decode batch (M <= ``MM_DECODE_ROWS``) goes to
+  ``dequant_matmul_decode_kernel``, which streams the weight with each
+  lane owning 8 columns and 8 x 8 f32 sums in registers (rows past M are
+  zero), planned by :func:`decode_plan`; bound by the weight bytes;
+- a larger M (the tile route) goes to ``dequant_matmul_mma_kernel`` on
+  the tensor cores (``tile_kernel`` "mma"), planned by :func:`mma_plan`,
+  when the format's decoded values hold at most 8 significant bits
+  (:func:`significant_bits`: every format of at most 9 bits, and of 10
+  bits all but h = 1 LR / LI), n_bits <= 10 (its decode table) and the
+  block is a multiple of 16. A decoded weight is then exactly a bf16
+  value (after the power of two :func:`mma_shift`), an f32 x splits
+  exactly by truncation into three bf16 terms (one for bf16 x), each
+  product is exact in the f32 accumulator, and each scale multiplies its
+  block's sum: 3 bf16 passes for f32 x, 1 for bf16 x, the result within
+  f32 rounding of the plain version's;
+- the other formats (``f2p_sr_2_12s``, ``f2p_sr_2_16s``: 9 and 13
+  significant bits; ``f2p_lr_1_10s``: 9) and blocks of the tile route go
+  to the f32 SIMT kernel ``dequant_matmul_kernel`` (``tile_kernel``
+  "simt", f32 products and FMAs, no tensor cores), planned by
+  :func:`matmul_split`.
+
+Each splits K across CTAs when the output tiles alone do not fill the card
+and adds the partials in split order, so no result depends on scheduling.
+``SERVED`` counts the calls each kernel served.
 
 The reference's per-(backend, n_bits) tile table and
-``autotune_matmul_tiles`` tune Pallas tiles and have no counterpart yet
-(ROADMAP A8).
+``autotune_matmul_tiles`` tune Pallas tiles (M_T, N_T, K_T, a K step of
+256) that do not map onto a CUDA kernel's compiled instances and its
+pipelined K step of 64; they have no counterpart (ROADMAP A15).
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.core.f2p import F2PFormat, Flavor
@@ -50,7 +68,8 @@ __all__ = ["WEIGHT_FMT", "quantize_weight", "quantize_weight_plain",
            "dequantize_weight", "ref_dequant_matmul",
            "f2p_dequant_matmul", "f2p_dequant_matmul_packed",
            "dequant_matmul", "matmul_split", "matmul_route", "decode_plan",
-           "MM_DECODE_ROWS"]
+           "tile_kernel", "mma_plan", "significant_bits", "mma_shift",
+           "MM_DECODE_ROWS", "SERVED"]
 
 WEIGHT_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
 
@@ -58,8 +77,18 @@ WEIGHT_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
 # both packages accept the same calls
 M_T, N_T, K_T = 128, 256, 256
 
-# the tile kernel's output tile width and its K step (csrc kMmBN, kMmBK)
+# the tile kernels' output tile width (csrc kMmBN, kMmaCols) and the SIMT
+# kernel's K step (kMmBK)
 _BN, _BK = 128, 32
+
+# the tensor-core kernel: its table holds every code of at most 10 bits,
+# a decoded value at most bf16's 8 significant bits, a block whole mma
+# K steps of 16 rows; its K step (csrc kMmaBK)
+_MMA_MAX_BITS, _MMA_SIG_BITS, _MMA_K, _MMA_BK = 10, 8, 16, 64
+
+# calls served by each kernel of B7 / B8 (a diagnostic beside C.LAUNCHES,
+# which counts the wrappers' launches)
+SERVED = {"decode": 0, "mma": 0, "simt": 0}
 
 # the decode route: M at or below MM_DECODE_ROWS. A CTA of 8 warps covers
 # _DEC_COLS columns (csrc kDecCols: 32 lanes x 8) and its K chunk in units
@@ -177,6 +206,57 @@ def decode_plan(M: int, N: int, K: int, n_sm: int) -> tuple[int, int]:
     return chunk, -(-K // chunk)
 
 
+@functools.lru_cache(maxsize=64)
+def _decoded_nonzero(fmt: F2PFormat) -> np.ndarray:
+    """|decode(c)| of every code of the format that decodes to nonzero."""
+    d = dequantize_tile_math(torch.arange(1 << fmt.n_bits, dtype=torch.int32),
+                             fmt).double().abs().numpy()
+    return d[d != 0]
+
+
+@functools.lru_cache(maxsize=64)
+def significant_bits(fmt: F2PFormat) -> int:
+    """The most significant bits (leading one to last one) of any decoded
+    value of the format, over every code: at most 8 makes each decoded
+    weight a bf16 value."""
+    m, _ = np.frexp(_decoded_nonzero(fmt))
+    ints = (m * 2.0 ** 53).astype(np.int64)      # exact: 53-bit mantissas
+    return int(53 - np.log2(ints & -ints).min())
+
+
+@functools.lru_cache(maxsize=64)
+def mma_shift(fmt: F2PFormat) -> int:
+    """e with max |decode(c)| * 2^-e in [0.5, 1): the tensor-core kernel's
+    table holds d * 2^-e and its scales are s * 2^e (both exact), so a
+    product x * d' stays below |x|."""
+    return int(np.frexp(_decoded_nonzero(fmt).max())[1])
+
+
+def tile_kernel(fmt: F2PFormat, block: int) -> str:
+    """Which kernel serves a tile-route call (M > MM_DECODE_ROWS):
+    ``"mma"`` (``dequant_matmul_mma_kernel``, bf16 tensor cores) for a
+    format of at most 10 bits whose decoded values hold at most 8
+    significant bits and a block that is a multiple of 16, else ``"simt"``
+    (``dequant_matmul_kernel``, f32)."""
+    if (block % _MMA_K == 0 and fmt.n_bits <= _MMA_MAX_BITS
+            and significant_bits(fmt) <= _MMA_SIG_BITS):
+        return "mma"
+    return "simt"
+
+
+def mma_plan(M: int, N: int, K: int, n_sm: int) -> tuple[int, int, int]:
+    """(rows per CTA, K chunk, K splits) of the tensor-core kernel's launch:
+    64 or 128 rows covering M (a warpgroup per 64 rows; by shared memory
+    one CTA takes an SM), and K split, in whole K steps of 64 rows and
+    chunks of at least 128, while the output tiles alone leave SMs idle (at
+    most 32 splits)."""
+    bm = 64 if M <= 64 else 128
+    tiles = -(-M // bm) * -(-N // _BN)
+    splits = max(1, min(32, K // 128, n_sm // tiles))
+    chunk = -(-(K // _MMA_BK) // splits) * _MMA_BK
+    return bm, chunk, -(-K // chunk)
+
+
 _N_SM: dict[int, int] = {}
 
 
@@ -212,16 +292,24 @@ def _launch(x, w, scales, fmt, block, N, code_bytes, W):
             code_bytes, W, scales.data_ptr(), part.data_ptr(), y.data_ptr(),
             counts.data_ptr(), M, N, K, block, k_chunk, splits, consts,
             stream), what)
+        SERVED["decode"] += 1
         return y
-    bm, splits = matmul_split(M, N, K, n_sm)
-    k_chunk = -(-(K // _BK) // splits) * _BK
-    splits = -(-K // k_chunk)
+    kernel = tile_kernel(fmt, block)
+    if kernel == "mma":
+        bm, k_chunk, splits = mma_plan(M, N, K, n_sm)
+        shift = mma_shift(fmt)
+    else:
+        bm, splits = matmul_split(M, N, K, n_sm)
+        k_chunk = -(-(K // _BK) // splits) * _BK
+        splits, shift = -(-K // k_chunk), 0
     part = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
             if splits > 1 else y)
     C.check(C.lib().f2p_dequant_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
         code_bytes, W, scales.data_ptr(), part.data_ptr(), y.data_ptr(), M,
-        N, K, block, bm, k_chunk, splits, consts, stream), what)
+        N, K, block, int(kernel == "mma"), bm, k_chunk, splits, shift,
+        consts, stream), what)
+    SERVED[kernel] += 1
     return y
 
 

@@ -515,7 +515,29 @@ def test_quantize_weight_on_card_matches_cpu(gen, name, packed):
         assert torch.equal(s.cpu(), ps)
 
 
-@pytest.mark.parametrize("M", [1, 5, 8, 13, 64, 100, 256])
+def _served_by(fmt, block, M):
+    """The kernel that must serve an M-row call: the route by rows, then
+    the tile kernel by format and block."""
+    if MM.matmul_route(M, block) == "decode":
+        return "decode"
+    return MM.tile_kernel(fmt, block)
+
+
+def _call_once(x, q, scales, fmt, block, packed):
+    """One wrapper call: (y, the kernel that served it), asserting one
+    launch counted."""
+    key = "dequant_matmul_packed" if packed else "dequant_matmul"
+    C.reset_launches()
+    before = dict(MM.SERVED)
+    y = MM.dequant_matmul(x, q, scales, fmt=fmt, block=block, packed=packed)
+    assert C.LAUNCHES[key] == 1 and sum(C.LAUNCHES.values()) == 1
+    served = [k for k in MM.SERVED if MM.SERVED[k] != before[k]]
+    assert len(served) == 1 and MM.SERVED[served[0]] == before[served[0]] + 1
+    return y, served[0]
+
+
+@pytest.mark.parametrize("M", [1, 5, 8, 9, 13, 16, 64, 100, 256, 2048])
+@pytest.mark.parametrize("block", [16, 32, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name,packed", [("f2p_sr_2_8s", False),
                                          ("f2p_sr_2_10s", False),
@@ -523,28 +545,111 @@ def test_quantize_weight_on_card_matches_cpu(gen, name, packed):
                                          ("f2p_sr_2_6s", True),
                                          ("f2p_lr_2_8s", True),
                                          ("f2p_sr_2_12s", True)])
-def test_dequant_matmul_kernels_vs_plain(gen, M, dtype, name, packed):
+def test_dequant_matmul_kernels_vs_plain(gen, M, block, dtype, name, packed):
     """B8 (uint8 / uint16 codes) and B7 (packed words, fields straddling
     words) against the plain version on the card, at decode, odd and
-    prefill M; K split across CTAs at the small M."""
+    prefill M and blocks of 16 to 256 rows; K split across CTAs at the
+    small M. Formats of at most 10 bits take the tensor-core kernel above
+    the decode rows, 12 and 16 bits the SIMT one; one launch per call, and
+    a second call gives the same bits."""
     fmt = named_format(name)
     K, N = 512, 256
     x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
     w = torch.randn(K, N, generator=gen, device="cuda") * 0.05
-    codes, scales = MM.quantize_weight(w, fmt)
-    C.reset_launches()
-    if packed:
-        words, _ = MM.quantize_weight(w, fmt, packed=True)
-        y = MM.dequant_matmul(x, words, scales, fmt=fmt, packed=True)
-        assert C.LAUNCHES["dequant_matmul_packed"] == 1
-    else:
-        y = MM.dequant_matmul(x, codes, scales, fmt=fmt)
-        assert C.LAUNCHES["dequant_matmul"] == 1
-    ref = MM.ref_dequant_matmul(x, codes, scales, fmt)
+    codes, scales = MM.quantize_weight(w, fmt, block=block)
+    q = MM.quantize_weight(w, fmt, block=block, packed=True)[0] if packed \
+        else codes
+    y, served = _call_once(x, q, scales, fmt, block, packed)
+    want = _served_by(fmt, block, M)
+    assert served == want
+    if M > MM.MM_DECODE_ROWS:
+        assert want == ("simt" if fmt.n_bits > 10 else "mma")
+    ref = MM.ref_dequant_matmul(x, codes, scales, fmt, block)
     torch.cuda.synchronize()
     assert y.dtype == torch.float32 and y.shape == (M, N)
     torch.testing.assert_close(y, ref, rtol=1e-4,
                                atol=1e-4 * float(ref.abs().max()))
+    y2, _ = _call_once(x, q, scales, fmt, block, packed)
+    assert torch.equal(_bits(y2), _bits(y))
+
+
+def _edge_x(gen, M, K, dtype, kind):
+    """x for the tile route's edge cases: ``wide`` spans 2^-100 to 2^100
+    (random signs); ``special`` is randn with inf, -inf, NaN and the
+    dtype's largest finite values of both signs in rows of their own."""
+    if kind == "wide":
+        e = torch.randint(-100, 101, (M, K), generator=gen, device="cuda")
+        s = torch.randint(0, 2, (M, K), generator=gen, device="cuda") * 2 - 1
+        m = torch.rand(M, K, generator=gen, device="cuda") + 1.0
+        return (s * m * torch.exp2(e.float())).to(dtype)
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    big = torch.finfo(dtype).max
+    x[1, 3], x[2, 200], x[3, 17] = float("inf"), -float("inf"), float("nan")
+    x[4, 40], x[5, 301] = big, -big
+    x[6, 7], x[6, 300] = float("inf"), -float("inf")   # inf - inf: NaN
+    return x
+
+
+@pytest.mark.parametrize("kind", ["special", "wide"])
+@pytest.mark.parametrize("N", [100, 768])
+@pytest.mark.parametrize("M", [9, 100, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,packed,block", [("f2p_sr_2_8s", False, 128),
+                                               ("f2p_sr_2_6s", True, 16),
+                                               ("f2p_sr_2_10s", True, 64),
+                                               ("f2p_sr_2_16s", False, 128)])
+def test_dequant_matmul_tile_route_edges_vs_plain(gen, kind, N, M, dtype,
+                                                  name, packed, block):
+    """The tile route against the plain version on ragged N (100: a partial
+    tile, unaligned code rows; 768: six tiles), x holding inf, NaN and
+    +-the largest finite value (equal NaN and inf positions), and x
+    spanning 2^-100 to 2^100, where the tensor-core kernel's split of x
+    and its products with subnormal terms differ from the plain version
+    only far below the tolerance. Deterministic: a second call gives the
+    same bits."""
+    fmt = named_format(name)
+    K = 512
+    x = _edge_x(gen, M, K, dtype, kind)
+    w = torch.randn(K, N, generator=gen, device="cuda") * 0.05
+    codes, scales = MM.quantize_weight(w, fmt, block=block)
+    q = MM.quantize_weight(w, fmt, block=block, packed=True)[0] if packed \
+        else codes
+    y, served = _call_once(x, q, scales, fmt, block, packed)
+    assert served == ("simt" if fmt.n_bits > 10 else "mma")
+    ref = MM.ref_dequant_matmul(x, codes, scales, fmt, block)
+    torch.cuda.synchronize()
+    fin = ref[torch.isfinite(ref)]
+    torch.testing.assert_close(y, ref, rtol=1e-4, equal_nan=True,
+                               atol=1e-4 * float(fin.abs().max()))
+    if kind == "special":
+        assert bool(torch.isnan(ref[3]).all())
+        assert bool(torch.isinf(ref[1]).any())
+        assert bool(torch.isfinite(ref[4]).all() & torch.isfinite(ref[5]).all())
+    y2, _ = _call_once(x, q, scales, fmt, block, packed)
+    assert torch.equal(_bits(y2), _bits(y))
+
+
+def test_dequant_matmul_on_card_never_runs_plain(gen, monkeypatch):
+    """No call on CUDA tensors reaches the plain version or torch.matmul,
+    on any route or tile kernel."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call reached a plain path")
+
+    monkeypatch.setattr(MM, "ref_dequant_matmul", refuse)
+    monkeypatch.setattr(torch, "matmul", refuse)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", refuse)
+    w = torch.randn(512, 256, generator=gen, device="cuda") * 0.05
+    for name, block in (("f2p_sr_2_8s", 128), ("f2p_sr_2_16s", 128),
+                        ("f2p_sr_2_8s", 8)):
+        fmt = named_format(name)
+        codes, scales = MM.quantize_weight(w, fmt, block=block)
+        words, _ = MM.quantize_weight(w, fmt, block=block, packed=True)
+        for M in (4, 64, 2048):
+            x = torch.randn(M, 512, generator=gen, device="cuda")
+            MM.dequant_matmul(x, codes, scales, fmt=fmt, block=block)
+            MM.dequant_matmul(x, words, scales, fmt=fmt, block=block,
+                              packed=True)
+    torch.cuda.synchronize()
 
 
 _DECODE_KINDS = [("f2p_sr_2_8s", False), ("f2p_sr_2_6s", False),
