@@ -21,7 +21,12 @@ Phases (any failed check raises, so the script exits non-zero):
 2. build   — nvcc builds csrc/f2p_kernels.cu from the checkout (sm_90a).
 3. kernels — each hand-written kernel at its main path's shapes against
    its plain PyTorch version ON THE CARD: the packed codec bitwise (words,
-   scales, values; 6/8/16-bit formats, f32 and bf16), B3's KV write
+   scales, values; 6/8/16-bit formats, f32 and bf16; B4's K+V mode on a
+   layer view of a stacked cache with zero, inf and NaN scales), B4's two
+   modes at the unfused cache read (one layer's [1, 1024, 8, 128] cache,
+   bf16 out, f2p_sr_2_8s and f2p_lr_1_6s; the K+V mode beside the two
+   single calls _cache_read made before) with the host, on the device,
+   with the L2 cold and as the host's enqueue time per call, B3's KV write
    (one launch for a layer's K and V into the cache) bitwise outside the
    dump page in both addressing modes at the serving cache (8 slots,
    1024 positions over 8-token pages, 8 kv heads x 128; f2p_sr_2_8s and
@@ -40,9 +45,10 @@ Phases (any failed check raises, so the script exits non-zero):
    bitwise in gradients and residuals against ef_roundtrip_plain (bf16 and
    f32 g, error feedback on and off; one leaf of each train shape, a
    ragged and a cols % 4 != 0 leaf, zero, NaN and inf blocks; NaNs by
-   position), and per train step (255 leaves) B5 at 8 and 16 bits (per
-   leaf shape, the median of 3 timed runs with the host) and the round
-   trip, with the host and on the device, the round trip beside the
+   position), and per train step (255 leaves) B5 at 8 and 16 bits and B6
+   (per leaf shape, the median of 3 timed runs with the host, and the
+   device time) and the round trip, with the host and on the device, the
+   round trip beside the
    composition it replaced (old_compression); attention (B1/B2: 8 rows x
    8 kv heads, G = 3, head_dim 128, kv_len 512..1024) within
    rtol=atol=1e-5 in f32 plus paged == dense-over-gathered-pages bitwise
@@ -88,9 +94,14 @@ Phases (any failed check raises, so the script exits non-zero):
    weights from torch.Generator seed 0): 16 staggered requests through
    BatchedEngine(slots=8, max_seq=1024), paged, then copy-in; every request
    finishes and both modes give bitwise-equal tokens. Then a short
-   Engine(fused_attention=False) run (the dequantize path) and a sequential
-   Engine replay whose token agreement is printed, not asserted (cuBLAS may
-   sum batch-1 and batch-8 products in different orders at bf16). Every
+   Engine(fused_attention=False) run (ServeConfig's default: each decode
+   step reads every layer's K and V cache back through B4's K+V mode):
+   4 tokens equal to the paged run's first 4, exactly one kv_read launch
+   per layer per decode step and no single-mode launch (asserted), and
+   its decode ms per token ((33 tokens - 1 token) / 32, median of 3); and
+   a fused sequential Engine replay whose token agreement is printed, not
+   asserted (cuBLAS may sum batch-1 and batch-8 products in different
+   orders at bf16). Every
    kernel's launch counter is zeroed just before the path that runs it and
    read just after; each must be > 0, and B3's KV write must launch
    exactly once per layer per decode step and per prefill call, paged and
@@ -416,7 +427,9 @@ def log_profile(tag: str, res: dict) -> None:
 def codec_bitwise(dev, g, fmt) -> None:
     """B3 and B4 against their plain versions, bitwise, at the serving
     shapes: decode (slots 8 x 8 kv heads rows of head_dim 128) and a
-    prefill group (4 prompts at bucket 256 x 8 kv heads)."""
+    prefill group (4 prompts at bucket 256 x 8 kv heads); B4's K+V mode on
+    a layer of the unfused engine's cache (layer 1 of 2 x [1, 1024, 8,
+    128]), with zero, inf and NaN scales."""
     import torch
 
     from repro_torch.kernels import f2p_quant as Q
@@ -435,12 +448,51 @@ def codec_bitwise(dev, g, fmt) -> None:
             d = Q.f2p_dequantize_packed(w, s, fmt, out_dtype=odt)
             pd = Q.dequantize_packed_plain(w, s, fmt, 128, odt)
             assert torch.equal(d, pd), f"dequantize differs: {fmt} {odt}"
+    cache = kv_read_cache(dev, g, fmt)
+    for kv in ("k", "v"):
+        sc = cache[kv].scales.view(-1)
+        sc[:3] = torch.tensor([0.0, float("inf"), float("nan")], device=dev)
+    for odt in (torch.float32, torch.bfloat16):
+        got = Q.f2p_kv_read(cache, odt)
+        for a, b in zip(got, Q.kv_read_plain(cache, odt)):
+            assert torch.equal(_bits(a), _bits(b)), f"kv_read differs: {fmt} {odt}"
+
+
+def kv_read_cache(dev, g, fmt, L=2, layer=1, B=1, S=1024, K=8, hd=128):
+    """Layer ``layer`` of an L-stacked packed cache [L, B, S, K, hd] (the
+    unfused engine's layout: a layer view at an offset into the stack),
+    every position written from randn x 3."""
+    import torch
+
+    from repro_torch.core import qtensor as QT
+
+    stack = {kv: QT.quantize(torch.randn(L, B, S, K, hd, generator=g,
+                                         device=dev) * 3, fmt, block=hd,
+                             packed=True) for kv in ("k", "v")}
+    return {kv: QT.QTensor(c.codes[layer], c.scales[layer], c.fmt, c.block,
+                           c.shape[1:], True) for kv, c in stack.items()}
+
+
+def host_enqueue_ms(fn, iters=200) -> float:
+    """Host time per call: ``iters`` calls enqueued without a sync (the
+    device runs behind), from the host's clock."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
 
 
 def check_codec(dev):
     """B3 and B4: the codec bitwise at the serving shapes (6/8/16-bit,
-    contiguous rows), B3's KV write bitwise and timed (check_kv_write),
-    the prefill quantize timed, and B4 at the unfused cache read."""
+    contiguous rows, B4's K+V mode on a layer view), B3's KV write bitwise
+    and timed (check_kv_write), the prefill quantize timed, and B4's two
+    modes at the unfused cache read (check_dequantize)."""
     import torch
 
     from repro_torch.core.formats import named_format
@@ -451,7 +503,8 @@ def check_codec(dev):
     for name in ("f2p_sr_2_6s", "f2p_sr_2_8s", "f2p_lr_2_16s"):
         codec_bitwise(dev, g, named_format(name))
     log("codec    : quantize/dequantize kernels == plain, bitwise "
-        "(6/8/16-bit, f32+bf16 in, f32+bf16 out)")
+        "(6/8/16-bit, f32+bf16 in, f32+bf16 out; B4's K+V read of a layer "
+        "view with zero/inf/NaN scales)")
     fmt = named_format("f2p_sr_2_8s")
     W = 32
     out["quantize_packed"] = check_kv_write(dev)
@@ -464,23 +517,82 @@ def check_codec(dev):
     out["quantize_packed"]["prefill_quantize"] = pf
     log(f"quantize : contiguous rows [8192,128] bf16 {pf['ms']:.5f} ms "
         f"(device {_ms(pf['device_ms'])}; bound {pf['bound_ms']:.5f} ms)")
-    # dequantize at the Engine(fused_attention=False) cache read: the
-    # whole [1, 1024, 8] cache of one layer, bf16 out
-    rows = 1024 * 8
-    w, s = Q.f2p_quantize_packed(
-        torch.randn(rows, 128, generator=g, device=dev), fmt)
-    nb = rows * W * 4 + rows * 4 + rows * 128 * 2
-    d = Q.f2p_dequantize_packed(w, s, fmt, out_dtype=torch.bfloat16)
-    pd = Q.dequantize_packed_plain(w, s, fmt, 128, torch.bfloat16)
-    out["dequantize_packed"] = dict(
-        ms=cuda_ms(lambda: Q.f2p_dequantize_packed(
-            w, s, fmt, out_dtype=torch.bfloat16), iters=100),
-        plain_ms=cuda_ms(lambda: Q.dequantize_packed_plain(
-            w, s, fmt, 128, torch.bfloat16)),
-        bound_ms=bound_ms(nb), library_ms=None,
-        max_abs_err=float((d.float() - pd.float()).abs().max()),
-        shape="words [8192, 32] + scales -> [8192, 128] bf16")
+    out["dequantize_packed"] = check_dequantize(dev, g)
     return out
+
+
+def check_dequantize(dev, g, names=("f2p_sr_2_8s", "f2p_lr_1_6s")) -> dict:
+    """B4's two modes at the Engine(fused_attention=False) cache read, one
+    layer's [1, 1024, 8, 128] cache, bf16 out: the single mode on its K
+    words [8192, W] and the K+V mode (f2p_kv_read) on the layer view, each
+    timed with the host (CUDA events around a loop), on the device
+    (torch.profiler, the kernel alone, L2-resident as in that loop), with
+    the L2 cold (a 64 MB write before each launch: a layer's cache is read
+    once per decode step, after 27 other layers' work), the host's enqueue
+    time per call, beside the bytes bound, the plain version and, for the
+    K+V mode, the two single calls that _cache_read made before; per format
+    (8-bit and 5b's solved 6-bit)."""
+    import torch
+
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_quant as Q
+
+    bf = torch.bfloat16
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for name in names:
+        fmt = named_format(name)
+        cache = kv_read_cache(dev, g, fmt)
+        ck, cv = cache["k"], cache["v"]
+        w = ck.codes.reshape(-1, ck.codes.shape[-1])
+        s = ck.scales.reshape(-1, 1)
+        n = w.shape[0]
+        # words, scales in once, bf16 values out once, per side
+        side = n * (w.shape[1] * 4 + 4 + 128 * 2)
+        single = lambda: Q.f2p_dequantize_packed(w, s, fmt, out_dtype=bf)
+        both = lambda: Q.f2p_kv_read(cache, bf)
+        for mode, fn, plain, nb, old in (
+                ("single", single,
+                 lambda: Q.dequantize_packed_plain(w, s, fmt, 128, bf),
+                 side, None),
+                ("kv_read", both, lambda: Q.kv_read_plain(cache, bf),
+                 2 * side, lambda: (QT.dequantize(ck, dtype=bf),
+                                    QT.dequantize(cv, dtype=bf)))):
+            got, ref = fn(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                f"B4 {mode} differs from its plain version: {name}"
+            dms, per_call = device_calls(fn, "dequantize_packed_kernel")
+            cold, _ = device_calls(fn, "dequantize_packed_kernel",
+                                   flush=scratch.zero_)
+            r = dict(ms=host_ms(fn, iters=100), device_ms=dms, cold_ms=cold,
+                     host_enqueue_ms=host_enqueue_ms(fn),
+                     device_kernels_per_call=per_call,
+                     plain_ms=cuda_ms(plain, iters=10), bound_ms=bound_ms(nb),
+                     bound_by="bytes", library_ms=None, max_abs_err=max(
+                         float((a.float() - b.float()).abs().max())
+                         for a, b in zip(got, ref)))
+            if old is not None:
+                r["two_single_ms"] = host_ms(old, iters=100)
+                r["two_single_device_ms"], r["two_single_kernels"] = \
+                    device_ms_kernels(old)
+            rows[f"{name} {mode}"] = r
+            log(f"dequant  : {name:12s} {mode:7s} {r['ms']:.5f} ms (device "
+                f"{_ms(dms)}, cold L2 {_ms(cold)}, host enqueue "
+                f"{r['host_enqueue_ms']:.5f}; {per_call} device kernels per "
+                f"call) bound {r['bound_ms']:.5f}, plain {r['plain_ms']:.3f}"
+                + ("" if old is None else
+                   f"; _cache_read's two single calls {r['two_single_ms']:.5f}"
+                   f" ms (device {_ms(r['two_single_device_ms'])}, "
+                   f"{r['two_single_kernels']} kernels)"))
+    del scratch
+    main = dict(rows[f"{names[0]} kv_read"])
+    main.update(rows=rows, shape=f"one layer's K and V cache [1, 1024, 8, "
+                f"128] ({names[0]}, a layer view of the stack) -> bf16, one "
+                f"launch")
+    return main
 
 
 # the serving cache: 8 slots, max_seq 1024 over 8-token pages, 8 kv heads
@@ -912,8 +1024,8 @@ def check_unpacked_codec(dev):
     # time per step: every leaf once
     cfg = full_config(ARCH)
     per_shape = {}
-    tot = dict(q=0.0, qd=0.0, q16=0.0, q16d=0.0, d=0.0, qp=0.0, dp=0.0,
-               qb=0, q16b=0, db=0, n=0)
+    tot = dict(q=0.0, qd=0.0, q16=0.0, q16d=0.0, d=0.0, dd=0.0, qp=0.0,
+               dp=0.0, qb=0, q16b=0, db=0, n=0)
     for shape, count in train_leaf_counts(cfg).items():
         x = torch.randn(*shape, generator=g, device=dev).reshape(
             -1, shape[-1])
@@ -933,7 +1045,10 @@ def check_unpacked_codec(dev):
                  quantize_device_ms=device_ms(lambda: Q.f2p_quantize_codes(
                      x, grad_fmt), iters=10),
                  quantize16_device_ms=device_ms(lambda: Q.f2p_quantize_codes(
-                     x, ckpt_fmt), iters=10))
+                     x, ckpt_fmt), iters=10),
+                 dequantize_device_ms=device_ms(
+                     lambda: Q.f2p_dequantize_codes(c, s, grad_fmt),
+                     iters=10))
         # the profiler leaves its events behind as Python objects: collect
         # them here, so that no collector pass lands in the next host timing
         gc.collect()
@@ -943,6 +1058,7 @@ def check_unpacked_codec(dev):
         tot["q16"] += count * r["quantize16_ms"]
         tot["q16d"] += count * (r["quantize16_device_ms"] or float("nan"))
         tot["d"] += count * r["dequantize_ms"]
+        tot["dd"] += count * (r["dequantize_device_ms"] or float("nan"))
         tot["qp"] += count * r["quantize_plain_ms"]
         tot["dp"] += count * r["dequantize_plain_ms"]
         tot["qb"] += count * (5 * n + 4 * nblk)    # f32 in, code + scale out
@@ -956,7 +1072,8 @@ def check_unpacked_codec(dev):
                  "chip_smoke.json)")
     log(f"codec    : B5 8-bit {tot['q']:.3f} ms with the host, "
         f"{tot['qd']:.3f} on the device; 16-bit {tot['q16']:.3f} / "
-        f"{tot['q16d']:.3f}; B6 {tot['d']:.3f} ms per train step (bytes "
+        f"{tot['q16d']:.3f}; B6 {tot['d']:.3f} / {tot['dd']:.3f} ms per "
+        f"train step (bytes "
         f"bounds {bound_ms(tot['qb']):.3f} / {bound_ms(tot['q16b']):.3f} / "
         f"{bound_ms(tot['db']):.3f} ms; plain {tot['qp']:.1f} / "
         f"{tot['dp']:.1f} ms)")
@@ -998,7 +1115,8 @@ def check_unpacked_codec(dev):
                          shape=shape_txt, per_shape=per_shape,
                          exhaustive=exhaustive),
         "ef_roundtrip": rt,
-        "dequantize": dict(ms=tot["d"], plain_ms=tot["dp"],
+        "dequantize": dict(ms=tot["d"], device_ms=tot["dd"],
+                           plain_ms=tot["dp"],
                            bound_ms=bound_ms(tot["db"]), bound_by="bytes",
                            library_ms=None, max_abs_err=err, shape=shape_txt,
                            per_shape=per_shape)}
@@ -1607,15 +1725,28 @@ def serve(dev, launches):
         m: cnt_p[m] for m in ("kv_write", "quantize_packed")}
     launches["attention_packed"] = cnt_c["attention_packed"]
 
+    # the unfused engine (ServeConfig's default): each decode step reads
+    # every layer's whole K and V cache back through B4's K+V mode
     eng = Engine(cfg, ServeConfig(batch=1, max_seq=1024, quantized_kv=True),
                  model)
     C.reset_launches()
     short = eng.generate(reqs[0].tokens[None], 4)
     torch.cuda.synchronize()
-    launches["dequantize_packed"] = C.LAUNCHES["dequantize_packed"]
+    cnt_u = dict(C.LAUNCHES)
+    reads = cfg.n_layers * (4 - 1)
+    assert cnt_u["kv_read"] == reads and cnt_u["dequantize_packed"] == 0, \
+        f"unfused engine: {cnt_u['kv_read']} kv_read launches (not {reads})" \
+        f", {cnt_u['dequantize_packed']} single-mode"
+    assert np.array_equal(short[0], paged[reqs[0].uid][:4]), \
+        "unfused engine's first 4 tokens differ from the paged run's"
+    launches["dequantize_packed"] = cnt_u["kv_read"] + \
+        cnt_u["dequantize_packed"]
+    launches["dequantize_packed_modes"] = {
+        m: cnt_u[m] for m in ("kv_read", "dequantize_packed")}
+    unfused = unfused_tbt(eng, reqs[0].tokens[None])
     log(f"serve    : Engine(fused_attention=False) 4 tokens, launches "
-        f"{dict(C.LAUNCHES)}; first tokens agree with paged: "
-        f"{np.array_equal(short[0], paged[reqs[0].uid][:4])}")
+        f"{cnt_u}; tokens == paged; decode {unfused['ms_per_token']:.3f} ms "
+        f"per token ({unfused['tokens']} tokens after the prefill)")
 
     seq = Engine(cfg, ServeConfig(batch=1, max_seq=1024, quantized_kv=True,
                                   fused_attention=True), model)
@@ -1628,13 +1759,34 @@ def serve(dev, launches):
         "(printed, not asserted)")
     assert cnt_p["kv_write"] > 0 and cnt_c["kv_write"] > 0
     for name, n in launches.items():
-        if name != "quantize_packed_modes":
+        if not name.endswith("_modes"):
             assert n > 0, f"kernel {name} never launched on its path"
     policy = serve_policy(dev, cfg, model, reqs, bs, run, paged, st_p)
     return dict(paged_tok_s=tps_p, copy_in_tok_s=tps_c,
                 seq_agreement=f"{agree}/{total}", rounds=st_p["rounds"],
+                unfused=unfused,
                 latency=st_p["latency"], pool=st_p["pool"], policy=policy,
                 profile=profile_decode(cfg, model, bs))
+
+
+def unfused_tbt(eng, prompt, n=33, repeats=3) -> dict:
+    """Decode time per token of a sequential Engine: (a run of n tokens - a
+    run of 1, the prefill and the cache set-up) / (n - 1), host clock around
+    runs that end in a sync, the median of ``repeats``."""
+    import statistics
+
+    import torch
+
+    def run(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.generate(prompt, k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    runs = [(run(n) - run(1)) / (n - 1) * 1e3 for _ in range(repeats)]
+    return dict(ms_per_token=statistics.median(runs), runs=runs,
+                tokens=n - 1)
 
 
 def engine_latency(tag: str, eng) -> dict:
@@ -2410,8 +2562,10 @@ def main():
         (out_dir / "chip_smoke_codec.json").write_text(json.dumps(
             {"device": smi, "codec": cod}, indent=1, default=str))
         print(json.dumps({"codec": {k: {f: v.get(f) for f in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")}
-            for k, v in cod.items()}}))
+            "ms", "device_ms", "cold_ms", "host_enqueue_ms", "plain_ms",
+            "bound_ms", "max_abs_err")}
+            for k, v in {**cod, **cod["dequantize_packed"]["rows"]}.items()
+            if k != "dequantize_packed"}}))
         print(smi)
         return
     if only == "unpacked":
@@ -2484,9 +2638,8 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r.get("bound_by", "bytes"),
             "library_ms": r["library_ms"]})
-        if name == "quantize_packed":
-            kernels[-1]["launches_by_mode"] = launches[
-                "quantize_packed_modes"]
+        if name in ("quantize_packed", "dequantize_packed"):
+            kernels[-1]["launches_by_mode"] = launches[name + "_modes"]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -2501,6 +2654,7 @@ def main():
          "attention_rows": {k: res[k] for k in ("attention_paged",
                                                 "attention_packed")},
          "kv_write_rows": res["quantize_packed"],
+         "dequantize_rows": res["dequantize_packed"],
          "matmul_rows": res["dequant_matmul"]["rows"]}, indent=1,
         default=str))
     print(json.dumps({"sketch": sketch_res}))

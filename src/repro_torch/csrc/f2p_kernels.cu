@@ -7,6 +7,9 @@
 //   quantize_packed_write_kernel <- repro/kernels/f2p_quant.py::_quant_packed_kernel
 //                                   and the KV-cache scatter that follows it
 //   dequantize_packed_kernel  <- repro/kernels/f2p_quant.py::_dequant_packed_kernel
+//                                (one tensor, or a layer's K and V cache in one
+//                                launch: warp tiles of 512 elements, words staged
+//                                coalesced, table decode; note at the kernel)
 //   quantize_kernel           <- repro/kernels/f2p_quant.py::_quant_kernel (codes mode;
 //                                quantize_generic_kernel for other blocks)
 //   ef_roundtrip_kernel       <- the same, in its round-trip mode: _quant_kernel,
@@ -179,24 +182,6 @@ __device__ __forceinline__ float block_scale(float amax, float inv_max, bool pow
   float scale = __fmul_rn(amax, inv_max);
   if (pow2) scale = pow2_round_up(scale > 0.0f ? scale : 1.0f);
   return amax > 0.0f ? scale : 1.0f;
-}
-
-// ---------------------------------------------------------------------------
-// dequantize_packed: one thread per output element (grid-stride).
-// ---------------------------------------------------------------------------
-template <typename TOut>
-__global__ void dequantize_packed_kernel(const uint32_t* __restrict__ words,
-                                         const float* __restrict__ scales,
-                                         TOut* __restrict__ out, long long total,
-                                         int cols, int block, int W, F2PConsts f) {
-  const int nblk = cols / block;
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const long long row = idx / cols;
-    const int j = (int)(idx - row * cols);
-    const uint32_t c = get_field(words + row * W, j, f.n_bits);
-    store(out + idx, __fmul_rn(f2p_decode(c, f), scales[row * nblk + j / block]));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2529,6 +2514,236 @@ static void launch_dequantize(const void* codes, const float* scales, void* out,
 }
 
 // ---------------------------------------------------------------------------
+// B4, dequantize_packed_kernel: packed F2P words [rows, W] uint32 + block
+// scales [rows, cols / block] f32 -> values [rows, cols], f32 or bf16, for
+// one tensor or for a layer's K and V cache in one launch (blockIdx.y picks
+// the side; each side has its own format and table). Replaces
+// repro/kernels/f2p_quant.py::_dequant_packed_kernel: unpack the n-bit
+// fields, decode, __fmul_rn by the block's scale, __float2bfloat16_rn for
+// bf16 out.
+//
+// What bounds it: bytes. The unfused decode's cache read of one layer
+// (8192 rows of 128, 8-bit, bf16 out) moves 1.08 MB in and 2 MB out, 0.95
+// us at 3.35 TB/s; K and V twice that. Little more than the card holds in
+// flight, so the design keeps a warp's next loads in flight while it
+// decodes, keeps the instructions per element few, and spends one launch
+// on K and V.
+//
+// Work unit. Where the rows form one bit stream (cols * n_bits % 32 == 0:
+// a row ends on a word, as head_dim 128 does at every width) and a scale
+// block holds whole groups of 4 (block % 4 == 0), a warp takes tiles of
+// kDQTile = 512 consecutive elements: it loads the tile's 16 n_bits words
+// coalesced (16 bytes a lane where the words are 16-byte aligned, else 4)
+// into its slice of shared memory, then lane l takes elements 4l..4l+3 of
+// each 128, cut from a window of 1-3 words at a fixed bit offset
+// (attn_values), one scale per 4 (the same address across the warp at
+// block 128: one broadcast load), and stores 8 (bf16) or 16 (f32) bytes.
+// The next tile's words and scales are loaded before this one is decoded,
+// and the first tile's before the table is built. 32-bit offsets inside a
+// tile. Other shapes (rows with slack bits, blocks not a multiple of 4) take
+// one warp per row and one element per lane.
+//
+// Decode: n_bits <= 8 through the table in shared memory that B1/B2 use
+// (attn_table: each code's f2p_decode replicated per lane, so a lookup is
+// free of bank conflicts; a signed format's table holds the payload codes
+// and the sign bit flips the value's), built once per CTA; above 8 bits
+// (or where one side of a K+V read is wider) f2p_decode in registers, in
+// an instance of its own (TAB = false), so neither pays the other's
+// registers. The grid is persistent, kDQPerSM CTAs per SM at most, so the
+// table is built a few hundred times. Two per SM, with the registers that
+// leaves (66), beat three or four with fewer (56-59) at the serving shape:
+// an empty launch takes 1.0 us on the device and the table build 0.2, so
+// what is left is the words' round trip, not the SM's issue rate
+// (tools/dq_bench.py variants).
+// ---------------------------------------------------------------------------
+constexpr int kDQWarps = 8;
+constexpr int kDQTile = 512;    // elements of a stream-path warp task: 4 x 128
+constexpr int kDQPerSM = 2;
+
+struct DQSide {
+  const uint32_t* words;
+  const float* scales;
+  void* out;
+  F2PConsts f;
+  long long nw;   // words of the side (the stream path)
+  int W;          // words per row
+  int stream;     // tiles of kDQTile elements, else one warp per row
+  int vec;        // stream path: 16-byte loads of the words
+  int tasks;      // warp tasks: tiles or rows
+  int tab_bits;   // decode table of 2^tab_bits codes; 0: f2p_decode
+};
+
+struct DQArgs {
+  DQSide side[2];
+  long long n;                  // elements of a side: rows * cols
+  int cols, block, nblk, lb;    // lb = log2(block) for a power of two, else -1
+  int tab_floats, stage;        // shared memory: the table, words per warp
+};
+
+// the words of tile t into pre[] (16-byte pieces l, l + 32 or words l,
+// l + 32, ...; TAB: n_bits <= 8, at most 128 words) and its 4 scales of
+// this lane into sc[]
+template <bool TAB>
+__device__ __forceinline__ void dq_fetch(const DQArgs& a, const DQSide& s, int t, int lane,
+                                         uint32_t (&pre)[TAB ? 4 : 8], float (&sc)[4]) {
+  if (t >= s.tasks) return;
+  const int tw = (kDQTile / 32) * s.f.n_bits;
+  const long long w0 = (long long)t * tw;
+  const int n = (int)min((long long)tw, s.nw - w0);
+  if (s.vec) {
+#pragma unroll
+    for (int i = 0; i < (TAB ? 1 : 2); ++i) {
+      const int p = lane + 32 * i;
+      if (4 * p < n) {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(s.words + w0) + p);
+        pre[4 * i] = q.x; pre[4 * i + 1] = q.y; pre[4 * i + 2] = q.z; pre[4 * i + 3] = q.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < (TAB ? 4 : 8); ++i)
+      if (lane + 32 * i < n) pre[i] = __ldg(s.words + w0 + lane + 32 * i);
+  }
+  const long long e0 = (long long)t * kDQTile + 4 * lane;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const long long e = e0 + 128 * c;
+    if (e < a.n) sc[c] = __ldg(s.scales + (a.lb >= 0 ? e >> a.lb : e / a.block));
+  }
+}
+
+__device__ __forceinline__ void dq_store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void dq_store4(__nv_bfloat16* p, const float (&v)[4]) {
+  uint2 u;
+  u.x = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[0])) |
+        ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[1])) << 16);
+  u.y = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2])) |
+        ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[3])) << 16);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// the stream path from tile t on, tile t's words and scales already in
+// pre[] / sc[]
+template <typename TOut, bool TAB>
+__device__ __forceinline__ void dq_stream(const DQArgs& a, const DQSide& s, const float* tab,
+                                          uint32_t* stage, int t, int nwarps, int lane,
+                                          uint32_t (&pre)[TAB ? 4 : 8], float (&sc)[4]) {
+  const int nb = s.f.n_bits, tw = (kDQTile / 32) * nb;
+  TOut* out = reinterpret_cast<TOut*>(s.out);
+  for (; t < s.tasks; t += nwarps) {
+    const long long e0 = (long long)t * kDQTile;
+    const int n = (int)min((long long)tw, s.nw - (long long)t * tw);
+    if (s.vec) {
+#pragma unroll
+      for (int i = 0; i < (TAB ? 1 : 2); ++i) {
+        const int p = lane + 32 * i;
+        if (4 * p < n)
+          *reinterpret_cast<uint4*>(stage + 4 * p) =
+              make_uint4(pre[4 * i], pre[4 * i + 1], pre[4 * i + 2], pre[4 * i + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < (TAB ? 4 : 8); ++i)
+        if (lane + 32 * i < n) stage[lane + 32 * i] = pre[i];
+    }
+    float cur[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) cur[c] = sc[c];
+    dq_fetch<TAB>(a, s, t + nwarps, lane, pre, sc);   // in flight while this tile decodes
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int off = 128 * c + 4 * lane;
+      if (e0 + off < a.n) {
+        const int bit = off * nb, sh = bit & 31;
+        float v[4];
+        attn_values<4, TAB>(stage, bit >> 5, sh, (sh + 4 * nb + 31) >> 5, nb, tab, lane, s.f,
+                            cur[c], true, v);
+        dq_store4(out + e0 + off, v);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// rows that are not one bit stream: one warp per row, one element per lane
+template <typename TOut, bool TAB>
+__device__ __forceinline__ void dq_rows(const DQArgs& a, const DQSide& s, const float* tab,
+                                        int r, int nwarps, int lane) {
+  const int nb = s.f.n_bits;
+  for (; r < s.tasks; r += nwarps) {
+    const uint32_t* row = s.words + (long long)r * s.W;
+    const float* sr = s.scales + (long long)r * a.nblk;
+    TOut* o = reinterpret_cast<TOut*>(s.out) + (long long)r * a.cols;
+    for (int j = lane; j < a.cols; j += 32) {
+      const int bit = j * nb, sh = bit & 31;
+      float v[1];
+      attn_values<1, TAB>(row, bit >> 5, sh, (sh + nb + 31) >> 5, nb, tab, lane, s.f,
+                          sr[j / a.block], true, v);
+      store(o + j, v[0]);
+    }
+  }
+}
+
+// TAB: every side decodes through its table (n_bits <= 8); else every
+// side decodes in registers
+template <typename TOut, bool TAB>
+__global__ void __launch_bounds__(kDQWarps * 32, kDQPerSM)
+dequantize_packed_kernel(const __grid_constant__ DQArgs a) {
+  extern __shared__ float4 dq_smem4[];
+  const DQSide& s = a.side[blockIdx.y];
+  if ((int)blockIdx.x * kDQWarps >= s.tasks) return;   // CTA-uniform
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kDQWarps + (threadIdx.x >> 5);
+  const int nwarps = gridDim.x * kDQWarps;
+  float* tab = reinterpret_cast<float*>(dq_smem4);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(tab + a.tab_floats) + (threadIdx.x >> 5) * a.stage;
+  uint32_t pre[TAB ? 4 : 8];
+  float sc[4];
+  if (s.stream) dq_fetch<TAB>(a, s, t, lane, pre, sc);   // in flight while the table is built
+  if (TAB) {
+    attn_table(tab, s.tab_bits, s.f);
+    __syncthreads();
+  }
+  if (s.stream)
+    dq_stream<TOut, TAB>(a, s, tab, stage, t, nwarps, lane, pre, sc);
+  else
+    dq_rows<TOut, TAB>(a, s, tab, t, nwarps, lane);
+}
+
+// the plan of one side (shapes and its words' alignment); false when the
+// kernel cannot take it
+static bool dq_side(DQArgs& a, DQSide& s, int rows) {
+  const int nb = s.f.n_bits;
+  if (nb < 1 || nb > 16) return false;
+  s.W = (int)(((long long)a.cols * nb + 31) / 32);
+  s.stream = (long long)a.cols * nb % 32 == 0 && a.block % 4 == 0;
+  s.nw = s.stream ? a.n * nb / 32 : 0;
+  s.vec = s.stream && (uintptr_t)s.words % 16 == 0 && s.nw % 4 == 0;
+  const long long tasks = s.stream ? (a.n + kDQTile - 1) / kDQTile : rows;
+  if (tasks >= (1LL << 31) || (!s.stream && (long long)a.cols * nb >= (1LL << 31)))
+    return false;
+  s.tasks = (int)tasks;
+  s.tab_bits = nb <= 8 ? (s.f.is_signed ? s.f.nu : nb) : 0;
+  if (s.tab_bits) a.tab_floats = max(a.tab_floats, 32 << s.tab_bits);
+  if (s.stream) a.stage = max(a.stage, (kDQTile / 32) * nb);
+  return true;
+}
+
+template <typename TOut>
+static int launch_dequantize_packed(const DQArgs& a, dim3 grid, size_t smem,
+                                    cudaStream_t stream) {
+  if (a.tab_floats)
+    dequantize_packed_kernel<TOut, true><<<grid, kDQWarps * 32, smem, stream>>>(a);
+  else
+    dequantize_packed_kernel<TOut, false><<<grid, kDQWarps * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // C interface
 // ---------------------------------------------------------------------------
 extern "C" {
@@ -2585,19 +2800,36 @@ int f2p_kv_write(KVSideIn k, KVSideIn v, int nside, int x_bf16, const int* pages
   return launch_kv_write<float>(a, grid, smem, stream);
 }
 
-int f2p_dequantize_packed(const uint32_t* words, const float* scales, void* out,
-                          int out_bf16, int rows, int cols, int block, int W,
-                          F2PConsts f, cudaStream_t stream) {
-  const long long total = (long long)rows * cols;
-  const int threads = 256;
-  const int grid = (int)min((total + threads - 1) / threads, (long long)1 << 20);
-  if (out_bf16)
-    dequantize_packed_kernel<__nv_bfloat16><<<grid, threads, 0, stream>>>(
-        words, scales, (__nv_bfloat16*)out, total, cols, block, W, f);
-  else
-    dequantize_packed_kernel<float><<<grid, threads, 0, stream>>>(
-        words, scales, (float*)out, total, cols, block, W, f);
-  return (int)cudaGetLastError();
+// B4: one launch of dequantize_packed_kernel. Side k (and v when nside is
+// 2, a layer's K and V cache, each in its own format): words [rows, W]
+// uint32 (W = ceil(cols * n_bits / 32)) + scales [rows, cols / block] f32
+// -> out [rows, cols], f32 or bf16 (out_bf16); every tensor contiguous, the
+// outputs 16-byte aligned.
+int f2p_dequantize_packed(const uint32_t* kw, const float* ks, void* ko, F2PConsts fk,
+                          const uint32_t* vw, const float* vs, void* vo, F2PConsts fv,
+                          int nside, int out_bf16, int rows, int cols, int block,
+                          cudaStream_t stream) {
+  if (nside < 1 || nside > 2 || rows < 0 || cols < 0 || block < 1 || cols % block)
+    return (int)cudaErrorInvalidValue;
+  if (!rows || !cols) return 0;
+  DQArgs a;
+  a.n = (long long)rows * cols;
+  a.cols = cols; a.block = block; a.nblk = cols / block;
+  a.lb = (block & (block - 1)) ? -1 : __builtin_ctz(block);
+  a.tab_floats = 0; a.stage = 0;
+  a.side[0] = DQSide{kw, ks, ko, fk};
+  a.side[1] = DQSide{vw, vs, vo, fv};
+  int ctas = 1;
+  for (int i = 0; i < nside; ++i) {
+    if (!dq_side(a, a.side[i], rows)) return (int)cudaErrorInvalidValue;
+    ctas = max(ctas, (a.side[i].tasks + kDQWarps - 1) / kDQWarps);
+  }
+  if (nside == 1) a.side[1] = a.side[0];
+  if (!a.side[0].tab_bits || !a.side[1].tab_bits) a.tab_floats = 0;   // both in registers
+  const dim3 grid(min(ctas, max(1, kDQPerSM * sm_count() / nside)), nside);
+  const size_t smem = (size_t)(a.tab_floats + kDQWarps * a.stage) * sizeof(float);
+  if (out_bf16) return launch_dequantize_packed<__nv_bfloat16>(a, grid, smem, stream);
+  return launch_dequantize_packed<float>(a, grid, smem, stream);
 }
 
 // B5, codes mode. tab: the format's encode table (f2p_quant.encode_table:

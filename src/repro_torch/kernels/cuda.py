@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_SMEM = 232448   # bytes of shared memory one CTA may use on Hopper
 
 LAUNCHES: dict[str, int] = {"quantize_packed": 0, "kv_write": 0,
-                            "dequantize_packed": 0,
+                            "dequantize_packed": 0, "kv_read": 0,
                             "quantize": 0, "ef_roundtrip": 0,
                             "dequantize": 0,
                             "attention_packed": 0, "attention_paged": 0,
@@ -163,8 +163,8 @@ def lib():
         L.f2p_error_string.restype = ctypes.c_char_p
         L.f2p_kv_write.argtypes = [KVSideIn, KVSideIn, I, I, P, AttnLen] + [
             I] * 9 + [P]
-        L.f2p_dequantize_packed.argtypes = [P, P, P, I, I, I, I, I, F2PConsts,
-                                            P]
+        L.f2p_dequantize_packed.argtypes = [P, P, P, F2PConsts] * 2 + [
+            I] * 5 + [P]
         LL, U = ctypes.c_longlong, ctypes.c_uint32
         L.f2p_quantize.argtypes = [P, I, P, I, P, LL, I, I, F2PConsts, P, F,
                                    I, P]

@@ -10,7 +10,7 @@ tensors so it is bitwise identical to the JAX functions:
            exact fractional part -> field assembly with variable shifts.
   decode:  field split with variable shifts -> ldexp by bit assembly.
 
-Six entry points, each routed by the tensor's device (no registry, no
+Seven entry points, each routed by the tensor's device (no registry, no
 environment override): a CPU tensor runs the plain PyTorch version, a CUDA
 tensor launches the hand-written kernel of ``csrc/f2p_kernels.cu`` or raises.
 
@@ -26,11 +26,14 @@ contiguous output rows. At the decode shape the bytes take nanoseconds, so
 launches and the host bound the write; the kernel's note in
 ``csrc/f2p_kernels.cu`` says how it spends one launch on it.
 
-``f2p_dequantize_packed`` replaces
-``repro/kernels/f2p_quant.py::_dequant_packed_kernel``. Also bound by bytes
-(packed words and scales in, one value out per element); one thread per
-output element reads the one or two words holding its field, so codes never
-exist outside registers.
+``f2p_dequantize_packed`` and ``f2p_kv_read`` are the two modes of one
+kernel (B4), which replaces ``repro/kernels/f2p_quant.py::_dequant_packed_kernel``:
+one tensor, or a layer's whole K and V cache in one launch (the unfused
+decode's cache read, ``models.attention._cache_read``). Bound by bytes
+(packed words and scales in, one value out per element): warps take tiles
+of 512 elements whose words they stage coalesced, cut each lane's 4 fields
+from a 1-3 word window and decode through a table in shared memory (n_bits
+<= 8) or the arithmetic decode; codes never exist outside registers.
 
 ``f2p_quantize_codes`` replaces ``repro/kernels/f2p_quant.py::_quant_kernel``
 (B5): the same scales and codes as the packed quantize, stored one code per
@@ -69,8 +72,8 @@ from repro_torch.kernels.bits import pack_bits, packed_words, unpack_bits
 
 __all__ = ["quantize_tile_math", "dequantize_tile_math",
            "f2p_quantize_packed", "f2p_dequantize_packed", "f2p_kv_write",
-           "quantize_packed_plain", "dequantize_packed_plain",
-           "kv_write_plain",
+           "f2p_kv_read", "quantize_packed_plain", "dequantize_packed_plain",
+           "kv_write_plain", "kv_read_plain",
            "f2p_quantize_codes", "f2p_dequantize_codes", "quantize_plain",
            "dequantize_plain", "code_dtype", "codes_to_int32",
            "encode_table", "table_encode", "f2p_ef_roundtrip",
@@ -511,7 +514,8 @@ def f2p_kv_write(k: torch.Tensor, v: torch.Tensor, cache: dict, pos,
 def f2p_dequantize_packed(words: torch.Tensor, scales: torch.Tensor,
                           fmt: F2PFormat, *, block: int = 128,
                           out_dtype=torch.float32) -> torch.Tensor:
-    """Fused unpack -> decode -> scale: ``[r, nblk*block]`` in out_dtype."""
+    """Fused unpack -> decode -> scale: ``[r, nblk*block]`` in out_dtype
+    (B4 on a CUDA tensor, one launch)."""
     r, nblk = scales.shape
     c = nblk * block
     W = packed_words(c, fmt.n_bits)
@@ -524,14 +528,95 @@ def f2p_dequantize_packed(words: torch.Tensor, scales: torch.Tensor,
         raise TypeError(f"kernel writes f32 or bf16, got {out_dtype}")
     C.require_cuda(words, "words", torch.uint32)
     C.require_cuda(scales, "scales", torch.float32)
+    consts = cuda_consts(fmt)
     out = torch.empty((r, c), dtype=out_dtype, device=words.device)
-    if r:
+    if r and c:
         C.check(C.lib().f2p_dequantize_packed(
-            words.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), r, c, block, W,
-            cuda_consts(fmt), C.stream()), "dequantize_packed")
+            words.data_ptr(), scales.data_ptr(), out.data_ptr(), consts,
+            None, None, None, consts, 1, int(out_dtype == torch.bfloat16), r,
+            c, block, C.stream()), "dequantize_packed")
         C.LAUNCHES["dequantize_packed"] += 1
     return out
+
+
+def _kv_read_shape(ck, cv):
+    """(leading dims, hd) of the packed K and V of :func:`f2p_kv_read`,
+    whose shapes it checks: words ``[..., W]`` and scales ``[..., hd /
+    block]`` of unpadded rows of hd, K and V alike but for their formats."""
+    kw, vw = ck.codes, cv.codes
+    lead, cols, block = kw.shape[:-1], ck.shape[-1], ck.block
+    nblk = ck.scales.shape[-1]
+    if not (ck.packed and cv.packed and cv.block == block
+            and cv.shape[-1] == cols and nblk * block == cols
+            and cv.scales.shape[-1] == nblk
+            and kw.shape[-1] == -(-cols * ck.fmt.n_bits // 32)
+            and vw.shape[-1] == -(-cols * cv.fmt.n_bits // 32)
+            and vw.shape[:-1] == lead and ck.scales.shape[:-1] == lead
+            and cv.scales.shape[:-1] == lead):
+        raise ValueError(
+            f"f2p_kv_read takes packed K and V of one shape, unpadded rows "
+            f"of {cols} fields in blocks of {block}: got k words "
+            f"{tuple(kw.shape)}, scales {tuple(ck.scales.shape)}; v words "
+            f"{tuple(vw.shape)}, scales {tuple(cv.scales.shape)}, block "
+            f"{cv.block}, packed {ck.packed}/{cv.packed}")
+    return lead, cols
+
+
+def kv_read_plain(cache: dict, dtype=torch.float32):
+    """The plain version of :func:`f2p_kv_read`: ``dequantize_packed_plain``
+    of K and of V."""
+    lead, cols = _kv_read_shape(cache["k"], cache["v"])
+    odt = dtype if dtype in (torch.float32, torch.bfloat16) else torch.float32
+    out = []
+    for name in ("k", "v"):
+        c = cache[name]
+        x = dequantize_packed_plain(c.codes.reshape(-1, c.codes.shape[-1]),
+                                    c.scales.reshape(-1, c.scales.shape[-1]),
+                                    c.fmt, c.block, odt)
+        out.append(x.reshape(*lead, cols).to(dtype))
+    return tuple(out)
+
+
+def f2p_kv_read(cache: dict, dtype=torch.float32):
+    """Dense K and V of one layer's packed cache ``cache = {"k", "v"}``
+    (QTensors: words ``[..., W]`` uint32 and scales ``[..., hd / block]``
+    f32 of unpadded rows of hd, each side in its own format), as ``(k,
+    v)``, each ``[..., hd]`` in ``dtype``: bitwise :func:`kv_read_plain`,
+    the JAX reference's ``_cache_read``. On the card: ONE launch of B4 for
+    K and V (bf16 or f32 out; another dtype is cast from f32), no host
+    sync. The decode step calls this once per layer, so the host path is
+    kept to the checks the kernel needs, the two outputs and the
+    launch."""
+    ck, cv = cache["k"], cache["v"]
+    kw, ks, vw, vs = ck.codes, ck.scales, cv.codes, cv.scales
+    if not kw.is_cuda:
+        return kv_read_plain(cache, dtype)
+    lead, cols = _kv_read_shape(ck, cv)
+    u32, f32 = torch.uint32, torch.float32
+    dev = kw.get_device()
+    if not (kw.dtype == u32 and vw.dtype == u32 and ks.dtype == f32
+            and vs.dtype == f32 and vw.get_device() == dev
+            and ks.get_device() == dev and vs.get_device() == dev
+            and kw.is_contiguous() and vw.is_contiguous()
+            and ks.is_contiguous() and vs.is_contiguous()):
+        for t, what, dt in ((kw, "k words", u32), (ks, "k scales", f32),
+                            (vw, "v words", u32), (vs, "v scales", f32)):
+            C.require_cuda(t, what, dt)
+        raise ValueError("k and v words and scales must lie on one card")
+    odt = dtype if dtype in (torch.float32, torch.bfloat16) else f32
+    k = kw.new_empty((*lead, cols), dtype=odt)
+    v = kw.new_empty((*lead, cols), dtype=odt)
+    rows = math.prod(lead)
+    if rows and cols:
+        C.check(C.lib().f2p_dequantize_packed(
+            kw.data_ptr(), ks.data_ptr(), k.data_ptr(), cuda_consts(ck.fmt),
+            vw.data_ptr(), vs.data_ptr(), v.data_ptr(), cuda_consts(cv.fmt),
+            2, int(odt == torch.bfloat16), rows, cols, ck.block,
+            C.stream()), "kv_read")
+        C.LAUNCHES["kv_read"] += 1
+    if odt != dtype:
+        return k.to(dtype), v.to(dtype)
+    return k, v
 
 
 def f2p_quantize_codes(x2: torch.Tensor, fmt: F2PFormat, *,

@@ -9,7 +9,8 @@ or packed :class:`~repro_torch.core.qtensor.QTensor` s (uint32 words
 Where the reference returns updated caches from pure functions (and the
 engine donates the buffers), the port writes the new KV into the cache or
 pool-slab storage IN PLACE (packed caches through ``f2p_kv_write``, dense
-ones by ``index_put_``/``copy_``) and returns the same objects.
+ones by ``index_put_``/``copy_``) and returns the same objects; the unfused
+decode reads a packed cache back through ``f2p_kv_read``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.core.f2p import F2PFormat, Flavor
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.bits import pack_bits_np
 from repro_torch.kernels.f2p_attention import attention_packed, attention_paged
-from repro_torch.kernels.f2p_quant import f2p_kv_write
+from repro_torch.kernels.f2p_quant import f2p_kv_read, f2p_kv_write
 from repro_torch.models.common import apply_rope
 
 KV_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
@@ -188,9 +189,9 @@ def _paged_cache_write(cache, k, v, pos, pages):
 
 
 def _cache_read(cache, cfg):
-    """Dense k/v of a cache: packed caches are dequantized whole (the
-    unfused path the fused kernel replaces)."""
+    """Dense k/v of a cache: a packed cache is dequantized whole, K and V in
+    one :func:`f2p_kv_read` (B4 on the card: one launch), the unfused path
+    the fused kernel replaces."""
     if isinstance(cache["k"], QTensor):
-        dt = cfg.torch_dtype
-        return cache["k"].dequantize(dt), cache["v"].dequantize(dt)
+        return f2p_kv_read(cache, cfg.torch_dtype)
     return cache["k"], cache["v"]

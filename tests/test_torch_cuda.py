@@ -182,6 +182,152 @@ def test_kv_write_kernel_raises_on_bad_inputs(gen):
         Q.f2p_kv_write(k, k, host, 0, pages)
 
 
+# B4: n_bits 4-8, 12 and 16; signed (payload table) and unsigned (256-entry)
+_B4_FORMATS = ["f2p_sr_1_4s", "f2p_sr_2_5u", "f2p_sr_2_6s", "f2p_lr_1_7s",
+               "f2p_sr_2_8s", "f2p_sr_2_8u", "f2p_lr_2_12s", "f2p_sr_2_16s"]
+
+
+def _odd_scales(s):
+    """A zero, an inf and a NaN scale (where there are three blocks)."""
+    flat = s.view(-1)
+    for i, x in enumerate((0.0, float("inf"), float("nan"))[:flat.numel()]):
+        flat[i] = x
+
+
+def _packed_rows(gen, fmt, rows, cols, block, offset):
+    """words [rows, W] (at ``offset`` words into a buffer: 0 keeps them
+    16-byte aligned) and scales of randn x 3 rows, with odd scales."""
+    x = torch.randn(rows, cols, generator=gen, device="cuda") * 3
+    w, s = Q.quantize_packed_plain(x, fmt, block)
+    _odd_scales(s)
+    buf = torch.zeros(w.numel() + offset, dtype=torch.int32, device="cuda")
+    buf[offset:] = w.view(torch.int32).flatten()
+    return buf[offset:].view(torch.uint32).view(w.shape), s
+
+
+@pytest.mark.parametrize("name", _B4_FORMATS)
+@pytest.mark.parametrize("block,cols", [(8, 64), (32, 96), (64, 192),
+                                        (128, 128), (200, 600), (256, 512),
+                                        (6, 48)])
+@pytest.mark.parametrize("rows", [0, 1, 37, 8192])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+def test_dequantize_packed_kernel_bitwise_vs_plain(gen, name, block, cols,
+                                                   rows, offset):
+    """B4's single mode against dequantize_packed_plain, bitwise, f32 and
+    bf16 out: n_bits 4-8, 12, 16; blocks 8-256 (200: rows of 5-, 6- and
+    7-bit fields that do not end on a word) and 6 (a block of no whole
+    groups of 4), each taking the row path; 0, 1, odd and 8192 rows;
+    16-byte aligned and misaligned words; zero, inf and NaN scales."""
+    fmt = named_format(name)
+    w, s = _packed_rows(gen, fmt, rows, cols, block, offset)
+    for out in (torch.float32, torch.bfloat16):
+        C.reset_launches()
+        got = Q.f2p_dequantize_packed(w, s, fmt, block=block, out_dtype=out)
+        assert C.LAUNCHES["dequantize_packed"] == int(rows > 0)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got),
+                           _bits(Q.dequantize_packed_plain(w, s, fmt, block,
+                                                           out)))
+
+
+def _kv_stack(gen, kname, vname, L, B, S, K, hd):
+    """{"k", "v"} packed caches [L, B, S, K, hd] of randn x 3, in kname /
+    vname, with odd scales in every layer."""
+    out = {}
+    for kv, name in (("k", kname), ("v", vname)):
+        c = QT.quantize(torch.randn(L, B, S, K, hd, generator=gen,
+                                    device="cuda") * 3, named_format(name),
+                        block=hd, packed=True)
+        for i in range(L):
+            _odd_scales(c.scales[i])
+        out[kv] = c
+    return out
+
+
+@pytest.mark.parametrize("kname,vname", [
+    ("f2p_sr_2_8s", "f2p_sr_2_8s"), ("f2p_sr_2_6s", "f2p_lr_2_16s"),
+    ("f2p_sr_2_8u", "f2p_lr_1_7s"), ("f2p_sr_2_5u", "f2p_sr_1_4s"),
+    ("f2p_lr_2_12s", "f2p_sr_2_6s")])
+@pytest.mark.parametrize("hd", [64, 100, 128])
+@pytest.mark.parametrize("layer", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_kv_read_kernel_bitwise_vs_plain(gen, kname, vname, hd, layer,
+                                         dtype):
+    """B4's K+V mode on a layer view of an L-stacked cache [3, 1, 37, 3,
+    hd] (the views of layers 1 and 2 lie off 16-byte boundaries at some
+    widths; hd 100 leaves 5-, 6- and 7-bit rows off a word end), K and V
+    in their own formats: ONE launch, bitwise kv_read_plain, and the same
+    bits on a second call."""
+    from repro_torch.models.model import layer_cache
+
+    cache = layer_cache(_kv_stack(gen, kname, vname, 3, 1, 37, 3, hd), layer)
+    C.reset_launches()
+    got = Q.f2p_kv_read(cache, dtype)
+    assert C.LAUNCHES["kv_read"] == 1
+    assert C.LAUNCHES["dequantize_packed"] == 0
+    again = Q.f2p_kv_read(cache, dtype)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, Q.kv_read_plain(cache, dtype), again):
+        assert a.dtype == dtype and a.shape == (1, 37, 3, hd)
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(a), _bits(c))
+
+
+def test_kv_read_and_dequantize_on_card_never_run_plain(gen, monkeypatch):
+    """No B4 call on CUDA tensors reaches a plain version: the single mode
+    (direct, through QTensor.dequantize), the K+V mode (direct, through the
+    model's _cache_read)."""
+    import types
+
+    from repro_torch.models import attention as MA
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call reached a plain path")
+
+    monkeypatch.setattr(Q, "dequantize_packed_plain", refuse)
+    monkeypatch.setattr(Q, "kv_read_plain", refuse)
+    stack = _kv_stack(gen, "f2p_sr_2_8s", "f2p_sr_2_8s", 2, 2, 16, 2, 128)
+    cache = {kv: QT.QTensor(c.codes[1], c.scales[1], c.fmt, c.block,
+                            c.shape[1:], True) for kv, c in stack.items()}
+    C.reset_launches()
+    QT.dequantize(cache["k"], dtype=torch.bfloat16)
+    Q.f2p_dequantize_packed(cache["v"].codes.reshape(-1, 32),
+                            cache["v"].scales.reshape(-1, 1),
+                            cache["v"].fmt)
+    Q.f2p_kv_read(cache, torch.float32)
+    MA._cache_read(cache, types.SimpleNamespace(torch_dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["dequantize_packed"] == 2
+    assert C.LAUNCHES["kv_read"] == 2
+
+
+def test_kv_read_kernel_raises_on_bad_inputs(gen):
+    stack = _kv_stack(gen, "f2p_sr_2_8s", "f2p_sr_2_6s", 1, 1, 8, 2, 128)
+    cache = {kv: QT.QTensor(c.codes[0], c.scales[0], c.fmt, c.block,
+                            c.shape[1:], True) for kv, c in stack.items()}
+    short = dict(cache, v=QT.QTensor(cache["v"].codes[:, :4],
+                                     cache["v"].scales[:, :4],
+                                     cache["v"].fmt, 128, (1, 4, 2, 128),
+                                     True))
+    with pytest.raises(ValueError):
+        Q.f2p_kv_read(short)
+    host = dict(cache, v=QT.QTensor(cache["v"].codes.cpu(),
+                                    cache["v"].scales.cpu(), cache["v"].fmt,
+                                    128, cache["v"].shape, True))
+    with pytest.raises(ValueError):
+        Q.f2p_kv_read(host)
+    strided = dict(cache, k=QT.QTensor(stack["k"].codes[0, :, ::2],
+                                       stack["k"].scales[0, :, ::2],
+                                       cache["k"].fmt, 128, (1, 4, 2, 128),
+                                       True))
+    strided["v"] = QT.QTensor(cache["v"].codes[:, :4],
+                              cache["v"].scales[:, :4], cache["v"].fmt, 128,
+                              (1, 4, 2, 128), True)
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.f2p_kv_read(strided)
+
+
 def _codes_i(c):
     return c.view(torch.int16) if c.dtype == torch.uint16 else c
 

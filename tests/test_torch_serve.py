@@ -82,6 +82,25 @@ def test_batched_engines_match_jax_sequential_engine(setup):
     assert paged.stats["emitted_tokens"] == sum(r.max_new for r in reqs)
 
 
+def test_unfused_sequential_engine_matches_jax(setup):
+    """The port's Engine at its default fused_attention=False (each decode
+    step reads every layer's whole K and V cache back through
+    ``f2p_kv_read``) gives the JAX unfused packed Engine's greedy tokens on
+    4 requests of the continuous workload."""
+    jcfg, jparams, cfg, model = setup
+    reqs = _continuous_workload(cfg)[:4]
+    eng = Engine(cfg, ServeConfig(batch=1, max_seq=64, quantized_kv=True),
+                 model)
+    jeng = JEngine(jcfg, JServeConfig(batch=1, max_seq=64, quantized_kv=True,
+                                      packed_kv=True, fused_attention=False),
+                   jparams)
+    for r in reqs:
+        got = eng.generate(r.tokens[None], r.max_new)[0]
+        want = np.asarray(jeng.generate(r.tokens[None], r.max_new)[0])
+        np.testing.assert_array_equal(got.astype(np.int32),
+                                      want.astype(np.int32))
+
+
 def _long_requests(cfg, n=5):
     rng = np.random.default_rng(7)
     return [Request(uid=u + 1,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times one tree's attention kernels (B1/B2), its KV-cache writes (B3)
-and its serving path, so that two trees can be set beside each other in
-one run on the card. Needs an NVIDIA GPU and the CUDA toolkit.
+"""Times one tree's attention kernels (B1/B2), its KV-cache writes (B3),
+its KV-cache reads (B4) and its serving path, so that two trees can be set
+beside each other in one run on the card. Needs an NVIDIA GPU and the CUDA
+toolkit.
 
     python3 tools/attn_bench.py compare ROOT TAG
 
@@ -27,6 +28,12 @@ prefill call's write (4 x 256 positions from 0) and B3 on contiguous
 [8192, 128] rows (``f2p_quantize_packed``): the same columns, with B3's
 kernels (names holding ``quantize_packed``) in place of attention's.
 
+KV reads: B4 through the tree's own ``models.attention._cache_read`` (the
+unfused decode's read of one layer's K and V cache, layer 1 of 2 x [1,
+1024, 8, 128], ``f2p_sr_2_8s``, bf16 out) and ``f2p_dequantize_packed``
+on that layer's K words [8192, 32]: the same columns, B4's kernels (names
+holding ``dequantize_packed``).
+
 Serving: chip_smoke phase 5's workload (full-width llama3.2-3b, random
 weights from seed 0, 16 requests of 16-256 prompt tokens and 32 new
 tokens, an arrival every 4 steps, 8 slots, max_seq 1024) through
@@ -34,8 +41,11 @@ tokens, an arrival every 4 steps, 8 slots, max_seq 1024) through
 tokens/s (wall, prefill included) and TBT p50 / p99 from the engine's
 obs registry; and phase 6's profile (8 requests of 64 tokens, 2 prefill
 calls + 16 decode steps): wall, device busy share, device kernels, and the
-attention and B3 kernels' device time per call. Prints one line per
-measurement, tagged.
+attention and B3 kernels' device time per call; then the unfused
+sequential ``Engine`` (``ServeConfig``'s default, batch 1, max_seq 1024,
+a 64-token prompt): decode ms per token, (a 33-token run - a
+1-token run) / 32, the median of 3. Prints one line per measurement,
+tagged.
 """
 import sys
 import time
@@ -151,6 +161,37 @@ def kv_writes(tag: str) -> None:
     }, "quantize_packed")
 
 
+def kv_reads(tag: str) -> None:
+    """B4 through the tree's own unfused cache read and single dequantize,
+    at one layer of the unfused engine's cache (layer 1 of 2 x [1, 1024, 8,
+    128], ``f2p_sr_2_8s``, bf16 out)."""
+    import types
+
+    import torch
+
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_quant as Q
+    from repro_torch.models import attention as A
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(7)
+    fmt = named_format("f2p_sr_2_8s")
+    stack = {kv: QT.quantize(torch.randn(2, 1, 1024, 8, 128, generator=g,
+                                         device=dev) * 3, fmt, block=128,
+                             packed=True) for kv in ("k", "v")}
+    cache = {kv: QT.QTensor(c.codes[1], c.scales[1], c.fmt, c.block,
+                            c.shape[1:], True) for kv, c in stack.items()}
+    w = cache["k"].codes.reshape(8192, -1)
+    s = cache["k"].scales.reshape(8192, 1)
+    cfg = types.SimpleNamespace(torch_dtype=torch.bfloat16)
+    _report(tag, {
+        "B4 single [8192, 128]": lambda: Q.f2p_dequantize_packed(
+            w, s, fmt, out_dtype=torch.bfloat16),
+        "B4 K+V layer read": lambda: A._cache_read(cache, cfg),
+    }, "dequantize_packed")
+
+
 def serving(tag: str) -> None:
     import numpy as np
     import torch
@@ -158,10 +199,11 @@ def serving(tag: str) -> None:
 
     from torch.autograd import DeviceType
 
-    from chip_smoke import device_profile
+    from chip_smoke import device_profile, unfused_tbt
     from repro_torch.configs import full_config
     from repro_torch.models import init_params
-    from repro_torch.serve import BatchedEngine, BatchedServeConfig, Request
+    from repro_torch.serve import (BatchedEngine, BatchedServeConfig, Engine,
+                                   Request, ServeConfig)
 
     cfg = full_config("llama3_2_3b")
     model = init_params(cfg, seed=0, device="cuda")
@@ -213,6 +255,14 @@ def serving(tag: str) -> None:
                  f"{1e3 * per / max(calls, 1):.2f} us per call")
     print(line, flush=True)
 
+    # the unfused sequential engine (ServeConfig's default)
+    eng = Engine(cfg, ServeConfig(batch=1, max_seq=1024, quantized_kv=True),
+                 model)
+    u = unfused_tbt(eng, reqs[0].tokens[None])
+    print(f"{tag:8s} unfused Engine decode {u['ms_per_token']:.3f} ms per "
+          f"token (runs {', '.join(f'{p:.3f}' for p in u['runs'])})",
+          flush=True)
+
 
 def compare(root: Path, tag: str) -> None:
     sys.path.insert(0, str(root / "src"))
@@ -233,6 +283,7 @@ def compare(root: Path, tag: str) -> None:
           flush=True)
     kernels(tag)
     kv_writes(tag)
+    kv_reads(tag)
     serving(tag)
 
 
