@@ -7,13 +7,14 @@ NVIDIA GPU.
     python3 chip_smoke.py --only attention  # phases 1-2 and B1/B2
     python3 chip_smoke.py --only codec   # phases 1-2 and B3/B4
     python3 chip_smoke.py --only unpacked  # phases 1-2, B5, its round trip, B6
+    python3 chip_smoke.py --only fl      # phases 1-2 and phase 9 (FL, faults)
 
 With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
-unpacked``) the script runs the device and build phases and phase 3's
-dequant matmul, B7/B8 (attention, B1/B2; the packed codec, B3/B4; the
-unpacked codec, B5 and its round trip and B6), prints their lines and ends
-without the final ``{"ok": ...}`` line, so it never stands in for a full
-run.
+unpacked``, ``--only fl``) the script runs the device and build phases and
+phase 3's dequant matmul, B7/B8 (attention, B1/B2; the packed codec,
+B3/B4; the unpacked codec, B5 and its round trip and B6; phase 9), prints
+their lines and ends without the final ``{"ok": ...}`` line, so it never
+stands in for a full run.
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -163,11 +164,39 @@ Phases (any failed check raises, so the script exits non-zero):
    resumes from the checkpoint and takes steps 2-3 (finite losses). Prints
    the bytes on disk and the save and restore seconds; the directory is
    removed.
+9. fl      — federated learning and fault injection on fl.toy_task() (the
+   reference's toy LM: d_model 64, 2 layers, f32). (a) B3 (contiguous
+   rows) and B5 (codes) through QT.quantize, B4 (single mode) and B6
+   through QTensor.dequantize, against their plain versions on the card,
+   bitwise, at the 9 compressed leaf shapes (stacked [2, ...] blocks and
+   embed / lm_head): f2p_sr_2_8s and two 6-bit candidates of
+   candidate_formats(n_bits=(6, 8)), f32 and pow2 scales, blocks 32 / 64 /
+   128 capped at the last dim, a zero and a NaN block. (b)
+   examples/fed_avg.py's three configs (4 clients, 5 rounds, 2 local
+   steps, lr 0.1: f32; f2p8; packed under AutotuneConfig(every=2,
+   n_bits=(6, 8), budget 6.5)) after a warm-up; asserts the example's
+   acceptance (wire f32/f2p8 >= 3.5, f2p8 loss <= 1.05x f32's,
+   packed-mixed >= 20% fewer bytes at <= 1.001x f2p8's loss). (c) fleet
+   rounds at README's deployment (FleetConfig(n_clients=1000, sample=64,
+   quorum=32), 3 rounds, client_batch 16, pow2, no error feedback):
+   fault-free, chaos-small (final loss <= 1.05x fault-free), packed under
+   corrupt (quarantines) and reorder + duplicates (committed parameters
+   bitwise equal to fault-free's); per round the accounting, wire bytes,
+   seconds and clients/s, the arrival-lag p50 / p99 from the obs
+   registry; the device's busy share of one profiled round. (d) every run
+   zeroes the launch counters first and asserts one B5 (B3 packed) launch
+   per compressed leaf, client and round, one B6 (B4) per leaf, client and
+   round for the float server and one more with error feedback, none in
+   the fleet (its fold is host integer work); counts from the run's leaf
+   list and cohort. (e) faults.wrap_engine over Engine on smoke
+   llama3.2-3b: FaultPlan() returns the bare engine's tokens, dropout 1.0
+   drops every request.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
-line, one ``{"kernels": [...]}`` JSON line (all ten kernels and B5's
-round-trip mode, ``ef_roundtrip``, as a row of its own; B5's codes mode and
-B6 count the launches of phase 8's checkpoint save and restore), then the
+line, one ``{"fl": {...}}`` JSON line, one ``{"kernels": [...]}`` JSON line
+(all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as a row of
+its own; B5's codes mode and B6 count the launches of phase 8's checkpoint
+save and restore; B3-B6 also carry ``fl_launches``, phase 9's), then the
 nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
 copy of the results goes to chiprun_out/chip_smoke.json.
 """
@@ -214,6 +243,15 @@ ENC_CHECK_FORMATS = ("f2p_sr_2_8s", "f2p_sr_2_16s", "f2p_lr_1_6s")
 POW2_CHECK_SCALES = (2.0 ** -126, 2.0 ** -3, 2.0 ** 127)
 # phase 8: the train path of launch/train.py's defaults
 ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "llama3_2_3b", 8, 8, 128
+# phase 9: federated learning, examples/fed_avg.py's defaults and README's
+# fleet deployment; the FL leaf shapes' formats (a 6-bit candidate of
+# candidate_formats(n_bits=(6, 8)) beside the 8-bit wire format) and blocks
+FL_FORMATS = ("f2p_sr_2_8s", "f2p_sr_1_6s", "f2p_lr_1_6s")
+FL_BLOCKS = (32, 64, 128)
+FL_FEDAVG = dict(n_clients=4, rounds=5, local_steps=2, lr=0.1,
+                 packed_budget=6.5)
+FL_FLEET = dict(n_clients=1000, sample=64, quorum=32, rounds=3,
+                client_batch=16)
 # f32 operations of one live sweep of the advance (min, sub, log, div,
 # ceil, two compares, max, compare, sub), log and divide counted as one
 ADVANCE_OPS_PER_SWEEP = 10
@@ -2508,6 +2546,404 @@ def train_resume_phase(dev) -> dict:
                 restore_launches=restore_launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: federated learning and fault injection
+# ---------------------------------------------------------------------------
+def fl_leaves(min_size=1024):
+    """(reference path, shape) of toy_task()'s leaves the client compresses
+    (every float leaf of at least ``min_size`` elements), in the
+    reference's order."""
+    from repro_torch.autotune.policy import leaf_path_str
+    from repro_torch.fl import toy_task
+    from repro_torch.fl._tree import leaves_with_path
+
+    cfg, _, _, init = toy_task()
+    return [(leaf_path_str(p), tuple(x.shape))
+            for p, x in leaves_with_path(init(cfg, 0, "cpu"))
+            if x.numel() >= min_size]
+
+
+def check_fl_codec(dev) -> dict:
+    """B3 (contiguous rows) and B5 (codes) through ``QT.quantize``, B4
+    (single mode) and B6 through ``QTensor.dequantize``, at toy_task()'s
+    stacked leaf shapes, against their plain versions on the card: words /
+    codes, scales and values bitwise (NaNs by position); 8- and 6-bit
+    formats, f32 and pow2 scales, blocks 32 / 64 / 128 capped at the
+    leaf's last dim as the client caps them; row 0 all zero, a NaN in row
+    1's first block."""
+    import torch
+
+    from repro_torch.autotune.policy import candidate_formats
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cuda as C
+    from repro_torch.kernels import f2p_quant as Q
+
+    cands = candidate_formats(n_bits=(6, 8))
+    assert all(f in cands for f in FL_FORMATS), FL_FORMATS
+    g = torch.Generator(device=dev).manual_seed(9)
+    shapes = fl_leaves()
+    cases = 0
+    C.reset_launches()
+    for _, shape in shapes:
+        x = torch.randn(*shape, generator=g, device=dev) * 1e-3
+        x2 = x.view(-1, shape[-1])
+        x2[0] = 0
+        x2[1, 0] = float("nan")
+        for name in FL_FORMATS:
+            fmt = named_format(name)
+            for blk in sorted({min(b, shape[-1]) for b in FL_BLOCKS}):
+                for mode in ("f32", "pow2"):
+                    for packed in (False, True):
+                        qt = QT.quantize(x, fmt, block=blk, packed=packed,
+                                         scale_mode=mode)
+                        plain = (Q.quantize_packed_plain if packed
+                                 else Q.quantize_plain)
+                        pc, ps = plain(x2, fmt, blk, mode)
+                        tag = f"{shape} {name} block {blk} {mode}"
+                        assert _same_bits(qt.codes.reshape(pc.shape), pc), \
+                            f"B{3 if packed else 5} codes differ: {tag}"
+                        assert _same_bits(qt.scales.reshape(ps.shape), ps), \
+                            f"B{3 if packed else 5} scales differ: {tag}"
+                        d = qt.dequantize(torch.float32)
+                        pd = (Q.dequantize_packed_plain if packed
+                              else Q.dequantize_plain)(pc, ps, fmt, blk)
+                        assert _same_bits(d, pd.reshape(shape)), \
+                            f"B{4 if packed else 6} values differ: {tag}"
+                        cases += 1
+    counts = {k: C.LAUNCHES[k] for k in ("quantize_packed",
+                                         "dequantize_packed", "quantize",
+                                         "dequantize")}
+    assert counts["quantize_packed"] == counts["quantize"] == cases // 2
+    assert counts["dequantize_packed"] == counts["dequantize"] == cases // 2
+    log(f"fl       : B3/B5 (quantize) and B4/B6 (dequantize) == plain, "
+        f"bitwise, {cases} cases at the {len(shapes)} FL leaf shapes "
+        f"({', '.join(str(s) for _, s in shapes)}): {', '.join(FL_FORMATS)}"
+        f", f32/pow2 scales, blocks {FL_BLOCKS} capped at the last dim, "
+        "packed and unpacked, zero and NaN blocks")
+    return dict(cases=cases, shapes=[list(s) for _, s in shapes],
+                formats=list(FL_FORMATS))
+
+
+def fl_compressed(ccfg) -> int:
+    """How many leaves of a toy_task() update the client ships as QTensors
+    under ``ccfg`` (its min_size, wire-shrink and policy decisions, run on
+    a zero delta on the CPU: no kernel launch)."""
+    import torch
+
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.fl import client as FC
+    from repro_torch.fl import toy_task
+    from repro_torch.fl._tree import leaves, tree_map
+
+    cfg, _, _, init = toy_task()
+    zero = tree_map(torch.zeros_like, init(cfg, 0, "cpu"))
+    upd, _ = FC._quantize_delta(zero, FC.init_client_residuals(zero, ccfg),
+                                ccfg)
+    return sum(isinstance(x, QTensor) for x in leaves(upd))
+
+
+def _codec_launches() -> dict:
+    from repro_torch.kernels import cuda as C
+
+    return {k: C.LAUNCHES[k] for k in ("quantize_packed", "dequantize_packed",
+                                       "quantize", "dequantize")}
+
+
+def fl_fedavg(dev) -> dict:
+    """examples/fed_avg.py's three configs on the card (toy_task(), 4
+    clients x 5 rounds x 2 local steps, lr 0.1): f32 deltas, F2P8 codes
+    (B5 per client leaf, B6 for the residual and the float server) and
+    packed words under an autotuned 6/8-bit policy (B3, B4). Asserts the
+    example's acceptance and each kernel's launches per client leaf."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.fl import (AutotuneConfig, ClientConfig, FedAvgConfig,
+                                run_fed_avg, toy_task)
+    from repro_torch.kernels import cuda as C
+
+    a = FL_FEDAVG
+    task = toy_task()
+    base = ClientConfig(local_steps=a["local_steps"], lr=a["lr"])
+    configs = {
+        "f32": (dataclasses.replace(base, compress=False), None),
+        "f2p8": (base, None),
+        "f2p packed-mixed": (
+            dataclasses.replace(base, packed=True),
+            AutotuneConfig(every=2, n_bits=(6, 8),
+                           budget_bits_per_elem=a["packed_budget"])),
+    }
+    # warm-up: each config through a solve and a round under its policy
+    for ccfg, at in configs.values():
+        run_fed_avg(FedAvgConfig(n_clients=a["n_clients"], rounds=3,
+                                 client=ccfg, autotune=at), task, device=dev)
+    torch.cuda.synchronize()
+    runs, out = {}, {}
+    for name, (ccfg, at) in configs.items():
+        fcfg = FedAvgConfig(n_clients=a["n_clients"], rounds=a["rounds"],
+                            client=ccfg, autotune=at)
+        C.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = run_fed_avg(fcfg, task, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = _codec_launches()
+        # launches from the run's leaf list and cohort: one quantize per
+        # compressed leaf, client and round; one dequantize per leaf for
+        # the float server's contribution and one for the residual
+        nq = fl_compressed(ccfg)
+        if hist["policy"] is not None:
+            assert fl_compressed(dataclasses.replace(
+                ccfg, policy=hist["policy"])) == nq
+        per = nq * fcfg.n_clients * fcfg.rounds if ccfg.compress else 0
+        ndq = per * (1 + int(ccfg.error_feedback))
+        want = {"quantize_packed": per if ccfg.packed else 0,
+                "dequantize_packed": ndq if ccfg.packed else 0,
+                "quantize": 0 if ccfg.packed else per,
+                "dequantize": 0 if ccfg.packed else ndq}
+        assert got == want, f"fed-avg {name}: launches {got} != {want}"
+        assert all(math.isfinite(v) for v in hist["eval_loss"]), name
+        runs[name] = hist
+        out[name] = dict(
+            eval_loss=hist["eval_loss"],
+            wire_bytes_per_round=hist["wire_bytes_per_round"],
+            round_seconds=hist["round_seconds"], wall_s=wall,
+            compressed_leaves=nq if ccfg.compress else 0, launches=got,
+            policy=(None if hist["policy"] is None
+                    else hist["policy"].describe()))
+        log(f"fl       : fed-avg {name}: eval loss "
+            f"{[round(v, 5) for v in hist['eval_loss']]}, wire bytes/round "
+            f"{hist['wire_bytes_per_round']}, round s "
+            f"{[round(v, 4) for v in hist['round_seconds']]} (after a "
+            f"warm-up), launches {got}")
+        if hist["policy"] is not None:
+            log(f"fl       : fed-avg {name}: solved policy\n"
+                f"{hist['policy'].describe()}")
+    wire = {k: r["wire_bytes_per_round"][-1] for k, r in runs.items()}
+    loss = {k: r["eval_loss"][-1] for k, r in runs.items()}
+    acc = dict(wire_ratio=wire["f32"] / wire["f2p8"],
+               f2p8_loss_ratio=loss["f2p8"] / loss["f32"],
+               packed_wire_drop=1 - wire["f2p packed-mixed"] / wire["f2p8"],
+               packed_loss_ratio=loss["f2p packed-mixed"] / loss["f2p8"])
+    log(f"fl       : fed-avg acceptance: wire f32/f2p8 "
+        f"{acc['wire_ratio']:.4f}x (>= 3.5), f2p8 loss "
+        f"{acc['f2p8_loss_ratio']:.5f}x f32 (<= 1.05), packed-mixed wire "
+        f"{100 * acc['packed_wire_drop']:.2f}% below f2p8 (>= 20%) at "
+        f"{acc['packed_loss_ratio']:.5f}x its loss (<= 1.001)")
+    assert acc["wire_ratio"] >= 3.5, acc
+    assert acc["f2p8_loss_ratio"] <= 1.05, acc
+    assert acc["packed_wire_drop"] >= 0.20, acc
+    assert acc["packed_loss_ratio"] <= 1.001, acc
+    out["acceptance"] = acc
+    return out
+
+
+def fl_fleet(dev) -> dict:
+    """README's fleet deployment on the card (FleetConfig(n_clients=1000,
+    sample=64, quorum=32), 3 rounds, client_batch 16, pow2 scales, no error
+    feedback): fault-free, under chaos-small, packed under the corrupt
+    plan, and under reorder + duplicates (bitwise equal to fault-free).
+    Asserts chaos-small's final loss within 1.05x of fault-free's, finite
+    committed models and one B5 (B3 packed) launch per compressed leaf,
+    client and round, and no dequantize (the exact fold is host integer
+    work); then profiles one fault-free round."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.faults import FaultPlan, named_plan
+    from repro_torch.fl import FleetConfig, run_fleet_rounds, toy_task
+    from repro_torch.fl import rounds as R
+    from repro_torch.fl._tree import leaves
+    from repro_torch.kernels import cuda as C
+
+    task = toy_task()
+    base = FleetConfig(**FL_FLEET)
+    packed = dataclasses.replace(
+        base, client=dataclasses.replace(base.client, packed=True))
+    runs = {"fault-free": (base, None),
+            "chaos-small": (base, named_plan("chaos-small")),
+            "corrupt (packed)": (packed, named_plan("corrupt")),
+            "reorder+duplicate": (base, FaultPlan(seed=5, duplicate=0.5,
+                                                  reorder=True))}
+    for cfg in (base, packed):    # warm-up
+        run_fleet_rounds(dataclasses.replace(cfg, rounds=1, sample=16,
+                                             quorum=1), task, device=dev)
+    hists, out = {}, {}
+    for name, (flcfg, plan) in runs.items():
+        C.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = run_fleet_rounds(flcfg, task, faults=plan, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = _codec_launches()
+        cohort = min(flcfg.sample, flcfg.n_clients)
+        per = fl_compressed(flcfg.client) * cohort * flcfg.rounds
+        pk = bool(flcfg.client.packed)
+        want = {"quantize_packed": per if pk else 0, "dequantize_packed": 0,
+                "quantize": 0 if pk else per, "dequantize": 0}
+        assert got == want, f"fleet {name}: launches {got} != {want}"
+        for leaf in leaves(hist["params"]):
+            assert bool(torch.isfinite(leaf).all()), f"{name}: non-finite"
+        lag = R._REGS["fl.fleet"]["arrival_lag_s"]
+        rs = hist["round_seconds"]
+        hists[name] = hist
+        out[name] = dict(
+            {k: hist[k] for k in ("eval_loss", "committed", "admitted",
+                                  "late_folded", "dropped", "failed",
+                                  "quarantined", "dup_skipped", "expired",
+                                  "retries", "wire_bytes_per_round",
+                                  "round_seconds")},
+            wall_s=wall, launches=got,
+            clients_per_s=[cohort / x for x in rs],
+            arrival_lag_p50_s=lag.quantile(0.5),
+            arrival_lag_p99_s=lag.quantile(0.99))
+        log(f"fl       : fleet {name}: {wall:.2f} s, launches {got}, "
+            f"arrival lag p50 {lag.quantile(0.5):.4f} s p99 "
+            f"{lag.quantile(0.99):.4f} s (virtual, obs registry)")
+        for r in range(flcfg.rounds):
+            log(f"fl       :   round {r}: admitted {hist['admitted'][r]} "
+                f"late {hist['late_folded'][r]} dropped "
+                f"{hist['dropped'][r]} failed {hist['failed'][r]} "
+                f"quarantined {hist['quarantined'][r]} dup "
+                f"{hist['dup_skipped'][r]} committed {hist['committed'][r]}"
+                f"; wire {hist['wire_bytes_per_round'][r]} B; eval loss "
+                f"{hist['eval_loss'][r]:.5f}; {rs[r]:.3f} s wall = "
+                f"{cohort / rs[r]:.1f} clients/s")
+    clean, chaos = hists["fault-free"], hists["chaos-small"]
+    ratio = chaos["eval_loss"][-1] / clean["eval_loss"][-1]
+    assert ratio <= 1.05, f"chaos-small loss {ratio:.4f}x fault-free"
+    assert all(clean["committed"]), clean["committed"]
+    dup = hists["reorder+duplicate"]
+    assert sum(dup["dup_skipped"]) > 0
+    for a, b in zip(leaves(clean["params"]), leaves(dup["params"])):
+        assert torch.equal(_bits(a), _bits(b)), \
+            "reorder + duplicates changed the committed parameters"
+    assert dup["eval_loss"] == clean["eval_loss"]
+    assert sum(hists["corrupt (packed)"]["quarantined"]) > 0
+    log(f"fl       : fleet chaos-small final loss {ratio:.5f}x fault-free "
+        f"(<= 1.05); reorder + duplicates ({sum(dup['dup_skipped'])} "
+        "duplicates skipped) committed bitwise-equal parameters")
+    # one fault-free round under the profiler: the device's busy share
+    one = dataclasses.replace(base, rounds=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run_fleet_rounds(one, task, device=dev)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    prof_res = device_profile(prof, wall_us, ("quantize", "dequantize"))
+    log_profile(f"fl fleet round ({one.sample} clients)", prof_res)
+    del prof
+    out["profile"] = prof_res
+    # the same round under the obs spans: where its wall time goes
+    from repro_torch import obs
+
+    obs.enable()
+    try:
+        run_fleet_rounds(one, task, device=dev)
+        spans = obs.get().tracer.summary()["spans"]
+    finally:
+        obs.disable()
+    ms = {k: spans[k]["total_us"] / 1e3 for k in ("fl.round", "fl.compute",
+                                                   "fl.client")}
+    split = dict(round_ms=ms["fl.round"], clients_ms=ms["fl.client"],
+                 host_copy_ms=ms["fl.compute"] - ms["fl.client"],
+                 fold_and_eval_ms=ms["fl.round"] - ms["fl.compute"],
+                 clients=spans["fl.client"]["count"])
+    log(f"fl       : fleet round split (obs spans, host clock): "
+        f"{split['round_ms']:.1f} ms = {split['clients']} clients' SGD + "
+        f"quantize {split['clients_ms']:.1f} ms + the chunks' host copies "
+        f"{split['host_copy_ms']:.1f} ms + delivery, exact fold, commit and "
+        f"eval {split['fold_and_eval_ms']:.1f} ms")
+    out["round_split"] = split
+    out["chaos_loss_ratio"] = ratio
+    return out
+
+
+def fl_wrap_engine(dev) -> dict:
+    """faults.wrap_engine over the sequential Engine on smoke llama3.2-3b on
+    the card: a benign plan returns the bare engine's tokens; a plan with
+    dropout 1.0 loses every request."""
+    import numpy as np
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.faults import DroppedRequest, FaultPlan, wrap_engine
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = smoke_config("llama3_2_3b")
+    eng = Engine(cfg, ServeConfig(batch=2, max_seq=64, quantized_kv=True),
+                 init_params(cfg, seed=0, device=dev))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    want = eng.generate(prompts, 8)
+    got = wrap_engine(eng, FaultPlan()).generate(prompts, 8)
+    assert np.array_equal(got, want), "wrap_engine(FaultPlan()) changed tokens"
+    lost = wrap_engine(eng, FaultPlan(dropout=1.0))
+    for _ in range(4):
+        try:
+            lost.generate(prompts, 8)
+        except DroppedRequest:
+            continue
+        raise AssertionError("dropout=1.0 served a request")
+    log(f"fl       : wrap_engine on smoke llama3.2-3b: FaultPlan() tokens == "
+        f"bare engine's {list(want.shape)}; dropout=1.0 dropped "
+        f"{lost.stats['dropped']} of 4 requests")
+    return dict(tokens_equal=True, dropped=lost.stats["dropped"])
+
+
+def fl_phase(dev) -> dict:
+    """Phase 9: (a) the FL kernels at the leaf shapes, (b) fed-avg, (c)
+    fleet rounds under faults, (d) their launches, (e) wrap_engine."""
+    t = time.perf_counter()
+    res = dict(codec=check_fl_codec(dev), fedavg=fl_fedavg(dev),
+               fleet=fl_fleet(dev), wrap_engine=fl_wrap_engine(dev))
+    # each FL kernel's launches over the FL main path: fed-avg and fleet
+    launches = {k: 0 for k in _codec_launches()}
+    for part in (res["fedavg"], res["fleet"]):
+        for r in part.values():
+            if isinstance(r, dict) and "launches" in r:
+                for k, n in r["launches"].items():
+                    launches[k] += n
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t
+    log(f"fl       : phase 9 in {res['seconds']:.1f} s; FL launches "
+        f"{launches}")
+    return res
+
+
+def fl_summary(fl: dict) -> dict:
+    """Phase 9's JSON line: per run its losses, wire bytes, round seconds
+    and launches; the fleet's accounting; the acceptance ratios."""
+    fleet = {k: {f: v[f] for f in (
+        "eval_loss", "committed", "admitted", "late_folded", "dropped",
+        "failed", "quarantined", "dup_skipped", "wire_bytes_per_round",
+        "round_seconds", "clients_per_s", "arrival_lag_p50_s",
+        "arrival_lag_p99_s", "launches")}
+        for k, v in fl["fleet"].items() if isinstance(v, dict)
+        and "eval_loss" in v}
+    prof = fl["fleet"]["profile"]
+    return dict(
+        codec_cases=fl["codec"]["cases"],
+        fedavg={k: {f: v[f] for f in ("eval_loss", "wire_bytes_per_round",
+                                      "round_seconds", "launches")}
+                for k, v in fl["fedavg"].items() if k != "acceptance"},
+        acceptance=fl["fedavg"]["acceptance"], fleet=fleet,
+        chaos_loss_ratio=fl["fleet"]["chaos_loss_ratio"],
+        fleet_round_busy_share=prof["device_busy_share"],
+        fleet_round_wall_ms=prof["wall_ms"],
+        fleet_round_split=fl["fleet"]["round_split"],
+        launches=fl["launches"],
+        seconds=fl["seconds"])
+
+
 def main():
     import argparse
     import gc
@@ -2516,12 +2952,13 @@ def main():
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--only", choices=("matmul", "attention", "codec",
-                                       "unpacked"),
+                                       "unpacked", "fl"),
                     help="matmul / attention / codec / unpacked: phases 1-2 "
                          "and phase 3's dequant matmul (B7/B8), attention "
                          "(B1/B2), packed codec (B3/B4) or unpacked codec "
                          "(B5, its round trip, B6) only, the quick loop for "
-                         "those kernels; prints no final ok line")
+                         "those kernels; fl: phases 1-2 and phase 9 (FL "
+                         "and faults); prints no final ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
@@ -2580,6 +3017,15 @@ def main():
             "bound_ms", "max_abs_err")} for k, v in unp.items()}}))
         print(smi)
         return
+    if only == "fl":
+        fl = fl_phase(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_fl.json").write_text(json.dumps(
+            {"device": smi, "fl": fl}, indent=1, default=str))
+        print(json.dumps({"fl": fl_summary(fl)}))
+        print(smi)
+        return
     if only == "matmul":
         mm = check_matmul(dev)
         out_dir = ROOT / "chiprun_out"
@@ -2623,6 +3069,9 @@ def main():
     launches["quantize"] = train_res["resume"]["save_launches"]["quantize"]
     launches["dequantize"] = train_res["resume"]["restore_launches"][
         "dequantize"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    fl_res = fl_phase(dev)
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
@@ -2640,6 +3089,10 @@ def main():
             "library_ms": r["library_ms"]})
         if name in ("quantize_packed", "dequantize_packed"):
             kernels[-1]["launches_by_mode"] = launches[name + "_modes"]
+        if name in fl_res["launches"]:
+            # the FL path's launches (phase 9: fed-avg and fleet rounds)
+            assert fl_res["launches"][name] > 0, f"FL never launched {name}"
+            kernels[-1]["fl_launches"] = fl_res["launches"][name]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -2647,7 +3100,7 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": kernels, "serve": serve_res,
-         "sketch": sketch_res, "train": train_res,
+         "sketch": sketch_res, "train": train_res, "fl": fl_res,
          "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "ef_roundtrip_row": res["ef_roundtrip"],
@@ -2660,6 +3113,7 @@ def main():
     print(json.dumps({"sketch": sketch_res}))
     print(json.dumps({"train": {k: v for k, v in train_res.items()
                                 if k != "profile"}}))
+    print(json.dumps({"fl": fl_summary(fl_res)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -153,3 +153,61 @@ def quantized_weight_from_jax(codes_or_words, scales, *, packed: bool,
         t = torch.from_numpy(c).to(device)
     s = torch.from_numpy(np.array(scales, np.float32)).to(device)
     return t, s
+
+
+# ---------------------------------------------------------------------------
+# The reference's stacked parameter tree (the FL path's layout)
+# ---------------------------------------------------------------------------
+def stacked_params(model: Model) -> dict:
+    """The model's parameters in the reference's tree: nested dicts by
+    reference path, each stacked leaf one ``[L, ...]`` tensor (a copy),
+    each unstacked leaf a copy of its tensor. The FL client computes its
+    deltas, residuals and updates on this tree, so the ``min_size`` test,
+    the wire-shrink test, the exact path's per-leaf grid and the fault
+    injector's leaf draw act on the reference's leaves."""
+    out: dict = {}
+    for path, leaf in reference_layout(dict(model.named_parameters())).items():
+        t = (torch.stack([p.detach() for p in leaf])
+             if isinstance(leaf, Stacked) else leaf.detach().clone())
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return out
+
+
+def params_tree_from_jax(np_tree, device="cuda"):
+    """A reference parameter tree (nested dicts of numpy arrays, stacked
+    ``blocks/b0/...`` leaves kept stacked) -> the same tree of f32 tensors
+    on ``device``: the FL drivers' parameters."""
+    if isinstance(np_tree, dict):
+        return {k: params_tree_from_jax(v, device) for k, v in np_tree.items()}
+    if np_tree is None:
+        return None
+    return torch.from_numpy(np.array(np_tree, np.float32)).to(device)
+
+
+def update_from_jax(np_tree, device="cpu"):
+    """A reference wire update (nested dicts of numpy arrays; each QTensor
+    leaf given as its parts ``(codes, scales, fmt, block, shape, packed)``
+    with ``fmt`` a format name or an F2PFormat) -> the port's update tree
+    on ``device``, the same bytes in every buffer
+    (``QTensor.from_parts`` validates each)."""
+    from repro_torch.core.formats import named_format
+    from repro_torch.core.qtensor import QTensor
+
+    if isinstance(np_tree, dict):
+        return {k: update_from_jax(v, device) for k, v in np_tree.items()}
+    if isinstance(np_tree, tuple):
+        codes, scales, fmt, block, shape, packed = np_tree
+        if isinstance(fmt, str):
+            fmt = named_format(fmt)
+        return QTensor.from_parts(_array_to_torch(codes, device),
+                                  _array_to_torch(scales, device), fmt,
+                                  block, shape, packed)
+    return _array_to_torch(np_tree, device)
+
+
+def _array_to_torch(a, device) -> torch.Tensor:
+    """A numpy array -> a tensor of the same dtype and bytes on ``device``."""
+    return torch.from_numpy(np.array(a)).to(device)

@@ -220,8 +220,9 @@ def test_import_hygiene_no_jax_no_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     *names, count = proc.stdout.split()
-    assert int(count) >= 36
+    assert int(count) >= 60
     for sub in ("sketch", "obs", "telemetry", "autotune", "optim", "train",
                 "launch", "data", "faults", "kernels.f2p_matmul",
-                "autotune.calibrate"):
+                "autotune.calibrate", "fl", "fl.exact", "fl.rounds",
+                "faults.plan"):
         assert f"repro_torch.{sub}" in names, sub

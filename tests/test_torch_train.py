@@ -51,7 +51,7 @@ from repro_torch.autotune.policy import FormatPolicy, path_from_keystr
 from repro_torch.configs import default_policy, smoke_config
 from repro_torch.core.formats import named_format
 from repro_torch.data import DataConfig, global_batch, host_batch
-from repro_torch.faults import CrashInjected, active
+from repro_torch.faults import CrashInjected, FaultPlan, active
 from repro_torch.launch import train as launch_train
 from repro_torch.models.convert import (named_from_jax, reference_path,
                                         train_state_from_jax)
@@ -479,7 +479,8 @@ def test_checkpoint_crash_safety(tmp_path):
     _, step = checkpoint.restore(d, tree)
     assert step == 3
     for point in ("ckpt.data_written", "ckpt.before_commit"):
-        with active([point]), pytest.raises(CrashInjected):
+        with active(FaultPlan(crash_points=(point,))), \
+                pytest.raises(CrashInjected):
             checkpoint.save(d, 4, {"w": torch.full((4,), 2.0)})
         assert checkpoint.latest_step(d) == 3
     back = {"w": torch.zeros(4)}
