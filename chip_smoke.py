@@ -8,13 +8,14 @@ NVIDIA GPU.
     python3 chip_smoke.py --only codec   # phases 1-2 and B3/B4
     python3 chip_smoke.py --only unpacked  # phases 1-2, B5, its round trip, B6
     python3 chip_smoke.py --only fl      # phases 1-2 and phase 9 (FL, faults)
+    python3 chip_smoke.py --only families  # phases 1-2 and phase 10 (MoE, ...)
 
 With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
-unpacked``, ``--only fl``) the script runs the device and build phases and
-phase 3's dequant matmul, B7/B8 (attention, B1/B2; the packed codec,
-B3/B4; the unpacked codec, B5 and its round trip and B6; phase 9), prints
-their lines and ends without the final ``{"ok": ...}`` line, so it never
-stands in for a full run.
+unpacked``, ``--only fl``, ``--only families``) the script runs the device
+and build phases and phase 3's dequant matmul, B7/B8 (attention, B1/B2;
+the packed codec, B3/B4; the unpacked codec, B5 and its round trip and
+B6; phase 9; phase 10), prints their lines and ends without the final
+``{"ok": ...}`` line, so it never stands in for a full run.
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -28,8 +29,8 @@ Phases (any failed check raises, so the script exits non-zero):
    bf16 out, f2p_sr_2_8s and f2p_lr_1_6s; the K+V mode beside the two
    single calls _cache_read made before) with the host, on the device,
    with the L2 cold and as the host's enqueue time per call, B3's KV write
-   (one launch for a layer's K and V into the cache) bitwise outside the
-   dump page in both addressing modes at the serving cache (8 slots,
+   (one launch for a layer's K and V into the cache) bitwise, the dump
+   page included, in both addressing modes at the serving cache (8 slots,
    1024 positions over 8-token pages, 8 kv heads x 128; f2p_sr_2_8s and
    f2p_lr_1_6s) and timed per decode layer write beside the composition
    it replaced (two packed quantizes, four index_put_ scatters and the
@@ -191,12 +192,43 @@ Phases (any failed check raises, so the script exits non-zero):
    list and cohort. (e) faults.wrap_engine over Engine on smoke
    llama3.2-3b: FaultPlan() returns the bare engine's tokens, dropout 1.0
    drops every request.
+10. families — the MoE family and the other dense configs, each model
+   freed before the next. (a) B1 paged and B2 dense within rtol = atol =
+   1e-5 of their plain versions in f32 and paged == dense-over-gathered-
+   pages bitwise, and B3's KV write bitwise in both addressing modes (and
+   with all 8 slots on one dump-page position: the last writes), at the
+   new configs' (kv heads, G, head_dim) = (8, 5, 128), (40, 1, 64) and
+   (32, 1, 128), 8 slots x 1024 positions over 8-token pages; each timed
+   with the host and on the device beside its bytes bound. (b)
+   llama4-scout at full width with 8 of its 48 layers (the only cut: 48
+   layers in bf16 are 215 GB), random weights from seed 0, on phase 5's
+   workload: paged, copy-in and paged again, the rerun's tokens equal to
+   the run's (asserted) and the paged / copy-in agreement printed (idle
+   slots route like live ones and read other KV in the two modes, so the
+   reference's own modes can differ there); then 8 requests of 32 tokens
+   at once, every slot live throughout, paged == copy-in (asserted); the
+   unfused Engine (B4's K+V read, one launch per layer per step,
+   asserted); tok/s, TTFT / TBT p50 / p99, the peak of
+   max_memory_allocated, the share of routed assignments capacity dropped
+   in decode and in prefill (from moe_apply's load), and the device's busy
+   share of a profiled paged run. The launch counters are zeroed before
+   the paged run and read after the unfused Engine. (c) llama4-maverick at
+   full width, 2 layers (one pattern group: a dense and a 128-expert
+   layer), kv/b0 -> f2p_sr_2_8s and kv/b1 -> f2p_lr_1_6s: 4 requests x 16
+   tokens on 4 slots, paged == copy-in, each position's slabs in its own
+   format, the pool's bytes. (d) minicpm3-4b at full width, all 62 layers
+   (MHA, head_dim 64): 8 requests x 16 tokens, paged == copy-in, tok/s.
+   (e) smoke scout and maverick in f32 on the card against the CPU:
+   logits within 1e-4 over prefill and 8 decode steps, greedy tokens
+   equal.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
-line, one ``{"fl": {...}}`` JSON line, one ``{"kernels": [...]}`` JSON line
+line, one ``{"fl": {...}}`` JSON line, one ``{"families": {...}}`` JSON
+line, one ``{"kernels": [...]}`` JSON line
 (all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as a row of
 its own; B5's codes mode and B6 count the launches of phase 8's checkpoint
-save and restore; B3-B6 also carry ``fl_launches``, phase 9's), then the
+save and restore; B3-B6 also carry ``fl_launches``, phase 9's, and B1-B4
+``families_launches``, phase 10's), then the
 nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
 copy of the results goes to chiprun_out/chip_smoke.json.
 """
@@ -243,6 +275,13 @@ ENC_CHECK_FORMATS = ("f2p_sr_2_8s", "f2p_sr_2_16s", "f2p_lr_1_6s")
 POW2_CHECK_SCALES = (2.0 ** -126, 2.0 ** -3, 2.0 ** 127)
 # phase 8: the train path of launch/train.py's defaults
 ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "llama3_2_3b", 8, 8, 128
+# phase 10: (kv heads, query rows per kv head G, head_dim) the new configs
+# give B1-B3 (scout and maverick 40 / 8 heads; minicpm3, MHA at head_dim 64;
+# codeqwen, MHA), and the depth each full-width MoE model is cut to: 48
+# scout layers in bf16 are 215 GB, 2 maverick layers (one pattern group, a
+# dense and a 128-expert layer) are 37 GB, against the card's 80
+FAMILY_SHAPES = ((8, 5, 128), (40, 1, 64), (32, 1, 128))
+SCOUT_LAYERS, MAVERICK_LAYERS = 8, 2
 # phase 9: federated learning, examples/fed_avg.py's defaults and README's
 # fleet deployment; the FL leaf shapes' formats (a 6-bit candidate of
 # candidate_formats(n_bits=(6, 8)) beside the 8-bit wire format) and blocks
@@ -415,11 +454,25 @@ def device_profile(prof, wall_us: float, names) -> dict:
     for k, (n, tot) in per.items():
         g = kernel_group(k, names)
         groups[g] = groups.get(g, 0.0) + tot / 1e3
+    # the host side: the ops of most self CPU time, and the calls that wait
+    # for the device (a host that waits cannot run ahead of it)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    waits = {e.key: e.count for e in host if e.key in HOST_WAITS}
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 device_busy_share=busy / wall_us if dev else None,
                 kernels=ours, groups_ms=groups,
                 top=[dict(name=k[:80], calls=n, device_ms=tot / 1e3)
-                     for k, (n, tot) in top])
+                     for k, (n, tot) in top],
+                host_top=[dict(name=e.key[:60], calls=e.count,
+                               self_cpu_ms=e.self_cpu_time_total / 1e3)
+                          for e in host[:10]],
+                host_waits=waits)
+
+
+# host calls that wait for the device
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "aten::_local_scalar_dense",
+              "aten::item", "cudaMemcpy")
 
 
 def kernel_group(name: str, ours) -> str:
@@ -457,6 +510,10 @@ def log_profile(tag: str, res: dict) -> None:
     for t in res["top"]:
         log(f"profile  :   top {t['device_ms']:9.3f} ms {t['calls']:6d} x "
             f"{t['name']}")
+    for t in res.get("host_top", ()):
+        log(f"profile  :   host {t['self_cpu_ms']:9.3f} ms {t['calls']:6d} x "
+            f"{t['name']}")
+    log(f"profile  :   host waits on the device: {res.get('host_waits')}")
 
 
 # ---------------------------------------------------------------------------
@@ -639,11 +696,12 @@ KV_SLOTS, KV_MAX_SEQ, KV_PAGE, KV_HEADS, KV_HD = 8, 1024, 8, 8, 128
 
 
 def kv_write_inputs(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
-                    dtype="bf16"):
+                    dtype="bf16", K=KV_HEADS, hd=KV_HD):
     """(cache, k, v, pos, pages) of one layer's KV write at the serving
     cache: a paged pool (page table of random distinct pages; the last two
     slots retired onto the dump page 0) or a dense [B, 1024] cache; k, v
-    [B, S, 8, 128] randn x 3; pos [B] int64 in [0, 1024 - S]."""
+    [B, S, K, hd] (8 x 128 by default) randn x 3; pos [B] int64 in [0,
+    1024 - S]."""
     import torch
 
     from repro_torch.models.attention import empty_packed
@@ -651,10 +709,10 @@ def kv_write_inputs(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
     maxp = KV_MAX_SEQ // KV_PAGE
     P = (KV_SLOTS + 1) * maxp + 1
     lead = (P, KV_PAGE) if paged else (B, KV_MAX_SEQ)
-    cache = {kv: empty_packed((*lead, KV_HEADS, KV_HD), fmt, dev)
+    cache = {kv: empty_packed((*lead, K, hd), fmt, dev)
              for kv in ("k", "v")}
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
-    k, v = ((torch.randn(B, S, KV_HEADS, KV_HD, generator=g, device=dev)
+    k, v = ((torch.randn(B, S, K, hd, generator=g, device=dev)
              * 3).to(dt) for _ in range(2))
     pos = torch.randint(0, KV_MAX_SEQ - S + 1, (B,), generator=g, device=dev)
     pages = None
@@ -722,9 +780,13 @@ def old_cache_write(cache, k, v, idx):
 
 
 def kv_write_bitwise(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
-                     dtype="bf16", start=None) -> float:
+                     dtype="bf16", start=None, K=KV_HEADS, hd=KV_HD,
+                     collide=False) -> float:
     """B3's KV write against kv_write_plain on the same inputs, words and
-    scales bitwise outside the dump page; returns max |dequantized
+    scales bitwise over the whole cache, the dump page included (rows
+    sharing a position: the last in (b, s) order writes, in both);
+    ``collide`` points every slot's table at the dump page at one start
+    position, so all B rows share each position. Returns max |dequantized
     difference| over the written cache (0.0 when bitwise)."""
     import torch
 
@@ -732,19 +794,21 @@ def kv_write_bitwise(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
     from repro_torch.kernels import f2p_quant as Q
 
     cache, k, v, pos, pages = kv_write_inputs(dev, g, fmt, paged, B, S,
-                                              dtype)
+                                              dtype, K, hd)
     if start is not None:
         pos = start
+    if collide:
+        pages[:] = 0
+        pos = torch.full_like(pos, 5)
     ref = _clone_cache(cache)
     Q.f2p_kv_write(k, v, cache, pos, pages)
     Q.kv_write_plain(k, v, ref, pos, pages)
-    keep = slice(1, None) if paged else slice(None)
     err = 0.0
     for kv in ("k", "v"):
-        assert torch.equal(cache[kv].codes.view(torch.int32)[keep],
-                           ref[kv].codes.view(torch.int32)[keep]), \
+        assert torch.equal(cache[kv].codes.view(torch.int32),
+                           ref[kv].codes.view(torch.int32)), \
             f"kv_write {kv} words differ: {fmt} paged={paged} S={S} {dtype}"
-        assert torch.equal(cache[kv].scales[keep], ref[kv].scales[keep]), \
+        assert torch.equal(cache[kv].scales, ref[kv].scales), \
             f"kv_write {kv} scales differ: {fmt} paged={paged} S={S}"
         if not paged:
             err = max(err, float((QT.dequantize(cache[kv]) - QT.dequantize(
@@ -790,8 +854,8 @@ def check_kv_write(dev, names=("f2p_sr_2_8s", "f2p_lr_1_6s")) -> dict:
         kv_write_bitwise(dev, g, fmt, True, S=16)
         err = max(err, kv_write_bitwise(dev, g, fmt, False, B=4, S=256,
                                         start=0))
-    log(f"kv write : B3 KV write == kv_write_plain, bitwise outside the "
-        f"dump page ({', '.join(names)}; paged and dense; decode bf16 and "
+    log(f"kv write : B3 KV write == kv_write_plain, bitwise, the dump page "
+        f"included ({', '.join(names)}; paged and dense; decode bf16 and "
         f"f32, 16 positions across pages, a prefill call from 0)")
     rows = {}
     for name in names:
@@ -1656,7 +1720,12 @@ def _ms(v) -> str:
 # ---------------------------------------------------------------------------
 # phase 4: small model, card vs CPU
 # ---------------------------------------------------------------------------
-def check_small(dev):
+def check_small(dev, arch="llama3_2_3b", tol=1e-3, steps=6,
+                tokens=False) -> dict:
+    """Smoke ``arch`` in f32 on the card (kernels) against the same weights
+    on the CPU (plain versions): prefill and ``steps`` decode steps'
+    logits within ``tol``, fed the CPU's greedy tokens; with ``tokens``
+    the card's greedy tokens must equal the CPU's at every step."""
     import dataclasses
 
     import torch
@@ -1666,8 +1735,7 @@ def check_small(dev):
                                     prefill)
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(smoke_config("llama3_2_3b"),
-                              fused_attention=True)
+    cfg = dataclasses.replace(smoke_config(arch), fused_attention=True)
     cpu = init_params(cfg, seed=0, device="cpu")
     gpu = Model(cfg, dev)
     gpu.load_state_dict(cpu.state_dict())
@@ -1678,14 +1746,20 @@ def check_small(dev):
     lc = prefill(cpu, toks, caches["cpu"])
     lg = prefill(gpu, toks.to(dev), caches[dev])
     worst = float((lg.cpu() - lc).abs().max())
-    for i in range(6):
+    same = True
+    for i in range(steps):
         tok = torch.argmax(lc, -1)[:, None]
+        same &= bool(torch.equal(torch.argmax(lg, -1).cpu()[:, None], tok))
         lc = decode_step(cpu, tok, 13 + i, caches["cpu"])
         lg = decode_step(gpu, tok.to(dev), 13 + i, caches[dev])
         worst = max(worst, float((lg.cpu() - lc).abs().max()))
-    assert worst < 1e-3, f"card vs CPU logits differ by {worst}"
-    log(f"small    : smoke llama (f32) card vs CPU logits max |diff| "
-        f"{worst:.3e} over prefill + 6 decode steps")
+    same &= bool(torch.equal(torch.argmax(lg, -1).cpu(), torch.argmax(lc, -1)))
+    assert worst < tol, f"{arch}: card vs CPU logits differ by {worst}"
+    assert same or not tokens, f"{arch}: card and CPU greedy tokens differ"
+    log(f"small    : smoke {cfg.name} (f32) card vs CPU logits max |diff| "
+        f"{worst:.3e} over prefill + {steps} decode steps (< {tol}); greedy "
+        f"tokens {'equal' if same else 'differ'}")
+    return dict(max_abs_diff=worst, tokens_equal=same)
 
 
 # ---------------------------------------------------------------------------
@@ -1868,7 +1942,8 @@ def calibrate_kv(dev, cfg, model, reqs) -> dict:
         prefill(model, torch.as_tensor(r.tokens[None], device=dev).long(),
                 caches)
         for kv in ("k", "v"):
-            state = update(state, caches[kv], NORM_SPEC, block=cfg.head_dim)
+            state = update(state, caches["b0"][kv], NORM_SPEC,
+                           block=cfg.head_dim)
     return state
 
 
@@ -2944,6 +3019,432 @@ def fl_summary(fl: dict) -> dict:
         seconds=fl["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family and the other dense configs
+# ---------------------------------------------------------------------------
+def attention_at(dev, K, G, hd, fmt_name="f2p_sr_2_8s") -> dict:
+    """B1 (paged) and B2 (dense, over the gathered pages) at (kv heads K,
+    query rows per kv head G, head_dim hd): 8 slots x 1024 positions over
+    8-token pages, kv_len 512..1024, f32 q. Paged == dense bitwise, each
+    within rtol = atol = 1e-5 of its plain version; ms with the host
+    (CUDA events around the wrapper), device ms (torch.profiler) and the
+    bytes bound."""
+    import torch
+
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_attention as A
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    fmt = named_format(fmt_name)
+    B, T, S = 8, 8, 1024
+    maxp = S // T
+    P = (B + 1) * maxp + 1
+    kv_len = torch.randint(512, S + 1, (B,), generator=g, device=dev)
+    q = torch.randn(B, 1, K * G, hd, generator=g, device=dev)
+    slab_k, slab_v = (QT.quantize(torch.randn(P, T, K, hd, generator=g,
+                                              device=dev),
+                                  fmt, block=hd, packed=True)
+                      for _ in range(2))
+    pages = torch.randperm(P, generator=g, device=dev)[:B * maxp].reshape(
+        B, maxp).to(torch.int32)
+    dense_k = A.gather_pages_to_dense(slab_k, pages)
+    dense_v = A.gather_pages_to_dense(slab_v, pages)
+    paged = A.attention_paged(q, slab_k, slab_v, pages, kv_len=kv_len)
+    dense = A.attention_packed(q, dense_k, dense_v, kv_len=kv_len)
+    assert torch.equal(paged, dense), \
+        f"B1 != B2 over the gathered pages at K={K} G={G} hd={hd}"
+    live = int(kv_len.sum())
+    row_bytes = (slab_k.codes.shape[-1] + slab_v.codes.shape[-1]) * 4 + 8
+    nb = live * K * row_bytes + 2 * B * K * G * hd * 4 \
+        + int(((kv_len + T - 1) // T).sum()) * 4 + B * 8
+    plan = A.attention_plan(B, K, G, hd, S)
+    out = {}
+    for name, fn, plain, got in (
+            ("attention_paged",
+             lambda: A.attention_paged(q, slab_k, slab_v, pages,
+                                       kv_len=kv_len),
+             lambda: A.attention_paged_plain(q, slab_k, slab_v, pages,
+                                             kv_len=kv_len), paged),
+            ("attention_packed",
+             lambda: A.attention_packed(q, dense_k, dense_v, kv_len=kv_len),
+             lambda: A.attention_packed_plain(q, dense_k, dense_v,
+                                              kv_len=kv_len), dense)):
+        ref = plain()
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        dms, per_call = device_calls(fn, "attention_decode_kernel")
+        out[name] = dict(ms=cuda_ms(fn, iters=100), device_ms=dms,
+                         plain_ms=cuda_ms(plain, iters=5),
+                         bound_ms=bound_ms(nb),
+                         max_abs_err=float((got - ref).abs().max()),
+                         rows=plan.rows, groups=plan.groups,
+                         device_kernels_per_call=per_call)
+        r = out[name]
+        log(f"families : K={K:2d} G={G} hd={hd:3d} {name:16s} "
+            f"{r['ms']:.5f} ms (device {_ms(dms)}; bound "
+            f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.3f}); rows "
+            f"{plan.rows} x {plan.groups} groups per kv head; max |err| "
+            f"{r['max_abs_err']:.2e}")
+    return out
+
+
+def kv_write_at(dev, K, hd, fmt_name="f2p_sr_2_8s") -> dict:
+    """B3's KV write at (K, hd), bf16 K and V of 8 slots: bitwise against
+    kv_write_plain over the whole cache in both addressing modes, and with
+    every slot on the dump page at one position (the last slot writes);
+    the paged decode layer write timed with the host and on the device,
+    beside its bytes bound."""
+    import torch
+
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_quant as Q
+    from repro_torch.models import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    fmt = named_format(fmt_name)
+    for paged in (True, False):
+        kv_write_bitwise(dev, g, fmt, paged, K=K, hd=hd)
+    kv_write_bitwise(dev, g, fmt, True, K=K, hd=hd, collide=True)
+    cache, k, v, pos, pages = kv_write_inputs(dev, g, fmt, True, K=K, hd=hd)
+    fn = lambda: A._paged_cache_write(cache, k, v, pos, pages)
+    r = dict(ms=cuda_ms(fn, iters=200), bound_ms=bound_ms(kv_write_bytes(
+        k, cache["k"].codes.shape[-1], True)),
+        plain_ms=cuda_ms(lambda: Q.kv_write_plain(k, v, cache, pos, pages),
+                         iters=10))
+    r["device_ms"], r["kernels"] = device_ms_kernels(fn, iters=50)
+    log(f"families : K={K:2d} hd={hd:3d} kv_write (paged decode layer "
+        f"write) {r['ms']:.5f} ms (device {_ms(r['device_ms'])}; bound "
+        f"{r['bound_ms']:.7f}, plain {r['plain_ms']:.3f}); bitwise in both "
+        f"modes and with all 8 slots on one dump position")
+    return r
+
+
+def family_requests(vocab: int, n: int, *, seed=0, stagger=4, max_new=32):
+    """Phase 5's workload shape: prompts of 16..256 tokens (numpy seed),
+    ``max_new`` tokens each, one arrival every ``stagger`` decode steps (0:
+    all at once)."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=u + 1,
+                    tokens=rng.integers(0, vocab, int(rng.integers(16, 257))
+                                        ).astype(np.int32),
+                    max_new=max_new, arrival=stagger * u) for u in range(n)]
+
+
+def moe_drops(tap, slots: int, k: int) -> dict:
+    """Share of routed assignments that capacity dropped, in decode calls
+    (``slots`` tokens) and in prefill calls, from moe_apply's load:
+    dropped = sum(max(load - cap, 0))."""
+    import torch
+
+    if not tap:
+        return {}
+    loads = torch.stack([load for _, load in tap])
+    caps = torch.tensor([c for c, _ in tap], dtype=loads.dtype,
+                        device=loads.device)
+    drop = torch.clamp(loads - caps[:, None], min=0).sum(1).cpu()
+    tot = loads.sum(1).cpu()
+    dec = tot == slots * k
+    out = {}
+    for name, m in (("decode", dec), ("prefill", ~dec)):
+        n = float(tot[m].sum())
+        out[name] = dict(assignments=int(n), dropped=int(drop[m].sum()),
+                         share=float(drop[m].sum()) / n if n else None,
+                         calls=int(m.sum()))
+    return out
+
+
+def family_run(dev, cfg, model, reqs, tag, **bs) -> dict:
+    """One BatchedEngine run: every request finished with its max_new
+    tokens, B3's KV write launched once per layer per decode step and per
+    prefill call; the launches of the run, tok/s (wall, prefill included),
+    the peak of max_memory_allocated, TTFT / TBT and the MoE drop shares."""
+    import torch
+
+    from repro_torch.kernels import cuda as C
+    from repro_torch.models.moe import MoE, capacity
+    from repro_torch.serve import BatchedEngine, BatchedServeConfig
+
+    eng = BatchedEngine(cfg, BatchedServeConfig(**bs), model)
+    before = dict(C.LAUNCHES)
+    tap = []   # (cap, load) of every MoE call, from forward hooks
+
+    def on_moe(mod, args, out):
+        x, mcfg = args
+        tap.append((capacity(x.shape[0] * x.shape[1], mcfg), out[1]["load"]))
+
+    hooks = [m.register_forward_hook(on_moe) for m in model.modules()
+             if isinstance(m, MoE)]
+    sync(dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        out = eng.run(reqs)
+        sync(dev)
+        dt = time.perf_counter() - t
+    finally:
+        for h in hooks:
+            h.remove()
+    counts = {k: C.LAUNCHES[k] - before.get(k, 0) for k in C.LAUNCHES}
+    assert sorted(out) == sorted(r.uid for r in reqs), f"{tag}: lost requests"
+    for r in reqs:
+        o = out[r.uid]
+        assert len(o) == r.max_new, f"{tag}: request {r.uid} short"
+        assert ((o >= 0) & (o < cfg.vocab_size)).all()
+    st = eng.stats
+    writes = cfg.n_layers * (st["steps"] + st.get("prefill_calls", 0))
+    assert counts["kv_write"] == writes, \
+        f"{tag}: {counts['kv_write']} kv_write launches, not {writes}"
+    ntok = sum(len(v) for v in out.values())
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if torch.device(dev).type == "cuda" else None)
+    drops = moe_drops(tap, bs["slots"], cfg.experts_per_token)
+    log(f"families : {cfg.name} {tag}: {len(out)} requests, {ntok} tokens in "
+        f"{dt:.2f} s = {ntok / dt:.1f} tok/s; {st['rounds']} rounds, "
+        f"{st.get('prefill_calls', 0)} prefill calls, peak "
+        f"{_ms(peak)} GB; launches " + str({k: v for k, v in counts.items()
+                                            if v}))
+    for name, d in drops.items():
+        log(f"families : {cfg.name} {tag}: {name} drops {d['dropped']} of "
+            f"{d['assignments']} routed assignments ({d['share']:.4f}) over "
+            f"{d['calls']} MoE calls")
+    return dict(out=out, counts=counts, tok_s=ntok / dt, seconds=dt,
+                stats=st, peak_gb=peak, drops=drops, engine=eng,
+                latency=engine_latency(f"{cfg.name} {tag}", eng))
+
+
+def _same_tokens(a: dict, b: dict) -> int:
+    """Requests whose tokens agree, bitwise."""
+    import numpy as np
+
+    return sum(bool(np.array_equal(a[u], b[u])) for u in a)
+
+
+def scout_phase(dev) -> dict:
+    """10(b): llama4-scout at full width, 8 of 48 layers, random weights
+    from seed 0, on phase 5's workload (slots 8, max_seq 1024, 8-token
+    pages): paged, copy-in, paged again (run == rerun asserted), then all 8
+    slots live from first to last step (8 requests at once, 32 tokens
+    each: paged == copy-in asserted), the unfused Engine (B4, 4 tokens) and
+    a profiled paged run. The launch counts are zeroed before the paged run
+    and read after the unfused Engine: phase 10's main path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import cuda as C
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = dataclasses.replace(full_config("llama4_scout_17b"),
+                              n_layers=SCOUT_LAYERS)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    log(f"families : {cfg.name} {cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} E={cfg.n_experts} top-"
+        f"{cfg.experts_per_token} + {cfg.n_shared_experts} shared ff="
+        f"{cfg.d_ff} V={cfg.vocab_size} {cfg.dtype}, "
+        f"{cfg.param_count() / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = family_requests(cfg.vocab_size, 16)
+    bs = dict(slots=8, max_seq=1024)
+    family_run(dev, cfg, model, reqs, "warm-up (paged)", **bs)
+    C.reset_launches()
+    paged = family_run(dev, cfg, model, reqs, "paged", **bs)
+    copy_in = family_run(dev, cfg, model, reqs, "copy-in",
+                         paged_decode=False, **bs)
+    rerun = family_run(dev, cfg, model, reqs, "paged again", **bs)
+    assert _same_tokens(paged["out"], rerun["out"]) == len(reqs), \
+        "scout: paged run != its rerun"
+    agree = _same_tokens(paged["out"], copy_in["out"])
+    log(f"families : scout: paged == rerun, token for token; paged == "
+        f"copy-in on {agree}/{len(reqs)} requests (staggered: idle slots "
+        f"read other KV in the two modes and take expert capacity; "
+        f"printed, not asserted)")
+    full = family_requests(cfg.vocab_size, 8, seed=1, stagger=0)
+    full_p = family_run(dev, cfg, model, full, "all slots live, paged", **bs)
+    full_c = family_run(dev, cfg, model, full, "all slots live, copy-in",
+                        paged_decode=False, **bs)
+    assert _same_tokens(full_p["out"], full_c["out"]) == len(full), \
+        "scout: paged != copy-in with every slot live"
+    log("families : scout: paged == copy-in, token for token, with all 8 "
+        "slots live")
+    eng = Engine(cfg, ServeConfig(batch=1, max_seq=1024, quantized_kv=True),
+                 model)
+    before = dict(C.LAUNCHES)
+    short = eng.generate(reqs[0].tokens[None], 4)
+    sync(dev)
+    reads = C.LAUNCHES["kv_read"] - before["kv_read"]
+    assert reads == cfg.n_layers * 3, f"unfused scout: {reads} kv_read"
+    assert short.shape == (1, 4)
+    launches = dict(C.LAUNCHES)
+    for name in ("attention_paged", "attention_packed", "kv_write",
+                 "kv_read"):
+        assert launches[name] > 0, f"phase 10 never launched {name}"
+    prof = (profile_decode(cfg, model, bs)
+            if torch.device(dev).type == "cuda" else None)
+    res = dict(arch=cfg.name, layers=cfg.n_layers,
+               params=cfg.param_count(), launches=launches,
+               agree_copy_in=f"{agree}/{len(reqs)}", profile=prof)
+    for tag, r in (("paged", paged), ("copy_in", copy_in),
+                   ("rerun", rerun), ("live_paged", full_p),
+                   ("live_copy_in", full_c)):
+        res[tag] = {k: r[k] for k in ("tok_s", "seconds", "peak_gb",
+                                      "drops", "latency")}
+        res[tag]["rounds"] = r["stats"]["rounds"]
+    res["pool"] = paged["stats"]["pool"]
+    del model
+    return res
+
+
+def maverick_phase(dev) -> dict:
+    """10(c): llama4-maverick at full width, 2 of 48 layers (one pattern
+    group: a dense and a 128-expert layer), kv/b0 -> f2p_sr_2_8s and kv/b1
+    -> f2p_lr_1_6s: 4 requests x 16 tokens at once on 4 slots, paged ==
+    copy-in, each position's slabs in its own format."""
+    import dataclasses
+
+    from repro_torch.autotune import FormatPolicy, PolicyRule
+    from repro_torch.configs import full_config
+    from repro_torch.core.formats import named_format
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(full_config("llama4_maverick_400b"),
+                              n_layers=MAVERICK_LAYERS)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    log(f"families : {cfg.name} {cfg.n_layers}L E={cfg.n_experts}, "
+        f"{cfg.param_count() / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    pol = FormatPolicy(rules=(PolicyRule("kv/b0", "f2p_sr_2_8s", 0),
+                              PolicyRule("kv/b1", "f2p_lr_1_6s", 0)))
+    reqs = family_requests(cfg.vocab_size, 4, seed=2, stagger=0, max_new=16)
+    bs = dict(slots=4, max_seq=1024, kv_policy=pol)
+    paged = family_run(dev, cfg, model, reqs, "paged", **bs)
+    copy_in = family_run(dev, cfg, model, reqs, "copy-in",
+                         paged_decode=False, **bs)
+    assert _same_tokens(paged["out"], copy_in["out"]) == len(reqs), \
+        "maverick: paged != copy-in"
+    want = {"b0": named_format("f2p_sr_2_8s"), "b1": named_format(
+        "f2p_lr_1_6s")}
+    pool = paged["engine"].pool
+    per = {}
+    for key, fmt in want.items():
+        for kv in ("k", "v"):
+            assert pool.slabs[key][kv].fmt == fmt, (key, kv)
+            assert copy_in["engine"].caches[key][kv].fmt == fmt, (key, kv)
+        per[key] = sum(pool.slabs[key][kv].nbytes for kv in ("k", "v"))
+    st = pool.stats()
+    log(f"families : maverick: paged == copy-in, token for token; pool "
+        f"{st['pool_bytes_packed']} B ({per['b0']} B for b0 at 8 bits, "
+        f"{per['b1']} B for b1 at 6 bits), {st['page_bytes_packed']} B per "
+        f"page")
+    del model
+    return dict(arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+                pool=st, pool_bytes_by_position=per,
+                paged={k: paged[k] for k in ("tok_s", "seconds", "peak_gb",
+                                             "drops", "latency")},
+                copy_in_tok_s=copy_in["tok_s"])
+
+
+def minicpm3_phase(dev) -> dict:
+    """10(d): minicpm3-4b at full width, not cut (62 layers, 40 kv heads =
+    MHA, head_dim 64): 8 requests x 16 tokens at once, paged == copy-in."""
+    from repro_torch.configs import full_config
+    from repro_torch.models import init_params
+
+    cfg = full_config("minicpm3_4b")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    log(f"families : {cfg.name} {cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim}, "
+        f"{cfg.param_count() / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = family_requests(cfg.vocab_size, 8, seed=3, stagger=0, max_new=16)
+    bs = dict(slots=8, max_seq=1024)
+    paged = family_run(dev, cfg, model, reqs, "paged", **bs)
+    copy_in = family_run(dev, cfg, model, reqs, "copy-in",
+                         paged_decode=False, **bs)
+    assert _same_tokens(paged["out"], copy_in["out"]) == len(reqs), \
+        "minicpm3: paged != copy-in"
+    log("families : minicpm3: paged == copy-in, token for token")
+    del model
+    return dict(arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+                paged={k: paged[k] for k in ("tok_s", "seconds", "peak_gb",
+                                             "latency")},
+                copy_in_tok_s=copy_in["tok_s"])
+
+
+def families_phase(dev) -> dict:
+    """Phase 10: B1/B2/B3 at the new configs' shapes, then scout, maverick
+    and minicpm3 at full width (each model freed before the next), then
+    scout and maverick smoke on the card against the CPU."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    kern = {}
+    for K, G, hd in FAMILY_SHAPES:
+        kern[f"K={K} G={G} hd={hd}"] = dict(
+            attention_at(dev, K, G, hd), kv_write=kv_write_at(dev, K, hd))
+    res = dict(kernels=kern)
+    for name, fn in (("scout", scout_phase), ("maverick", maverick_phase),
+                     ("minicpm3", minicpm3_phase)):
+        res[name] = fn(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["small"] = {a: check_small(dev, a, tol=1e-4, steps=8, tokens=True)
+                    for a in ("llama4_scout_17b", "llama4_maverick_400b")}
+    sc = res["scout"]["launches"]
+    # phase 10's main path (scout's runs): B1, B2, B3 (its KV write mode),
+    # B4 (its K+V read mode)
+    res["launches"] = {
+        "attention_paged": sc["attention_paged"],
+        "attention_packed": sc["attention_packed"],
+        "quantize_packed": sc["kv_write"] + sc["quantize_packed"],
+        "dequantize_packed": sc["kv_read"] + sc["dequantize_packed"]}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"families : phase 10 in {res['seconds']:.1f} s; main-path launches "
+        f"{res['launches']}")
+    return res
+
+
+def families_summary(fam: dict) -> dict:
+    def brief(r):
+        return {k: r.get(k) for k in ("tok_s", "peak_gb", "drops")} | {
+            "ttft_p50_ms": r["latency"]["ttft_ms"]["p50"],
+            "tbt_p50_ms": r["latency"]["tbt_ms"]["p50"],
+            "tbt_p99_ms": r["latency"]["tbt_ms"]["p99"]}
+
+    sc = fam["scout"]
+    prof = sc.get("profile") or {}
+    return dict(
+        kernels={s: {k: {f: v.get(f) for f in ("ms", "device_ms",
+                                                 "bound_ms", "max_abs_err")}
+                     for k, v in r.items()} for s, r in fam["kernels"].items()},
+        scout=dict(paged=brief(sc["paged"]), copy_in=brief(sc["copy_in"]),
+                   live_paged=brief(sc["live_paged"]),
+                   agree_copy_in=sc["agree_copy_in"],
+                   device_busy_share=prof.get("device_busy_share")),
+        maverick=dict(paged=brief(fam["maverick"]["paged"]),
+                      pool_bytes_by_position=fam["maverick"][
+                          "pool_bytes_by_position"]),
+        minicpm3=dict(tok_s=fam["minicpm3"]["paged"]["tok_s"],
+                      copy_in_tok_s=fam["minicpm3"]["copy_in_tok_s"]),
+        small=fam["small"], launches=fam["launches"],
+        seconds=fam["seconds"])
+
+
 def main():
     import argparse
     import gc
@@ -2952,13 +3453,15 @@ def main():
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--only", choices=("matmul", "attention", "codec",
-                                       "unpacked", "fl"),
+                                       "unpacked", "fl", "families"),
                     help="matmul / attention / codec / unpacked: phases 1-2 "
                          "and phase 3's dequant matmul (B7/B8), attention "
                          "(B1/B2), packed codec (B3/B4) or unpacked codec "
                          "(B5, its round trip, B6) only, the quick loop for "
                          "those kernels; fl: phases 1-2 and phase 9 (FL "
-                         "and faults); prints no final ok line")
+                         "and faults); families: phases 1-2 and phase 10 "
+                         "(MoE and the other configs); prints no final ok "
+                         "line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
@@ -3026,6 +3529,15 @@ def main():
         print(json.dumps({"fl": fl_summary(fl)}))
         print(smi)
         return
+    if only == "families":
+        fam = families_phase(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_families.json").write_text(json.dumps(
+            {"device": smi, "families": fam}, indent=1, default=str))
+        print(json.dumps({"families": families_summary(fam)}, default=str))
+        print(smi)
+        return
     if only == "matmul":
         mm = check_matmul(dev)
         out_dir = ROOT / "chiprun_out"
@@ -3072,6 +3584,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     fl_res = fl_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_res = families_phase(dev)
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
@@ -3093,6 +3608,11 @@ def main():
             # the FL path's launches (phase 9: fed-avg and fleet rounds)
             assert fl_res["launches"][name] > 0, f"FL never launched {name}"
             kernels[-1]["fl_launches"] = fl_res["launches"][name]
+        if name in fam_res["launches"]:
+            # phase 10's main path: scout's paged, copy-in and unfused runs
+            assert fam_res["launches"][name] > 0, \
+                f"phase 10 never launched {name}"
+            kernels[-1]["families_launches"] = fam_res["launches"][name]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -3101,6 +3621,7 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": kernels, "serve": serve_res,
          "sketch": sketch_res, "train": train_res, "fl": fl_res,
+         "families": fam_res,
          "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "ef_roundtrip_row": res["ef_roundtrip"],
@@ -3114,6 +3635,7 @@ def main():
     print(json.dumps({"train": {k: v for k, v in train_res.items()
                                 if k != "profile"}}))
     print(json.dumps({"fl": fl_summary(fl_res)}))
+    print(json.dumps({"families": families_summary(fam_res)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,29 @@
 """Architecture lookup and default format policies (port of the
 ``full_config``/``smoke_config``/``default_policy`` part of
-``repro.configs.registry``). Only llama3_2_3b is ported; every other arch
-of the reference raises ``NotImplementedError`` (ROADMAP A13)."""
+``repro.configs.registry``). The llama-dense configs and the two MoE
+configs are ported; every other arch of the reference raises
+``NotImplementedError`` naming its ROADMAP item."""
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["llama3_2_3b"]
+# the reference's ARCH_IDS, in its order, restricted to the ported archs
+ARCH_IDS = [
+    "minitron_4b",
+    "llama3_2_3b",
+    "minicpm3_4b",
+    "codeqwen1_5_7b",
+    "llama4_maverick_400b",
+    "llama4_scout_17b",
+]
+
+# the reference's archs still to port, with the ROADMAP item of each
+_NOT_PORTED = {
+    "whisper_large_v3": "A13f",
+    "internvl2_1b": "A13b",
+    "jamba_1_5_large": "A13d",
+    "xlstm_125m": "A13e",
+}
 
 
 def canon(arch: str) -> str:
@@ -15,9 +32,12 @@ def canon(arch: str) -> str:
 
 def get_arch(arch: str):
     name = canon(arch)
-    if name not in ARCH_IDS:
+    if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported (ROADMAP A13); ported: {ARCH_IDS}")
+            f"arch {arch!r} is not ported (ROADMAP {_NOT_PORTED[name]}); "
+            f"ported: {ARCH_IDS}")
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 
@@ -43,9 +63,14 @@ _BASE_POLICY_RULES = (
     ("fl*", "f2p_sr_2_8s", 128),
 )
 
-# per-arch overrides, matched before the base rules (none for the ported
-# arch; the reference's MoE and whisper overrides come with ROADMAP A13)
-_ARCH_POLICY_RULES: dict[str, tuple] = {}
+# per-arch overrides, matched before the base rules (the reference's, for
+# the ported archs; jamba's and whisper's come with ROADMAP A13d / A13f)
+_ARCH_POLICY_RULES = {
+    # MoE stacks: expert FF grads are wide and smooth — bigger blocks halve
+    # the scale overhead at unchanged accuracy
+    "llama4_maverick_400b": (("grad/*ff*", "f2p_sr_2_8s", 256),),
+    "llama4_scout_17b": (("grad/*ff*", "f2p_sr_2_8s", 256),),
+}
 
 
 def default_policy(arch: str):

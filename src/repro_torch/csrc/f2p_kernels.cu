@@ -558,7 +558,12 @@ __global__ void encode_check_kernel(unsigned start, long long count,
 // from registers (direct). Other widths stage the warp's codes in its own
 // shared-memory slice and assemble each word in one lane; other blocks and
 // unaligned or strided rows take one element per lane. A row whose
-// destination lies outside the cache is skipped.
+// destination lies outside the cache is skipped. Through a page table
+// several rows may land on one position (retired slots all point at the
+// dump page): only the last of them in (b, s) order writes, as in a
+// sequential scatter, so what the page holds never depends on the order
+// in which warps run (an MoE routes the idle slots that read it, and
+// their expert picks take capacity from the live ones).
 // ---------------------------------------------------------------------------
 constexpr int kKVWarps = 4;
 
@@ -585,7 +590,7 @@ struct KVWriteArgs {
   int tasks0, tasks;         // side 0's warp tasks, all warp tasks
   const int* pages;          // [B, maxp] int32, or null: page b, offset p
   AttnLen pos;               // start positions
-  int S, Kh, block, nblk, T, P, maxp, pow2, stage;
+  int B, S, Kh, block, nblk, T, P, maxp, pow2, stage;
 };
 
 template <typename TIn>
@@ -625,6 +630,19 @@ quantize_packed_write_kernel(const __grid_constant__ KVWriteArgs a) {
       off = p - (p / a.T) * a.T;
     }
     if (off < 0 || off >= a.T || page < 0 || page >= a.P) continue;  // warp-uniform
+    if (a.pages) {
+      // a later row (b, s) with the same destination writes it instead
+      bool later = false;
+      for (int j = bs + 1 + lane; j < a.B * a.S; j += 32) {
+        const int b2 = j / a.S, s2 = j - b2 * a.S;
+        const int p2 = (int)attn_len(a.pos, b2) + s2;
+        const int col2 = min(p2 / a.T, a.maxp - 1);
+        if (col2 < 0) continue;
+        later |= a.pages[(long long)b2 * a.maxp + col2] == page &&
+                 p2 - (p2 / a.T) * a.T == off;
+      }
+      if (__any_sync(0xffffffffu, later)) continue;  // warp-uniform
+    }
     const long long dst = ((long long)page * a.T + off) * a.Kh + h;
     const int nb = io.in.f.n_bits;
     const long long w0 = (long long)b0 * a.block * nb / 32;
@@ -2767,7 +2785,7 @@ int f2p_kv_write(KVSideIn k, KVSideIn v, int nside, int x_bf16, const int* pages
   const long long rows = (long long)B * S * Kh;
   if (rows <= 0 || cols <= 0) return 0;
   KVWriteArgs a;
-  a.S = S; a.Kh = Kh; a.block = block; a.nblk = cols / block; a.T = T; a.P = P;
+  a.B = B; a.S = S; a.Kh = Kh; a.block = block; a.nblk = cols / block; a.T = T; a.P = P;
   a.maxp = maxp; a.pow2 = pow2; a.pages = pages; a.pos = pos; a.stage = 0;
   const int esize = x_bf16 ? 2 : 4;
   long long tasks[2] = {0, 0};

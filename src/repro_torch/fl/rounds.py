@@ -120,12 +120,12 @@ class _Loss(torch.nn.Module):
 
 
 def _tree_loss_fn(cfg):
-    """``loss(params, batch)``: the train loss of a llama-dense ``cfg``
-    over a parameter tree in the reference's layout."""
+    """``loss(params, batch)``: the train loss of ``cfg`` over a
+    parameter tree in the reference's layout."""
     from repro_torch.models.convert import reference_path
 
     mod = _Loss(cfg)
-    names = [(f"model.{n}", *reference_path(n))
+    names = [(f"model.{n}", *reference_path(n, len(cfg.pattern)))
              for n, _ in mod.model.named_parameters()]
 
     def loss_fn(params, batch):

@@ -433,18 +433,31 @@ def kv_write_plain(k: torch.Tensor, v: torch.Tensor, cache: dict, pos,
     p = torch.as_tensor(pos, dtype=torch.int64, device=dev).reshape(-1, 1) \
         + torch.arange(S, device=dev)
     p = p.expand(B, S)
+    rows = slice(None)
     if pages is None:
         page, off = torch.arange(B, device=dev)[:, None].expand(B, S), p
     else:
         col = torch.clamp(p // T, max=pages.shape[1] - 1)
         page, off = pages.to(dev).gather(1, col).to(torch.int64), p % T
+        # rows sharing a destination (retired slots on the dump page): the
+        # last in (b, s) order writes, as the kernel
+        key = (page * T + off).reshape(-1)
+        _, inv = torch.unique(key, return_inverse=True)
+        idx = torch.arange(key.numel(), device=dev)
+        last = torch.full((int(inv.max()) + 1,), -1, device=dev,
+                          dtype=torch.int64).scatter_reduce_(0, inv, idx,
+                                                             "amax")
+        rows = last[inv] == idx
+        page, off = page.reshape(-1)[rows], off.reshape(-1)[rows]
     for name, x in (("k", k), ("v", v)):
         c = cache[name]
         words, scales = quantize_packed_plain(x.reshape(-1, x.shape[-1]),
                                               c.fmt, c.block)
-        c.codes.view(torch.int32)[page, off] = words.view(torch.int32) \
-            .reshape(B, S, *c.codes.shape[2:])
-        c.scales[page, off] = scales.reshape(B, S, *c.scales.shape[2:])
+        words = words.view(torch.int32).reshape(B * S, *c.codes.shape[2:])
+        scales = scales.reshape(B * S, *c.scales.shape[2:])
+        c.codes.view(torch.int32)[page.reshape(-1), off.reshape(-1)] = \
+            words[rows]
+        c.scales[page.reshape(-1), off.reshape(-1)] = scales[rows]
 
 
 def _check_kv(k, v, cache, pages) -> None:

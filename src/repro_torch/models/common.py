@@ -8,14 +8,30 @@ import numpy as np
 import torch
 
 
+# f32 elements drawn per call: a larger tensor (an MoE's [E, D, F] experts)
+# is drawn in slices of its leading axis, so the f32 draw never holds more
+# than this beside the result
+_INIT_CHUNK = 1 << 28
+
+
 def truncnorm_init(shape, dtype, generator: torch.Generator, device,
                    scale: float = 0.02) -> torch.Tensor:
     """``scale * truncated_normal(-2, 2)`` drawn in f32 from ``generator``
     and cast to ``dtype`` — the reference's init distribution (torch draws
     other numbers than jax.random from the same seed)."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * scale).to(dtype)
+    shape = tuple(shape)
+    n = int(np.prod(shape))
+    if n <= _INIT_CHUNK or len(shape) < 2 or shape[0] == 1:
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        return (t * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, _INIT_CHUNK // (n // shape[0]))
+    for i in range(0, shape[0], rows):
+        out[i:i + rows] = truncnorm_init(out[i:i + rows].shape, dtype,
+                                         generator, device, scale)
+    return out
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):

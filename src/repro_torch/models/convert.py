@@ -10,10 +10,11 @@ numbers. ``train_state_from_jax`` does the same for a whole train state
 then compute the same function, which is what the parity tests compare.
 
 The reference stacks the layers' leaves ``[G, ...]`` under
-``blocks/b0/...``; the port keeps one tensor per layer, named
-``blocks.<i>.<...>`` by ``Model.named_parameters()``.
-:func:`reference_path` maps a port name onto the reference's path and
-layer, and :func:`reference_layout` regroups a flat name -> tensor dict
+``blocks/b<i>/...``, one subtree per pattern position ``i``; the port
+keeps one tensor per layer, named ``blocks.<l>.<...>`` by
+``Model.named_parameters()``, layer ``l = g * P + i`` for group ``g`` of a
+pattern of length ``P``. :func:`reference_path` maps a port name onto the
+reference's path and group, and :func:`reference_layout` regroups a flat name -> tensor dict
 (the parameters, their moments, residuals or gradients) into the
 reference's leaves, each the list of its per-layer parts. The checkpoint
 writes that layout, and gradient compression reads each leaf's size from
@@ -32,12 +33,16 @@ from repro_torch.models.model import Model
 _BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
 
 
-def reference_path(name: str) -> tuple[tuple[str, ...], int | None]:
-    """Port parameter name -> (reference leaf path, layer index or None):
-    ``blocks.3.mixer.wq`` -> (("blocks", "b0", "mixer", "wq"), 3)."""
+def reference_path(name: str, pattern_len: int = 1
+                   ) -> tuple[tuple[str, ...], int | None]:
+    """Port parameter name -> (reference leaf path, group index or None)
+    for a pattern of ``pattern_len`` positions: ``blocks.3.mixer.wq`` ->
+    (("blocks", "b0", "mixer", "wq"), 3) for P = 1 and (("blocks", "b1",
+    "mixer", "wq"), 1) for P = 2."""
     m = _BLOCK.match(name)
     if m:
-        return ("blocks", "b0", *m[2].split(".")), int(m[1])
+        g, i = divmod(int(m[1]), pattern_len)
+        return ("blocks", f"b{i}", *m[2].split(".")), g
     return tuple(name.split(".")), None
 
 
@@ -51,46 +56,52 @@ class Stacked(list):
     """The per-layer parts of one stacked reference leaf, in layer order."""
 
 
-def reference_layout(named: dict) -> dict[tuple, object]:
+def reference_layout(named: dict, pattern_len: int = 1
+                     ) -> dict[tuple, object]:
     """Flat ``{port name: tensor}`` -> ``{reference path: leaf}``: the
     tensor itself for an unstacked leaf, a :class:`Stacked` list of the
-    layers' tensors for a stacked one."""
+    groups' tensors for a stacked one (``pattern_len``: the pattern's
+    positions, ``len(cfg.pattern)``)."""
     groups: dict[tuple, dict[int, object]] = {}
     for name, t in named.items():
-        path, layer = reference_path(name)
+        path, layer = reference_path(name, pattern_len)
         groups.setdefault(path, {})[-1 if layer is None else layer] = t
     out = {}
     for path, parts in groups.items():
         idx = sorted(parts)
         if idx != [-1] and idx != list(range(len(idx))):
-            raise ValueError(f"{'/'.join(path)}: layers {idx} are not "
+            raise ValueError(f"{'/'.join(path)}: groups {idx} are not "
                              "0..n-1")
         out[path] = parts[-1] if idx == [-1] else Stacked(
             parts[i] for i in idx)
     return out
 
 
-def reference_numel(named: dict) -> dict[str, int]:
+def reference_numel(named: dict, pattern_len: int = 1) -> dict[str, int]:
     """Each name's element count in the reference's (stacked) leaf."""
     sizes = {}
-    for path, leaf in reference_layout(named).items():
+    for path, leaf in reference_layout(named, pattern_len).items():
         parts = leaf if isinstance(leaf, Stacked) else [leaf]
         sizes[path] = sum(int(p.numel()) for p in parts if p is not None)
-    return {name: sizes[reference_path(name)[0]] for name in named}
+    return {name: sizes[reference_path(name, pattern_len)[0]]
+            for name in named}
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> Model:
-    """Reference tree (stacked ``blocks/b0/...`` leaves ``[G, ...]``) ->
-    per-layer ``Model``."""
+    """Reference tree (stacked ``blocks/b<i>/...`` leaves ``[G, ...]``) ->
+    per-layer ``Model``; each tensor keeps its parameter's dtype (the MoE
+    router is f32 in a bf16 model, as the reference's)."""
     model = Model(cfg, device)
+    P = len(cfg.pattern)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            p.copy_(_leaf(np_tree, name, tuple(p.shape)).to(p.dtype))
+            p.copy_(_leaf(np_tree, name, tuple(p.shape), P).to(p.dtype))
     return model
 
 
-def _leaf(np_tree: dict, name: str, shape: tuple) -> torch.Tensor:
-    path, layer = reference_path(name)
+def _leaf(np_tree: dict, name: str, shape: tuple,
+          pattern_len: int = 1) -> torch.Tensor:
+    path, layer = reference_path(name, pattern_len)
     a = np_tree
     for k in path:
         a = a[k]
@@ -124,8 +135,9 @@ def named_from_jax(np_tree: dict, model: Model) -> dict:
     residuals, gradients; ``None`` kept) -> ``{parameter name: f32
     tensor}`` on the model's device."""
     out = {}
+    P = len(model.cfg.pattern)
     for name, p in model.named_parameters():
-        t = _leaf(np_tree, name, tuple(p.shape))
+        t = _leaf(np_tree, name, tuple(p.shape), P)
         out[name] = None if t is None else t.to(model.device)
     return out
 
@@ -160,13 +172,14 @@ def quantized_weight_from_jax(codes_or_words, scales, *, packed: bool,
 # ---------------------------------------------------------------------------
 def stacked_params(model: Model) -> dict:
     """The model's parameters in the reference's tree: nested dicts by
-    reference path, each stacked leaf one ``[L, ...]`` tensor (a copy),
+    reference path, each stacked leaf one ``[G, ...]`` tensor (a copy),
     each unstacked leaf a copy of its tensor. The FL client computes its
     deltas, residuals and updates on this tree, so the ``min_size`` test,
     the wire-shrink test, the exact path's per-leaf grid and the fault
     injector's leaf draw act on the reference's leaves."""
     out: dict = {}
-    for path, leaf in reference_layout(dict(model.named_parameters())).items():
+    for path, leaf in reference_layout(dict(model.named_parameters()),
+                                       len(model.cfg.pattern)).items():
         t = (torch.stack([p.detach() for p in leaf])
              if isinstance(leaf, Stacked) else leaf.detach().clone())
         node = out
@@ -178,7 +191,7 @@ def stacked_params(model: Model) -> dict:
 
 def params_tree_from_jax(np_tree, device="cuda"):
     """A reference parameter tree (nested dicts of numpy arrays, stacked
-    ``blocks/b0/...`` leaves kept stacked) -> the same tree of f32 tensors
+    ``blocks/b<i>/...`` leaves kept stacked) -> the same tree of f32 tensors
     on ``device``: the FL drivers' parameters."""
     if isinstance(np_tree, dict):
         return {k: params_tree_from_jax(v, device) for k, v in np_tree.items()}

@@ -1,17 +1,20 @@
-"""The llama-dense model: parameters, caches, the train forward, prefill and
-decode (port of ``repro.models.model``).
+"""The attention families, dense and MoE: parameters, caches, the train
+forward, prefill and decode (port of ``repro.models.model``).
 
 Parameters live in an ``nn.Module`` tree with one :class:`Block` per layer
-(the reference stacks them ``[G, ...]`` and scans; here ``lax.scan`` over
-layers becomes a Python loop over ``model.blocks``). Every weight keeps the
-reference's ``[in, out]`` layout (``x @ w``) and its truncated-normal(0.02)
-init; norms start at one.
+(the reference stacks them ``[G, ...]`` per pattern position and scans;
+here ``lax.scan`` over groups becomes a Python loop over ``model.blocks``,
+layer ``l`` built from ``cfg.pattern[l % P]``). Every weight keeps the
+reference's ``[in, out]`` layout (``x @ w``) and its truncated-normal init;
+norms start at one.
 
-Caches are ``{"k", "v"}`` with a leading layer axis ``[L, B, S, K, hd]``
-(the reference's ``{"b0": {...}}`` level collapses: the llama-dense pattern
-has one attention position). Paged decode instead binds the pool slabs
-``[L, P, T, K, W]`` and a ``[B, max_pages]`` page table; every cache and
-slab write happens in place.
+Caches are the reference's ``{"b<i>": {"k", "v"}}``: one entry per
+attention position ``i`` of the pattern, each with a leading group axis
+``[G, B, S, K, hd]`` and in the format ``kv_policy`` gives ``kv/b<i>``.
+Layer ``l`` reads position ``l % P``, group ``l // P``. Paged decode
+instead binds the pool slabs ``{"b<i>": {"k", "v"}}`` of shape ``[G, P,
+T, K, W]`` and a ``[B, max_pages]`` page table; every cache and slab write
+happens in place.
 
 Parameters are created with ``requires_grad=False``: serving runs under
 ``torch.inference_mode``, and training (``repro_torch.train``) turns the
@@ -26,7 +29,8 @@ from repro_torch.core.f2p import F2PFormat
 from repro_torch.models import attention as A
 from repro_torch.models.common import (rms_norm, softmax_cross_entropy,
                                       swiglu, truncnorm_init)
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.moe import MoE
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -56,33 +60,40 @@ class FeedForward(nn.Module):
         self.up = _param((D, F), dt, device)
         self.down = _param((F, D), dt, device)
 
-    def forward(self, x):
-        return swiglu(x, self.gate, self.up, self.down)
+    def init_order(self) -> list[tuple[nn.Parameter, float]]:
+        return [(self.gate, 0.02), (self.up, 0.02), (self.down, 0.02)]
 
 
 class Block(nn.Module):
-    """Pre-norm attention + SwiGLU block."""
+    """Pre-norm attention block with a SwiGLU (``ff="dense"``) or MoE FF."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, spec: BlockSpec, device):
         super().__init__()
         dt = cfg.torch_dtype
+        self.spec = spec
         self.norm1 = _param((cfg.d_model,), dt, device)
         self.mixer = Attention(cfg, device)
         self.norm2 = _param((cfg.d_model,), dt, device)
-        self.ff = FeedForward(cfg, device)
+        self.ff = (MoE(cfg, device) if spec.ff == "moe"
+                   else FeedForward(cfg, device))
 
     def forward(self, x, cfg: ModelConfig, *, mode, cache=None, pos_offset=0,
                 pages=None):
+        """Returns (x, the MoE aux loss or None)."""
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         h, _ = A.attention_apply(self.mixer.weights(), h, cfg, mode=mode,
                                  cache=cache, pos_offset=pos_offset,
                                  pages=pages)
         x = x + h
-        return x + self.ff(rms_norm(x, self.norm2, cfg.norm_eps))
+        h = rms_norm(x, self.norm2, cfg.norm_eps)
+        if self.spec.ff == "moe":
+            h, aux = self.ff(h, cfg)
+            return x + h, aux["aux_loss"]
+        return x + swiglu(h, self.ff.gate, self.ff.up, self.ff.down), None
 
 
 class Model(nn.Module):
-    """Parameters of a llama-dense model (allocated, not initialised)."""
+    """Parameters of a model (allocated, not initialised)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -91,8 +102,9 @@ class Model(nn.Module):
         self.embed = _param((V, D), dt, device)
         self.final_norm = _param((D,), dt, device)
         self.lm_head = _param((D, V), dt, device)
-        self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        P = len(cfg.pattern)
+        self.blocks = nn.ModuleList(Block(cfg, cfg.pattern[i % P], device)
+                                    for i in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -102,15 +114,17 @@ class Model(nn.Module):
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     """Random weights from ``torch.Generator(device).manual_seed(seed)`` in
     the reference's layout and distribution: truncated normal(-2, 2) x 0.02
-    for embed, lm_head and every projection, drawn in that order and layer
-    by layer; ones for the norms."""
+    for embed, lm_head and every projection (x 0.01 for an MoE router, in
+    f32), drawn in that order and layer by layer, each block's in the
+    reference's order (attention, then the FF's leaves); ones for the
+    norms."""
     device = torch.device(device)
     model = Model(cfg, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
 
-    def fill(p: nn.Parameter):
-        p.data.copy_(truncnorm_init(p.shape, p.dtype, gen, device))
+    def fill(p: nn.Parameter, scale: float = 0.02):
+        p.data.copy_(truncnorm_init(p.shape, p.dtype, gen, device, scale))
 
     with torch.no_grad():
         fill(model.embed)
@@ -119,44 +133,55 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
         for blk in model.blocks:
             blk.norm1.fill_(1.0)
             blk.norm2.fill_(1.0)
-            for w in (blk.mixer.wq, blk.mixer.wk, blk.mixer.wv, blk.mixer.wo,
-                      blk.ff.gate, blk.ff.up, blk.ff.down):
+            for w in (blk.mixer.wq, blk.mixer.wk, blk.mixer.wv, blk.mixer.wo):
                 fill(w)
+            for w, scale in blk.ff.init_order():
+                fill(w, scale)
     return model
 
 
-def kv_format(kv_policy=None) -> F2PFormat:
-    """The quantized-KV format under ``kv_policy`` (a
-    :class:`~repro_torch.autotune.policy.FormatPolicy` or None): the rule
-    path is ``kv/b<i>`` per pattern position, as in the reference. The
-    llama-dense pattern has one position, so ``kv/b0`` (or ``kv/*``) sets
-    the format of every layer; no policy keeps ``attention.KV_FMT``."""
+def kv_format(kv_policy=None, position: int = 0) -> F2PFormat:
+    """The quantized-KV format of attention position ``position`` under
+    ``kv_policy`` (a :class:`~repro_torch.autotune.policy.FormatPolicy` or
+    None): the rule path is ``kv/b<position>``, as in the reference, so
+    ``kv/*`` sets a stack-wide format and an exact path one position's
+    layers; no policy keeps ``attention.KV_FMT``."""
     if kv_policy is None:
         return A.KV_FMT
-    fmt, _ = kv_policy.f2p_for("kv/b0", (A.KV_FMT, 0))
+    fmt, _ = kv_policy.f2p_for(f"kv/b{position}", (A.KV_FMT, 0))
     return fmt
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
                 quantized_kv: bool = False, kv_policy=None,
                 attn_kv: bool = True, device="cuda"):
-    """KV caches ``{"k","v"}`` of shape ``[L, batch, max_seq, K, hd]``.
+    """KV caches ``{"b<i>": {"k","v"}}``, one per attention position of the
+    pattern, each ``[G, batch, max_seq, K, hd]``.
 
     ``attn_kv=False`` returns ``None``: the paged engine binds pool slabs
     instead, and no dense ``[batch, max_seq]`` row is allocated. Quantized
-    caches are always bit-packed, in the format :func:`kv_format` picks
-    from ``kv_policy``."""
+    caches are always bit-packed, position ``i`` in the format
+    :func:`kv_format` picks for ``kv/b<i>``."""
     if not attn_kv:
         return None
-    return A.init_cache(cfg, batch, max_seq, quantized_kv, cfg.torch_dtype,
-                        torch.device(device), fmt=kv_format(kv_policy),
-                        lead=(cfg.n_layers,))
+    return {f"b{i}": A.init_cache(cfg, batch, max_seq, quantized_kv,
+                                  cfg.torch_dtype, torch.device(device),
+                                  fmt=kv_format(kv_policy, i),
+                                  lead=(cfg.n_groups,))
+            for i in cfg.attn_positions}
 
 
-def layer_cache(caches, i: int):
-    """Layer ``i``'s ``{"k","v"}`` view of stacked caches or slabs (views
-    share storage, so in-place writes land in the stack)."""
+def layer_cache(caches, i: int, cfg: ModelConfig | None = None):
+    """Layer ``i``'s ``{"k","v"}`` view (views share storage, so in-place
+    writes land in the stack). With ``cfg``, ``caches`` is the per-position
+    dict of :func:`init_caches` (or the pool slabs) and layer ``i`` is group
+    ``i // P`` of position ``b<i % P>``; without, ``caches`` is one
+    position's ``{"k","v"}`` stack and ``i`` its group."""
     from repro_torch.core.qtensor import QTensor
+
+    if cfg is not None:
+        P = len(cfg.pattern)
+        caches, i = caches[f"b{i % P}"], i // P
 
     def one(c):
         if isinstance(c, QTensor):
@@ -169,10 +194,10 @@ def layer_cache(caches, i: int):
 
 def train_forward(model: Model, batch, cfg: ModelConfig | None = None):
     """batch: tokens ``[B, S]``, labels ``[B, S]`` (-1 = masked). Returns
-    (loss, metrics): mean token CE + 0.01 x aux loss (0 for the dense
-    stack), as the reference. With ``cfg.remat`` every block is recomputed
-    in the backward (``torch.utils.checkpoint``), so only the block inputs
-    stay alive between forward and backward."""
+    (loss, metrics): mean token CE + 0.01 x the MoE layers' summed aux
+    loss (0 for a dense stack), as the reference. With ``cfg.remat`` every
+    block is recomputed in the backward (``torch.utils.checkpoint``), so
+    only the block inputs stay alive between forward and backward."""
     from torch.utils.checkpoint import checkpoint
 
     cfg = cfg or model.cfg
@@ -180,14 +205,16 @@ def train_forward(model: Model, batch, cfg: ModelConfig | None = None):
     tokens = torch.as_tensor(batch["tokens"], device=dev).to(torch.int64)
     labels = torch.as_tensor(batch["labels"], device=dev).to(torch.int64)
     x = model.embed[tokens]
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for blk in model.blocks:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(blk, x, cfg, mode="train", use_reentrant=False)
+            x, a = checkpoint(blk, x, cfg, mode="train", use_reentrant=False)
         else:
-            x = blk(x, cfg, mode="train")
+            x, a = blk(x, cfg, mode="train")
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     loss = softmax_cross_entropy(x @ model.lm_head, labels)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
@@ -201,8 +228,8 @@ def prefill(model: Model, tokens: torch.Tensor, caches, last_index=None,
     cfg = cfg or model.cfg
     x = model.embed[tokens]
     for i, blk in enumerate(model.blocks):
-        x = blk(x, cfg, mode="prefill", cache=layer_cache(caches, i),
-                pos_offset=0)
+        x, _ = blk(x, cfg, mode="prefill", cache=layer_cache(caches, i, cfg),
+                   pos_offset=0)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if last_index is not None:
         li = torch.as_tensor(last_index, device=x.device).to(torch.int64)
@@ -222,7 +249,7 @@ def decode_step(model: Model, token: torch.Tensor, pos, caches, pages=None,
     cfg = cfg or model.cfg
     x = model.embed[token]
     for i, blk in enumerate(model.blocks):
-        x = blk(x, cfg, mode="decode", cache=layer_cache(caches, i),
-                pos_offset=pos, pages=pages)
+        x, _ = blk(x, cfg, mode="decode", cache=layer_cache(caches, i, cfg),
+                   pos_offset=pos, pages=pages)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return (x @ model.lm_head)[:, 0]

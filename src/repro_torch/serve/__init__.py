@@ -1,6 +1,7 @@
 from repro_torch.serve.arch import (SupportedArchitecture, arch_for,
                                     make_batched_decode_step,
-                                    make_batched_prefill, sample_tokens)
+                                    make_batched_prefill,
+                                    register_architecture, sample_tokens)
 from repro_torch.serve.batched import BatchedEngine, BatchedServeConfig, Request
 from repro_torch.serve.engine import Engine, ServeConfig, SketchIngestEngine
 from repro_torch.serve.paging import HostKV, PagedKVPool, PageTable, PoolExhausted
@@ -10,5 +11,5 @@ __all__ = [
     "BatchedServeConfig", "Request",
     "PagedKVPool", "PageTable", "HostKV", "PoolExhausted",
     "SupportedArchitecture", "arch_for", "make_batched_prefill",
-    "make_batched_decode_step", "sample_tokens",
+    "make_batched_decode_step", "register_architecture", "sample_tokens",
 ]

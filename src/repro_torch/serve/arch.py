@@ -1,12 +1,14 @@
 """Architecture registry for the batched serve engine (port of
-``repro.serve.arch``), llama-dense only.
+``repro.serve.arch``).
 
 ``SupportedArchitecture`` records what the continuous-batching engine must
-not hardcode: the page size and the step factories. (The reference's
-capability flags — paged KV, recurrent state, exact co-batching, prefill
-bucket override — are constant for the one ported family: paged, none,
-yes, engine default.) ``arch_for(cfg)`` returns the llama-dense entry;
-every other family raises ``NotImplementedError`` (ROADMAP A13).
+not hardcode: its capability flags (paged KV, recurrent per-slot state,
+exact co-batching, a prefill bucket override), the page size and the step
+factories. ``register_architecture`` adds or replaces a family's entry;
+``arch_for(cfg)`` picks the family from the pattern and resolves the flags
+against it. The ``llama-dense`` and ``moe`` families are ported; a
+pattern of the ``ssm-hybrid`` or ``xlstm`` family raises
+``NotImplementedError`` (ROADMAP A13d / A13e).
 
 Temperature sampling is Gumbel-max over uniforms drawn from a counter-based
 hash (``fmix32``) of ``(seed, request uid, position, vocab index)``: a
@@ -23,10 +25,11 @@ import torch
 
 from repro_torch.kernels.bits import fmix32
 from repro_torch.models import decode_step, prefill
-from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.config import ModelConfig
 
 __all__ = ["SupportedArchitecture", "arch_for", "make_batched_prefill",
-           "make_batched_decode_step", "sample_tokens"]
+           "make_batched_decode_step", "register_architecture",
+           "sample_tokens"]
 
 _GOLDEN = 0x9E3779B9
 
@@ -85,18 +88,64 @@ def make_batched_decode_step(cfg: ModelConfig, *, temperature: float,
 class SupportedArchitecture:
     """Per-family serving contract + policy defaults."""
     name: str
+    # capability flags
+    paged_kv: bool            # has attention KV worth paging
+    recurrent_state: bool     # mamba/xLSTM per-slot state rides along
+    exact_cobatch: bool       # batched greedy decode == sequential, bitwise
+    # policy defaults
     page_tokens: int = 8
+    # () = exact-length prefill (recurrent scans consume every token, so
+    # bucket padding would pollute the state); None = engine default buckets
+    prefill_buckets: tuple[int, ...] | None = None
+    # step factories (cfg -> callables)
     prefill_factory: Callable = make_batched_prefill
     step_factory: Callable = make_batched_decode_step
 
 
-LLAMA_DENSE = SupportedArchitecture(name="llama-dense")
+_REGISTRY: dict[str, SupportedArchitecture] = {}
+
+
+def register_architecture(arch: SupportedArchitecture) -> None:
+    _REGISTRY[arch.name] = arch
+
+
+for _arch in (
+    SupportedArchitecture(name="llama-dense", paged_kv=True,
+                          recurrent_state=False, exact_cobatch=True),
+    SupportedArchitecture(name="moe", paged_kv=True, recurrent_state=False,
+                          # capacity-factor token dropping couples
+                          # co-scheduled tokens: batched != sequential
+                          exact_cobatch=False),
+):
+    register_architecture(_arch)
+
+# the reference's families whose mixers the port does not have yet
+_NOT_PORTED = {"ssm-hybrid": "A13d", "xlstm": "A13e"}
+
+
+def _family(cfg: ModelConfig) -> str:
+    mixers = {s.mixer for s in cfg.pattern}
+    if "mamba" in mixers:
+        return "ssm-hybrid"
+    if "mlstm" in mixers or "slstm" in mixers:
+        return "xlstm"
+    if any(s.ff == "moe" for s in cfg.pattern):
+        return "moe"
+    return "llama-dense"
 
 
 def arch_for(cfg: ModelConfig) -> SupportedArchitecture:
-    """The registry entry for ``cfg``'s family: llama-dense only."""
-    if any(s != BlockSpec("attn", "dense") for s in cfg.pattern):
+    """The registry entry for ``cfg``'s family, resolved against the
+    concrete pattern (a pattern with MoE FFs loses exact_cobatch; an entry
+    never claims paged KV for a pattern without attention)."""
+    fam = _family(cfg)
+    if fam not in _REGISTRY and fam in _NOT_PORTED:
         raise NotImplementedError(
-            "only the llama-dense family is ported; moe, ssm-hybrid and "
-            "xlstm serving are ROADMAP A13")
-    return LLAMA_DENSE
+            f"{cfg.name}: {fam} serving is ROADMAP {_NOT_PORTED[fam]}")
+    base = _REGISTRY[fam]
+    has_attn = any(s.mixer == "attn" for s in cfg.pattern)
+    has_moe = any(s.ff == "moe" for s in cfg.pattern)
+    return dataclasses.replace(
+        base,
+        paged_kv=base.paged_kv and has_attn,
+        exact_cobatch=base.exact_cobatch and not has_moe)

@@ -1,5 +1,6 @@
 """Continuous-batching serve engine over the block-paged packed-F2P KV pool
-(port of ``repro.serve.batched``, DESIGN.md §12, §14), llama-dense.
+(port of ``repro.serve.batched``, DESIGN.md §12, §14), for the families
+of :mod:`repro_torch.serve.arch` (llama-dense and MoE).
 
 The engine admits a dynamic set of requests into a fixed number of decode
 **slots**; every step serves every live request at its own position.
@@ -9,6 +10,10 @@ The engine admits a dynamic set of requests into a fixed number of decode
   until a new request joins (their output is discarded host-side).
 * prefill: prompts padded to a shape **bucket**; compatible queued prompts
   are grouped into ONE ``[N, bucket]`` call (N a power-of-two group size).
+  A family's ``prefill_buckets`` (or no buckets at all) turns grouping off:
+  each prompt is then prefilled alone, at its exact length with the family
+  override (the reference's admission rule, kept because MoE routing sees
+  every padded position).
 * **paged decode** (default): prefill KV lands in
   :class:`~repro_torch.serve.paging.PagedKVPool` pages and the slot ADOPTS
   the page table; decode attends the pool slabs in place through a
@@ -25,9 +30,14 @@ The engine admits a dynamic set of requests into a fixed number of decode
   slot, whose KV is parked (evicted to host numpy by default) and readmitted
   later.
 * ``kv_policy`` (a :class:`~repro_torch.autotune.FormatPolicy`) picks the
-  F2P format of the KV pages, the copy-in and prefill caches through its
-  ``kv/b0`` rule (``models.kv_format``); host eviction and readmission
-  move the words of that format unchanged.
+  F2P format of each attention position's KV pages, copy-in and prefill
+  caches through its ``kv/b<i>`` rule (``models.kv_format``); host
+  eviction and readmission move the words of those formats unchanged.
+* The engine is family-blind apart from ``arch_for(cfg)``'s flags. With
+  MoE FFs (``exact_cobatch=False``) every co-scheduled token, a bucket's
+  padding and an idle slot's dead-position step included, competes for
+  expert capacity, so tokens depend on the co-scheduled set, as in the
+  reference.
 
 The reference jits one round (``sync_every`` steps under ``lax.scan``);
 here a round is a loop of ``sync_every`` eager steps followed by ONE host
@@ -122,6 +132,10 @@ class BatchedEngine:
     def __init__(self, cfg: ModelConfig, bscfg: BatchedServeConfig,
                  model: Model):
         self.arch: SupportedArchitecture = arch_for(cfg)
+        if not self.arch.paged_kv or self.arch.recurrent_state:
+            raise NotImplementedError(
+                f"{self.arch.name}: serving without paged KV or with "
+                "recurrent state is ROADMAP A13d / A13e")
         if not cfg.fused_attention:
             cfg = dataclasses.replace(cfg, fused_attention=True)
         self.cfg, self.bscfg, self.model = cfg, bscfg, model
@@ -172,6 +186,8 @@ class BatchedEngine:
         self._pf_caches: dict[tuple[int, int], Any] = {}
         if bscfg.prefill_buckets is not None:
             self.buckets = tuple(bscfg.prefill_buckets)
+        elif self.arch.prefill_buckets is not None:
+            self.buckets = tuple(self.arch.prefill_buckets)
         else:
             self.buckets = tuple(b for b in (2 * T, 4 * T, 8 * T, 16 * T)
                                  if b <= S)
@@ -253,13 +269,22 @@ class BatchedEngine:
             self._pf_caches[(N, S_pf)] = caches
         return caches
 
+    def _exact_prefill(self) -> bool:
+        """Prompts go in at their exact length (no bucket padding): no
+        buckets, or the family's own override, as the reference."""
+        return not self.buckets or self.arch.prefill_buckets is not None
+
     def _run_prefill(self, prompts: list[np.ndarray], N: int, bucket: int):
+        """One ``[N, bucket]`` prefill (rows past the prompts zero). An
+        exact-length prefill passes the prompt's own length as ``bucket``
+        and gets a cache of whole pages."""
         toks = np.zeros((N, bucket), np.int64)
         last = np.zeros((N,), np.int64)
         for i, p in enumerate(prompts):
             toks[i, :len(p)] = p
             last[i] = len(p) - 1
-        caches = self._pf_template(N, bucket)
+        T = self.page_tokens
+        caches = self._pf_template(N, -(-bucket // T) * T)
         logits = self._prefill(self.model,
                                torch.as_tensor(toks, device=self.device),
                                caches, torch.as_tensor(last,
@@ -333,32 +358,41 @@ class BatchedEngine:
         bucketed batch-N prefill calls."""
         for r, _ in pairs:
             self._check_fits(r)
-        by_bucket: dict[int, list[tuple[Request, int]]] = {}
-        for r, s in pairs:
-            by_bucket.setdefault(self._bucket_for(len(r.tokens)),
-                                 []).append((r, s))
-        cap = max(1, self.bscfg.prefill_group)
-        for bucket in sorted(by_bucket):
-            grp = by_bucket[bucket]
-            while grp:
-                chunk, grp = grp[:cap], grp[cap:]
-                for r, s in chunk:
-                    self._note_admission(r)
-                    obs.instant("admit", uid=r.uid, slot=s)
-                prompts = [np.asarray(r.tokens) for r, _ in chunk]
-                # the reference's trace names: a batch-1 "prefill" span, a
-                # "prefill_group" span for a fused group
-                span = (obs.span("prefill", uid=chunk[0][0].uid,
-                                 L=len(prompts[0])) if len(chunk) == 1 else
-                        obs.span("prefill_group", n=len(chunk),
-                                 bucket=bucket))
-                with span:
-                    tok0, pf = self._run_prefill(prompts, self._group_size(
-                        len(chunk)), bucket)
-                    for i, (r, s) in enumerate(chunk):
-                        L = len(prompts[i])
-                        table = self.pool.store_prefill(pf, L, row=i)
-                        self._place(r, s, int(tok0[i]), L, table, results)
+        chunks: list[tuple[list[tuple[Request, int]], int]] = []
+        if self.bscfg.prefill_group <= 1 or self._exact_prefill():
+            # one prefill per request, in admission order
+            exact = self._exact_prefill()
+            chunks = [([(r, s)], len(r.tokens) if exact else
+                       self._bucket_for(len(r.tokens))) for r, s in pairs]
+        else:
+            by_bucket: dict[int, list[tuple[Request, int]]] = {}
+            for r, s in pairs:
+                by_bucket.setdefault(self._bucket_for(len(r.tokens)),
+                                     []).append((r, s))
+            cap = max(1, self.bscfg.prefill_group)
+            for bucket in sorted(by_bucket):
+                grp = by_bucket[bucket]
+                while grp:
+                    chunks.append((grp[:cap], bucket))
+                    grp = grp[cap:]
+        for chunk, bucket in chunks:
+            for r, s in chunk:
+                self._note_admission(r)
+                obs.instant("admit", uid=r.uid, slot=s)
+            prompts = [np.asarray(r.tokens) for r, _ in chunk]
+            # the reference's trace names: a batch-1 "prefill" span, a
+            # "prefill_group" span for a fused group
+            span = (obs.span("prefill", uid=chunk[0][0].uid,
+                             L=len(prompts[0])) if len(chunk) == 1 else
+                    obs.span("prefill_group", n=len(chunk),
+                             bucket=bucket))
+            with span:
+                tok0, pf = self._run_prefill(prompts, self._group_size(
+                    len(chunk)), bucket)
+                for i, (r, s) in enumerate(chunk):
+                    L = len(prompts[i])
+                    table = self.pool.store_prefill(pf, L, row=i)
+                    self._place(r, s, int(tok0[i]), L, table, results)
 
     def _retire(self, uid: int, n_tokens: int):
         """Fold a finished request's timing into the histograms and, when

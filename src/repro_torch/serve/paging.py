@@ -1,11 +1,13 @@
 """Block-paged pool of packed-F2P KV slabs (port of ``repro.serve.paging``,
 DESIGN.md §12).
 
-The pool owns one **slab** per k/v: a packed QTensor of logical shape
-``[L, n_pages, page_tokens, K, hd]`` (uint32 words ``[L, P, T, K, W]`` plus
-f32 scales ``[L, P, T, K, 1]``). A logical *page* is one index on the page
-axis, the same index in every layer, so a request's KV is one ordered page
-list (:class:`PageTable`) plus its live length.
+The pool owns, per attention position ``b<i>`` of ``cfg.pattern`` and per
+k/v, one **slab**: a packed QTensor of logical shape ``[G, n_pages,
+page_tokens, K, hd]`` (uint32 words ``[G, P, T, K, W]`` plus f32 scales
+``[G, P, T, K, 1]``), in the F2P format ``kv_policy`` gives ``kv/b<i>``. A
+logical *page* is one index on the page axis, the same index in every
+slab, so a request's KV is one ordered page list (:class:`PageTable`) plus
+its live length.
 
 The packed layout blocks over head_dim, so every token owns whole words
 and a page boundary never splits one: every pool operation is a pure word
@@ -40,8 +42,9 @@ class PageTable:
 @dataclasses.dataclass
 class HostKV:
     """A request's KV evicted to host memory (numpy), page-granular:
-    ``data[kv] = (words [L, n, T, K, W] uint32, scales [L, n, T, K, 1])``."""
-    data: dict[str, tuple[np.ndarray, np.ndarray]]
+    ``data[b<i>][kv] = (words [G, n, T, K, W] uint32, scales [G, n, T, K,
+    1])``."""
+    data: dict[str, dict[str, tuple[np.ndarray, np.ndarray]]]
     length: int
 
 
@@ -71,11 +74,13 @@ class PagedKVPool:
         self.n_pages = int(n_pages)
         self._free = list(range(n_pages))[::-1]   # stack: pop() = lowest
         self.peak_used = 0
-        shape = (cfg.n_layers, n_pages, page_tokens, cfg.n_kv_heads,
+        shape = (cfg.n_groups, n_pages, page_tokens, cfg.n_kv_heads,
                  cfg.head_dim)
-        fmt = kv_format(kv_policy)
-        self.slabs: dict[str, QTensor] = {
-            kv: A.empty_packed(shape, fmt, self.device) for kv in ("k", "v")}
+        self.attn_keys = [f"b{i}" for i in cfg.attn_positions]
+        self.slabs: dict[str, dict[str, QTensor]] = {
+            f"b{i}": {kv: A.empty_packed(shape, kv_format(kv_policy, i),
+                                         self.device) for kv in ("k", "v")}
+            for i in cfg.attn_positions}
 
     # -- allocation --------------------------------------------------------
     def pages_for(self, length: int) -> int:
@@ -118,16 +123,22 @@ class PagedKVPool:
     def _idx(self, pages) -> torch.Tensor:
         return torch.as_tensor(pages, dtype=torch.int64, device=self.device)
 
+    def _each_leaf(self):
+        """(position key, k/v) of every slab."""
+        for key in self.attn_keys:
+            for kv in ("k", "v"):
+                yield key, kv
+
     def _store_row(self, caches, length: int, row: int) -> PageTable:
         n = self.pages_for(length)
         pages = self.alloc(n)
         idx = self._idx(pages)
         T = self.page_tokens
-        for kv in ("k", "v"):
-            c = caches[kv]
+        for key, kv in self._each_leaf():
+            c = caches[key][kv]
             if not isinstance(c, QTensor):
-                raise TypeError(f"cache {kv} must be a packed QTensor")
-            for slab, leaf in zip(_leaves(self.slabs[kv]), _leaves(c)):
+                raise TypeError(f"cache {key}/{kv} must be a packed QTensor")
+            for slab, leaf in zip(_leaves(self.slabs[key][kv]), _leaves(c)):
                 blk = leaf[:, row, :n * T]
                 slab.index_copy_(1, idx, blk.reshape(
                     (blk.shape[0], n, T) + tuple(blk.shape[2:])))
@@ -147,8 +158,9 @@ class PagedKVPool:
         caches, in place; returns ``caches``."""
         idx = self._idx(table.pages)
         n = len(table.pages) * self.page_tokens
-        for kv in ("k", "v"):
-            for slab, leaf in zip(_leaves(self.slabs[kv]), _leaves(caches[kv])):
+        for key, kv in self._each_leaf():
+            for slab, leaf in zip(_leaves(self.slabs[key][kv]),
+                                  _leaves(caches[key][kv])):
                 blk = slab.index_select(1, idx)
                 leaf[:, slot, :n].copy_(blk.reshape(
                     (blk.shape[0], n) + tuple(blk.shape[3:])))
@@ -158,8 +170,8 @@ class PagedKVPool:
         """Pages src -> dst in every slab leaf (the gather copies before
         the scatter writes, so overlapping moves are safe)."""
         s, d = self._idx(src), self._idx(dst)
-        for kv in ("k", "v"):
-            for slab in _leaves(self.slabs[kv]):
+        for key, kv in self._each_leaf():
+            for slab in _leaves(self.slabs[key][kv]):
                 slab.index_copy_(1, d, slab.index_select(1, s))
 
     def relocate(self, table: PageTable) -> PageTable:
@@ -191,11 +203,12 @@ class PagedKVPool:
     def evict_to_host(self, table: PageTable) -> HostKV:
         """Pull a page table's contents to host numpy and free its pages."""
         idx = self._idx(table.pages)
-        data = {}
-        for kv in ("k", "v"):
-            w, s = _leaves(self.slabs[kv])
-            data[kv] = (w.index_select(1, idx).cpu().numpy().view(np.uint32),
-                        s.index_select(1, idx).cpu().numpy())
+        data: dict[str, dict[str, tuple[np.ndarray, np.ndarray]]] = {}
+        for key, kv in self._each_leaf():
+            w, s = _leaves(self.slabs[key][kv])
+            data.setdefault(key, {})[kv] = (
+                w.index_select(1, idx).cpu().numpy().view(np.uint32),
+                s.index_select(1, idx).cpu().numpy())
         self.free(table.pages)
         return HostKV(data=data, length=table.length)
 
@@ -203,9 +216,9 @@ class PagedKVPool:
         """Upload host-evicted KV into fresh pages."""
         pages = self.alloc(self.pages_for(host.length))
         idx = self._idx(pages)
-        for kv in ("k", "v"):
-            w, s = _leaves(self.slabs[kv])
-            hw, hs = host.data[kv]
+        for key, kv in self._each_leaf():
+            w, s = _leaves(self.slabs[key][kv])
+            hw, hs = host.data[key][kv]
             w.index_copy_(1, idx, torch.from_numpy(hw.view(np.int32)).to(
                 self.device))
             s.index_copy_(1, idx, torch.from_numpy(hs).to(self.device))
@@ -215,18 +228,22 @@ class PagedKVPool:
     def occupancy(self) -> float:
         return self.used / self.n_pages
 
+    def _slab_list(self) -> list[QTensor]:
+        return [self.slabs[key][kv] for key, kv in self._each_leaf()]
+
     def page_bytes_packed(self) -> int:
-        """Packed bytes of ONE logical page across every slab."""
-        return sum(s.nbytes for s in self.slabs.values()) // self.n_pages
+        """Packed bytes of ONE logical page across every slab (the sum over
+        the attention positions, each at its own format)."""
+        return self.pool_bytes_packed() // self.n_pages
 
     def pool_bytes_packed(self) -> int:
-        return sum(s.nbytes for s in self.slabs.values())
+        return sum(s.nbytes for s in self._slab_list())
 
     def pool_bytes_live_packed(self) -> int:
         return self.used * self.page_bytes_packed()
 
     def pool_bytes_logical_f32(self) -> int:
-        return sum(int(np.prod(s.shape)) * 4 for s in self.slabs.values())
+        return sum(int(np.prod(s.shape)) * 4 for s in self._slab_list())
 
     def stats(self) -> dict:
         return {

@@ -10,10 +10,12 @@ addressing, an int and a per-slot ``[B]`` start, a decode write (S = 1) and
 a prefill-like write (S = 5, crossing pages), f32 and bf16 inputs.
 
 Retired slots point every table entry at the dump page, so several slots
-write the same dump rows and which write lands there is not defined: the
-comparison excludes the dump page. The reference's paged write takes one
-token per slot, so at S = 5 the paged reference is its quantize followed by
-its page arithmetic row by row.
+may write the same dump rows: the comparison above excludes the dump page.
+The reference's paged write takes one token per slot, so at S = 5 the paged
+reference is its quantize followed by its page arithmetic row by row.
+Where rows share a position, the port's write keeps the last row in (slot,
+position) order, as the reference's scatter does on the CPU: a separate
+test points every slot at one dump position and compares the whole cache.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -162,6 +164,29 @@ def test_kv_write_bitwise_vs_reference(name, paged, per_slot, S, dtype):
         Q.f2p_kv_write(_torch_inputs(k, dtype), _torch_inputs(v, dtype), tc,
                        tpos)
     _assert_bitwise(tc, want, paged)
+
+
+@pytest.mark.parametrize("S", [1, 5])
+def test_kv_write_shared_positions_last_row_wins(S):
+    """Every slot's table on the dump page at one start: all B rows (and,
+    at S = 5, positions across pages of the one dump page) share cache
+    positions; the whole cache, the dump page included, equals the
+    reference's (its scatter for S = 1, its row loop at S = 5)."""
+    name = "f2p_sr_2_8s"
+    rng = np.random.default_rng([7, S])
+    k, v = _rows(rng, S, "f32")
+    parts = {"k": _cache(rng, name, (P, T)), "v": _cache(rng, name, (P, T))}
+    pages = np.full((B, MAXP), DUMP, np.int32)
+    pos = np.full((B,), 2, np.int64)
+    want = _paged_reference(name, parts, k, v, pos, pages, "f32")
+    tc = _torch_cache(name, parts)
+    Q.f2p_kv_write(_torch_inputs(k, "f32"), _torch_inputs(v, "f32"), tc,
+                   torch.from_numpy(pos), torch.from_numpy(pages))
+    for kv in ("k", "v"):
+        np.testing.assert_array_equal(
+            tc[kv].codes.view(torch.int32).numpy(),
+            want[kv][0].view(np.int32))
+        np.testing.assert_array_equal(tc[kv].scales.numpy(), want[kv][1])
 
 
 def _old_paged_cache_write(cache, k, v, pos, pages):

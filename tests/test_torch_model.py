@@ -101,20 +101,20 @@ def test_paged_decode_logits_bitwise_vs_dense(both):
     prefill(model, torch.from_numpy(toks).long(), tc)
     perm = torch.from_numpy(np.random.default_rng(3).permutation(B * maxp + 2))
     P = B * maxp + 2
-    L, K, W = cfg.n_layers, cfg.n_kv_heads, tc["k"].codes.shape[-1]
+    L, K, W = cfg.n_layers, cfg.n_kv_heads, tc["b0"]["k"].codes.shape[-1]
     slabs = init_caches(cfg, 1, P * T, quantized_kv=True, device=CPU)
     pages = perm[:B * maxp].reshape(B, maxp).to(torch.int32)
     for kv in ("k", "v"):
-        src, dst = tc[kv], slabs[kv]
+        src, dst = tc["b0"][kv], slabs["b0"][kv]
         codes = dst.codes.view(torch.int32).reshape(L, P, T, K, W)
         scales = dst.scales.reshape(L, P, T, K, 1)
         codes[:, pages.flatten().long()] = src.codes.view(torch.int32) \
             .reshape(L, B * maxp, T, K, W)
         scales[:, pages.flatten().long()] = src.scales.reshape(
             L, B * maxp, T, K, 1)
-        slabs[kv] = type(dst)(codes.view(torch.uint32), scales, dst.fmt,
-                              dst.block, (L, P, T, K, cfg.head_dim),
-                              packed=True)
+        slabs["b0"][kv] = type(dst)(codes.view(torch.uint32), scales,
+                                    dst.fmt, dst.block,
+                                    (L, P, T, K, cfg.head_dim), packed=True)
     tok = torch.tensor([[5], [7], [9]])
     pos = torch.tensor([11, 11, 11])
     for _ in range(3):

@@ -76,13 +76,14 @@ def test_init_caches_policy_formats_and_lr_zero_decode(setup):
                          device=CPU)
     jcaches = jinit_caches(jax_smoke("llama3_2_3b"), 2, 16, quantized_kv=True,
                            kv_policy=jpol, packed_kv=True)
-    assert caches["k"].fmt == caches["v"].fmt == named_format("f2p_lr_2_8s")
-    assert str(caches["k"].fmt) == str(jcaches["b0"]["k"].fmt)
+    assert caches["b0"]["k"].fmt == caches["b0"]["v"].fmt == named_format(
+        "f2p_lr_2_8s")
+    assert str(caches["b0"]["k"].fmt) == str(jcaches["b0"]["k"].fmt)
     # the same empty words as the reference: the LR code of value zero
     np.testing.assert_array_equal(
-        caches["k"].codes[0].view(torch.int32).numpy(),
+        caches["b0"]["k"].codes[0].view(torch.int32).numpy(),
         np.asarray(jcaches["b0"]["k"].codes)[0].view(np.int32))
-    assert float(caches["k"].dequantize().abs().max()) == 0.0
+    assert float(caches["b0"]["k"].dequantize().abs().max()) == 0.0
     toks = torch.randint(0, cfg.vocab_size, (2, 9),
                          generator=torch.Generator().manual_seed(1))
     prefill(model, toks[:, :8], caches)
@@ -90,7 +91,7 @@ def test_init_caches_policy_formats_and_lr_zero_decode(setup):
                                            caches)).all())
     # no policy: the hard-coded KV format; a kv/* rule for every layer
     assert kv_format(None) == init_caches(
-        cfg, 1, 8, quantized_kv=True, device=CPU)["k"].fmt
+        cfg, 1, 8, quantized_kv=True, device=CPU)["b0"]["k"].fmt
     assert kv_format(_policies("f2p_sr_2_6s")[1]).n_bits == 6
 
 
@@ -101,11 +102,11 @@ def test_batched_engine_under_policy_matches_jax_sequential(setup, fmt):
     reqs = _requests(cfg)
     bs = dict(slots=3, max_seq=32, sync_every=4, kv_policy=pol)
     paged = BatchedEngine(cfg, BatchedServeConfig(**bs), model)
-    assert paged.pool.slabs["k"].fmt == named_format(fmt)
+    assert paged.pool.slabs["b0"]["k"].fmt == named_format(fmt)
     out = paged.run(reqs)
     copy_in = BatchedEngine(cfg, BatchedServeConfig(paged_decode=False, **bs),
                             model)
-    assert copy_in.caches["k"].fmt == named_format(fmt)
+    assert copy_in.caches["b0"]["k"].fmt == named_format(fmt)
     got_c = copy_in.run(reqs)
     jeng = JEngine(jcfg, JServeConfig(batch=1, max_seq=32, quantized_kv=True,
                                       packed_kv=True, fused_attention=True,
