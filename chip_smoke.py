@@ -9,13 +9,15 @@ NVIDIA GPU.
     python3 chip_smoke.py --only unpacked  # phases 1-2, B5, its round trip, B6
     python3 chip_smoke.py --only fl      # phases 1-2 and phase 9 (FL, faults)
     python3 chip_smoke.py --only families  # phases 1-2 and phase 10 (MoE, ...)
+    python3 chip_smoke.py --only recurrent  # phases 1-2 and phase 11 (jamba, xLSTM)
 
 With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
-unpacked``, ``--only fl``, ``--only families``) the script runs the device
-and build phases and phase 3's dequant matmul, B7/B8 (attention, B1/B2;
-the packed codec, B3/B4; the unpacked codec, B5 and its round trip and
-B6; phase 9; phase 10), prints their lines and ends without the final
-``{"ok": ...}`` line, so it never stands in for a full run.
+unpacked``, ``--only fl``, ``--only families``, ``--only recurrent``) the
+script runs the device and build phases and phase 3's dequant matmul,
+B7/B8 (attention, B1/B2; the packed codec, B3/B4; the unpacked codec, B5
+and its round trip and B6; phase 9; phase 10; phase 11), prints their
+lines and ends without the final ``{"ok": ...}`` line, so it never stands
+in for a full run.
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -221,14 +223,42 @@ Phases (any failed check raises, so the script exits non-zero):
    (e) smoke scout and maverick in f32 on the card against the CPU:
    logits within 1e-4 over prefill and 8 decode steps, greedy tokens
    equal.
+11. recurrent — the mamba hybrid and xLSTM (random weights from seed 0,
+   bf16). (a) B1/B2 within 1e-5 of their plain versions and bitwise to
+   each other, B3's KV write bitwise, at jamba's attention shape (kv
+   heads, G, head_dim) = (8, 8, 128), timed as in 10(a). Then the launch
+   counters are zeroed and the main path runs: (b) xLSTM-125m, full (12
+   layers, tied, no pool: the slots' caches hold only recurrent state)
+   on phase 5's staggered workload through BatchedEngine(slots=8,
+   max_seq=1024), twice (run == rerun, asserted), once with request 1
+   preempted after round 2 (its state to the host and back: its tokens
+   equal, asserted); no KV kernel launched (asserted); tok/s, TTFT / TBT,
+   the recurrent state bytes per slot, the sequential Engine's agreement
+   (printed) and a profiled run's busy share. (d) The train CLI's default
+   arch (xlstm_125m, full) with its configs: 4 steps, batch 8 x seq 128,
+   F2P8 gradients; one round-trip launch per step and no per-leaf B5 / B6
+   launch (asserted), losses finite, ms per step. (c) jamba at full width
+   (d 8192, 64 / 8 heads, d_ff 24576, d_inner 16384, vocab 65536, top-2)
+   cut to one pattern group (8 layers) and 8 of its 16 experts, which
+   the card's 80 GB force (printed): 8 requests x 32 tokens at once on 8
+   slots, paged, copy-in and paged again (every slot live from the first
+   decode step to the last: paged == copy-in == rerun, asserted), B3's KV
+   write once per attention layer per decode step and per prefill call,
+   B1 on the paged and B2 on the copy-in runs (asserted); tok/s, TTFT /
+   TBT, peak memory, the decode and prefill capacity-drop shares, pool
+   bytes beside the state bytes per slot and a profiled run's busy share.
+   The counters are read here. (e) Smoke jamba and xLSTM in f32 on the
+   card against the CPU: logits within 1e-4 over prefill and 8 decode
+   steps, greedy tokens equal.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
 line, one ``{"fl": {...}}`` JSON line, one ``{"families": {...}}`` JSON
-line, one ``{"kernels": [...]}`` JSON line
-(all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as a row of
-its own; B5's codes mode and B6 count the launches of phase 8's checkpoint
-save and restore; B3-B6 also carry ``fl_launches``, phase 9's, and B1-B4
-``families_launches``, phase 10's), then the
+line, one ``{"recurrent": {...}}`` JSON line, one ``{"kernels": [...]}``
+JSON line (all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as
+a row of its own; B5's codes mode and B6 count the launches of phase 8's
+checkpoint save and restore; B3-B6 also carry ``fl_launches``, phase 9's,
+B1-B4 ``families_launches``, phase 10's, and B1-B3 and the round trip
+``recurrent_launches``, phase 11's), then the
 nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
 copy of the results goes to chiprun_out/chip_smoke.json.
 """
@@ -282,6 +312,13 @@ ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "llama3_2_3b", 8, 8, 128
 # dense and a 128-expert layer) are 37 GB, against the card's 80
 FAMILY_SHAPES = ((8, 5, 128), (40, 1, 64), (32, 1, 128))
 SCOUT_LAYERS, MAVERICK_LAYERS = 8, 2
+# phase 11: jamba's attention shape for B1-B3 (8 kv heads, 64 / 8 = 8 query
+# rows each, head_dim 128); jamba cut to one pattern group of 8 layers and 8
+# of its 16 experts (one group with 16 is 90.2 GB in bf16, with 8 51.6 GB,
+# against the card's 80); the train CLI's default arch, 4 steps
+RECURRENT_SHAPE = (8, 8, 128)
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 8
+XLSTM_TRAIN_STEPS = 4
 # phase 9: federated learning, examples/fed_avg.py's defaults and README's
 # fleet deployment; the FL leaf shapes' formats (a 6-bit candidate of
 # candidate_formats(n_bits=(6, 8)) beside the 8-bit wire format) and blocks
@@ -1741,17 +1778,19 @@ def check_small(dev, arch="llama3_2_3b", tol=1e-3, steps=6,
     gpu.load_state_dict(cpu.state_dict())
     toks = torch.randint(0, cfg.vocab_size, (2, 13),
                          generator=torch.Generator().manual_seed(3))
-    caches = {d: init_caches(cfg, 2, 64, quantized_kv=True, device=d)
-              for d in ("cpu", dev)}
-    lc = prefill(cpu, toks, caches["cpu"])
-    lg = prefill(gpu, toks.to(dev), caches[dev])
+    # two caches (a recurrent state advances with every call, so the two
+    # runs must not share one, as they would in a CPU rehearsal)
+    cc, cg = (init_caches(cfg, 2, 64, quantized_kv=True, device=d)
+              for d in ("cpu", dev))
+    lc = prefill(cpu, toks, cc)
+    lg = prefill(gpu, toks.to(dev), cg)
     worst = float((lg.cpu() - lc).abs().max())
     same = True
     for i in range(steps):
         tok = torch.argmax(lc, -1)[:, None]
         same &= bool(torch.equal(torch.argmax(lg, -1).cpu()[:, None], tok))
-        lc = decode_step(cpu, tok, 13 + i, caches["cpu"])
-        lg = decode_step(gpu, tok.to(dev), 13 + i, caches[dev])
+        lc = decode_step(cpu, tok, 13 + i, cc)
+        lg = decode_step(gpu, tok.to(dev), 13 + i, cg)
         worst = max(worst, float((lg.cpu() - lc).abs().max()))
     same &= bool(torch.equal(torch.argmax(lg, -1).cpu(), torch.argmax(lc, -1)))
     assert worst < tol, f"{arch}: card vs CPU logits differ by {worst}"
@@ -2023,8 +2062,9 @@ def serve_policy(dev, cfg, model, reqs, bs, run, base_out, base_st) -> dict:
 
 def profile_decode(cfg, model, bs) -> dict:
     """torch.profiler over a short paged run (8 requests of 64 tokens, 2
-    prefill calls + 16 decode steps): the device's busy share of the wall
-    time, each kernel's device time per call, and the top kernels."""
+    prefill calls, or 8 for a family prefilled at exact length, + 16
+    decode steps): the device's busy share of the wall time, each kernel's
+    device time per call, and the top kernels."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2045,7 +2085,9 @@ def profile_decode(cfg, model, bs) -> dict:
         wall_us = (time.perf_counter() - t) * 1e6
     res = device_profile(prof, wall_us, ("attention_decode_kernel",
                                          "quantize_packed"))
-    log_profile("2 prefill calls + 16 decode steps", res)
+    st = eng.stats      # 2 prefill calls of 4, or 8 exact-length ones
+    log_profile(f"{st['prefill_calls']} prefill calls + {st['steps']} "
+                f"decode steps", res)
     return res
 
 
@@ -3159,9 +3201,10 @@ def moe_drops(tap, slots: int, k: int) -> dict:
 
 def family_run(dev, cfg, model, reqs, tag, **bs) -> dict:
     """One BatchedEngine run: every request finished with its max_new
-    tokens, B3's KV write launched once per layer per decode step and per
-    prefill call; the launches of the run, tok/s (wall, prefill included),
-    the peak of max_memory_allocated, TTFT / TBT and the MoE drop shares."""
+    tokens, B3's KV write launched once per attention layer per decode step
+    and per prefill call (never, without attention); the launches of the
+    run, tok/s (wall, prefill included), the peak of
+    max_memory_allocated, TTFT / TBT and the MoE drop shares."""
     import torch
 
     from repro_torch.kernels import cuda as C
@@ -3196,7 +3239,8 @@ def family_run(dev, cfg, model, reqs, tag, **bs) -> dict:
         assert len(o) == r.max_new, f"{tag}: request {r.uid} short"
         assert ((o >= 0) & (o < cfg.vocab_size)).all()
     st = eng.stats
-    writes = cfg.n_layers * (st["steps"] + st.get("prefill_calls", 0))
+    attn_layers = len(cfg.attn_positions) * cfg.n_groups
+    writes = attn_layers * (st["steps"] + st.get("prefill_calls", 0))
     assert counts["kv_write"] == writes, \
         f"{tag}: {counts['kv_write']} kv_write launches, not {writes}"
     ntok = sum(len(v) for v in out.values())
@@ -3445,6 +3489,396 @@ def families_summary(fam: dict) -> dict:
         seconds=fam["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent families (jamba, xLSTM)
+# ---------------------------------------------------------------------------
+def _preempting_engine(victim: int, after: int):
+    """A BatchedEngine that preempts request ``victim`` once, at the end of
+    round ``after`` (the engine's own preempt hook: its state and KV go to
+    the host and the next admission pass readmits it)."""
+    from repro_torch.serve import BatchedEngine
+
+    class Preempting(BatchedEngine):
+        preempted = False
+
+        def _harvest(self, chunk, results):
+            super()._harvest(chunk, results)
+            if (not self.preempted and self._c_rounds.exact == after
+                    and any(st is not None and st.uid == victim
+                            for st in self.slots)):
+                self.preempt(victim)
+                self.preempted = True
+
+    return Preempting
+
+
+def decode_breakdown(dev, cfg, model, slots=8, prompt=64, steps=8) -> dict:
+    """Where a decode step's time goes, with no admission in the way:
+    ``slots`` rows prefilled with ``prompt`` random tokens into dense
+    packed caches, then ``steps`` decode steps timed (host clock, the
+    device synchronised) and profiled: ms per step, the device's busy
+    share, device kernels per step and device ms by group, beside the
+    weight bytes a step must read (every parameter but the embedding rows
+    an untied model does not gather) over 3.35 TB/s."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, init_caches, prefill
+
+    cfg = dataclasses.replace(cfg, fused_attention=True)
+    g = torch.Generator().manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (slots, prompt), generator=g)
+    caches = init_caches(cfg, slots, 1024, quantized_kv=True, device=dev)
+    logits = prefill(model, toks.to(dev), caches, cfg=cfg)
+    tok = torch.argmax(logits, -1)[:, None]
+    pos = prompt
+
+    def run(n):
+        nonlocal tok, pos
+        for _ in range(n):
+            tok = torch.argmax(decode_step(model, tok, pos, caches, cfg=cfg),
+                               -1)[:, None]
+            pos += 1
+
+    run(2)
+    sync(dev)
+    t = time.perf_counter()
+    run(steps)
+    sync(dev)
+    ms = 1e3 * (time.perf_counter() - t) / steps
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if model.lm_head is not None:
+        nbytes -= model.embed.numel() * model.embed.element_size()
+    out = dict(ms_per_step=ms, weight_bytes=nbytes,
+               bound_ms=bound_ms(nbytes))
+    if torch.device(dev).type == "cuda":
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run(steps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        res = device_profile(prof, wall_us, ("attention_decode_kernel",
+                                             "quantize_packed"))
+        n_dev = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        out.update(device_busy_share=res["device_busy_share"],
+                   device_kernels_per_step=n_dev / steps,
+                   groups_ms_per_step={k: v / steps for k, v in
+                                       res["groups_ms"].items()})
+    log(f"recurrent: {cfg.name} decode alone ({slots} rows at position "
+        f"{prompt}+): {ms:.2f} ms per step against a {out['bound_ms']:.3f}"
+        f" ms weight-read bound ({nbytes / 1e9:.2f} GB); busy "
+        f"{_ms(out.get('device_busy_share'))}, "
+        f"{out.get('device_kernels_per_step')} device kernels per step, "
+        f"device ms per step by group "
+        f"{ {k: round(v, 3) for k, v in out.get('groups_ms_per_step', {}).items()} }")
+    return out
+
+
+def xlstm_serve_phase(dev):
+    """11(b): xLSTM-125m, full (12 layers, no pool): phase 5's staggered
+    workload run twice (run == rerun asserted), a run that preempts request
+    1 after 2 rounds (its tokens == the uninterrupted run's, asserted), no
+    KV kernel launched; the sequential Engine's agreement (printed) and a
+    profiled run. Returns (results, (cfg, model)): the model stays for the
+    decode breakdown, which runs off the main path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import cuda as C
+    from repro_torch.models import init_params
+    from repro_torch.serve import BatchedServeConfig, Engine, ServeConfig
+
+    cfg = full_config("xlstm_125m")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    log(f"recurrent: {cfg.name} {cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads} V={cfg.vocab_size} tied {cfg.tie_embeddings} "
+        f"{cfg.dtype}, {cfg.param_count() / 1e9:.3f}B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = family_requests(cfg.vocab_size, 16)
+    bs = dict(slots=8, max_seq=1024)
+    before = dict(C.LAUNCHES)
+    run = family_run(dev, cfg, model, reqs, "run", **bs)
+    rerun = family_run(dev, cfg, model, reqs, "rerun", **bs)
+    assert _same_tokens(run["out"], rerun["out"]) == len(reqs), \
+        "xLSTM: run != rerun"
+    victim = reqs[0].uid
+    eng = _preempting_engine(victim, 2)(cfg, BatchedServeConfig(**bs), model)
+    pre = eng.run(reqs)
+    sync(dev)
+    assert eng.preempted and eng.stats.get("readmits", 0) == 1
+    assert np.array_equal(pre[victim], run["out"][victim]), \
+        "xLSTM: the preempted request's tokens changed"
+    pre_same = _same_tokens(run["out"], pre)
+    kv = {k: C.LAUNCHES[k] - before[k] for k in (
+        "attention_paged", "attention_packed", "kv_write", "kv_read",
+        "quantize_packed", "dequantize_packed")}
+    assert not any(kv.values()), f"xLSTM launched KV kernels: {kv}"
+    state_b = run["engine"].state_bytes_per_slot()
+    log(f"recurrent: xLSTM run == rerun, token for token; request {victim} "
+        f"preempted after round 2 (state to the host and back) gives its "
+        f"tokens ({pre_same}/{len(reqs)} requests equal); no KV kernel "
+        f"launched; recurrent state {state_b} B per slot")
+    seq = Engine(cfg, ServeConfig(batch=1, max_seq=1024), model)
+    agree = sum(bool(np.array_equal(
+        seq.generate(r.tokens[None], r.max_new)[0].astype(np.int32),
+        run["out"][r.uid])) for r in reqs)
+    log(f"recurrent: xLSTM sequential Engine == batched on {agree}/"
+        f"{len(reqs)} requests (printed, not asserted: cuBLAS may sum "
+        f"batch-1 and batch-8 products in other orders at bf16)")
+    prof = (profile_decode(cfg, model, bs)
+            if torch.device(dev).type == "cuda" else None)
+    res = dict(arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+               state_bytes_per_slot=state_b, preempted_equal=pre_same,
+               sequential_agree=f"{agree}/{len(reqs)}", profile=prof)
+    for tag, r in (("run", run), ("rerun", rerun)):
+        res[tag] = {k: r[k] for k in ("tok_s", "seconds", "peak_gb",
+                                      "latency")}
+        res[tag]["rounds"] = r["stats"]["rounds"]
+    return res, (cfg, model)
+
+
+def xlstm_train_phase(dev) -> dict:
+    """11(d): the train CLI's default arch (xlstm_125m, --full) with its
+    optimizer, compression and data configs: XLSTM_TRAIN_STEPS steps of
+    batch 8 x seq 128 with F2P8 gradients; one round-trip launch per step,
+    no per-leaf B5 / B6 launch (asserted), finite losses. The compressed
+    leaves are those whose stacked reference leaf (the layer's size times
+    the pattern's groups) holds ``min_size`` elements (asserted), and step
+    0's gradients and residuals equal the plain round trip on each leaf's
+    g and r as autograd hands them over, bitwise (asserted), as phase 8
+    holds them at llama3.2-3b's leaves."""
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.data import host_batch
+    from repro_torch.kernels import cuda as C
+    from repro_torch.kernels import f2p_quant as Q
+    from repro_torch.launch.train import parse_args
+    from repro_torch.launch.train import train_configs as cli_configs
+    from repro_torch.train import init_train_state, make_train_step
+
+    arch = parse_args([]).arch
+    assert arch == "xlstm_125m", f"the train CLI defaults to {arch}"
+    cfg = full_config(arch)
+    ocfg, ccfg, dcfg, _ = cli_configs(cfg, arch=arch,
+                                      steps=XLSTM_TRAIN_STEPS,
+                                      global_batch=TRAIN_BATCH,
+                                      seq=TRAIN_SEQ)
+    state = init_train_state(cfg, ocfg, ccfg, seed=0, device=dev)
+    model, res = state["params"], state["residuals"]
+    n_comp = sum(r is not None for r in res.values())
+    stacked = {n: p.numel() * (cfg.n_groups if n.startswith("blocks.") else 1)
+               for n, p in model.named_parameters()}
+    assert {n for n, r in res.items() if r is not None} == \
+        {n for n, k in stacked.items() if k >= ccfg.min_size}, \
+        "xLSTM: the compressed leaves are not those of the stacked sizes"
+    want = {}
+
+    def hook(name):
+        def fn(p):
+            wg, wr = p.grad.clone(), res[name].clone()
+            Q.ef_roundtrip_plain(wg, wr, ccfg.fmt, ccfg.block)
+            want[name] = (wg.cpu(), wr.cpu())
+        return fn
+
+    handles = [p.register_post_accumulate_grad_hook(hook(n))
+               for n, p in model.named_parameters() if res[n] is not None]
+    step_fn = make_train_step(cfg, ocfg, ccfg)
+    losses, step_ms = [], []
+    for step in range(XLSTM_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in host_batch(dcfg, step).items()}
+        before = dict(C.LAUNCHES)
+        sync(dev)
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss = float(m["loss"])
+        sync(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(loss)
+        n = {k: C.LAUNCHES[k] - before[k] for k in ("ef_roundtrip",
+                                                    "quantize", "dequantize")}
+        assert math.isfinite(loss), f"xLSTM step {step}: loss {loss}"
+        assert n == {"ef_roundtrip": 1, "quantize": 0, "dequantize": 0}, \
+            f"xLSTM step {step}: launches {n} ({n_comp} leaves)"
+        if step == 0:
+            for h in handles:
+                h.remove()
+            assert len(want) == n_comp
+            for name, p in model.named_parameters():
+                if name in want:
+                    wg, wr = want[name]
+                    assert torch.equal(_bits(p.grad), _bits(wg.to(dev))), \
+                        f"xLSTM step 0: compressed gradient of {name} != " \
+                        "plain round trip"
+                    assert torch.equal(_bits(res[name]), _bits(wr.to(dev))), \
+                        f"xLSTM step 0: residual of {name} != plain g + r - q"
+            want.clear()
+            log(f"recurrent: xLSTM step 0 compressed gradients and residuals "
+                f"== plain round trip on g + r, bitwise, all {n_comp} leaves "
+                f"(stacked by the {len(cfg.pattern)}-position pattern)")
+        log(f"recurrent: xLSTM train step {step} loss {loss:.4f} "
+            f"{step_ms[-1]:.1f} ms, 1 round-trip launch ({n_comp} leaves)")
+    del state, model, res, step_fn
+    return dict(arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                losses=losses, step_ms=step_ms, compressed_leaves=n_comp)
+
+
+def jamba_phase(dev):
+    """11(c): jamba at full width, one pattern group (8 layers: 1 attention,
+    7 mamba, 4 dense and 4 MoE FFs) with 8 of its 16 experts: 8 requests x
+    32 tokens at once on 8 slots, paged, copy-in and paged again (paged ==
+    copy-in == rerun asserted; every slot is live from the first decode step
+    to the last), B1 on the paged and B2 on the copy-in runs, a profiled
+    run. Returns (results, (cfg, model)), as :func:`xlstm_serve_phase`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.models import init_params
+
+    full = full_config("jamba_1_5_large")
+    group = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    cfg = dataclasses.replace(group, n_experts=JAMBA_EXPERTS)
+    log(f"recurrent: jamba cut to {JAMBA_LAYERS} layers (one pattern group) "
+        f"and {JAMBA_EXPERTS} of {full.n_experts} experts: one group with "
+        f"{full.n_experts} is {group.param_count() * 2 / 1e9:.1f} GB in bf16, "
+        f"with {JAMBA_EXPERTS} {cfg.param_count() * 2 / 1e9:.1f} GB, against "
+        f"the card's 80 (the cut changes the routing, not a width)")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    log(f"recurrent: {cfg.name} {cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} d_inner="
+        f"{cfg.d_inner} state {cfg.ssm_state} conv {cfg.ssm_conv} "
+        f"E={cfg.n_experts} top-{cfg.experts_per_token} V={cfg.vocab_size} "
+        f"{cfg.dtype}, {cfg.param_count() / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = family_requests(cfg.vocab_size, 8, seed=4, stagger=0)
+    bs = dict(slots=8, max_seq=1024)
+    paged = family_run(dev, cfg, model, reqs, "paged", **bs)
+    copy_in = family_run(dev, cfg, model, reqs, "copy-in",
+                         paged_decode=False, **bs)
+    rerun = family_run(dev, cfg, model, reqs, "paged again", **bs)
+    assert _same_tokens(paged["out"], copy_in["out"]) == len(reqs), \
+        "jamba: paged != copy-in with every slot live"
+    assert _same_tokens(paged["out"], rerun["out"]) == len(reqs), \
+        "jamba: paged != its rerun"
+    assert paged["counts"]["attention_paged"] > 0
+    assert copy_in["counts"]["attention_packed"] > 0
+    pool = paged["engine"].pool
+    st = pool.stats()
+    slot_kv = st["page_bytes_packed"] * (bs["max_seq"] // pool.page_tokens)
+    state_b = paged["engine"].state_bytes_per_slot()
+    log(f"recurrent: jamba paged == copy-in == rerun, token for token; "
+        f"pool {st['pool_bytes_packed']} B ({st['page_bytes_packed']} B per "
+        f"page, {slot_kv} B for a slot's {bs['max_seq']} positions); "
+        f"recurrent state {state_b} B per slot")
+    prof = (profile_decode(cfg, model, bs)
+            if torch.device(dev).type == "cuda" else None)
+    res = dict(arch=cfg.name, layers=cfg.n_layers,
+               experts=f"{cfg.n_experts} of {full.n_experts}",
+               params=cfg.param_count(), pool=st, slot_kv_bytes=slot_kv,
+               state_bytes_per_slot=state_b, profile=prof)
+    for tag, r in (("paged", paged), ("copy_in", copy_in),
+                   ("rerun", rerun)):
+        res[tag] = {k: r[k] for k in ("tok_s", "seconds", "peak_gb",
+                                      "drops", "latency", "counts")}
+        res[tag]["rounds"] = r["stats"]["rounds"]
+    return res, (cfg, model)
+
+
+def recurrent_phase(dev) -> dict:
+    """Phase 11: B1/B2/B3 at jamba's attention shape; then the main path
+    with the launch counts zeroed first and read last: xLSTM-125m served,
+    xLSTM trained by the CLI's default, jamba served; then, off the main
+    path, each served model's decode breakdown (prefill and decode_step on
+    dense caches, outside the engine) and the smoke configs on the card
+    against the CPU."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import cuda as C
+
+    t0 = time.perf_counter()
+    K, G, hd = RECURRENT_SHAPE
+    res = dict(kernels=dict(attention_at(dev, K, G, hd),
+                            kv_write=kv_write_at(dev, K, hd)))
+
+    def collect():
+        gc.collect()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+
+    C.reset_launches()
+    res["xlstm"], xl = xlstm_serve_phase(dev)
+    collect()
+    res["train"] = xlstm_train_phase(dev)
+    collect()
+    res["jamba"], jb = jamba_phase(dev)
+    sc = dict(C.LAUNCHES)
+    collect()
+    for name, (cfg, model) in (("jamba", jb), ("xlstm", xl)):
+        res[name]["decode"] = decode_breakdown(dev, cfg, model)
+    del xl, jb, cfg, model
+    collect()
+    res["launches"] = {
+        "attention_paged": sc["attention_paged"],
+        "attention_packed": sc["attention_packed"],
+        "quantize_packed": sc["kv_write"] + sc["quantize_packed"],
+        "ef_roundtrip": sc["ef_roundtrip"]}
+    for name, n in res["launches"].items():
+        assert n > 0, f"phase 11 never launched {name}"
+    res["small"] = {a: check_small(dev, a, tol=1e-4, steps=8, tokens=True)
+                    for a in ("jamba_1_5_large", "xlstm_125m")}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"recurrent: phase 11 in {res['seconds']:.1f} s; main-path launches "
+        f"{res['launches']}")
+    return res
+
+
+def recurrent_summary(rec: dict) -> dict:
+    def brief(r):
+        return {k: r.get(k) for k in ("tok_s", "peak_gb", "drops")} | {
+            "ttft_p50_ms": r["latency"]["ttft_ms"]["p50"],
+            "ttft_p99_ms": r["latency"]["ttft_ms"]["p99"],
+            "tbt_p50_ms": r["latency"]["tbt_ms"]["p50"],
+            "tbt_p99_ms": r["latency"]["tbt_ms"]["p99"]}
+
+    def busy(r):
+        return (r.get("profile") or {}).get("device_busy_share")
+
+    xl, jb = rec["xlstm"], rec["jamba"]
+    return dict(
+        kernels={k: {f: v.get(f) for f in ("ms", "device_ms", "bound_ms",
+                                           "max_abs_err")}
+                 for k, v in rec["kernels"].items()},
+        xlstm=dict(run=brief(xl["run"]), busy_share=busy(xl),
+                   decode=xl["decode"],
+                   state_bytes_per_slot=xl["state_bytes_per_slot"],
+                   sequential_agree=xl["sequential_agree"]),
+        train=dict(losses=rec["train"]["losses"],
+                   step_ms=rec["train"]["step_ms"]),
+        jamba=dict(paged=brief(jb["paged"]), copy_in=brief(jb["copy_in"]),
+                   busy_share=busy(jb), experts=jb["experts"],
+                   decode=jb["decode"],
+                   pool_bytes=jb["pool"]["pool_bytes_packed"],
+                   slot_kv_bytes=jb["slot_kv_bytes"],
+                   state_bytes_per_slot=jb["state_bytes_per_slot"]),
+        small=rec["small"], launches=rec["launches"],
+        seconds=rec["seconds"])
+
+
 def main():
     import argparse
     import gc
@@ -3453,15 +3887,17 @@ def main():
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--only", choices=("matmul", "attention", "codec",
-                                       "unpacked", "fl", "families"),
+                                       "unpacked", "fl", "families",
+                                       "recurrent"),
                     help="matmul / attention / codec / unpacked: phases 1-2 "
                          "and phase 3's dequant matmul (B7/B8), attention "
                          "(B1/B2), packed codec (B3/B4) or unpacked codec "
                          "(B5, its round trip, B6) only, the quick loop for "
                          "those kernels; fl: phases 1-2 and phase 9 (FL "
                          "and faults); families: phases 1-2 and phase 10 "
-                         "(MoE and the other configs); prints no final ok "
-                         "line")
+                         "(MoE and the other configs); recurrent: phases "
+                         "1-2 and phase 11 (jamba, xLSTM); prints no final "
+                         "ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
@@ -3538,6 +3974,15 @@ def main():
         print(json.dumps({"families": families_summary(fam)}, default=str))
         print(smi)
         return
+    if only == "recurrent":
+        rec = recurrent_phase(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_recurrent.json").write_text(json.dumps(
+            {"device": smi, "recurrent": rec}, indent=1, default=str))
+        print(json.dumps({"recurrent": recurrent_summary(rec)}, default=str))
+        print(smi)
+        return
     if only == "matmul":
         mm = check_matmul(dev)
         out_dir = ROOT / "chiprun_out"
@@ -3587,6 +4032,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     fam_res = families_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_res = recurrent_phase(dev)
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
@@ -3613,6 +4061,9 @@ def main():
             assert fam_res["launches"][name] > 0, \
                 f"phase 10 never launched {name}"
             kernels[-1]["families_launches"] = fam_res["launches"][name]
+        if name in rec_res["launches"]:
+            # phase 11's main path: xLSTM and jamba served, xLSTM trained
+            kernels[-1]["recurrent_launches"] = rec_res["launches"][name]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -3621,7 +4072,7 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": kernels, "serve": serve_res,
          "sketch": sketch_res, "train": train_res, "fl": fl_res,
-         "families": fam_res,
+         "families": fam_res, "recurrent": rec_res,
          "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "ef_roundtrip_row": res["ef_roundtrip"],
@@ -3636,6 +4087,7 @@ def main():
                                 if k != "profile"}}))
     print(json.dumps({"fl": fl_summary(fl_res)}))
     print(json.dumps({"families": families_summary(fam_res)}, default=str))
+    print(json.dumps({"recurrent": recurrent_summary(rec_res)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Architecture lookup and default format policies (port of the
 ``full_config``/``smoke_config``/``default_policy`` part of
-``repro.configs.registry``). The llama-dense configs and the two MoE
-configs are ported; every other arch of the reference raises
-``NotImplementedError`` naming its ROADMAP item."""
+``repro.configs.registry``). The llama-dense, MoE, mamba-hybrid (jamba)
+and xLSTM configs are ported; the two archs with a frontend (whisper,
+internvl2) raise ``NotImplementedError`` naming their ROADMAP item."""
 from __future__ import annotations
 
 import importlib
@@ -15,14 +15,14 @@ ARCH_IDS = [
     "codeqwen1_5_7b",
     "llama4_maverick_400b",
     "llama4_scout_17b",
+    "jamba_1_5_large",
+    "xlstm_125m",
 ]
 
 # the reference's archs still to port, with the ROADMAP item of each
 _NOT_PORTED = {
     "whisper_large_v3": "A13f",
     "internvl2_1b": "A13b",
-    "jamba_1_5_large": "A13d",
-    "xlstm_125m": "A13e",
 }
 
 
@@ -64,12 +64,13 @@ _BASE_POLICY_RULES = (
 )
 
 # per-arch overrides, matched before the base rules (the reference's, for
-# the ported archs; jamba's and whisper's come with ROADMAP A13d / A13f)
+# the ported archs; whisper's comes with ROADMAP A13f)
 _ARCH_POLICY_RULES = {
     # MoE stacks: expert FF grads are wide and smooth — bigger blocks halve
     # the scale overhead at unchanged accuracy
     "llama4_maverick_400b": (("grad/*ff*", "f2p_sr_2_8s", 256),),
     "llama4_scout_17b": (("grad/*ff*", "f2p_sr_2_8s", 256),),
+    "jamba_1_5_large": (("grad/*ff*", "f2p_sr_2_8s", 256),),
 }
 
 

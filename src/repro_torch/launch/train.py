@@ -6,19 +6,18 @@ checkpoints asynchronously off the critical path (F2P16 payloads quantized
 on the card through B5), and survives preemption: on restart it resumes
 from the last committed step, bitwise.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_3b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_125m \\
         --full --steps 8 --ckpt-dir /path/to/run1
 
-The flags are the reference's, and so are the defaults apart from two:
-``--arch`` defaults to ``llama3_2_3b`` (the reference's is ``xlstm_125m``,
-whose recurrent family the port does not have yet, ROADMAP A13e), and
-``--ckpt-dir`` to ``<tempdir>/repro_torch_train_ckpt`` (the reference's is
-``/tmp/repro_train_ckpt``: the port's checkpoints go to a directory of
-their own, under the process's temporary directory). Only
-``--mesh-shape 1,1`` runs: data and model parallelism over several cards
-is ROADMAP A12 (sharded part). ``main`` parses the flags; :func:`run` takes a config, so a
-caller can train a configuration of its own choosing (fewer layers, a
-narrower batch) through the same loop.
+The flags are the reference's, and so are the defaults (``--arch
+xlstm_125m``) apart from ``--ckpt-dir``: ``<tempdir>/repro_torch_train_ckpt``
+(the reference's is ``/tmp/repro_train_ckpt``: the port's checkpoints go
+to a directory of their own, under the process's temporary directory).
+Only ``--mesh-shape 1,1`` runs: data and model parallelism over several
+cards is ROADMAP A12 (sharded part); a config with MoE FFs (llama4,
+jamba) raises (ROADMAP A16). ``main`` parses the flags; :func:`run` takes
+a config, so a caller can train a configuration of its own choosing
+(fewer layers, a narrower batch) through the same loop.
 """
 from __future__ import annotations
 
@@ -30,7 +29,7 @@ import time
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", default="llama3_2_3b")
+    ap.add_argument("--arch", default="xlstm_125m")
     ap.add_argument("--full", action="store_true",
                     help="use the full assigned config (default: smoke)")
     ap.add_argument("--steps", type=int, default=50)
@@ -78,9 +77,8 @@ def run(cfg, *, arch: str, steps: int, global_batch: int = 8, seq: int = 128,
     import torch
 
     if any(b.ff == "moe" for b in cfg.pattern):
-        # the grad/*ff* block-256 leaves, MoE checkpoints and the layout of
-        # a pattern longer than one position through compression and the
-        # checkpoint are not held yet
+        # the grad/*ff* block-256 leaves and MoE checkpoints are not held
+        # against the reference yet
         raise NotImplementedError(
             f"{cfg.name}: training an MoE config is ROADMAP A16")
     from repro_torch.data import host_batch

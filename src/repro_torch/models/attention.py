@@ -1,4 +1,4 @@
-"""GQA attention for the llama-dense stack: naive train / prefill attention,
+"""GQA attention: naive train / prefill attention,
 the packed F2P KV cache and the decode branches (port of
 ``repro.models.attention``).
 
@@ -91,13 +91,14 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
     # an int stays an int (no device round trip per layer); a [B] tensor
     # carries per-slot offsets -> positions [B, S]
     pos = pos_offset
-    positions = torch.arange(S, device=x.device)
-    if isinstance(pos, torch.Tensor) and pos.ndim:
-        positions = pos[:, None] + positions
-    else:
-        positions = positions + int(pos)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos == "rope":       # pos="none": the mixers carry position
+        positions = torch.arange(S, device=x.device)
+        if isinstance(pos, torch.Tensor) and pos.ndim:
+            positions = pos[:, None] + positions
+        else:
+            positions = positions + int(pos)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if mode == "train":
         out = naive_attention(q, k, v, causal=True)

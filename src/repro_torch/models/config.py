@@ -1,17 +1,17 @@
 """Model configuration (port of ``repro.models.config``): the attention
-families, dense and MoE.
+families (dense and MoE), the mamba hybrid and xLSTM.
 
 A model is a stack of ``n_layers`` blocks arranged as repetitions of a
 ``pattern`` (a tuple of :class:`BlockSpec`); layer ``l`` is pattern
-position ``l % len(pattern)`` of group ``l // len(pattern)``. This slice of
-the port serves attention mixers with dense (SwiGLU) or MoE FFs and RoPE
-positions. Any other mixer, a frontend, an encoder, another position
-scheme or tied embeddings raise ``NotImplementedError`` naming their
-ROADMAP item. Fields the port does not read (SSM, xLSTM, encoder,
-frontend, position schemes and the ``opt_*`` knobs) are left out.
-``remat`` is kept: the train forward recomputes each block in the
-backward (``torch.utils.checkpoint``) as the reference rematerializes its
-scan body. ``fsdp`` is kept because the MoE configs set it; on one card it
+position ``l % len(pattern)`` of group ``l // len(pattern)``. Every mixer
+of the reference is ported (attention, mamba, mLSTM, sLSTM), with dense
+(SwiGLU), MoE or no FF, RoPE or no positions and tied or separate
+embeddings. A frontend, an encoder or sinusoidal positions raise
+``NotImplementedError`` naming their ROADMAP item; their fields keep
+only the defaults, and the ``opt_*`` knobs are left out. ``remat`` is
+kept: the train forward recomputes each block in the backward
+(``torch.utils.checkpoint``) as the reference rematerializes its scan
+body. ``fsdp`` is kept because the MoE configs set it; on one card it
 changes nothing (sharding is ROADMAP A12).
 """
 from __future__ import annotations
@@ -23,9 +23,6 @@ import torch
 
 Mixer = Literal["attn", "mamba", "mlstm", "slstm"]
 FF = Literal["dense", "moe", "none"]
-
-# the ROADMAP item that ports each mixer the port does not have yet
-_MIXER_ITEM = {"mamba": "A13d", "mlstm": "A13e", "slstm": "A13e"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +49,16 @@ class ModelConfig:
     n_shared_experts: int = 0
     capacity_factor: float = 1.25
 
-    # --- the reference's frontends, encoder and position schemes; only
-    #     the defaults are ported (A13b, A13e, A13f) ---
+    # --- SSM (mamba) ---
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+
+    # --- xLSTM ---
+    mlstm_expand: int = 2
+
+    # --- the reference's frontends and encoder keep their defaults (A13b,
+    #     A13f); positions are RoPE or none ---
     encoder_layers: int = 0
     frontend: Literal["none", "audio", "vision"] = "none"
     pos: Literal["rope", "sinusoidal", "none"] = "rope"
@@ -73,21 +78,11 @@ class ModelConfig:
     remat: bool = True                     # recompute each block in backward
 
     def __post_init__(self):
-        for b in self.pattern:
-            if b.mixer != "attn":
-                raise NotImplementedError(
-                    f"{self.name}: the {b.mixer} mixer is not ported "
-                    f"(ROADMAP {_MIXER_ITEM.get(b.mixer, 'A13')})")
-            if b.ff not in ("dense", "moe"):
-                raise NotImplementedError(
-                    f"{self.name}: an attention block without an FF is "
-                    "ported with the xLSTM family (ROADMAP A13e)")
-        for field, default, item in (
-                ("frontend", "none", "A13b / A13f"),
-                ("encoder_layers", 0, "A13f"),
-                ("pos", "rope", "A13e / A13f"),
-                ("tie_embeddings", False, "A13e")):
-            if getattr(self, field) != default:
+        for field, bad, item in (
+                ("frontend", self.frontend != "none", "A13b / A13f"),
+                ("encoder_layers", self.encoder_layers != 0, "A13f"),
+                ("pos", self.pos == "sinusoidal", "A13f")):
+            if bad:
                 raise NotImplementedError(
                     f"{self.name}: {field}={getattr(self, field)!r} is not "
                     f"ported (ROADMAP {item})")
@@ -102,8 +97,22 @@ class ModelConfig:
         return self.n_layers // len(self.pattern)
 
     @property
+    def d_inner(self) -> int:              # mamba inner dim
+        return self.ssm_expand * self.d_model
+
+    @property
     def attn_positions(self) -> tuple[int, ...]:
         return tuple(i for i, b in enumerate(self.pattern) if b.mixer == "attn")
+
+    @property
+    def recurrent_positions(self) -> tuple[int, ...]:
+        """Pattern positions whose mixer carries per-sequence state."""
+        return tuple(i for i, b in enumerate(self.pattern) if b.mixer != "attn")
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if the stack contains any non-attention mixer (SSM/xLSTM)."""
+        return any(b.mixer != "attn" for b in self.pattern)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -112,17 +121,26 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head), the
-        reference's formula for the ported block kinds (which, as the
-        reference's, leaves out the final norm's ``d_model``)."""
+        reference's formula (which leaves out the final norm's ``d_model``
+        and counts a norm2 for blocks without an FF)."""
         D, F, V = self.d_model, self.d_ff, self.vocab_size
         hd, H, K = self.head_dim, self.n_heads, self.n_kv_heads
-        total = 2 * V * D                # embed, lm_head
-        attn = D * hd * (H + 2 * K) + H * hd * D
+        di, E = self.d_inner, self.mlstm_expand
+        total = V * D                    # embed
+        if not self.tie_embeddings:
+            total += D * V               # lm_head
+        per = {"attn": D * hd * (H + 2 * K) + H * hd * D,
+               "mamba": (D * 2 * di + di * D
+                         + di * (self.ssm_conv + 2 * self.ssm_state + 2)
+                         + di * self.ssm_state),
+               "mlstm": D * 3 * E * D + E * D * D + 4 * E * D,
+               "slstm": 4 * (D * D + D * (D // max(H, 1))) + 4 * D}
         ff = {"dense": 3 * D * F,
               "moe": ((self.n_experts + self.n_shared_experts) * 3 * D * F
-                      + D * self.n_experts)}
+                      + D * self.n_experts),
+              "none": 0}
         for b in self.pattern:
-            total += (attn + ff[b.ff] + 2 * D) * self.n_groups
+            total += (per[b.mixer] + ff[b.ff] + 2 * D) * self.n_groups
         return total
 
 
@@ -134,3 +152,17 @@ def dense_pattern(moe_every: int = 0) -> tuple[BlockSpec, ...]:
         return (BlockSpec("attn", "dense"),)
     return tuple(BlockSpec("attn", "moe" if (i % moe_every == moe_every - 1)
                            else "dense") for i in range(moe_every))
+
+
+def jamba_pattern() -> tuple[BlockSpec, ...]:
+    """Jamba: 1 attention per 8 layers (1:7), MoE every other layer."""
+    return tuple(BlockSpec("attn" if i == 4 else "mamba",
+                           "moe" if i % 2 == 1 else "dense")
+                 for i in range(8))
+
+
+def xlstm_pattern() -> tuple[BlockSpec, ...]:
+    """xLSTM: three mLSTM blocks then one sLSTM (3:1 at 125M scale); the
+    blocks carry their own projections and no FF (d_ff = 0)."""
+    return (BlockSpec("mlstm", "none"), BlockSpec("mlstm", "none"),
+            BlockSpec("mlstm", "none"), BlockSpec("slstm", "none"))

@@ -33,7 +33,7 @@ from repro_torch.models.model import Model
 _BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
 
 
-def reference_path(name: str, pattern_len: int = 1
+def reference_path(name: str, pattern_len: int
                    ) -> tuple[tuple[str, ...], int | None]:
     """Port parameter name -> (reference leaf path, group index or None)
     for a pattern of ``pattern_len`` positions: ``blocks.3.mixer.wq`` ->
@@ -56,7 +56,7 @@ class Stacked(list):
     """The per-layer parts of one stacked reference leaf, in layer order."""
 
 
-def reference_layout(named: dict, pattern_len: int = 1
+def reference_layout(named: dict, pattern_len: int
                      ) -> dict[tuple, object]:
     """Flat ``{port name: tensor}`` -> ``{reference path: leaf}``: the
     tensor itself for an unstacked leaf, a :class:`Stacked` list of the
@@ -77,7 +77,7 @@ def reference_layout(named: dict, pattern_len: int = 1
     return out
 
 
-def reference_numel(named: dict, pattern_len: int = 1) -> dict[str, int]:
+def reference_numel(named: dict, pattern_len: int) -> dict[str, int]:
     """Each name's element count in the reference's (stacked) leaf."""
     sizes = {}
     for path, leaf in reference_layout(named, pattern_len).items():
@@ -100,7 +100,7 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> Model:
 
 
 def _leaf(np_tree: dict, name: str, shape: tuple,
-          pattern_len: int = 1) -> torch.Tensor:
+          pattern_len: int) -> torch.Tensor:
     path, layer = reference_path(name, pattern_len)
     a = np_tree
     for k in path:
@@ -140,6 +140,18 @@ def named_from_jax(np_tree: dict, model: Model) -> dict:
         t = _leaf(np_tree, name, tuple(p.shape), P)
         out[name] = None if t is None else t.to(model.device)
     return out
+
+
+def recurrent_caches_from_jax(np_caches: dict, cfg: ModelConfig,
+                              device="cuda") -> dict:
+    """The recurrent entries of a reference cache tree (``{"b<i>": {leaf:
+    [G, B, ...]}}``, every leaf a numpy array) -> the same dict of tensors
+    of the same dtypes on ``device``: the state the port's
+    :func:`~repro_torch.models.model.init_caches` lays out at the mamba,
+    mLSTM and sLSTM positions. Attention positions are left out."""
+    return {f"b{i}": {name: torch.from_numpy(np.array(leaf)).to(device)
+                      for name, leaf in np_caches[f"b{i}"].items()}
+            for i in cfg.recurrent_positions}
 
 
 def quantized_weight_from_jax(codes_or_words, scales, *, packed: bool,

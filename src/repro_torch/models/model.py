@@ -1,20 +1,26 @@
-"""The attention families, dense and MoE: parameters, caches, the train
-forward, prefill and decode (port of ``repro.models.model``).
+"""Every model family of the reference (dense and MoE attention stacks,
+the mamba hybrid, xLSTM): parameters, caches, the train forward, prefill
+and decode (port of ``repro.models.model``).
 
 Parameters live in an ``nn.Module`` tree with one :class:`Block` per layer
 (the reference stacks them ``[G, ...]`` per pattern position and scans;
 here ``lax.scan`` over groups becomes a Python loop over ``model.blocks``,
-layer ``l`` built from ``cfg.pattern[l % P]``). Every weight keeps the
+layer ``l`` built from ``cfg.pattern[l % P]``). A block is a pre-norm
+mixer (attention, mamba, mLSTM or sLSTM) and, unless its ``ff`` is
+``"none"``, a pre-norm SwiGLU or MoE FF. Every weight keeps the
 reference's ``[in, out]`` layout (``x @ w``) and its truncated-normal init;
-norms start at one.
+norms start at one. With ``tie_embeddings`` there is no ``lm_head``: the
+head is ``embed.T``.
 
-Caches are the reference's ``{"b<i>": {"k", "v"}}``: one entry per
-attention position ``i`` of the pattern, each with a leading group axis
-``[G, B, S, K, hd]`` and in the format ``kv_policy`` gives ``kv/b<i>``.
-Layer ``l`` reads position ``l % P``, group ``l // P``. Paged decode
-instead binds the pool slabs ``{"b<i>": {"k", "v"}}`` of shape ``[G, P,
-T, K, W]`` and a ``[B, max_pages]`` page table; every cache and slab write
-happens in place.
+Caches are the reference's ``{"b<i>": {...}}``, one entry per pattern
+position ``i``, each leaf with a leading group axis ``[G, B, ...]``: an
+attention position holds ``{"k", "v"}`` (``[G, B, S, K, hd]``, in the
+format ``kv_policy`` gives ``kv/b<i>``), a recurrent one its mixer's state
+(``models.ssm`` / ``models.xlstm``). Layer ``l`` reads position ``l % P``,
+group ``l // P``. Paged decode instead binds the pool slabs ``{"b<i>":
+{"k", "v"}}`` of shape ``[G, P, T, K, W]`` at the attention positions and
+a ``[B, max_pages]`` page table; every cache, state and slab write happens
+in place.
 
 Parameters are created with ``requires_grad=False``: serving runs under
 ``torch.inference_mode``, and training (``repro_torch.train``) turns the
@@ -27,6 +33,8 @@ from torch import nn
 
 from repro_torch.core.f2p import F2PFormat
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.common import (rms_norm, softmax_cross_entropy,
                                       swiglu, truncnorm_init)
 from repro_torch.models.config import BlockSpec, ModelConfig
@@ -51,6 +59,19 @@ class Attention(nn.Module):
     def weights(self) -> dict:
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
 
+    def init_order(self) -> list[tuple[nn.Parameter, float]]:
+        return [(self.wq, 0.02), (self.wk, 0.02), (self.wv, 0.02),
+                (self.wo, 0.02)]
+
+    def init_fixed(self):
+        pass
+
+    def apply(self, x, cfg: ModelConfig, *, mode, cache=None, pos_offset=0,
+              pages=None):
+        return A.attention_apply(self.weights(), x, cfg, mode=mode,
+                                 cache=cache, pos_offset=pos_offset,
+                                 pages=pages)[0]
+
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
@@ -64,27 +85,34 @@ class FeedForward(nn.Module):
         return [(self.gate, 0.02), (self.up, 0.02), (self.down, 0.02)]
 
 
+_MIXERS = {"attn": Attention, "mamba": SSM.Mamba, "mlstm": XL.MLSTM,
+           "slstm": XL.SLSTM}
+
+
 class Block(nn.Module):
-    """Pre-norm attention block with a SwiGLU (``ff="dense"``) or MoE FF."""
+    """Pre-norm block: the ``spec.mixer`` mixer, then a SwiGLU
+    (``ff="dense"``) or MoE FF, or none (``ff="none"``: no ``norm2``)."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, device):
         super().__init__()
         dt = cfg.torch_dtype
         self.spec = spec
         self.norm1 = _param((cfg.d_model,), dt, device)
-        self.mixer = Attention(cfg, device)
-        self.norm2 = _param((cfg.d_model,), dt, device)
-        self.ff = (MoE(cfg, device) if spec.ff == "moe"
-                   else FeedForward(cfg, device))
+        self.mixer = _MIXERS[spec.mixer](cfg, device)
+        if spec.ff != "none":
+            self.norm2 = _param((cfg.d_model,), dt, device)
+            self.ff = (MoE(cfg, device) if spec.ff == "moe"
+                       else FeedForward(cfg, device))
 
     def forward(self, x, cfg: ModelConfig, *, mode, cache=None, pos_offset=0,
                 pages=None):
         """Returns (x, the MoE aux loss or None)."""
         h = rms_norm(x, self.norm1, cfg.norm_eps)
-        h, _ = A.attention_apply(self.mixer.weights(), h, cfg, mode=mode,
-                                 cache=cache, pos_offset=pos_offset,
-                                 pages=pages)
+        h = self.mixer.apply(h, cfg, mode=mode, cache=cache,
+                             pos_offset=pos_offset, pages=pages)
         x = x + h
+        if self.spec.ff == "none":
+            return x, None
         h = rms_norm(x, self.norm2, cfg.norm_eps)
         if self.spec.ff == "moe":
             h, aux = self.ff(h, cfg)
@@ -101,7 +129,8 @@ class Model(nn.Module):
         D, V, dt = cfg.d_model, cfg.vocab_size, cfg.torch_dtype
         self.embed = _param((V, D), dt, device)
         self.final_norm = _param((D,), dt, device)
-        self.lm_head = _param((D, V), dt, device)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _param((D, V), dt, device))
         P = len(cfg.pattern)
         self.blocks = nn.ModuleList(Block(cfg, cfg.pattern[i % P], device)
                                     for i in range(cfg.n_layers))
@@ -110,14 +139,19 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def head(self) -> torch.Tensor:
+        """The LM head ``[D, V]``: ``embed.T`` when tied."""
+        return self.embed.T if self.lm_head is None else self.lm_head
+
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     """Random weights from ``torch.Generator(device).manual_seed(seed)`` in
     the reference's layout and distribution: truncated normal(-2, 2) x 0.02
-    for embed, lm_head and every projection (x 0.01 for an MoE router, in
-    f32), drawn in that order and layer by layer, each block's in the
-    reference's order (attention, then the FF's leaves); ones for the
-    norms."""
+    for embed, lm_head (none when tied) and every projection (x 0.01 for an
+    MoE router, in f32, and the mLSTM gates; x 0.1 for the mamba conv),
+    drawn in that order and layer by layer, each block's in the reference's
+    order (the mixer's leaves, then the FF's); ones for the norms and the
+    reference's constants for the undrawn leaves (``init_fixed``)."""
     device = torch.device(device)
     model = Model(cfg, device)
     gen = torch.Generator(device=device)
@@ -128,14 +162,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
 
     with torch.no_grad():
         fill(model.embed)
-        fill(model.lm_head)
+        if model.lm_head is not None:
+            fill(model.lm_head)
         model.final_norm.fill_(1.0)
         for blk in model.blocks:
             blk.norm1.fill_(1.0)
-            blk.norm2.fill_(1.0)
-            for w in (blk.mixer.wq, blk.mixer.wk, blk.mixer.wv, blk.mixer.wo):
-                fill(w)
-            for w, scale in blk.ff.init_order():
+            order = blk.mixer.init_order()
+            blk.mixer.init_fixed()
+            if blk.spec.ff != "none":
+                blk.norm2.fill_(1.0)
+                order += blk.ff.init_order()
+            for w, scale in order:
                 fill(w, scale)
     return model
 
@@ -155,28 +192,42 @@ def kv_format(kv_policy=None, position: int = 0) -> F2PFormat:
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
                 quantized_kv: bool = False, kv_policy=None,
                 attn_kv: bool = True, device="cuda"):
-    """KV caches ``{"b<i>": {"k","v"}}``, one per attention position of the
-    pattern, each ``[G, batch, max_seq, K, hd]``.
+    """Caches ``{"b<i>": {...}}`` for every position of the pattern, each
+    leaf ``[G, batch, ...]``: ``{"k","v"}`` ``[G, batch, max_seq, K, hd]``
+    at an attention position, the mixer's zero state at a recurrent one.
 
-    ``attn_kv=False`` returns ``None``: the paged engine binds pool slabs
-    instead, and no dense ``[batch, max_seq]`` row is allocated. Quantized
-    caches are always bit-packed, position ``i`` in the format
-    :func:`kv_format` picks for ``kv/b<i>``."""
-    if not attn_kv:
-        return None
-    return {f"b{i}": A.init_cache(cfg, batch, max_seq, quantized_kv,
-                                  cfg.torch_dtype, torch.device(device),
-                                  fmt=kv_format(kv_policy, i),
-                                  lead=(cfg.n_groups,))
-            for i in cfg.attn_positions}
+    ``attn_kv=False`` leaves the attention positions out: the paged engine
+    binds pool slabs there instead, and no dense ``[batch, max_seq]`` row
+    is allocated. Quantized caches are always bit-packed, position ``i`` in
+    the format :func:`kv_format` picks for ``kv/b<i>``."""
+    device = torch.device(device)
+    lead = (cfg.n_groups,)
+    dt = cfg.torch_dtype
+    out = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.mixer == "attn":
+            if attn_kv:
+                out[f"b{i}"] = A.init_cache(cfg, batch, max_seq, quantized_kv,
+                                            dt, device,
+                                            fmt=kv_format(kv_policy, i),
+                                            lead=lead)
+        elif spec.mixer == "mamba":
+            out[f"b{i}"] = SSM.init_mamba_cache(cfg, batch, dt, device, lead)
+        elif spec.mixer == "mlstm":
+            out[f"b{i}"] = XL.init_mlstm_cache(cfg, batch, device, lead)
+        else:
+            out[f"b{i}"] = XL.init_slstm_cache(cfg, batch, device, lead)
+    return out
 
 
 def layer_cache(caches, i: int, cfg: ModelConfig | None = None):
-    """Layer ``i``'s ``{"k","v"}`` view (views share storage, so in-place
-    writes land in the stack). With ``cfg``, ``caches`` is the per-position
-    dict of :func:`init_caches` (or the pool slabs) and layer ``i`` is group
-    ``i // P`` of position ``b<i % P>``; without, ``caches`` is one
-    position's ``{"k","v"}`` stack and ``i`` its group."""
+    """Layer ``i``'s cache view: ``{"k","v"}`` at an attention layer, the
+    mixer's state leaves at a recurrent one (views share storage, so
+    in-place writes land in the stack). With ``cfg``, ``caches`` is the
+    per-position dict of :func:`init_caches` (or the pool slabs beside the
+    recurrent state) and layer ``i`` is group ``i // P`` of position
+    ``b<i % P>``; without, ``caches`` is one position's stack and ``i`` its
+    group."""
     from repro_torch.core.qtensor import QTensor
 
     if cfg is not None:
@@ -189,7 +240,7 @@ def layer_cache(caches, i: int, cfg: ModelConfig | None = None):
                            c.shape[1:], c.packed)
         return c[i]
 
-    return {kv: one(caches[kv]) for kv in ("k", "v")}
+    return {name: one(c) for name, c in caches.items()}
 
 
 def train_forward(model: Model, batch, cfg: ModelConfig | None = None):
@@ -214,7 +265,7 @@ def train_forward(model: Model, batch, cfg: ModelConfig | None = None):
         if a is not None:
             aux = aux + a
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    loss = softmax_cross_entropy(x @ model.lm_head, labels)
+    loss = softmax_cross_entropy(x @ model.head(), labels)
     return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
@@ -236,7 +287,7 @@ def prefill(model: Model, tokens: torch.Tensor, caches, last_index=None,
         x = x[torch.arange(x.shape[0], device=x.device), li][:, None]
     else:
         x = x[:, -1:]
-    return (x @ model.lm_head)[:, 0]
+    return (x @ model.head())[:, 0]
 
 
 @torch.inference_mode()
@@ -252,4 +303,4 @@ def decode_step(model: Model, token: torch.Tensor, pos, caches, pages=None,
         x, _ = blk(x, cfg, mode="decode", cache=layer_cache(caches, i, cfg),
                    pos_offset=pos, pages=pages)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return (x @ model.lm_head)[:, 0]
+    return (x @ model.head())[:, 0]

@@ -16,6 +16,9 @@ temporaries. On the CPU each leaf runs the plain composition
 (stacked) leaf sizes (``models.convert.reference_numel``), so ``min_size``
 selects exactly the leaves the reference compresses
 (:func:`compressed_leaves`); leaves below it carry a ``None`` residual.
+Every function here that sizes a leaf takes ``pattern_len``, the model's
+``len(cfg.pattern)``: it decides how the per-layer names stack into the
+reference's leaves (layer g·P + i is group g of ``blocks/b<i>``).
 
 ``compressed_psum`` is the reference's data-parallel wire path (reduce
 scatter, quantize the shard, all-gather the codes); it needs several cards
@@ -45,8 +48,8 @@ class CompressionConfig:
     min_size: int = 4096   # leaves smaller than this stay uncompressed
 
 
-def compressed_leaves(grads: dict, residuals: dict,
-                      ccfg: CompressionConfig) -> list:
+def compressed_leaves(grads: dict, residuals: dict, ccfg: CompressionConfig,
+                      pattern_len: int) -> list:
     """The names of the leaves a step compresses, in order: those whose
     reference (stacked) leaf holds at least ``min_size`` elements and that
     carry a residual. Raises where the dicts' names or shapes disagree."""
@@ -54,7 +57,7 @@ def compressed_leaves(grads: dict, residuals: dict,
         raise ValueError(
             f"gradient dict has {len(grads)} leaves but residual dict has "
             f"{len(residuals)}: the names must match leaf for leaf")
-    sizes = reference_numel(grads)
+    sizes = reference_numel(grads, pattern_len)
     names = []
     for name, g in grads.items():
         r = residuals[name]
@@ -76,25 +79,25 @@ def compressed_leaves(grads: dict, residuals: dict,
 
 @torch.no_grad()
 def compress_decompress(grads: dict, residuals: dict,
-                        ccfg: CompressionConfig):
+                        ccfg: CompressionConfig, pattern_len: int):
     """Error-feedback compression round trip over name -> tensor dicts, IN
     PLACE. Returns (grads, residuals), the same dicts."""
     if not ccfg.enabled:
         return grads, residuals
-    names = compressed_leaves(grads, residuals, ccfg)
+    names = compressed_leaves(grads, residuals, ccfg, pattern_len)
     f2p_ef_roundtrip([grads[n] for n in names], [residuals[n] for n in names],
                      ccfg.fmt, block=ccfg.block,
                      error_feedback=ccfg.error_feedback)
     return grads, residuals
 
 
-def init_residuals(params, ccfg: CompressionConfig) -> dict:
+def init_residuals(params, ccfg: CompressionConfig, pattern_len: int) -> dict:
     """Zero f32 residuals for compressible leaves, ``None`` for small ones
     (never a broadcastable scalar)."""
     from repro_torch.optim.adamw import named_params
 
     named = named_params(params)
-    sizes = reference_numel(named)
+    sizes = reference_numel(named, pattern_len)
     return {n: (torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 if sizes[n] >= ccfg.min_size else None)
             for n, p in named.items()}

@@ -6,9 +6,10 @@ not hardcode: its capability flags (paged KV, recurrent per-slot state,
 exact co-batching, a prefill bucket override), the page size and the step
 factories. ``register_architecture`` adds or replaces a family's entry;
 ``arch_for(cfg)`` picks the family from the pattern and resolves the flags
-against it. The ``llama-dense`` and ``moe`` families are ported; a
-pattern of the ``ssm-hybrid`` or ``xlstm`` family raises
-``NotImplementedError`` (ROADMAP A13d / A13e).
+against it. The reference's four families are registered with its flags:
+``llama-dense``, ``moe``, ``ssm-hybrid`` (mamba with attention: recurrent
+state, exact-length prefill) and ``xlstm`` (recurrent state, no paged
+KV).
 
 Temperature sampling is Gumbel-max over uniforms drawn from a counter-based
 hash (``fmix32``) of ``(seed, request uid, position, vocab index)``: a
@@ -116,11 +117,13 @@ for _arch in (
                           # capacity-factor token dropping couples
                           # co-scheduled tokens: batched != sequential
                           exact_cobatch=False),
+    SupportedArchitecture(name="ssm-hybrid", paged_kv=True,
+                          recurrent_state=True, exact_cobatch=True,
+                          prefill_buckets=()),
+    SupportedArchitecture(name="xlstm", paged_kv=False, recurrent_state=True,
+                          exact_cobatch=True, prefill_buckets=()),
 ):
     register_architecture(_arch)
-
-# the reference's families whose mixers the port does not have yet
-_NOT_PORTED = {"ssm-hybrid": "A13d", "xlstm": "A13e"}
 
 
 def _family(cfg: ModelConfig) -> str:
@@ -138,11 +141,7 @@ def arch_for(cfg: ModelConfig) -> SupportedArchitecture:
     """The registry entry for ``cfg``'s family, resolved against the
     concrete pattern (a pattern with MoE FFs loses exact_cobatch; an entry
     never claims paged KV for a pattern without attention)."""
-    fam = _family(cfg)
-    if fam not in _REGISTRY and fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: {fam} serving is ROADMAP {_NOT_PORTED[fam]}")
-    base = _REGISTRY[fam]
+    base = _REGISTRY[_family(cfg)]
     has_attn = any(s.mixer == "attn" for s in cfg.pattern)
     has_moe = any(s.ff == "moe" for s in cfg.pattern)
     return dataclasses.replace(

@@ -1,6 +1,7 @@
 """Continuous-batching serve engine over the block-paged packed-F2P KV pool
 (port of ``repro.serve.batched``, DESIGN.md §12, §14), for the families
-of :mod:`repro_torch.serve.arch` (llama-dense and MoE).
+of :mod:`repro_torch.serve.arch` (llama-dense, MoE, the mamba hybrid and
+xLSTM).
 
 The engine admits a dynamic set of requests into a fixed number of decode
 **slots**; every step serves every live request at its own position.
@@ -38,6 +39,16 @@ The engine admits a dynamic set of requests into a fixed number of decode
   padding and an idle slot's dead-position step included, competes for
   expert capacity, so tokens depend on the co-scheduled set, as in the
   reference.
+* **Recurrent state** (``recurrent_state``: mamba, mLSTM, sLSTM): each
+  slot owns a row of every recurrent cache leaf ``[G, slots, ...]``
+  beside the KV. A prompt is prefilled alone, at its exact length, from a
+  fresh zero-state cache every time (a prefill starts from its cache's
+  state, so a reused one would carry the last request's state into the
+  next), and its final state is copied into the slot's row. Parking a
+  slot copies its rows to host memory (``[G, 1, ...]`` CPU tensors:
+  numpy has no bf16) and readmission writes them back, host eviction or
+  not. A family without attention (xLSTM) has no pool: its caches hold
+  only the recurrent rows.
 
 The reference jits one round (``sync_every`` steps under ``lax.scan``);
 here a round is a loop of ``sync_every`` eager steps followed by ONE host
@@ -122,6 +133,7 @@ class _Parked:
     last_tok: int
     table: PageTable | None = None
     host: HostKV | None = None
+    state: dict | None = None     # recurrent rows on the host, [G, 1, ...]
 
 
 class BatchedEngine:
@@ -132,10 +144,6 @@ class BatchedEngine:
     def __init__(self, cfg: ModelConfig, bscfg: BatchedServeConfig,
                  model: Model):
         self.arch: SupportedArchitecture = arch_for(cfg)
-        if not self.arch.paged_kv or self.arch.recurrent_state:
-            raise NotImplementedError(
-                f"{self.arch.name}: serving without paged KV or with "
-                "recurrent state is ROADMAP A13d / A13e")
         if not cfg.fused_attention:
             cfg = dataclasses.replace(cfg, fused_attention=True)
         self.cfg, self.bscfg, self.model = cfg, bscfg, model
@@ -145,24 +153,32 @@ class BatchedEngine:
         if S % T:
             raise ValueError(f"max_seq {S} not a multiple of page_tokens {T}")
         self.page_tokens = T
-        self.paged = True if bscfg.paged_decode is None \
-            else bool(bscfg.paged_decode)
+        self.paged = self.arch.paged_kv and (
+            bscfg.paged_decode is None or bool(bscfg.paged_decode))
         self._dump = 0
         self._tables: list[PageTable | None] = [None] * B
         maxp = S // T
-        n_pages = bscfg.n_pages
-        if n_pages is None:
-            # paged: the pool is the only KV home — every slot full length,
-            # one staging admission, plus the dump page; copy-in: every
-            # slot plus one transit request
-            n_pages = (B + 1) * maxp + 1 if self.paged else B * maxp + maxp
-        self.pool = PagedKVPool(cfg, T, n_pages, kv_policy=bscfg.kv_policy,
-                                device=dev)
+        self.pool = None
+        if self.arch.paged_kv:
+            n_pages = bscfg.n_pages
+            if n_pages is None:
+                # paged: the pool is the only KV home — every slot full
+                # length, one staging admission, plus the dump page;
+                # copy-in: every slot plus one transit request
+                n_pages = (B + 1) * maxp + 1 if self.paged \
+                    else B * maxp + maxp
+            self.pool = PagedKVPool(cfg, T, n_pages,
+                                    kv_policy=bscfg.kv_policy, device=dev)
+            if self.paged:
+                (self._dump,) = self.pool.alloc(1)
+        # the slots' caches: the pool slabs (paged) or dense rows at the
+        # attention positions, beside every recurrent position's rows
+        self.caches = init_caches(cfg, B, S, quantized_kv=True,
+                                  kv_policy=bscfg.kv_policy,
+                                  attn_kv=not self.paged, device=dev)
         if self.paged:
-            (self._dump,) = self.pool.alloc(1)
-        self.caches = (self.pool.slabs if self.paged else
-                       init_caches(cfg, B, S, quantized_kv=True,
-                                   kv_policy=bscfg.kv_policy, device=dev))
+            self.caches.update(self.pool.slabs)
+        self._recurrent = [f"b{i}" for i in cfg.recurrent_positions]
         self.tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((B,), dtype=torch.int64, device=dev)
         self.req = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -241,9 +257,16 @@ class BatchedEngine:
                        ("host_evictions", self._c_evict)):
             if c.exact:
                 d[key] = c.exact
-        d["pool"] = self.pool.stats()
-        d["reserved_pages"] = 1 if self.paged else 0
+        if self.pool is not None:
+            d["pool"] = self.pool.stats()
+            d["reserved_pages"] = 1 if self.paged else 0
         return d
+
+    def state_bytes_per_slot(self) -> int:
+        """Bytes of one slot's recurrent state (every recurrent leaf's
+        row, all groups)."""
+        return sum(leaf[:, 0].nbytes for key in self._recurrent
+                   for leaf in self.caches[key].values())
 
     # -- admission ---------------------------------------------------------
     def _bucket_for(self, L: int) -> int:
@@ -260,13 +283,16 @@ class BatchedEngine:
 
     def _pf_template(self, N: int, S_pf: int):
         """Prefill caches per (N, bucket), reused: a prefill call writes
-        every position of every row, so no stale KV survives."""
+        every position of every row, so no stale KV survives. A recurrent
+        family gets fresh zero-state caches every time: its prefill starts
+        from the cache's state, which the last prefill left behind."""
         caches = self._pf_caches.get((N, S_pf))
         if caches is None:
             caches = init_caches(self.cfg, N, S_pf, quantized_kv=True,
                                  kv_policy=self.bscfg.kv_policy,
                                  device=self.device)
-            self._pf_caches[(N, S_pf)] = caches
+            if not self.arch.recurrent_state:
+                self._pf_caches[(N, S_pf)] = caches
         return caches
 
     def _exact_prefill(self) -> bool:
@@ -292,6 +318,13 @@ class BatchedEngine:
         self._c_prefill_calls.inc()
         tok0 = torch.argmax(logits, -1).cpu().numpy()
         return tok0[:len(prompts)], caches
+
+    def _copy_recurrent(self, src: dict, slot: int, row: int = 0):
+        """Slot ``slot``'s recurrent rows <- row ``row`` of ``src`` (a
+        prefill cache, or a parked request's host rows), in place."""
+        for key in self._recurrent:
+            for name, leaf in self.caches[key].items():
+                leaf[:, slot].copy_(src[key][name][:, row])
 
     def _set_slot_io(self, slot: int, tok0: int, pos: int, uid: int):
         self._tok_h[slot] = tok0
@@ -337,12 +370,13 @@ class BatchedEngine:
         if r.max_new == 1 or (self.bscfg.eos >= 0
                               and first == self.bscfg.eos):
             results[r.uid] = np.asarray([first], np.int32)
-            self.pool.free(table.pages)
+            if table is not None:
+                self.pool.free(table.pages)
             self._retire(r.uid, 1)
             return
         if self.paged:
             self._adopt_table(slot, table)
-        else:
+        elif table is not None:
             self.pool.load_into_slot(table, self.caches, slot)
             self.pool.free(table.pages)
         self.slots[slot] = _Slot(uid=r.uid, prompt_len=L, max_new=r.max_new,
@@ -391,7 +425,9 @@ class BatchedEngine:
                     len(chunk)), bucket)
                 for i, (r, s) in enumerate(chunk):
                     L = len(prompts[i])
-                    table = self.pool.store_prefill(pf, L, row=i)
+                    table = (None if self.pool is None else
+                             self.pool.store_prefill(pf, L, row=i))
+                    self._copy_recurrent(pf, s, row=i)
                     self._place(r, s, int(tok0[i]), L, table, results)
 
     def _retire(self, uid: int, n_tokens: int):
@@ -421,13 +457,16 @@ class BatchedEngine:
         tr.instant("retire", uid=uid)
 
     def _readmit(self, p: _Parked, slot: int):
-        table = p.table if p.table is not None \
-            else self.pool.restore_from_host(p.host)
-        if self.paged:
-            self._adopt_table(slot, table)
-        else:
-            self.pool.load_into_slot(table, self.caches, slot)
-            self.pool.free(table.pages)
+        if self.pool is not None:
+            table = p.table if p.table is not None \
+                else self.pool.restore_from_host(p.host)
+            if self.paged:
+                self._adopt_table(slot, table)
+            else:
+                self.pool.load_into_slot(table, self.caches, slot)
+                self.pool.free(table.pages)
+        if p.state is not None:
+            self._copy_recurrent(p.state, slot)
         self._set_slot_io(slot, int(p.last_tok), p.pos, p.uid)
         self.slots[slot] = _Slot(uid=p.uid, prompt_len=p.prompt_len,
                                  max_new=p.max_new, tokens=p.tokens)
@@ -450,13 +489,17 @@ class BatchedEngine:
             parked.table = table
             self._pages_h[slot] = self._dump
             self._pages_dirty[slot] = True
-        else:
+        elif self.pool is not None:
             parked.table = self.pool.store_from_slot(self.caches, slot, pos)
-        if self.bscfg.evict_parked_to_host:
+        if self.pool is not None and self.bscfg.evict_parked_to_host:
             parked.host = self.pool.evict_to_host(parked.table)
             parked.table = None
             self._c_evict.inc()
             obs.instant("evict", uid=st.uid, slot=slot)
+        if self._recurrent:
+            parked.state = {key: {name: leaf[:, slot:slot + 1].to(
+                "cpu", copy=True) for name, leaf in self.caches[key].items()}
+                for key in self._recurrent}
         self.slots[slot] = None
         self._c_preempt.inc()
         obs.instant("preempt", uid=st.uid, slot=slot, pos=pos)
@@ -687,8 +730,10 @@ class BatchedEngine:
             self._c_rounds.inc()
             self._c_prod.inc(n_act * self.bscfg.sync_every)
             if tracing:
-                obs.counter_event("slots", active=n_act,
-                                  pool_used=self.pool.stats()["used"])
+                series = {"active": n_act}
+                if self.pool is not None:
+                    series["pool_used"] = self.pool.stats()["used"]
+                obs.counter_event("slots", **series)
             before = len(results)
             self._harvest(chunk, results)
             if self.bscfg.defrag_every and \

@@ -6,7 +6,9 @@ One fixed-shape request batch runs start to finish: prefill the prompts,
 then decode until ``max_new`` or EOS. Tokens stay on the device and reach
 the host once at the end; with EOS on, the all-done flag is read only every
 ``eos_sync_every`` steps. The reference donates the cache buffers to its
-jitted steps; here the caches are written in place.
+jitted steps; here the caches are written in place. A recurrent family's
+caches (mamba, mLSTM, sLSTM state) start at zero for every ``generate``;
+padded rows get zero prompts, as in the reference.
 """
 from __future__ import annotations
 

@@ -51,6 +51,7 @@ from repro_torch.core.qtensor import QTensor
 from repro_torch.faults.inject import crashpoint
 from repro_torch.kernels.bits import packed_nbytes
 from repro_torch.models.convert import Stacked, is_layer_dict, reference_layout
+from repro_torch.models.model import Model
 
 CKPT_FMT = F2PFormat(n_bits=16, h_bits=2, flavor=Flavor.SR, signed=True)
 
@@ -97,12 +98,22 @@ def _fmt_from_meta(m: dict) -> F2PFormat:
                      flavor=Flavor(m["flavor"]), signed=m["signed"])
 
 
+def _pattern_len(tree) -> int | None:
+    """The pattern length by which ``tree``'s parameter-named dicts stack:
+    its model's, where ``tree`` is a ``Model`` or a train state whose
+    ``"params"`` is one; None for a tree without a model."""
+    model = tree.get("params") if isinstance(tree, dict) else tree
+    return len(model.cfg.pattern) if isinstance(model, Model) else None
+
+
 def flatten(tree) -> dict[str, Any]:
     """keystr name -> leaf (a tensor, or a :class:`Stacked` list of the
     layers' tensors), in the reference's order. A ``Model`` and any flat
     dict of its parameter names are laid out as the reference's params
-    tree; ``None`` leaves are skipped, as JAX flattens them away."""
+    tree, stacked by the pattern of the tree's ``Model``; ``None`` leaves
+    are skipped, as JAX flattens them away."""
     leaves = {}
+    P = _pattern_len(tree)
 
     def walk(node, path):
         if node is None:
@@ -111,7 +122,12 @@ def flatten(tree) -> dict[str, Any]:
             node = dict(node.named_parameters())
         if isinstance(node, dict):
             if is_layer_dict(node):
-                node = _nest(reference_layout(node))
+                if P is None:
+                    raise ValueError(
+                        f"{'/'.join(path)}: per-layer names stack by the "
+                        "model's pattern; save the train state or the Model "
+                        "that holds them")
+                node = _nest(reference_layout(node, P))
             for k, v in node.items():
                 walk(v, path + (k,))
             return

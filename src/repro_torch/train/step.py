@@ -28,7 +28,7 @@ def init_train_state(cfg: ModelConfig, ocfg: adamw.AdamWConfig,
     model = init_params(cfg, seed=seed, device=device)
     model.requires_grad_(True)
     return {"params": model, "opt": adamw.init_state(model),
-            "residuals": init_residuals(model, ccfg)}
+            "residuals": init_residuals(model, ccfg, len(cfg.pattern))}
 
 
 def loss_and_grads(model, batch, cfg: ModelConfig):
@@ -48,7 +48,8 @@ def make_train_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig,
     def train_step(state, batch):
         model = state["params"]
         loss, metrics, grads = loss_and_grads(model, batch, cfg)
-        compress_decompress(grads, state["residuals"], ccfg)
+        compress_decompress(grads, state["residuals"], ccfg,
+                            len(cfg.pattern))
         _, _, om = adamw.apply_updates(model, grads, state["opt"], ocfg)
         return state, dict(metrics, loss=loss, **om)
 

@@ -203,34 +203,36 @@ def test_ef_plan_covers_every_block_of_every_leaf_once(monkeypatch,
 
 def test_compressed_leaves_follow_min_size_and_residuals():
     model = init_params(smoke_config("llama3_2_3b"), seed=0, device="cpu")
+    P = len(model.cfg.pattern)
     grads = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
-    sizes = reference_numel(grads)
+    sizes = reference_numel(grads, P)
     min_size = sorted(set(sizes.values()))[1]
     ccfg = CompressionConfig(min_size=min_size)
-    res = init_residuals(model, ccfg)
-    names = compressed_leaves(grads, res, ccfg)
+    res = init_residuals(model, ccfg, P)
+    names = compressed_leaves(grads, res, ccfg, P)
     assert names == [n for n in grads if sizes[n] >= min_size]
     assert 0 < len(names) < len(grads)
     assert all(res[n] is not None for n in names)
     res[names[0]] = None     # a leaf without a residual is not compressed
-    assert compressed_leaves(grads, res, ccfg) == names[1:]
+    assert compressed_leaves(grads, res, ccfg, P) == names[1:]
     res[names[0]] = torch.zeros(3)
     with pytest.raises(ValueError, match="residual shape"):
-        compressed_leaves(grads, res, ccfg)
+        compressed_leaves(grads, res, ccfg, P)
     with pytest.raises(ValueError, match="names must match"):
-        compressed_leaves(grads, {}, ccfg)
+        compressed_leaves(grads, {}, ccfg, P)
 
 
 def test_compress_decompress_on_cpu_skips_small_leaves():
     model = init_params(smoke_config("llama3_2_3b"), seed=0, device="cpu")
+    P = len(model.cfg.pattern)
     rng = np.random.default_rng(1)
     grads = {n: torch.from_numpy(rng.normal(size=tuple(p.shape)).astype(
         np.float32) * 1e-2) for n, p in model.named_parameters()}
-    sizes = reference_numel(grads)
+    sizes = reference_numel(grads, P)
     ccfg = CompressionConfig(min_size=sorted(set(sizes.values()))[1])
-    res = init_residuals(model, ccfg)
+    res = init_residuals(model, ccfg, P)
     before = {n: g.clone() for n, g in grads.items()}
-    compress_decompress(grads, res, ccfg)
+    compress_decompress(grads, res, ccfg, P)
     for n, g in grads.items():
         if res[n] is None:
             assert torch.equal(g, before[n]), n

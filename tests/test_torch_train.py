@@ -91,7 +91,7 @@ def _port(np_state, remat=False):
 
 
 def _ref_leaf(tree, name):
-    path, layer = reference_path(name)
+    path, layer = reference_path(name, 1)
     a = tree
     for k in path:
         a = a[k]
@@ -201,12 +201,14 @@ def test_compress_decompress_bitwise(min_size, error_feedback):
     grads = named_from_jax(g_np, model)
     res = named_from_jax(r_np, model)
     assert (res["blocks.0.norm1"] is None) == (min_size > 192)
-    cg, cr = compress_decompress(grads, res, _ccfg("torch", **kw))
+    cg, cr = compress_decompress(grads, res, _ccfg("torch", **kw),
+                                 len(cfg.pattern))
     assert cg is grads and cr is res
     _assert_named_equal(cg, _np(jg))
     _assert_named_equal({k: v for k, v in cr.items() if v is not None},
                         _np(jr))
-    assert init_residuals(model, _ccfg("torch", min_size=min_size)).keys() \
+    assert init_residuals(model, _ccfg("torch", min_size=min_size),
+                          len(cfg.pattern)).keys() \
         == res.keys()
 
 
@@ -214,16 +216,16 @@ def test_error_feedback_carries_residuals():
     g = {"w": torch.from_numpy(np.random.default_rng(0).normal(
         size=(8, 16)).astype(np.float32))}
     ccfg = CompressionConfig(enabled=True, min_size=16)
-    r = init_residuals(g, ccfg)
+    r = init_residuals(g, ccfg, 1)
     g0 = g["w"].clone()
-    gq, r1 = compress_decompress(g, r, ccfg)
+    gq, r1 = compress_decompress(g, r, ccfg, 1)
     np.testing.assert_allclose(r1["w"].numpy(), (g0 - gq["w"]).numpy(),
                                atol=1e-6)
-    gq2, _ = compress_decompress({"w": torch.zeros(8, 16)}, r1, ccfg)
+    gq2, _ = compress_decompress({"w": torch.zeros(8, 16)}, r1, ccfg, 1)
     assert float(gq2["w"].abs().sum()) > 0    # flushed, not dropped
     with pytest.raises(ValueError, match="residual shape"):
         compress_decompress({"w": torch.zeros(8, 8)},
-                            {"w": torch.zeros(8, 16)}, ccfg)
+                            {"w": torch.zeros(8, 16)}, ccfg, 1)
 
 
 def test_apply_updates_matches_jax():

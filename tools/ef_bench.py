@@ -139,12 +139,13 @@ def compression(tag: str) -> None:
     g = torch.Generator(device="cuda").manual_seed(5)
     grads = {n: (torch.randn(p.shape, generator=g, device="cuda") * 1e-3).to(
         p.dtype) for n, p in model.named_parameters()}
-    res = init_residuals(model, ccfg)
+    P = len(cfg.pattern)
+    res = init_residuals(model, ccfg, P)
     del model
     torch.cuda.empty_cache()
 
     def fn():
-        compress_decompress(grads, res, ccfg)
+        compress_decompress(grads, res, ccfg, P)
 
     fn()
     torch.cuda.synchronize()
