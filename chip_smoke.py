@@ -10,14 +10,15 @@ NVIDIA GPU.
     python3 chip_smoke.py --only fl      # phases 1-2 and phase 9 (FL, faults)
     python3 chip_smoke.py --only families  # phases 1-2 and phase 10 (MoE, ...)
     python3 chip_smoke.py --only recurrent  # phases 1-2 and phase 11 (jamba, xLSTM)
+    python3 chip_smoke.py --only frontends  # phases 1-2 and phase 12 (whisper, internvl2)
 
 With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
-unpacked``, ``--only fl``, ``--only families``, ``--only recurrent``) the
-script runs the device and build phases and phase 3's dequant matmul,
-B7/B8 (attention, B1/B2; the packed codec, B3/B4; the unpacked codec, B5
-and its round trip and B6; phase 9; phase 10; phase 11), prints their
-lines and ends without the final ``{"ok": ...}`` line, so it never stands
-in for a full run.
+unpacked``, ``--only fl``, ``--only families``, ``--only recurrent``,
+``--only frontends``) the script runs the device and build phases and
+phase 3's dequant matmul, B7/B8 (attention, B1/B2; the packed codec,
+B3/B4; the unpacked codec, B5 and its round trip and B6; phase 9; phase
+10; phase 11; phase 12), prints their lines and ends without the final
+``{"ok": ...}`` line, so it never stands in for a full run.
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -250,15 +251,50 @@ Phases (any failed check raises, so the script exits non-zero):
    The counters are read here. (e) Smoke jamba and xLSTM in f32 on the
    card against the CPU: logits within 1e-4 over prefill and 8 decode
    steps, greedy tokens equal.
+12. frontends — the two frontend archs (random weights from seed 0,
+   bf16). (a) At whisper's (kv heads, G, head_dim) = (20, 1, 64) in its
+   default KV format f2p_sr_1_8s (h = 1) and at internvl2's (2, 7, 64)
+   (G = 7, the first odd G): B1/B2 within 1e-5 of their plain versions
+   and bitwise to each other with f32 q over 8 x 1024 positions as in
+   10(a), and again with bf16 q at each arch's own main-path decode (4
+   rows, 448 or 384 cache positions, kv_len 5..36 or 289..320): the bf16
+   output equal to the kernel's f32 output on the same q rounded, that
+   within 1e-5 of the plain version, and within one bf16 rounding of the
+   plain bf16 output; B3's KV write bitwise; B4's K+V read of the unfused
+   decode's layer cache ([4, 448, 20, 64] or [4, 384, 2, 64], block 64)
+   bitwise against kv_read_plain with bf16 and f32 out; each timed beside
+   its bound. Then the main path, the launch counters zeroed just before
+   each arch and read just after it: (b) whisper-large-v3 at full width
+   (32 encoder and 32 decoder layers, d 1280, 2.02B parameters by the
+   reference's count): 4 rows of seeded 1500-frame embeddings and a
+   4-token prompt; encode once, prefill(frames=) into caches of 448
+   positions (max_target_positions) in f2p_sr_1_8s, then 32 greedy
+   decode_step(cross_kv=) steps three ways from that prefill: fused dense
+   (B2 + B3), paged over slabs holding its pages at a permutation (B1 +
+   B3; logits equal to the fused run's bitwise at every step, asserted)
+   and unfused (B4 + B3; token agreement printed); every run's launches
+   asserted (32 per step of its attention kernel or K+V read and of B3);
+   encode ms, median step ms and tok/s over every step. (c) internvl2-1b
+   at full width (24 layers): 4 rows of 256 seeded patch embeddings +
+   32-token prompts, then 32 fused and 32 unfused decode steps from
+   position 288 (launches asserted, 24 per step), then BatchedEngine text
+   only, paged and copy-in, 8 staggered requests: tokens equal
+   (asserted). After each arch's counts are read, decode_breakdown (as in
+   phase 11, with the frames or patches and cross_kv) times its prefill
+   and a fused decode step beside the weight-read bound and profiles it.
+   (d) Both smoke configs in f32 on the card against the CPU (frames or
+   patches seeded): logits within 1e-3, greedy tokens equal.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
 line, one ``{"fl": {...}}`` JSON line, one ``{"families": {...}}`` JSON
-line, one ``{"recurrent": {...}}`` JSON line, one ``{"kernels": [...]}``
+line, one ``{"recurrent": {...}}`` JSON line, one ``{"frontends":
+{...}}`` JSON line, one ``{"kernels": [...]}``
 JSON line (all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as
 a row of its own; B5's codes mode and B6 count the launches of phase 8's
 checkpoint save and restore; B3-B6 also carry ``fl_launches``, phase 9's,
 B1-B4 ``families_launches``, phase 10's, and B1-B3 and the round trip
-``recurrent_launches``, phase 11's), then the
+``recurrent_launches``, phase 11's, B1-B4 ``frontends_launches``, phase
+12's), then the
 nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
 copy of the results goes to chiprun_out/chip_smoke.json.
 """
@@ -319,6 +355,20 @@ SCOUT_LAYERS, MAVERICK_LAYERS = 8, 2
 RECURRENT_SHAPE = (8, 8, 128)
 JAMBA_LAYERS, JAMBA_EXPERTS = 8, 8
 XLSTM_TRAIN_STEPS = 4
+# phase 12: whisper's rows, prompt and caches of 448 positions
+# (max_target_positions of the public whisper-large-v3 config); internvl2's
+# rows, patch embeddings, prompt tokens after them, and caches; decode steps
+# of each run
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_MAX_SEQ = 4, 4, 448
+VLM_ROWS, VLM_PATCHES, VLM_PROMPT, VLM_MAX_SEQ = 4, 256, 32, 384
+FRONTEND_STEPS = 32
+# (kv heads, G, head_dim, KV format, main-path rows, cache positions, first
+# decode position) of whisper's decoder self-attention (20 heads = MHA, its
+# default policy's kv/* format) and internvl2's (14 query over 2 kv heads)
+FRONTEND_SHAPES = (
+    (20, 1, 64, "f2p_sr_1_8s", WHISPER_ROWS, WHISPER_MAX_SEQ, WHISPER_PROMPT),
+    (2, 7, 64, "f2p_sr_2_8s", VLM_ROWS, VLM_MAX_SEQ,
+     VLM_PATCHES + VLM_PROMPT))
 # phase 9: federated learning, examples/fed_avg.py's defaults and README's
 # fleet deployment; the FL leaf shapes' formats (a 6-bit candidate of
 # candidate_formats(n_bits=(6, 8)) beside the 8-bit wire format) and blocks
@@ -1762,14 +1812,17 @@ def check_small(dev, arch="llama3_2_3b", tol=1e-3, steps=6,
     """Smoke ``arch`` in f32 on the card (kernels) against the same weights
     on the CPU (plain versions): prefill and ``steps`` decode steps'
     logits within ``tol``, fed the CPU's greedy tokens; with ``tokens``
-    the card's greedy tokens must equal the CPU's at every step."""
+    the card's greedy tokens must equal the CPU's at every step. An
+    encoder-decoder gets seeded frames (prefill) and their encoding
+    (``cross_kv``), a vision config seeded patches in front of the prompt
+    (decode positions count them)."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import smoke_config
-    from repro_torch.models import (decode_step, init_caches, init_params,
-                                    prefill)
+    from repro_torch.models import (decode_step, encode, init_caches,
+                                    init_params, prefill)
     from repro_torch.models.model import Model
 
     cfg = dataclasses.replace(smoke_config(arch), fused_attention=True)
@@ -1778,19 +1831,30 @@ def check_small(dev, arch="llama3_2_3b", tol=1e-3, steps=6,
     gpu.load_state_dict(cpu.state_dict())
     toks = torch.randint(0, cfg.vocab_size, (2, 13),
                          generator=torch.Generator().manual_seed(3))
+    extra, first = {}, 13
+    if cfg.is_encdec or cfg.frontend == "vision":
+        name = "frames" if cfg.is_encdec else "patches"
+        rows = cfg.encoder_seq if cfg.is_encdec else cfg.vision_tokens
+        extra[name] = torch.randn(2, rows, cfg.d_model,
+                                  generator=torch.Generator().manual_seed(4))
+        first += 0 if cfg.is_encdec else rows
+    cross = {d: (encode(m, extra["frames"].to(d)) if cfg.is_encdec else None)
+             for d, m in (("cpu", cpu), (dev, gpu))}
     # two caches (a recurrent state advances with every call, so the two
     # runs must not share one, as they would in a CPU rehearsal)
     cc, cg = (init_caches(cfg, 2, 64, quantized_kv=True, device=d)
               for d in ("cpu", dev))
-    lc = prefill(cpu, toks, cc)
-    lg = prefill(gpu, toks.to(dev), cg)
+    lc = prefill(cpu, toks, cc, **extra)
+    lg = prefill(gpu, toks.to(dev), cg,
+                 **{k: v.to(dev) for k, v in extra.items()})
     worst = float((lg.cpu() - lc).abs().max())
     same = True
     for i in range(steps):
         tok = torch.argmax(lc, -1)[:, None]
         same &= bool(torch.equal(torch.argmax(lg, -1).cpu()[:, None], tok))
-        lc = decode_step(cpu, tok, 13 + i, cc)
-        lg = decode_step(gpu, tok.to(dev), 13 + i, cg)
+        lc = decode_step(cpu, tok, first + i, cc, cross_kv=cross["cpu"])
+        lg = decode_step(gpu, tok.to(dev), first + i, cg,
+                         cross_kv=cross[dev])
         worst = max(worst, float((lg.cpu() - lc).abs().max()))
     same &= bool(torch.equal(torch.argmax(lg, -1).cpu(), torch.argmax(lc, -1)))
     assert worst < tol, f"{arch}: card vs CPU logits differ by {worst}"
@@ -3064,13 +3128,18 @@ def fl_summary(fl: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 10: the MoE family and the other dense configs
 # ---------------------------------------------------------------------------
-def attention_at(dev, K, G, hd, fmt_name="f2p_sr_2_8s") -> dict:
+def attention_at(dev, K, G, hd, fmt_name="f2p_sr_2_8s", *, B=8, S=1024,
+                 kv=(512, 1024), q_dtype="float32", tag="families") -> dict:
     """B1 (paged) and B2 (dense, over the gathered pages) at (kv heads K,
-    query rows per kv head G, head_dim hd): 8 slots x 1024 positions over
-    8-token pages, kv_len 512..1024, f32 q. Paged == dense bitwise, each
-    within rtol = atol = 1e-5 of its plain version; ms with the host
-    (CUDA events around the wrapper), device ms (torch.profiler) and the
-    bytes bound."""
+    query rows per kv head G, head_dim hd): B slots x S positions over
+    8-token pages, kv_len drawn in ``kv`` (inclusive), q in ``q_dtype``.
+    Paged == dense bitwise. With f32 q each is within rtol = atol = 1e-5 of
+    its plain version. With bf16 q (a model's decode) the kernel reads q
+    into f32 and rounds o once, so its bf16 output must be its f32 output
+    on the same q values rounded, bitwise; that f32 output within 1e-5 of
+    the plain version's, and the bf16 outputs within one bf16 rounding of
+    each other. ms with the host (CUDA events around the wrapper), device
+    ms (torch.profiler) and the bytes bound."""
     import torch
 
     from repro_torch.core import qtensor as QT
@@ -3079,11 +3148,12 @@ def attention_at(dev, K, G, hd, fmt_name="f2p_sr_2_8s") -> dict:
 
     g = torch.Generator(device=dev).manual_seed(10)
     fmt = named_format(fmt_name)
-    B, T, S = 8, 8, 1024
+    T = 8
     maxp = S // T
     P = (B + 1) * maxp + 1
-    kv_len = torch.randint(512, S + 1, (B,), generator=g, device=dev)
-    q = torch.randn(B, 1, K * G, hd, generator=g, device=dev)
+    kv_len = torch.randint(kv[0], kv[1] + 1, (B,), generator=g, device=dev)
+    q = torch.randn(B, 1, K * G, hd, generator=g, device=dev).to(
+        getattr(torch, q_dtype))
     slab_k, slab_v = (QT.quantize(torch.randn(P, T, K, hd, generator=g,
                                               device=dev),
                                   fmt, block=hd, packed=True)
@@ -3092,42 +3162,88 @@ def attention_at(dev, K, G, hd, fmt_name="f2p_sr_2_8s") -> dict:
         B, maxp).to(torch.int32)
     dense_k = A.gather_pages_to_dense(slab_k, pages)
     dense_v = A.gather_pages_to_dense(slab_v, pages)
-    paged = A.attention_paged(q, slab_k, slab_v, pages, kv_len=kv_len)
-    dense = A.attention_packed(q, dense_k, dense_v, kv_len=kv_len)
+    calls = {
+        "attention_paged": (
+            lambda x: A.attention_paged(x, slab_k, slab_v, pages,
+                                        kv_len=kv_len),
+            lambda x: A.attention_paged_plain(x, slab_k, slab_v, pages,
+                                              kv_len=kv_len)),
+        "attention_packed": (
+            lambda x: A.attention_packed(x, dense_k, dense_v, kv_len=kv_len),
+            lambda x: A.attention_packed_plain(x, dense_k, dense_v,
+                                               kv_len=kv_len))}
+    paged, dense = (kern(q) for kern, _ in calls.values())
     assert torch.equal(paged, dense), \
         f"B1 != B2 over the gathered pages at K={K} G={G} hd={hd}"
     live = int(kv_len.sum())
     row_bytes = (slab_k.codes.shape[-1] + slab_v.codes.shape[-1]) * 4 + 8
-    nb = live * K * row_bytes + 2 * B * K * G * hd * 4 \
+    nb = live * K * row_bytes + 2 * B * K * G * hd * q.element_size() \
         + int(((kv_len + T - 1) // T).sum()) * 4 + B * 8
     plan = A.attention_plan(B, K, G, hd, S)
     out = {}
-    for name, fn, plain, got in (
-            ("attention_paged",
-             lambda: A.attention_paged(q, slab_k, slab_v, pages,
-                                       kv_len=kv_len),
-             lambda: A.attention_paged_plain(q, slab_k, slab_v, pages,
-                                             kv_len=kv_len), paged),
-            ("attention_packed",
-             lambda: A.attention_packed(q, dense_k, dense_v, kv_len=kv_len),
-             lambda: A.attention_packed_plain(q, dense_k, dense_v,
-                                              kv_len=kv_len), dense)):
-        ref = plain()
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    for (name, (kern, plain)), got in zip(calls.items(), (paged, dense)):
+        ref = plain(q)
+        if q.dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        else:
+            wide = kern(q.float())
+            assert torch.equal(got, wide.to(q.dtype)), \
+                f"{name}: {q_dtype} q is not its f32 result rounded"
+            torch.testing.assert_close(wide, plain(q.float()), rtol=1e-5,
+                                       atol=1e-5)
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       rtol=2 ** -7, atol=1e-5)
+        fn = lambda: kern(q)
         dms, per_call = device_calls(fn, "attention_decode_kernel")
         out[name] = dict(ms=cuda_ms(fn, iters=100), device_ms=dms,
-                         plain_ms=cuda_ms(plain, iters=5),
+                         plain_ms=cuda_ms(lambda: plain(q), iters=5),
                          bound_ms=bound_ms(nb),
-                         max_abs_err=float((got - ref).abs().max()),
-                         rows=plan.rows, groups=plan.groups,
+                         max_abs_err=float((got.float() - ref.float())
+                                           .abs().max()),
+                         q_dtype=q_dtype, shape=f"B={B} S={S} kv_len "
+                         f"{kv[0]}..{kv[1]}", rows=plan.rows,
+                         groups=plan.groups,
                          device_kernels_per_call=per_call)
         r = out[name]
-        log(f"families : K={K:2d} G={G} hd={hd:3d} {name:16s} "
+        log(f"{tag:9s}: K={K:2d} G={G} hd={hd:3d} {name:16s} "
             f"{r['ms']:.5f} ms (device {_ms(dms)}; bound "
-            f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.3f}); rows "
-            f"{plan.rows} x {plan.groups} groups per kv head; max |err| "
-            f"{r['max_abs_err']:.2e}")
+            f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.3f}); {r['shape']}, "
+            f"{q_dtype} q; rows {plan.rows} x {plan.groups} groups per kv "
+            f"head; max |err| {r['max_abs_err']:.2e}")
     return out
+
+
+def kv_read_at(dev, K, hd, fmt_name, B, S, tag="frontend") -> dict:
+    """B4's K+V mode (f2p_kv_read, the unfused decode's read) on one layer
+    view of a 2-layer packed cache [B, S, K, hd] at block hd: bitwise
+    against kv_read_plain with bf16 and f32 out, timed with the host and on
+    the device beside its bytes bound and the plain version."""
+    import torch
+
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    fmt = named_format(fmt_name)
+    cache = kv_read_cache(dev, g, fmt, B=B, S=S, K=K, hd=hd)
+    assert cache["k"].block == hd
+    for odt in (torch.bfloat16, torch.float32):
+        for a, b in zip(Q.f2p_kv_read(cache, odt), Q.kv_read_plain(cache, odt)):
+            assert torch.equal(_bits(a), _bits(b)), \
+                f"kv_read differs: {fmt_name} K={K} hd={hd} {odt}"
+    fn = lambda: Q.f2p_kv_read(cache, torch.bfloat16)
+    n = B * S * K
+    nb = 2 * n * (cache["k"].codes.shape[-1] * 4 + 4 + hd * 2)
+    dms, per_call = device_calls(fn, "dequantize_packed_kernel")
+    r = dict(ms=host_ms(fn, iters=100), device_ms=dms,
+             device_kernels_per_call=per_call, bound_ms=bound_ms(nb),
+             plain_ms=cuda_ms(lambda: Q.kv_read_plain(cache, torch.bfloat16),
+                              iters=10), max_abs_err=0.0,
+             shape=f"[{B}, {S}, {K}, {hd}] {fmt_name} block {hd} -> bf16")
+    log(f"{tag:9s}: K={K:2d} hd={hd:3d} kv_read {r['shape']} {r['ms']:.5f} "
+        f"ms (device {_ms(dms)}; bound {r['bound_ms']:.5f}, plain "
+        f"{r['plain_ms']:.3f}); bitwise with bf16 and f32 out")
+    return r
 
 
 def kv_write_at(dev, K, hd, fmt_name="f2p_sr_2_8s") -> dict:
@@ -3512,15 +3628,23 @@ def _preempting_engine(victim: int, after: int):
     return Preempting
 
 
-def decode_breakdown(dev, cfg, model, slots=8, prompt=64, steps=8) -> dict:
+def decode_breakdown(dev, cfg, model, slots=8, prompt=64, steps=8, *,
+                     max_seq=1024, kv_policy=None, prefill_kw=None,
+                     cross_kv=None, tag="recurrent") -> dict:
     """Where a decode step's time goes, with no admission in the way:
-    ``slots`` rows prefilled with ``prompt`` random tokens into dense
-    packed caches, then ``steps`` decode steps timed (host clock, the
-    device synchronised) and profiled: ms per step, the device's busy
+    ``slots`` rows prefilled with ``prompt`` random tokens (and
+    ``prefill_kw``: an encoder's ``frames``, a vision prefix's
+    ``patches``) into dense packed caches of ``max_seq`` positions in
+    ``kv_policy``'s formats, prefill timed; then ``steps`` decode steps
+    (``cross_kv`` passed to each) timed each with CUDA events and in all
+    with the host clock (the device synchronised), and ``steps`` more
+    profiled: ms per step, tok/s over every timed step, the device's busy
     share, device kernels per step and device ms by group, beside the
-    weight bytes a step must read (every parameter but the embedding rows
-    an untied model does not gather) over 3.35 TB/s."""
+    weight bytes a step must read (every parameter but an encoder's,
+    ``vision_proj`` and the embedding rows an untied model does not
+    gather) over 3.35 TB/s."""
     import dataclasses
+    import statistics
 
     import torch
     from torch.autograd import DeviceType
@@ -3529,32 +3653,53 @@ def decode_breakdown(dev, cfg, model, slots=8, prompt=64, steps=8) -> dict:
     from repro_torch.models import decode_step, init_caches, prefill
 
     cfg = dataclasses.replace(cfg, fused_attention=True)
+    prefill_kw = prefill_kw or {}
+    cuda = torch.device(dev).type == "cuda"
     g = torch.Generator().manual_seed(6)
-    toks = torch.randint(0, cfg.vocab_size, (slots, prompt), generator=g)
-    caches = init_caches(cfg, slots, 1024, quantized_kv=True, device=dev)
-    logits = prefill(model, toks.to(dev), caches, cfg=cfg)
+    toks = torch.randint(0, cfg.vocab_size, (slots, prompt),
+                         generator=g).to(dev)
+    caches = init_caches(cfg, slots, max_seq, quantized_kv=True,
+                         kv_policy=kv_policy, device=dev)
+    sync(dev)
+    t = time.perf_counter()
+    logits = prefill(model, toks, caches, cfg=cfg, **prefill_kw)
+    sync(dev)
+    prefill_ms = 1e3 * (time.perf_counter() - t)
     tok = torch.argmax(logits, -1)[:, None]
-    pos = prompt
+    pos = pos0 = prompt + (prefill_kw["patches"].shape[1]
+                           if "patches" in prefill_kw else 0)
 
-    def run(n):
+    def run(n, timed=False):
         nonlocal tok, pos
-        for _ in range(n):
-            tok = torch.argmax(decode_step(model, tok, pos, caches, cfg=cfg),
-                               -1)[:, None]
+        ev = ([torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+              if timed and cuda else [])
+        for i in range(n):
+            if ev:
+                ev[i].record()
+            tok = torch.argmax(decode_step(model, tok, pos, caches, cfg=cfg,
+                                           cross_kv=cross_kv), -1)[:, None]
             pos += 1
+        if ev:
+            ev[n].record()
+        return ev
 
     run(2)
     sync(dev)
     t = time.perf_counter()
-    run(steps)
+    ev = run(steps, timed=True)
     sync(dev)
     ms = 1e3 * (time.perf_counter() - t) / steps
-    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
+    nbytes = sum(p.numel() * p.element_size()
+                 for n, p in model.named_parameters()
+                 if not n.startswith(("encoder.", "vision_proj")))
     if model.lm_head is not None:
         nbytes -= model.embed.numel() * model.embed.element_size()
-    out = dict(ms_per_step=ms, weight_bytes=nbytes,
+    out = dict(prefill_ms=prefill_ms, ms_per_step=ms, step_ms=step_ms,
+               median_step_ms=statistics.median(step_ms) if step_ms else None,
+               tok_s=slots / ms * 1e3, weight_bytes=nbytes,
                bound_ms=bound_ms(nbytes))
-    if torch.device(dev).type == "cuda":
+    if cuda:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -3569,9 +3714,11 @@ def decode_breakdown(dev, cfg, model, slots=8, prompt=64, steps=8) -> dict:
                    device_kernels_per_step=n_dev / steps,
                    groups_ms_per_step={k: v / steps for k, v in
                                        res["groups_ms"].items()})
-    log(f"recurrent: {cfg.name} decode alone ({slots} rows at position "
-        f"{prompt}+): {ms:.2f} ms per step against a {out['bound_ms']:.3f}"
-        f" ms weight-read bound ({nbytes / 1e9:.2f} GB); busy "
+    log(f"{tag:9s}: {cfg.name} decode alone ({slots} rows at position "
+        f"{pos0}+, prefill {prefill_ms:.2f} ms): {ms:.2f} ms "
+        f"per step (median {_ms(out['median_step_ms'])}), "
+        f"{out['tok_s']:.2f} tok/s, against a {out['bound_ms']:.3f} ms "
+        f"weight-read bound ({nbytes / 1e9:.2f} GB); busy "
         f"{_ms(out.get('device_busy_share'))}, "
         f"{out.get('device_kernels_per_step')} device kernels per step, "
         f"device ms per step by group "
@@ -3879,6 +4026,363 @@ def recurrent_summary(rec: dict) -> dict:
         seconds=rec["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the two frontend archs (whisper, internvl2)
+# ---------------------------------------------------------------------------
+def slabs_from_dense(cfg, caches, pol, B, T, dev, seed=12):
+    """Pool slabs holding the dense caches' pages at a permutation (as
+    tests/test_torch_families.py builds them): (slabs, page table). Rows
+    of ``caches`` are ``max_seq = maxp * T`` positions."""
+    import torch
+
+    from repro_torch.models import init_caches
+
+    S = caches["b0"]["k"].shape[2]
+    maxp = S // T
+    P = B * maxp + 2
+    slabs = init_caches(cfg, 1, P * T, quantized_kv=True, kv_policy=pol,
+                        device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(P, generator=g, device=dev)
+    pages = perm[:B * maxp].reshape(B, maxp).to(torch.int32)
+    G, K = cfg.n_groups, cfg.n_kv_heads
+    idx = pages.flatten().long()
+    for key in caches:
+        for kv in ("k", "v"):
+            src, dst = caches[key][kv], slabs[key][kv]
+            W = src.codes.shape[-1]
+            codes = dst.codes.view(torch.int32).reshape(G, P, T, K, W)
+            scales = dst.scales.reshape(G, P, T, K, 1)
+            codes[:, idx] = src.codes.view(torch.int32).reshape(
+                G, B * maxp, T, K, W)
+            scales[:, idx] = src.scales.reshape(G, B * maxp, T, K, 1)
+            slabs[key][kv] = type(dst)(codes.view(torch.uint32), scales,
+                                       dst.fmt, dst.block,
+                                       (G, P, T, K, cfg.head_dim),
+                                       packed=True)
+    return slabs, pages
+
+
+def _clone_caches(caches):
+    return {key: _clone_cache(c) for key, c in caches.items()}
+
+
+def greedy_decode(dev, model, cfg, caches, tok, pos, steps, *, pages=None,
+                  cross_kv=None) -> dict:
+    """``steps`` greedy decode steps from ``tok`` [B, 1] at per-slot
+    positions ``pos`` [B]: each step's logits (kept on the device), the
+    tokens [B, steps], each step's ms (CUDA events, no host sync inside the
+    loop) and the kernel launches of the run."""
+    import torch
+
+    from repro_torch.kernels import cuda as C
+    from repro_torch.models import decode_step
+
+    cuda = torch.device(dev).type == "cuda"
+    ev = ([torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+          if cuda else [])
+    before = dict(C.LAUNCHES)
+    logits, toks = [], []
+    for i in range(steps):
+        if cuda:
+            ev[i].record()
+        lg = decode_step(model, tok, pos + i, caches, pages=pages, cfg=cfg,
+                         cross_kv=cross_kv)
+        tok = torch.argmax(lg, -1)[:, None]
+        logits.append(lg)
+        toks.append(tok)
+    if cuda:
+        ev[steps].record()
+    sync(dev)
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)] \
+        if cuda else []
+    return dict(logits=logits, tokens=torch.cat(toks, 1).cpu(),
+                step_ms=step_ms,
+                counts={k: C.LAUNCHES[k] - before.get(k, 0)
+                        for k in C.LAUNCHES})
+
+
+def _expect_launches(tag, counts, want) -> None:
+    """Every kernel counter of the run equal to ``want``'s (0 where
+    ``want`` does not name it)."""
+    got = {k: v for k, v in counts.items() if v}
+    assert got == want, f"{tag}: launches {got}, expected {want}"
+
+
+def _run_summary(tag, run, rows) -> dict:
+    """Median and first step ms, and tok/s over every step."""
+    import statistics
+
+    ms = run["step_ms"]
+    med = statistics.median(ms) if ms else None
+    tok_s = rows * len(ms) / (sum(ms) / 1e3) if ms else None
+    first = ms[0] if ms else None
+    log(f"frontend : {tag}: {len(run['logits'])} steps, median "
+        f"{_ms(med)} ms per step (first {_ms(first)}), {_ms(tok_s)} tok/s "
+        f"over all {len(ms)}; launches "
+        f"{ {k: v for k, v in run['counts'].items() if v} }")
+    return dict(median_step_ms=med, first_step_ms=first, tok_s=tok_s,
+                step_ms=ms,
+                launches={k: v for k, v in run["counts"].items() if v})
+
+
+def whisper_phase(dev):
+    """12(b): whisper-large-v3 at full width (32 encoder + 32 decoder
+    layers, d 1280, random weights from seed 0, bf16): 4 rows of seeded
+    1500-frame embeddings and a 4-token prompt; encode, prefill(frames=)
+    into caches of WHISPER_MAX_SEQ positions in the default policy's KV
+    format (f2p_sr_1_8s), then FRONTEND_STEPS greedy decode steps three
+    ways from that one prefill: fused dense (B2 + B3), paged over slabs
+    holding the prefill's pages at a permutation (B1 + B3; its logits
+    equal the fused run's bitwise at every step, asserted) and unfused
+    (B4 + B3; token agreement with the fused run printed). Each run's
+    launches asserted: one attention kernel (or K+V read) and one KV write
+    per layer per step. Returns (result, a call that breaks a fused decode
+    step down with decode_breakdown, made after the main path's counts are
+    read)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import default_policy, full_config
+    from repro_torch.core.formats import named_format
+    from repro_torch.models import encode, init_caches, init_params, prefill
+
+    cfg = dataclasses.replace(full_config("whisper_large_v3"),
+                              fused_attention=True)
+    pol = default_policy("whisper_large_v3")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    log(f"frontend : {cfg.name} {cfg.encoder_layers}+{cfg.n_layers}L "
+        f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} hd="
+        f"{cfg.head_dim} ff={cfg.d_ff} V={cfg.vocab_size} {cfg.dtype}, "
+        f"{cfg.param_count() / 1e9:.3f}B params (reference count), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    B, L, steps = WHISPER_ROWS, cfg.n_layers, FRONTEND_STEPS
+    g = torch.Generator(device=dev).manual_seed(12)
+    frames = torch.randn(B, cfg.encoder_seq, cfg.d_model, generator=g,
+                         device=dev).to(cfg.torch_dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (B, WHISPER_PROMPT),
+                           generator=g, device=dev)
+    with torch.inference_mode():
+        cross = encode(model, frames)
+        enc_ms = host_ms(lambda: encode(model, frames), iters=1)
+    assert cross.shape == (B, cfg.encoder_seq, cfg.d_model)
+    assert bool(torch.isfinite(cross).all()), "whisper: encoder non-finite"
+    caches = init_caches(cfg, B, WHISPER_MAX_SEQ, quantized_kv=True,
+                         kv_policy=pol, device=dev)
+    assert caches["b0"]["k"].fmt == named_format("f2p_sr_1_8s")
+    logits = prefill(model, prompt, caches, frames=frames)
+    assert logits.shape == (B, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()), "whisper: prefill non-finite"
+    slabs, pages = slabs_from_dense(cfg, caches, pol, B, 8, dev)
+    unfused_caches = _clone_caches(caches)
+    tok = torch.argmax(logits, -1)[:, None]
+    pos = torch.full((B,), WHISPER_PROMPT, device=dev)
+    log(f"frontend : whisper encode {enc_ms:.2f} ms ({B} x "
+        f"{cfg.encoder_seq} frames)")
+    fused = greedy_decode(dev, model, cfg, caches, tok, pos, steps,
+                          cross_kv=cross)
+    _expect_launches("whisper fused", fused["counts"],
+                     {"attention_packed": L * steps, "kv_write": L * steps})
+    paged = greedy_decode(dev, model, cfg, slabs, tok, pos, steps,
+                          pages=pages, cross_kv=cross)
+    _expect_launches("whisper paged", paged["counts"],
+                     {"attention_paged": L * steps, "kv_write": L * steps})
+    for i, (a, b) in enumerate(zip(fused["logits"], paged["logits"])):
+        assert torch.equal(a, b), f"whisper: paged != fused at step {i}"
+    ucfg = dataclasses.replace(cfg, fused_attention=False)
+    unfused = greedy_decode(dev, model, ucfg, unfused_caches, tok, pos,
+                            steps, cross_kv=cross)
+    _expect_launches("whisper unfused", unfused["counts"],
+                     {"kv_read": L * steps, "kv_write": L * steps})
+    for run in (fused, unfused):
+        assert all(bool(torch.isfinite(lg).all()) for lg in run["logits"])
+    agree = int((unfused["tokens"] == fused["tokens"]).sum())
+    log(f"frontend : whisper paged == fused logits, bitwise, at all "
+        f"{steps} steps; unfused agrees with fused on {agree}/{B * steps} "
+        "tokens (B4 + naive attention sum in another order: printed, not "
+        "asserted; B4 is held bitwise at this shape in 12(a))")
+    res = dict(arch=cfg.name, params=cfg.param_count(), encode_ms=enc_ms,
+               unfused_agree=f"{agree}/{B * steps}",
+               fused=_run_summary("whisper fused (B2 + B3)", fused, B),
+               paged=_run_summary("whisper paged (B1 + B3)", paged, B),
+               unfused=_run_summary("whisper unfused (B4 + B3)", unfused,
+                                    B))
+    return res, lambda: decode_breakdown(
+        dev, cfg, model, B, WHISPER_PROMPT, 8, max_seq=WHISPER_MAX_SEQ,
+        kv_policy=pol, prefill_kw=dict(frames=frames), cross_kv=cross,
+        tag="frontend")
+
+
+def internvl2_phase(dev):
+    """12(c): internvl2-1b at full width (24 layers, d 896, 14 / 2 heads:
+    G = 7), random weights from seed 0, bf16. Model level: 4 rows of
+    VLM_PATCHES seeded patch embeddings + 32-token prompts prefilled into
+    dense caches, then FRONTEND_STEPS fused and as many unfused decode
+    steps from position VLM_PATCHES + 32 (launches asserted, one per layer
+    per step). Then BatchedEngine, text only, paged and copy-in, 8
+    staggered requests: tokens equal (llama-dense co-batches exactly).
+    Returns (result, a call that breaks a fused decode step down)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import default_policy, full_config
+    from repro_torch.models import init_caches, init_params, prefill
+
+    cfg = dataclasses.replace(full_config("internvl2_1b"),
+                              fused_attention=True)
+    assert cfg.vision_tokens == VLM_PATCHES
+    pol = default_policy("internvl2_1b")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    log(f"frontend : {cfg.name} {cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} "
+        f"V={cfg.vocab_size} {cfg.dtype}, {cfg.param_count() / 1e9:.3f}B "
+        f"params, init {time.perf_counter() - t0:.1f} s")
+    B, L, steps, P = VLM_ROWS, cfg.n_layers, FRONTEND_STEPS, VLM_PATCHES
+    g = torch.Generator(device=dev).manual_seed(13)
+    patches = torch.randn(B, P, cfg.d_model, generator=g,
+                          device=dev).to(cfg.torch_dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (B, VLM_PROMPT), generator=g,
+                           device=dev)
+    caches = init_caches(cfg, B, VLM_MAX_SEQ, quantized_kv=True,
+                         kv_policy=pol, device=dev)
+    logits = prefill(model, prompt, caches, patches=patches)
+    assert bool(torch.isfinite(logits).all()), "internvl2: non-finite"
+    unfused_caches = _clone_caches(caches)
+    tok = torch.argmax(logits, -1)[:, None]
+    pos = torch.full((B,), P + VLM_PROMPT, device=dev)
+    fused = greedy_decode(dev, model, cfg, caches, tok, pos, steps)
+    _expect_launches("internvl2 fused", fused["counts"],
+                     {"attention_packed": L * steps, "kv_write": L * steps})
+    unfused = greedy_decode(dev, model, dataclasses.replace(
+        cfg, fused_attention=False), unfused_caches, tok, pos, steps)
+    _expect_launches("internvl2 unfused", unfused["counts"],
+                     {"kv_read": L * steps, "kv_write": L * steps})
+    agree = int((unfused["tokens"] == fused["tokens"]).sum())
+    log(f"frontend : internvl2 ({P} patches + {VLM_PROMPT} tokens x {B} "
+        f"rows); unfused agrees with fused on {agree}/{B * steps} tokens "
+        "(printed, not asserted; B4 is held bitwise at this shape in 12(a))")
+    res = dict(arch=cfg.name, params=cfg.param_count(),
+               unfused_agree=f"{agree}/{B * steps}",
+               fused=_run_summary("internvl2 fused (B2 + B3)", fused, B),
+               unfused=_run_summary("internvl2 unfused (B4 + B3)", unfused,
+                                    B))
+    reqs = family_requests(cfg.vocab_size, 8, seed=4)
+    bs = dict(slots=8, max_seq=1024)
+    paged = family_run(dev, cfg, model, reqs, "text only, paged", **bs)
+    copy_in = family_run(dev, cfg, model, reqs, "text only, copy-in",
+                         paged_decode=False, **bs)
+    assert _same_tokens(paged["out"], copy_in["out"]) == len(reqs), \
+        "internvl2: paged != copy-in"
+    assert paged["counts"]["attention_paged"] > 0
+    assert copy_in["counts"]["attention_packed"] > 0
+    log("frontend : internvl2 served text only: paged == copy-in, token for "
+        "token")
+    for tag, r in (("engine_paged", paged), ("engine_copy_in", copy_in)):
+        res[tag] = {k: r[k] for k in ("tok_s", "seconds", "peak_gb",
+                                      "latency")}
+    return res, lambda: decode_breakdown(
+        dev, cfg, model, B, VLM_PROMPT, 8, max_seq=VLM_MAX_SEQ,
+        kv_policy=pol, prefill_kw=dict(patches=patches), tag="frontend")
+
+
+def frontends_phase(dev) -> dict:
+    """Phase 12: (a) B1/B2 at the two archs' kv shapes, f32 q over 8 x
+    1024 positions and bf16 q at their own main-path rows, cache length
+    and kv_len; B3 at their shapes; B4's K+V read of their unfused decode's
+    layer cache. Then the main path, with the launch counts zeroed just
+    before each arch and read just after it (its decode breakdown runs
+    after the read): whisper, then internvl2 (each model freed before the
+    next); then both smoke configs on the card against the CPU."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import cuda as C
+
+    def collect():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    kern = {}
+    for K, G, hd, fmt, rows, max_seq, start in FRONTEND_SHAPES:
+        # kv_len over the main path's decode steps: start + 1 .. start + steps
+        kv = (start + 1, start + FRONTEND_STEPS)
+        kern[f"K={K} G={G} hd={hd} {fmt}"] = dict(
+            attention_at(dev, K, G, hd, fmt, tag="frontend"),
+            main_path=attention_at(dev, K, G, hd, fmt, B=rows, S=max_seq,
+                                   kv=kv, q_dtype="bfloat16",
+                                   tag="frontend"),
+            kv_write=kv_write_at(dev, K, hd, fmt),
+            kv_read=kv_read_at(dev, K, hd, fmt, rows, max_seq))
+    res = dict(kernels=kern)
+    sc = {}
+    for name, phase in (("whisper", whisper_phase),
+                        ("internvl2", internvl2_phase)):
+        C.reset_launches()
+        res[name], breakdown = phase(dev)
+        for k, v in C.LAUNCHES.items():
+            sc[k] = sc.get(k, 0) + v
+        res[name]["profile"] = breakdown()
+        del breakdown
+        collect()
+    res["launches"] = {
+        "attention_paged": sc["attention_paged"],
+        "attention_packed": sc["attention_packed"],
+        "quantize_packed": sc["kv_write"] + sc["quantize_packed"],
+        "dequantize_packed": sc["kv_read"] + sc["dequantize_packed"]}
+    for name, n in res["launches"].items():
+        assert n > 0, f"phase 12 never launched {name}"
+    res["small"] = {a: check_small(dev, a, tol=1e-3, steps=8, tokens=True)
+                    for a in ("whisper_large_v3", "internvl2_1b")}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"frontend : phase 12 in {res['seconds']:.1f} s; main-path launches "
+        f"{res['launches']}")
+    return res
+
+
+def frontends_summary(fr: dict) -> dict:
+    wh, vl = fr["whisper"], fr["internvl2"]
+
+    def runs(r, names):
+        return {n: {k: r[n][k] for k in ("median_step_ms", "first_step_ms",
+                                         "tok_s")}
+                for n in names}
+
+    def breakdown(r):
+        return {k: r["profile"].get(k) for k in (
+            "prefill_ms", "median_step_ms", "tok_s", "bound_ms",
+            "device_busy_share", "device_kernels_per_step",
+            "groups_ms_per_step")}
+
+    def rows(r):
+        return {k: {f: v.get(f) for f in ("ms", "device_ms", "bound_ms",
+                                          "max_abs_err", "shape")}
+                for k, v in r.items()}
+
+    return dict(
+        kernels={s: dict(rows({k: v for k, v in r.items()
+                               if k != "main_path"}),
+                         main_path=rows(r["main_path"]))
+                 for s, r in fr["kernels"].items()},
+        whisper=dict(encode_ms=wh["encode_ms"],
+                     unfused_agree=wh["unfused_agree"],
+                     breakdown=breakdown(wh),
+                     **runs(wh, ("fused", "paged", "unfused"))),
+        internvl2=dict(unfused_agree=vl["unfused_agree"],
+                       breakdown=breakdown(vl),
+                       engine_paged_tok_s=vl["engine_paged"]["tok_s"],
+                       engine_copy_in_tok_s=vl["engine_copy_in"]["tok_s"],
+                       **runs(vl, ("fused", "unfused"))),
+        small=fr["small"], launches=fr["launches"], seconds=fr["seconds"])
+
+
 def main():
     import argparse
     import gc
@@ -3888,7 +4392,7 @@ def main():
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--only", choices=("matmul", "attention", "codec",
                                        "unpacked", "fl", "families",
-                                       "recurrent"),
+                                       "recurrent", "frontends"),
                     help="matmul / attention / codec / unpacked: phases 1-2 "
                          "and phase 3's dequant matmul (B7/B8), attention "
                          "(B1/B2), packed codec (B3/B4) or unpacked codec "
@@ -3896,8 +4400,9 @@ def main():
                          "those kernels; fl: phases 1-2 and phase 9 (FL "
                          "and faults); families: phases 1-2 and phase 10 "
                          "(MoE and the other configs); recurrent: phases "
-                         "1-2 and phase 11 (jamba, xLSTM); prints no final "
-                         "ok line")
+                         "1-2 and phase 11 (jamba, xLSTM); frontends: "
+                         "phases 1-2 and phase 12 (whisper, internvl2); "
+                         "prints no final ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
@@ -3983,6 +4488,15 @@ def main():
         print(json.dumps({"recurrent": recurrent_summary(rec)}, default=str))
         print(smi)
         return
+    if only == "frontends":
+        fr = frontends_phase(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_frontends.json").write_text(json.dumps(
+            {"device": smi, "frontends": fr}, indent=1, default=str))
+        print(json.dumps({"frontends": frontends_summary(fr)}, default=str))
+        print(smi)
+        return
     if only == "matmul":
         mm = check_matmul(dev)
         out_dir = ROOT / "chiprun_out"
@@ -4035,6 +4549,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     rec_res = recurrent_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fr_res = frontends_phase(dev)
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
@@ -4064,6 +4581,9 @@ def main():
         if name in rec_res["launches"]:
             # phase 11's main path: xLSTM and jamba served, xLSTM trained
             kernels[-1]["recurrent_launches"] = rec_res["launches"][name]
+        if name in fr_res["launches"]:
+            # phase 12's main path: whisper and internvl2 decoded, served
+            kernels[-1]["frontends_launches"] = fr_res["launches"][name]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -4072,7 +4592,7 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "kernels": kernels, "serve": serve_res,
          "sketch": sketch_res, "train": train_res, "fl": fl_res,
-         "families": fam_res, "recurrent": rec_res,
+         "families": fam_res, "recurrent": rec_res, "frontends": fr_res,
          "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "ef_roundtrip_row": res["ef_roundtrip"],
@@ -4088,6 +4608,7 @@ def main():
     print(json.dumps({"fl": fl_summary(fl_res)}))
     print(json.dumps({"families": families_summary(fam_res)}, default=str))
     print(json.dumps({"recurrent": recurrent_summary(rec_res)}, default=str))
+    print(json.dumps({"frontends": frontends_summary(fr_res)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,28 +1,32 @@
-"""Architecture lookup and default format policies (port of the
-``full_config``/``smoke_config``/``default_policy`` part of
-``repro.configs.registry``). The llama-dense, MoE, mamba-hybrid (jamba)
-and xLSTM configs are ported; the two archs with a frontend (whisper,
-internvl2) raise ``NotImplementedError`` naming their ROADMAP item."""
+"""Architecture registry (port of ``repro.configs.registry``): ``--arch``
+resolution, the assigned shape suite ``SHAPES`` and ``input_specs``, which
+describes every model input of an (arch, shape) cell as ``meta`` tensors
+(no storage), and the per-model default format policies."""
 from __future__ import annotations
 
 import importlib
 
-# the reference's ARCH_IDS, in its order, restricted to the ported archs
+import torch
+
 ARCH_IDS = [
     "minitron_4b",
     "llama3_2_3b",
     "minicpm3_4b",
     "codeqwen1_5_7b",
+    "whisper_large_v3",
+    "internvl2_1b",
     "llama4_maverick_400b",
     "llama4_scout_17b",
     "jamba_1_5_large",
     "xlstm_125m",
 ]
 
-# the reference's archs still to port, with the ROADMAP item of each
-_NOT_PORTED = {
-    "whisper_large_v3": "A13f",
-    "internvl2_1b": "A13b",
+# assigned shape suite: name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
 }
 
 
@@ -32,10 +36,6 @@ def canon(arch: str) -> str:
 
 def get_arch(arch: str):
     name = canon(arch)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported (ROADMAP {_NOT_PORTED[name]}); "
-            f"ported: {ARCH_IDS}")
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
@@ -63,14 +63,16 @@ _BASE_POLICY_RULES = (
     ("fl*", "f2p_sr_2_8s", 128),
 )
 
-# per-arch overrides, matched before the base rules (the reference's, for
-# the ported archs; whisper's comes with ROADMAP A13f)
+# per-arch overrides, matched before the base rules
 _ARCH_POLICY_RULES = {
     # MoE stacks: expert FF grads are wide and smooth — bigger blocks halve
     # the scale overhead at unchanged accuracy
     "llama4_maverick_400b": (("grad/*ff*", "f2p_sr_2_8s", 256),),
     "llama4_scout_17b": (("grad/*ff*", "f2p_sr_2_8s", 256),),
     "jamba_1_5_large": (("grad/*ff*", "f2p_sr_2_8s", 256),),
+    # enc-dec audio: encoder KV ranges are narrow — spend the hyper-exp bit
+    # on mantissa (H=1) instead of range
+    "whisper_large_v3": (("kv/*", "f2p_sr_1_8s", 0),),
 }
 
 
@@ -79,7 +81,49 @@ def default_policy(arch: str):
     from repro_torch.autotune.policy import FormatPolicy, PolicyRule
 
     name = canon(arch)
-    get_arch(name)   # raises for an arch the port does not have
+    get_arch(name)   # raises for an unknown arch
     rules = _ARCH_POLICY_RULES.get(name, ()) + _BASE_POLICY_RULES
     return FormatPolicy(rules=tuple(PolicyRule(pattern=p, fmt=f, block=b)
                                     for p, f, b in rules))
+
+
+def shape_is_applicable(cfg, shape_name: str) -> tuple[bool, str]:
+    """Assignment rules: long_500k only for sub-quadratic stacks."""
+    if shape_name == "long_500k" and not cfg.is_subquadratic:
+        return False, ("pure full-attention arch: long_500k needs "
+                       "sub-quadratic mixing (skipped per assignment)")
+    return True, ""
+
+
+def input_specs(cfg, shape_name: str, *, sharding_fn=None) -> dict:
+    """Stand-ins for every model input of (arch, shape): ``meta`` tensors
+    of the reference's keys, shapes and dtypes (int32 tokens, bf16
+    ``frames`` / ``patches``), nothing allocated. The patch embeddings
+    take ``vision_tokens`` of the sequence; the encoder's frames come on
+    top. ``sharding_fn`` (the reference's per-input shardings) needs
+    several cards: ROADMAP A12."""
+    if sharding_fn is not None:
+        raise NotImplementedError(
+            "input_specs(sharding_fn=...): sharded inputs need several "
+            "cards (ROADMAP A12)")
+    seq, gbatch, kind = SHAPES[shape_name]
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    text_seq = seq
+    extras = {}
+    if cfg.frontend == "vision":
+        text_seq = seq - cfg.vision_tokens
+        extras["patches"] = spec((gbatch, cfg.vision_tokens, cfg.d_model),
+                                 torch.bfloat16)
+    if cfg.is_encdec:
+        extras["frames"] = spec((gbatch, cfg.encoder_seq, cfg.d_model),
+                                torch.bfloat16)
+    if kind == "train":
+        return dict(tokens=spec((gbatch, text_seq), torch.int32),
+                    labels=spec((gbatch, text_seq), torch.int32), **extras)
+    if kind == "prefill":
+        return dict(tokens=spec((gbatch, text_seq), torch.int32), **extras)
+    # decode: one new token against a cache of `seq`
+    return dict(token=spec((gbatch, 1), torch.int32), **extras)

@@ -15,7 +15,10 @@ xlstm_125m``) apart from ``--ckpt-dir``: ``<tempdir>/repro_torch_train_ckpt``
 to a directory of their own, under the process's temporary directory).
 Only ``--mesh-shape 1,1`` runs: data and model parallelism over several
 cards is ROADMAP A12 (sharded part); a config with MoE FFs (llama4,
-jamba) raises (ROADMAP A16). ``main`` parses the flags; :func:`run` takes
+jamba) raises (ROADMAP A16). The data pipeline makes tokens and labels
+only, as the reference's: ``--arch internvl2_1b`` trains text only and
+``--arch whisper_large_v3`` fails at its first step with a ``KeyError``
+naming ``frames``, as the reference's CLI does. ``main`` parses the flags; :func:`run` takes
 a config, so a caller can train a configuration of its own choosing
 (fewer layers, a narrower batch) through the same loop.
 """

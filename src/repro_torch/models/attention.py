@@ -72,11 +72,17 @@ def naive_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None):
 # Block-level apply
 # ---------------------------------------------------------------------------
 def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
-                    pages=None):
+                    cross_kv=None, causal=True, pages=None):
     """mode: 'train' | 'prefill' | 'decode'. Returns (out, cache).
 
-    ``train`` is causal attention over the sequence with no cache (the
-    reference's plain einsum/softmax, differentiable through autograd).
+    ``train`` is attention over the sequence with no cache (the
+    reference's plain einsum/softmax, differentiable through autograd),
+    causal unless ``causal=False`` (the encoder).
+
+    ``cross_kv`` (``[B, Se, D]``, the encoder's output): cross-attention,
+    whatever the mode. K and V are projected from ``cross_kv`` at every
+    call, attention is non-causal over all ``Se`` positions with no length
+    mask, and ``cache`` is returned untouched.
 
     ``pages`` (decode only): a ``[B, max_pages]`` int32 page table; ``cache``
     is then one layer's pool slab (``{"k","v"}`` QTensors, codes
@@ -86,6 +92,12 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, hd)
+    if cross_kv is not None:
+        Se = cross_kv.shape[1]
+        k = (cross_kv @ p["wk"]).reshape(B, Se, K, hd)
+        v = (cross_kv @ p["wv"]).reshape(B, Se, K, hd)
+        out = naive_attention(q, k, v, causal=False)
+        return out.reshape(B, S, H * hd) @ p["wo"], cache
     k = (x @ p["wk"]).reshape(B, S, K, hd)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
     # an int stays an int (no device round trip per layer); a [B] tensor
@@ -101,10 +113,10 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if mode == "train":
-        out = naive_attention(q, k, v, causal=True)
+        out = naive_attention(q, k, v, causal=causal)
     elif mode == "prefill":
         _cache_write(cache, k, v, 0)
-        out = naive_attention(q, k, v, causal=True)
+        out = naive_attention(q, k, v, causal=causal)
     elif mode == "decode":
         assert S == 1
         if pages is not None:

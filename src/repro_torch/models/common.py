@@ -1,5 +1,6 @@
 """Shared layer primitives (port of ``repro.models.common``): RMS norm,
-RoPE, SwiGLU, the truncated-normal init and the token cross-entropy."""
+RoPE, sinusoidal positions, SwiGLU, the truncated-normal init and the
+token cross-entropy."""
 from __future__ import annotations
 
 import functools
@@ -63,6 +64,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int) -> np.ndarray:
+    """The reference's f32 ``[seq, d_model]`` table, bit for bit: sin at
+    even columns, cos at odd ones. A row depends only on its position, so
+    the first rows of a longer table are the table of a shorter one."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(0, d_model, 2)[None, :]
+    ang = pos / (10000 ** (dim / d_model))
+    out = np.zeros((seq, d_model), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
 
 
 def swiglu(x, w_gate, w_up, w_down):

@@ -1,18 +1,18 @@
-"""Model configuration (port of ``repro.models.config``): the attention
-families (dense and MoE), the mamba hybrid and xLSTM.
+"""Model configuration (port of ``repro.models.config``): one dataclass
+for every architecture of the reference.
 
 A model is a stack of ``n_layers`` blocks arranged as repetitions of a
 ``pattern`` (a tuple of :class:`BlockSpec`); layer ``l`` is pattern
 position ``l % len(pattern)`` of group ``l // len(pattern)``. Every mixer
 of the reference is ported (attention, mamba, mLSTM, sLSTM), with dense
-(SwiGLU), MoE or no FF, RoPE or no positions and tied or separate
-embeddings. A frontend, an encoder or sinusoidal positions raise
-``NotImplementedError`` naming their ROADMAP item; their fields keep
-only the defaults, and the ``opt_*`` knobs are left out. ``remat`` is
-kept: the train forward recomputes each block in the backward
-(``torch.utils.checkpoint``) as the reference rematerializes its scan
-body. ``fsdp`` is kept because the MoE configs set it; on one card it
-changes nothing (sharding is ROADMAP A12).
+(SwiGLU), MoE or no FF, RoPE, sinusoidal or no positions and tied or
+separate embeddings; ``encoder_layers > 0`` adds whisper's encoder and a
+cross-attention in every decoder attention block, ``frontend="vision"``
+internvl2's projected patch embeddings in front of the tokens. The
+``opt_*`` knobs are left out. ``remat`` is kept: the train forward
+recomputes each block in the backward (``torch.utils.checkpoint``) as the
+reference rematerializes its scan body. ``fsdp`` is kept because the MoE
+configs set it; on one card it changes nothing (sharding is ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -57,15 +57,18 @@ class ModelConfig:
     # --- xLSTM ---
     mlstm_expand: int = 2
 
-    # --- the reference's frontends and encoder keep their defaults (A13b,
-    #     A13f); positions are RoPE or none ---
-    encoder_layers: int = 0
-    frontend: Literal["none", "audio", "vision"] = "none"
-    pos: Literal["rope", "sinusoidal", "none"] = "rope"
-    tie_embeddings: bool = False
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0                # >0 => enc-dec
+    encoder_seq: int = 1500                # audio frames after conv stub
 
+    # --- modality frontend stubs ---
+    frontend: Literal["none", "audio", "vision"] = "none"
+    vision_tokens: int = 256               # patch embeds prepended (vlm stub)
+
+    pos: Literal["rope", "sinusoidal", "none"] = "rope"
     rope_theta: float = 500_000.0
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False
     dtype: str = "bfloat16"
     # decode attends the packed KV cache with the fused kernel instead of
     # dequantizing the whole cache each step (engages for packed caches)
@@ -78,14 +81,6 @@ class ModelConfig:
     remat: bool = True                     # recompute each block in backward
 
     def __post_init__(self):
-        for field, bad, item in (
-                ("frontend", self.frontend != "none", "A13b / A13f"),
-                ("encoder_layers", self.encoder_layers != 0, "A13f"),
-                ("pos", self.pos == "sinusoidal", "A13f")):
-            if bad:
-                raise NotImplementedError(
-                    f"{self.name}: {field}={getattr(self, field)!r} is not "
-                    f"ported (ROADMAP {item})")
         if self.n_layers % len(self.pattern):
             raise ValueError(f"{self.name}: n_layers {self.n_layers} not a "
                              f"multiple of pattern {len(self.pattern)}")
@@ -99,6 +94,10 @@ class ModelConfig:
     @property
     def d_inner(self) -> int:              # mamba inner dim
         return self.ssm_expand * self.d_model
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
 
     @property
     def attn_positions(self) -> tuple[int, ...]:
@@ -141,6 +140,11 @@ class ModelConfig:
               "none": 0}
         for b in self.pattern:
             total += (per[b.mixer] + ff[b.ff] + 2 * D) * self.n_groups
+        if self.is_encdec:
+            # encoder self-attn + dense ff + cross-attn params in decoder
+            # blocks (the reference leaves out norm_cross and vision_proj)
+            total += self.encoder_layers * (per["attn"] + ff["dense"] + 2 * D)
+            total += self.n_layers * per["attn"]  # cross attention
         return total
 
 

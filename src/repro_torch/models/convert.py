@@ -13,7 +13,9 @@ The reference stacks the layers' leaves ``[G, ...]`` under
 ``blocks/b<i>/...``, one subtree per pattern position ``i``; the port
 keeps one tensor per layer, named ``blocks.<l>.<...>`` by
 ``Model.named_parameters()``, layer ``l = g * P + i`` for group ``g`` of a
-pattern of length ``P``. :func:`reference_path` maps a port name onto the
+pattern of length ``P``. The encoder's layers are stacked
+``[encoder_layers, ...]`` straight under ``encoder/blocks/...`` (no
+``b<i>`` level): ``encoder.blocks.<l>.<...>`` is index ``l`` there. :func:`reference_path` maps a port name onto the
 reference's path and group, and :func:`reference_layout` regroups a flat name -> tensor dict
 (the parameters, their moments, residuals or gradients) into the
 reference's leaves, each the list of its per-layer parts. The checkpoint
@@ -31,6 +33,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 
 _BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
+_ENC_BLOCK = re.compile(r"^encoder\.blocks\.(\d+)\.(.+)$")
 
 
 def reference_path(name: str, pattern_len: int
@@ -38,11 +41,15 @@ def reference_path(name: str, pattern_len: int
     """Port parameter name -> (reference leaf path, group index or None)
     for a pattern of ``pattern_len`` positions: ``blocks.3.mixer.wq`` ->
     (("blocks", "b0", "mixer", "wq"), 3) for P = 1 and (("blocks", "b1",
-    "mixer", "wq"), 1) for P = 2."""
+    "mixer", "wq"), 1) for P = 2; ``encoder.blocks.3.ff.up`` -> (("encoder",
+    "blocks", "ff", "up"), 3) for any P."""
     m = _BLOCK.match(name)
     if m:
         g, i = divmod(int(m[1]), pattern_len)
         return ("blocks", f"b{i}", *m[2].split(".")), g
+    m = _ENC_BLOCK.match(name)
+    if m:
+        return ("encoder", "blocks", *m[2].split(".")), int(m[1])
     return tuple(name.split(".")), None
 
 

@@ -1,6 +1,7 @@
 """Every model family of the reference (dense and MoE attention stacks,
-the mamba hybrid, xLSTM): parameters, caches, the train forward, prefill
-and decode (port of ``repro.models.model``).
+the mamba hybrid, xLSTM, whisper's encoder-decoder, internvl2's vision
+prefix): parameters, caches, the train forward, prefill and decode (port
+of ``repro.models.model``).
 
 Parameters live in an ``nn.Module`` tree with one :class:`Block` per layer
 (the reference stacks them ``[G, ...]`` per pattern position and scans;
@@ -11,6 +12,15 @@ mixer (attention, mamba, mLSTM or sLSTM) and, unless its ``ff`` is
 reference's ``[in, out]`` layout (``x @ w``) and its truncated-normal init;
 norms start at one. With ``tie_embeddings`` there is no ``lm_head``: the
 head is ``embed.T``.
+
+An encoder-decoder config (``encoder_layers > 0``) adds ``encoder``
+(``encoder_layers`` non-causal attention blocks and a norm, run by
+:func:`encode` over precomputed frame embeddings) and gives every decoder
+attention block a pre-norm cross-attention over the encoder's output
+(``cross_kv``); a vision config adds ``vision_proj``, which projects the
+patch embeddings put in front of the token stream. Sinusoidal positions
+(``pos="sinusoidal"``) are added to the token embeddings, before the
+prefix, as the reference adds them.
 
 Caches are the reference's ``{"b<i>": {...}}``, one entry per pattern
 position ``i``, each leaf with a leading group axis ``[G, B, ...]``: an
@@ -35,8 +45,9 @@ from repro_torch.core.f2p import F2PFormat
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
-from repro_torch.models.common import (rms_norm, softmax_cross_entropy,
-                                      swiglu, truncnorm_init)
+from repro_torch.models.common import (rms_norm, sinusoidal_positions,
+                                      softmax_cross_entropy, swiglu,
+                                      truncnorm_init)
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.moe import MoE
 
@@ -46,11 +57,16 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+# the sinusoidal table's length at decode (whisper's decode positions)
+MAX_POS = 65536
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, causal: bool = True):
         super().__init__()
         D, hd, H, K = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         dt = cfg.torch_dtype
+        self.causal = causal
         self.wq = _param((D, H * hd), dt, device)
         self.wk = _param((D, K * hd), dt, device)
         self.wv = _param((D, K * hd), dt, device)
@@ -70,7 +86,7 @@ class Attention(nn.Module):
               pages=None):
         return A.attention_apply(self.weights(), x, cfg, mode=mode,
                                  cache=cache, pos_offset=pos_offset,
-                                 pages=pages)[0]
+                                 causal=self.causal, pages=pages)[0]
 
 
 class FeedForward(nn.Module):
@@ -85,32 +101,45 @@ class FeedForward(nn.Module):
         return [(self.gate, 0.02), (self.up, 0.02), (self.down, 0.02)]
 
 
-_MIXERS = {"attn": Attention, "mamba": SSM.Mamba, "mlstm": XL.MLSTM,
-           "slstm": XL.SLSTM}
+_RECURRENT_MIXERS = {"mamba": SSM.Mamba, "mlstm": XL.MLSTM,
+                     "slstm": XL.SLSTM}
 
 
 class Block(nn.Module):
-    """Pre-norm block: the ``spec.mixer`` mixer, then a SwiGLU
-    (``ff="dense"``) or MoE FF, or none (``ff="none"``: no ``norm2``)."""
+    """Pre-norm block: the ``spec.mixer`` mixer, then (``cross``, attention
+    mixers only) a pre-norm cross-attention over the encoder's output, then
+    a SwiGLU (``ff="dense"``) or MoE FF, or none (``ff="none"``: no
+    ``norm2``). ``causal=False`` makes the attention mixer non-causal (the
+    encoder's blocks)."""
 
-    def __init__(self, cfg: ModelConfig, spec: BlockSpec, device):
+    def __init__(self, cfg: ModelConfig, spec: BlockSpec, device, *,
+                 cross: bool = False, causal: bool = True):
         super().__init__()
         dt = cfg.torch_dtype
         self.spec = spec
         self.norm1 = _param((cfg.d_model,), dt, device)
-        self.mixer = _MIXERS[spec.mixer](cfg, device)
+        self.mixer = (Attention(cfg, device, causal) if spec.mixer == "attn"
+                      else _RECURRENT_MIXERS[spec.mixer](cfg, device))
+        self.cross = None
+        if cross and spec.mixer == "attn":
+            self.norm_cross = _param((cfg.d_model,), dt, device)
+            self.cross = Attention(cfg, device)
         if spec.ff != "none":
             self.norm2 = _param((cfg.d_model,), dt, device)
             self.ff = (MoE(cfg, device) if spec.ff == "moe"
                        else FeedForward(cfg, device))
 
     def forward(self, x, cfg: ModelConfig, *, mode, cache=None, pos_offset=0,
-                pages=None):
+                pages=None, cross_kv=None):
         """Returns (x, the MoE aux loss or None)."""
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         h = self.mixer.apply(h, cfg, mode=mode, cache=cache,
                              pos_offset=pos_offset, pages=pages)
         x = x + h
+        if self.cross is not None and cross_kv is not None:
+            h = rms_norm(x, self.norm_cross, cfg.norm_eps)
+            x = x + A.attention_apply(self.cross.weights(), h, cfg,
+                                      mode="train", cross_kv=cross_kv)[0]
         if self.spec.ff == "none":
             return x, None
         h = rms_norm(x, self.norm2, cfg.norm_eps)
@@ -118,6 +147,18 @@ class Block(nn.Module):
             h, aux = self.ff(h, cfg)
             return x + h, aux["aux_loss"]
         return x + swiglu(h, self.ff.gate, self.ff.up, self.ff.down), None
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder: ``encoder_layers`` non-causal attention blocks
+    with dense FFs, then an RMS norm."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        spec = BlockSpec("attn", "dense")
+        self.blocks = nn.ModuleList(Block(cfg, spec, device, causal=False)
+                                    for _ in range(cfg.encoder_layers))
+        self.norm = _param((cfg.d_model,), cfg.torch_dtype, device)
 
 
 class Model(nn.Module):
@@ -132,8 +173,18 @@ class Model(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else _param((D, V), dt, device))
         P = len(cfg.pattern)
-        self.blocks = nn.ModuleList(Block(cfg, cfg.pattern[i % P], device)
-                                    for i in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, cfg.pattern[i % P], device, cross=cfg.is_encdec)
+            for i in range(cfg.n_layers))
+        self.encoder = Encoder(cfg, device) if cfg.is_encdec else None
+        self.vision_proj = (_param((D, D), dt, device)
+                            if cfg.frontend == "vision" else None)
+        # the sinusoidal rows of every position, cast to the model dtype (as
+        # the reference casts before it adds); not a parameter nor saved
+        self.register_buffer(
+            "pos_table", None if cfg.pos != "sinusoidal" else
+            torch.from_numpy(sinusoidal_positions(MAX_POS, D)).to(
+                device=device, dtype=dt), persistent=False)
 
     @property
     def device(self) -> torch.device:
@@ -150,7 +201,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     for embed, lm_head (none when tied) and every projection (x 0.01 for an
     MoE router, in f32, and the mLSTM gates; x 0.1 for the mamba conv),
     drawn in that order and layer by layer, each block's in the reference's
-    order (the mixer's leaves, then the FF's); ones for the norms and the
+    order (the mixer's leaves, the cross-attention's, then the FF's), then
+    the encoder's blocks and ``vision_proj``; ones for the norms and the
     reference's constants for the undrawn leaves (``init_fixed``)."""
     device = torch.device(device)
     model = Model(cfg, device)
@@ -165,15 +217,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
         if model.lm_head is not None:
             fill(model.lm_head)
         model.final_norm.fill_(1.0)
-        for blk in model.blocks:
+        enc = [] if model.encoder is None else list(model.encoder.blocks)
+        for blk in [*model.blocks, *enc]:
             blk.norm1.fill_(1.0)
             order = blk.mixer.init_order()
             blk.mixer.init_fixed()
+            if blk.cross is not None:
+                blk.norm_cross.fill_(1.0)
+                order += blk.cross.init_order()
             if blk.spec.ff != "none":
                 blk.norm2.fill_(1.0)
                 order += blk.ff.init_order()
             for w, scale in order:
                 fill(w, scale)
+        if model.encoder is not None:
+            model.encoder.norm.fill_(1.0)
+        if model.vision_proj is not None:
+            fill(model.vision_proj)
     return model
 
 
@@ -243,44 +303,101 @@ def layer_cache(caches, i: int, cfg: ModelConfig | None = None):
     return {name: one(c) for name, c in caches.items()}
 
 
+def _frames(frames, cfg: ModelConfig):
+    if frames is None:
+        # the reference fails here too (a KeyError on batch["frames"])
+        raise KeyError(f"frames: {cfg.name} is an encoder-decoder; pass the "
+                       "encoder's frame embeddings [B, encoder_seq, D]")
+    return frames
+
+
+def _embed(model: Model, tokens, cfg: ModelConfig):
+    """Token embeddings, plus the sinusoidal rows 0..S-1 (cast to the model
+    dtype first, as the reference) where ``pos="sinusoidal"``."""
+    x = model.embed[tokens]
+    if cfg.pos == "sinusoidal":
+        x = x + model.pos_table[:x.shape[1]]
+    return x
+
+
+def encode(model: Model, frames, cfg: ModelConfig | None = None):
+    """Whisper's encoder over precomputed frame embeddings ``[B, Se, D]``
+    (stub frontend): cast to the model dtype, plus sinusoidal positions,
+    non-causal blocks, then the RMS norm. Returns ``[B, Se, D]``, the
+    ``cross_kv`` of :func:`decode_step`."""
+    cfg = cfg or model.cfg
+    x = torch.as_tensor(frames, device=model.device).to(cfg.torch_dtype)
+    x = x + model.pos_table[:x.shape[1]]
+    for blk in model.encoder.blocks:
+        x, _ = blk(x, cfg, mode="train")
+    return rms_norm(x, model.encoder.norm, cfg.norm_eps)
+
+
+def _maybe_prefix(model: Model, x, patches, cfg: ModelConfig):
+    """Prepend the projected vision-patch embeddings (VLM stub frontend)."""
+    if cfg.frontend == "vision" and patches is not None:
+        pre = torch.as_tensor(patches, device=x.device).to(
+            cfg.torch_dtype) @ model.vision_proj
+        x = torch.cat([pre, x], dim=1)
+    return x
+
+
 def train_forward(model: Model, batch, cfg: ModelConfig | None = None):
-    """batch: tokens ``[B, S]``, labels ``[B, S]`` (-1 = masked). Returns
-    (loss, metrics): mean token CE + 0.01 x the MoE layers' summed aux
-    loss (0 for a dense stack), as the reference. With ``cfg.remat`` every
-    block is recomputed in the backward (``torch.utils.checkpoint``), so
-    only the block inputs stay alive between forward and backward."""
+    """batch: tokens ``[B, S]``, labels ``[B, S]`` (-1 = masked), and
+    ``frames`` (an encoder-decoder: required) or ``patches`` (a vision
+    config: optional; the labels are padded with -1 over the prefix).
+    Returns (loss, metrics): mean token CE + 0.01 x the MoE layers' summed
+    aux loss (0 for a dense stack), as the reference. With ``cfg.remat``
+    every decoder block is recomputed in the backward
+    (``torch.utils.checkpoint``), so only the block inputs stay alive
+    between forward and backward."""
     from torch.utils.checkpoint import checkpoint
 
     cfg = cfg or model.cfg
     dev = model.device
     tokens = torch.as_tensor(batch["tokens"], device=dev).to(torch.int64)
     labels = torch.as_tensor(batch["labels"], device=dev).to(torch.int64)
-    x = model.embed[tokens]
+    patches = batch.get("patches")
+    x = _maybe_prefix(model, _embed(model, tokens, cfg), patches, cfg)
+    cross_kv = (encode(model, _frames(batch.get("frames"), cfg), cfg)
+                if cfg.is_encdec else None)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for blk in model.blocks:
         if cfg.remat and torch.is_grad_enabled():
-            x, a = checkpoint(blk, x, cfg, mode="train", use_reentrant=False)
+            x, a = checkpoint(blk, x, cfg, mode="train", cross_kv=cross_kv,
+                              use_reentrant=False)
         else:
-            x, a = blk(x, cfg, mode="train")
+            x, a = blk(x, cfg, mode="train", cross_kv=cross_kv)
         if a is not None:
             aux = aux + a
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    if cfg.frontend == "vision" and patches is not None:
+        pad = torch.full((labels.shape[0], patches.shape[1]), -1,
+                         dtype=labels.dtype, device=dev)
+        labels = torch.cat([pad, labels], dim=1)
     loss = softmax_cross_entropy(x @ model.head(), labels)
     return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 @torch.inference_mode()
 def prefill(model: Model, tokens: torch.Tensor, caches, last_index=None,
-            cfg: ModelConfig | None = None):
+            cfg: ModelConfig | None = None, *, frames=None, patches=None):
     """Consume prompts ``[B, S]``: writes the caches in place and returns
     the last-token logits ``[B, V]`` (at ``last_index[b]`` when given, for
     bucket-padded prompts). ``cfg`` overrides ``model.cfg`` for serve-time
-    switches such as ``fused_attention``."""
+    switches such as ``fused_attention``. An encoder-decoder needs
+    ``frames`` ``[B, encoder_seq, D]`` (encoded here; pass :func:`encode`'s
+    output to :func:`decode_step` as ``cross_kv``); a vision config takes
+    ``patches`` ``[B, P, D]``, put in front of the tokens: the caches then
+    hold P + S positions, and ``last_index`` and the decode positions
+    count the prefix."""
     cfg = cfg or model.cfg
-    x = model.embed[tokens]
+    x = _maybe_prefix(model, _embed(model, tokens, cfg), patches, cfg)
+    cross_kv = (encode(model, _frames(frames, cfg), cfg) if cfg.is_encdec
+                else None)
     for i, blk in enumerate(model.blocks):
         x, _ = blk(x, cfg, mode="prefill", cache=layer_cache(caches, i, cfg),
-                   pos_offset=0)
+                   pos_offset=0, cross_kv=cross_kv)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if last_index is not None:
         li = torch.as_tensor(last_index, device=x.device).to(torch.int64)
@@ -292,15 +409,24 @@ def prefill(model: Model, tokens: torch.Tensor, caches, last_index=None,
 
 @torch.inference_mode()
 def decode_step(model: Model, token: torch.Tensor, pos, caches, pages=None,
-                cfg: ModelConfig | None = None):
+                cfg: ModelConfig | None = None, cross_kv=None):
     """One decode step: token ``[B, 1]``; ``pos`` a scalar write index or a
     per-slot ``[B]`` vector. With ``pages`` (``[B, max_pages]`` int32) the
     caches are pool slabs attended in place through the page table.
-    Returns logits ``[B, V]``; caches are updated in place."""
+    ``cross_kv`` (an encoder-decoder): :func:`encode`'s output, attended
+    by every decoder block's cross-attention (its K and V are projected
+    from it again at every step, as the reference does). Returns logits
+    ``[B, V]``; caches are updated in place."""
     cfg = cfg or model.cfg
     x = model.embed[token]
+    if cfg.pos == "sinusoidal":
+        table = model.pos_table
+        if isinstance(pos, torch.Tensor) and pos.ndim:   # per-slot [B]
+            x = x + table[pos.to(torch.int64)][:, None]
+        else:
+            x = x + table[int(pos)][None, None]
     for i, blk in enumerate(model.blocks):
         x, _ = blk(x, cfg, mode="decode", cache=layer_cache(caches, i, cfg),
-                   pos_offset=pos, pages=pages)
+                   pos_offset=pos, pages=pages, cross_kv=cross_kv)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return (x @ model.head())[:, 0]

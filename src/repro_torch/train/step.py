@@ -13,6 +13,8 @@ clears them.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models import init_params, train_forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -33,11 +35,17 @@ def init_train_state(cfg: ModelConfig, ocfg: adamw.AdamWConfig,
 
 def loss_and_grads(model, batch, cfg: ModelConfig):
     """Forward + backward: (loss, metrics, name -> gradient). Earlier
-    gradients are dropped first, so ``.grad`` holds this batch's only."""
+    gradients are dropped first, so ``.grad`` holds this batch's only. A
+    parameter the batch does not reach (``vision_proj`` of a text-only
+    batch) gets a zero gradient, as under ``jax.grad``, so AdamW's weight
+    decay still moves it as the reference's does."""
     for p in model.parameters():
         p.grad = None
     loss, metrics = train_forward(model, batch, cfg)
     loss.backward()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     grads = {n: p.grad for n, p in model.named_parameters()}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)

@@ -5,9 +5,8 @@ numpy from a seed).
 
 * Registry and configs: both full and smoke configs' analytic parameter
   counts equal the reference's exactly, the default policies equal its
-  (jamba's ``grad/*ff*`` at block 256), ``arch_for`` gives its family flags,
-  and a frontend, an encoder or sinusoidal positions still raise naming
-  A13b / A13f.
+  (jamba's ``grad/*ff*`` at block 256) and ``arch_for`` gives its family
+  flags.
 * Models: prefill and 6 decode steps' logits within 1e-4, greedy tokens
   equal; ``train_forward``'s loss within 1e-5 and every gradient within
   rtol = 1e-4 (atol 1e-4 x the leaf's largest gradient); jamba's paged
@@ -57,8 +56,8 @@ from repro.train import init_train_state as jinit_train_state
 from repro.train import make_train_step as jmake_train_step
 from repro_torch.configs import default_policy, full_config, smoke_config
 from repro_torch.launch import train as launch_train
-from repro_torch.models import (ModelConfig, decode_step, init_caches,
-                                init_params, prefill, train_forward)
+from repro_torch.models import (decode_step, init_caches, init_params,
+                                prefill, train_forward)
 from repro_torch.models.convert import (params_from_jax,
                                         recurrent_caches_from_jax,
                                         reference_layout, reference_numel,
@@ -118,16 +117,6 @@ def test_arch_for_flags_match_reference(arch, want):
            a.prefill_buckets)
     assert got == want == (j.name, j.paged_kv, j.recurrent_state,
                            j.exact_cobatch, j.prefill_buckets)
-
-
-@pytest.mark.parametrize("field,value,item", [
-    ("frontend", "vision", "A13b"), ("encoder_layers", 2, "A13f"),
-    ("pos", "sinusoidal", "A13f")])
-def test_frontend_encoder_and_sinusoidal_still_raise(field, value, item):
-    base = dataclasses.asdict(smoke_config(XLSTM))
-    base[field] = value
-    with pytest.raises(NotImplementedError, match=item):
-        ModelConfig(**base)
 
 
 # ---------------------------------------------------------------------------
