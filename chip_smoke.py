@@ -11,14 +11,16 @@ NVIDIA GPU.
     python3 chip_smoke.py --only families  # phases 1-2 and phase 10 (MoE, ...)
     python3 chip_smoke.py --only recurrent  # phases 1-2 and phase 11 (jamba, xLSTM)
     python3 chip_smoke.py --only frontends  # phases 1-2 and phase 12 (whisper, internvl2)
+    python3 chip_smoke.py --only moe_train  # phases 1-2 and phase 13 (MoE trained)
 
 With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
 unpacked``, ``--only fl``, ``--only families``, ``--only recurrent``,
-``--only frontends``) the script runs the device and build phases and
-phase 3's dequant matmul, B7/B8 (attention, B1/B2; the packed codec,
-B3/B4; the unpacked codec, B5 and its round trip and B6; phase 9; phase
-10; phase 11; phase 12), prints their lines and ends without the final
-``{"ok": ...}`` line, so it never stands in for a full run.
+``--only frontends``, ``--only moe_train``) the script runs the device and
+build phases and phase 3's dequant matmul, B7/B8 (attention, B1/B2; the
+packed codec, B3/B4; the unpacked codec, B5 and its round trip and B6;
+phase 9; phase 10; phase 11; phase 12; phase 13), prints their lines and
+ends without the final ``{"ok": ...}`` line, so it never stands in for a
+full run.
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -284,17 +286,50 @@ Phases (any failed check raises, so the script exits non-zero):
    and a fused decode step beside the weight-read bound and profiles it.
    (d) Both smoke configs in f32 on the card against the CPU (frames or
    patches seeded): logits within 1e-3, greedy tokens equal.
+13. moe_train — the MoE family trained; the launch counters are zeroed
+   before (a) and read after (c). (a) llama4-scout at full width (d 5120,
+   40 / 8 heads, expert d_ff 8192, vocab 202048, top-1 + the shared
+   expert, capacity 1.25, bf16, random weights from seed 0) cut to 1
+   layer (its whole pattern) and 8 of its 16 experts, which the card's 80
+   GB force (the train state's reckoning is printed): 6 steps of
+   make_train_step with the train CLI's configs on data.host_batch (batch
+   8 x seq 128). Asserts finite losses, one launch of B5's round trip and
+   no per-leaf B5 / B6 launch per step, and step 0's compressed gradients
+   and residuals (the 3-D expert leaves among them) bitwise equal to the
+   plain round trip on g and r as autograd hands them over. Prints the
+   compressed leaf count, ms per step and tokens/s over steps 2-5, the
+   peak allocated beside the reckoning, step 1's device busy share and
+   its split by kernel group, and each step's share of routed
+   assignments that capacity dropped (from the MoE modules' load). (b)
+   Smoke scout, maverick and jamba (f32; jamba's is the card's only run
+   of the mamba scan's backward) trained 3 steps with the CLI's configs
+   on the card and on the CPU from the same weights: losses within 1e-5
+   relative, every parameter leaf after step 3 within 1e-4 relative in
+   norm and its move off the shared start (the three updates) within
+   1e-2, one round-trip launch per card step (asserted); after step 2
+   the card's state is checkpointed as the CLI's checkpointer does (F2P16
+   payloads through B5's codes mode), but from leaves of 4096 elements up
+   (no smoke jamba leaf reaches the default 65536), and restored into a
+   fresh state
+   (B6): every compressed leaf equal to the plain codec's round trip,
+   every raw leaf to the saved bits, one B5 and one B6 launch per
+   compressed layer part (asserted). (c) The train forward's
+   attn_impl="chunked" (chunk 48 over 128 positions) on smoke
+   llama3.2-3b (f32, dense): loss within 1e-5 and every gradient leaf
+   within 1e-4 in norm of naive on the card and of chunked on the CPU.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
 line, one ``{"fl": {...}}`` JSON line, one ``{"families": {...}}`` JSON
 line, one ``{"recurrent": {...}}`` JSON line, one ``{"frontends":
-{...}}`` JSON line, one ``{"kernels": [...]}``
+{...}}`` JSON line, one ``{"moe_train": {...}}`` JSON line, one
+``{"kernels": [...]}``
 JSON line (all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as
 a row of its own; B5's codes mode and B6 count the launches of phase 8's
 checkpoint save and restore; B3-B6 also carry ``fl_launches``, phase 9's,
 B1-B4 ``families_launches``, phase 10's, and B1-B3 and the round trip
 ``recurrent_launches``, phase 11's, B1-B4 ``frontends_launches``, phase
-12's), then the
+12's, B5's codes mode, its round trip and B6 ``moe_train_launches``,
+phase 13's), then the
 nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
 copy of the results goes to chiprun_out/chip_smoke.json.
 """
@@ -369,6 +404,26 @@ FRONTEND_SHAPES = (
     (20, 1, 64, "f2p_sr_1_8s", WHISPER_ROWS, WHISPER_MAX_SEQ, WHISPER_PROMPT),
     (2, 7, 64, "f2p_sr_2_8s", VLM_ROWS, VLM_MAX_SEQ,
      VLM_PATCHES + VLM_PROMPT))
+# phase 13: the MoE family trained; scout at full width cut to 1 layer (its
+# whole pattern) and 8 of its 16 experts: the port's train state is 16 bytes
+# a parameter (bf16 parameter and gradient, f32 mu, nu and error-feedback
+# residual), 52.2 GB at 3.26B parameters, plus AdamW's f32 temporaries on
+# the [202048, 5120] embedding; with 16 experts it is 68.3 GB and those
+# temporaries push it past the card's 80
+MOE_ARCHS = ("llama4_scout_17b", "llama4_maverick_400b", "jamba_1_5_large")
+MOE_TRAIN_EXPERTS, MOE_TRAIN_STEPS, MOE_SMOKE_STEPS = 8, 6, 3
+# the smoke checkpoints' min_size: at the checkpointer's default (65536) no
+# leaf of smoke jamba's state is large enough (8 positions of one group each)
+MOE_SMOKE_CKPT_MIN_SIZE = 4096
+# 13(b)'s limits, card against CPU: the losses (1.53e-7 apart on an H100),
+# every leaf after the last step and its move off the start, in norm. The
+# CPU alone, at 1 against 4 threads, moves a leaf by up to 1.2e-5 and its
+# move by up to 4.3e-4 (near-zero gradients flip AdamW's first-step sign,
+# F2P8 codes land on neighbours); a wrong gradient moves a leaf's move O(1)
+MOE_SMOKE_LOSS_TOL, MOE_SMOKE_LEAF_TOL, MOE_SMOKE_MOVE_TOL = 1e-5, 1e-4, 1e-2
+# 13(c): the chunk (it does not divide TRAIN_SEQ) and the limits of the
+# chunked train forward's loss and gradients (f32, in norm)
+MOE_CHUNK, MOE_CHUNK_LOSS_TOL, MOE_CHUNK_GRAD_TOL = 48, 1e-5, 1e-4
 # phase 9: federated learning, examples/fed_avg.py's defaults and README's
 # fleet deployment; the FL leaf shapes' formats (a 6-bit candidate of
 # candidate_formats(n_bits=(6, 8)) beside the 8-bit wire format) and blocks
@@ -2502,6 +2557,50 @@ class StepStalls:
         gc.callbacks.remove(self._gc)
 
 
+class Step0RoundTrip:
+    """Holds a train step's compressed gradients and residuals to the plain
+    round trip: post-accumulate-grad hooks apply ``ef_roundtrip_plain`` on
+    the card to each compressed leaf's g and r as autograd hands them over
+    (before the step compresses them) and keep the result on the host;
+    :meth:`check`, after the step, removes the hooks and asserts each
+    leaf's gradient and residual equal to it, bitwise. Returns the count."""
+
+    def __init__(self, model, res, ccfg):
+        from repro_torch.kernels import f2p_quant as Q
+
+        self.model, self.res, self.want = model, res, {}
+
+        def hook(name):
+            def fn(p):
+                wg, wr = p.grad.clone(), res[name].clone()
+                Q.ef_roundtrip_plain(wg, wr, ccfg.fmt, ccfg.block)
+                self.want[name] = (wg.cpu(), wr.cpu())
+            return fn
+
+        self.handles = [p.register_post_accumulate_grad_hook(hook(n))
+                        for n, p in model.named_parameters()
+                        if res[n] is not None]
+
+    def check(self, tag: str) -> int:
+        import torch
+
+        for h in self.handles:
+            h.remove()
+        assert len(self.want) == len(self.handles), \
+            f"{tag}: {len(self.want)} of {len(self.handles)} leaves hooked"
+        for name, p in self.model.named_parameters():
+            if name in self.want:
+                wg, wr = self.want[name]
+                assert torch.equal(_bits(p.grad), _bits(wg.to(p.device))), \
+                    f"{tag}: compressed gradient of {name} != plain round trip"
+                assert torch.equal(_bits(self.res[name]),
+                                   _bits(wr.to(p.device))), \
+                    f"{tag}: residual of {name} != plain g + r - q"
+        n = len(self.want)
+        self.want.clear()
+        return n
+
+
 def train_phase(dev, launches) -> dict:
     """(a): 8 steps of the full-depth trainer on the card."""
     import gc
@@ -2512,7 +2611,6 @@ def train_phase(dev, launches) -> dict:
     from repro_torch.configs import full_config
     from repro_torch.data import host_batch
     from repro_torch.kernels import cuda as C
-    from repro_torch.kernels import f2p_quant as Q
     from repro_torch.train import init_train_state, make_train_step
 
     cfg = full_config(ARCH)
@@ -2531,20 +2629,7 @@ def train_phase(dev, launches) -> dict:
         f"{len(res)} gradient leaves compressed ({ccfg.fmt.n_bits}-bit, "
         f"block {ccfg.block})")
 
-    # step 0: the plain round trip applied to each g and r as autograd hands
-    # the gradient over (before the step compresses it): the gradient q(g +
-    # r) and the residual g + r - q, kept on the host
-    want = {}
-
-    def hook(name):
-        def fn(p):
-            wg, wr = p.grad.clone(), res[name].clone()
-            Q.ef_roundtrip_plain(wg, wr, ccfg.fmt, ccfg.block)
-            want[name] = (wg.cpu(), wr.cpu())
-        return fn
-
-    handles = [p.register_post_accumulate_grad_hook(hook(n))
-               for n, p in model.named_parameters() if res[n] is not None]
+    step0 = Step0RoundTrip(model, res, ccfg)
     step_fn = make_train_step(cfg, ocfg, ccfg)
     losses, step_s, per_step, prof_res, stalls = [], [], [], None, []
     C.reset_launches()
@@ -2583,17 +2668,7 @@ def train_phase(dev, launches) -> dict:
             (f"step {step}: {nrt} round-trip launches (1 wanted), B5 {nq} / "
              f"B6 {nd} per-leaf launches (0 wanted), {n_comp} leaves")
         if step == 0:
-            for h in handles:
-                h.remove()
-            assert len(want) == n_comp
-            for n, p in model.named_parameters():
-                if n in want:
-                    wg, wr = want[n]
-                    assert torch.equal(_bits(p.grad), _bits(wg.to(dev))), \
-                        f"step 0: compressed gradient of {n} != plain codec"
-                    assert torch.equal(_bits(res[n]), _bits(wr.to(dev))), \
-                        f"step 0: residual of {n} != plain g + r - q"
-            want.clear()
+            assert step0.check("step 0") == n_comp
             log(f"train    : step 0 compressed gradients and residuals == "
                 f"plain round trip on g + r, bitwise, all {n_comp} leaves")
         st = stalls[-1]
@@ -2645,9 +2720,7 @@ def train_resume_phase(dev) -> dict:
     import torch
 
     from repro_torch.configs import full_config
-    from repro_torch.core.f2p import F2PFormat, Flavor
     from repro_torch.kernels import cuda as C
-    from repro_torch.kernels import f2p_quant as Q
     from repro_torch.launch.train import run
     from repro_torch.train import checkpoint, init_train_state
 
@@ -2677,27 +2750,7 @@ def train_resume_phase(dev) -> dict:
         restore_launches = dict(C.LAUNCHES)
         assert int(fresh["opt"]["step"]) == 2
         saved, got = checkpoint.flatten(state), checkpoint.flatten(fresh)
-        assert saved.keys() == got.keys() == index.keys()
-        n_q = 0
-        for name, e in index.items():
-            a_parts = list(saved[name]) if isinstance(saved[name], list) \
-                else [saved[name]]
-            b_parts = list(got[name]) if isinstance(got[name], list) \
-                else [got[name]]
-            for a, b in zip(a_parts, b_parts):
-                if e["codec"] == "qtensor":
-                    fmt = F2PFormat(e["fmt"]["n_bits"], e["fmt"]["h_bits"],
-                                    Flavor(e["fmt"]["flavor"]),
-                                    e["fmt"]["signed"])
-                    w = a.detach().clone(
-                        memory_format=torch.contiguous_format)
-                    Q.ef_roundtrip_plain(w, None, fmt, e["block"], False)
-                    assert torch.equal(_bits(b), _bits(w)), \
-                        f"restored {name} != plain 16-bit round trip"
-                else:
-                    assert torch.equal(_bits(a.detach()), _bits(b.detach())), \
-                        f"restored raw leaf {name} differs"
-            n_q += e["codec"] == "qtensor"
+        n_q, _ = check_restored(saved, got, index)
         log(f"train    : checkpoint step 2: {disk} B on disk ({free / 1e9:.0f}"
             f" GB free), {n_q} F2P16 leaves + {len(index) - n_q} raw; "
             f"snapshot {info['ckpt']['snapshot_s'][-1]:.2f} s + write "
@@ -3807,7 +3860,6 @@ def xlstm_train_phase(dev) -> dict:
     from repro_torch.configs import full_config
     from repro_torch.data import host_batch
     from repro_torch.kernels import cuda as C
-    from repro_torch.kernels import f2p_quant as Q
     from repro_torch.launch.train import parse_args
     from repro_torch.launch.train import train_configs as cli_configs
     from repro_torch.train import init_train_state, make_train_step
@@ -3827,17 +3879,7 @@ def xlstm_train_phase(dev) -> dict:
     assert {n for n, r in res.items() if r is not None} == \
         {n for n, k in stacked.items() if k >= ccfg.min_size}, \
         "xLSTM: the compressed leaves are not those of the stacked sizes"
-    want = {}
-
-    def hook(name):
-        def fn(p):
-            wg, wr = p.grad.clone(), res[name].clone()
-            Q.ef_roundtrip_plain(wg, wr, ccfg.fmt, ccfg.block)
-            want[name] = (wg.cpu(), wr.cpu())
-        return fn
-
-    handles = [p.register_post_accumulate_grad_hook(hook(n))
-               for n, p in model.named_parameters() if res[n] is not None]
+    step0 = Step0RoundTrip(model, res, ccfg)
     step_fn = make_train_step(cfg, ocfg, ccfg)
     losses, step_ms = [], []
     for step in range(XLSTM_TRAIN_STEPS):
@@ -3857,18 +3899,7 @@ def xlstm_train_phase(dev) -> dict:
         assert n == {"ef_roundtrip": 1, "quantize": 0, "dequantize": 0}, \
             f"xLSTM step {step}: launches {n} ({n_comp} leaves)"
         if step == 0:
-            for h in handles:
-                h.remove()
-            assert len(want) == n_comp
-            for name, p in model.named_parameters():
-                if name in want:
-                    wg, wr = want[name]
-                    assert torch.equal(_bits(p.grad), _bits(wg.to(dev))), \
-                        f"xLSTM step 0: compressed gradient of {name} != " \
-                        "plain round trip"
-                    assert torch.equal(_bits(res[name]), _bits(wr.to(dev))), \
-                        f"xLSTM step 0: residual of {name} != plain g + r - q"
-            want.clear()
+            assert step0.check("xLSTM step 0") == n_comp
             log(f"recurrent: xLSTM step 0 compressed gradients and residuals "
                 f"== plain round trip on g + r, bitwise, all {n_comp} leaves "
                 f"(stacked by the {len(cfg.pattern)}-position pattern)")
@@ -4383,6 +4414,427 @@ def frontends_summary(fr: dict) -> dict:
         small=fr["small"], launches=fr["launches"], seconds=fr["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training the MoE family
+# ---------------------------------------------------------------------------
+def train_state_bytes(cfg, ccfg) -> dict:
+    """The train state's bytes by the port's layout: each parameter and its
+    gradient in its own dtype (the router f32, the rest ``cfg.dtype``), f32
+    ``mu`` and ``nu``, and an f32 error-feedback residual for each leaf
+    whose stacked reference size reaches ``ccfg.min_size``; beside it the
+    f32 temporaries AdamW's update takes on the largest leaf (three)."""
+    from repro_torch.models.convert import reference_numel
+    from repro_torch.models.model import Model
+
+    named = dict(Model(cfg, "meta").named_parameters())
+    sizes = reference_numel(named, len(cfg.pattern))
+    state = sum(p.numel() * (2 * p.element_size() + 8
+                             + 4 * (sizes[n] >= ccfg.min_size))
+                for n, p in named.items())
+    largest = max(p.numel() for p in named.values())
+    return dict(params=sum(p.numel() for p in named.values()),
+                state=state, adamw_temporaries=3 * 4 * largest)
+
+
+def check_restored(saved: dict, got: dict, index: dict) -> tuple[int, int]:
+    """Every restored leaf of a checkpoint against what was saved: a
+    compressed one equals the plain codec's round trip of the saved leaf
+    (its format and block from the index), a raw one the saved bits.
+    ``saved`` and ``got`` are ``checkpoint.flatten`` dicts. Returns the
+    number of compressed leaves and of their per-layer parts (each part is
+    quantized and restored on its own)."""
+    import torch
+
+    from repro_torch.core.f2p import F2PFormat, Flavor
+    from repro_torch.kernels import f2p_quant as Q
+
+    assert saved.keys() == got.keys() == index.keys()
+    n_q = n_parts = 0
+    for name, e in index.items():
+        a_parts = list(saved[name]) if isinstance(saved[name], list) \
+            else [saved[name]]
+        b_parts = list(got[name]) if isinstance(got[name], list) \
+            else [got[name]]
+        for a, b in zip(a_parts, b_parts):
+            if e["codec"] == "qtensor":
+                fmt = F2PFormat(e["fmt"]["n_bits"], e["fmt"]["h_bits"],
+                                Flavor(e["fmt"]["flavor"]),
+                                e["fmt"]["signed"])
+                w = a.detach().clone(memory_format=torch.contiguous_format)
+                Q.ef_roundtrip_plain(w, None, fmt, e["block"], False)
+                assert torch.equal(_bits(b), _bits(w)), \
+                    f"restored {name} != plain 16-bit round trip"
+            else:
+                assert torch.equal(_bits(a.detach()), _bits(b.detach())), \
+                    f"restored raw leaf {name} differs"
+        if e["codec"] == "qtensor":
+            n_q += 1
+            n_parts += len(a_parts)
+    return n_q, n_parts
+
+
+def moe_scout_train(dev) -> dict:
+    """13(a): llama4-scout at full width, 1 layer (its whole pattern) and
+    MOE_TRAIN_EXPERTS of its 16 experts, through make_train_step with the
+    train CLI's configs: MOE_TRAIN_STEPS steps of batch 8 x seq 128. One
+    round-trip launch per step and no per-leaf B5 / B6 launch, step 0's
+    compressed gradients and residuals equal to the plain round trip on g
+    and r as autograd hands them over (post-accumulate-grad hooks; the 3-D
+    expert leaves among them), finite losses (asserted). Prints ms per step
+    and tokens/s over steps 2-5, the peak allocated beside the state's
+    reckoning, step 1's device busy share and its split by kernel group,
+    and each step's share of routed assignments that capacity dropped (from
+    the MoE modules' load)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import full_config
+    from repro_torch.data import host_batch
+    from repro_torch.kernels import cuda as C
+    from repro_torch.launch.train import train_configs as cli_configs
+    from repro_torch.models import moe as MOE
+    from repro_torch.train import init_train_state, make_train_step
+
+    full = full_config(MOE_ARCHS[0])
+    cfg = dataclasses.replace(full, n_layers=len(full.pattern),
+                              n_experts=MOE_TRAIN_EXPERTS)
+    ocfg, ccfg, dcfg, _ = cli_configs(cfg, arch=MOE_ARCHS[0],
+                                      steps=MOE_TRAIN_STEPS,
+                                      global_batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    reck = train_state_bytes(cfg, ccfg)
+    reck16 = train_state_bytes(dataclasses.replace(
+        cfg, n_experts=full.n_experts), ccfg)
+    log(f"moe_train: {cfg.name} cut to {cfg.n_layers} layer (its whole "
+        f"pattern) and {cfg.n_experts} of {full.n_experts} experts: "
+        f"{reck['params'] / 1e9:.2f}B parameters, train state "
+        f"{reck['state'] / 1e9:.1f} GB + {reck['adamw_temporaries'] / 1e9:.1f}"
+        f" GB of AdamW temporaries on the largest leaf (with "
+        f"{full.n_experts} experts {reck16['state'] / 1e9:.1f} + "
+        f"{reck16['adamw_temporaries'] / 1e9:.1f} GB) against the card's 80")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, ocfg, ccfg, seed=0, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    model, res = state["params"], state["residuals"]
+    n_comp = sum(r is not None for r in res.values())
+    T = TRAIN_BATCH * TRAIN_SEQ
+    cap = MOE.capacity(T, cfg)
+    log(f"moe_train: d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"expert d_ff={cfg.d_ff} V={cfg.vocab_size} top-"
+        f"{cfg.experts_per_token} + {cfg.n_shared_experts} shared, capacity "
+        f"{cfg.capacity_factor} ({cap} slots of {T} tokens), {cfg.dtype}, "
+        f"remat {cfg.remat}; state on the card in {init_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB; {n_comp} of "
+        f"{len(res)} gradient leaves compressed ({ccfg.fmt.n_bits}-bit, "
+        f"block {ccfg.block})")
+    step0 = Step0RoundTrip(model, res, ccfg)
+    tap = {}      # (module, step) -> its first call's load (remat recomputes)
+    step_now = [0]
+
+    def on_moe(mod, args, out):
+        tap.setdefault((id(mod), step_now[0]), out[1]["load"].detach())
+
+    moes = [m for m in model.modules() if isinstance(m, MOE.MoE)]
+    taps = [m.register_forward_hook(on_moe) for m in moes]
+    step_fn = make_train_step(cfg, ocfg, ccfg)
+    losses, step_s, drops, prof_res = [], [], [], None
+    for step in range(MOE_TRAIN_STEPS):
+        step_now[0] = step
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in host_batch(dcfg, step).items()}
+        before = dict(C.LAUNCHES)
+        ctx = profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) \
+            if step == 1 else contextlib.nullcontext()
+        with ctx as prof:
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss = float(m["loss"])
+            sync(dev)
+            dt = time.perf_counter() - t
+        if prof is not None:
+            prof_res = device_profile(prof, dt * 1e6, ("ef_roundtrip_kernel",
+                                                       "quantize_kernel"))
+            del prof
+            gc.collect()
+        step_s.append(dt)
+        losses.append(loss)
+        n = {k: C.LAUNCHES[k] - before[k] for k in ("ef_roundtrip",
+                                                    "quantize", "dequantize")}
+        loads = [tap[(id(mo), step)] for mo in moes]
+        dropped = sum(float(MOE.dropped(cap, ld)) for ld in loads)
+        routed = sum(float(ld.sum()) for ld in loads)
+        drops.append(dropped / routed)
+        assert math.isfinite(loss), f"scout step {step}: loss {loss}"
+        assert n == {"ef_roundtrip": 1, "quantize": 0, "dequantize": 0}, \
+            f"scout step {step}: launches {n} ({n_comp} leaves)"
+        if step == 0:
+            assert step0.check("scout step 0") == n_comp
+            log(f"moe_train: step 0 compressed gradients and residuals == "
+                f"plain round trip on g + r, bitwise, all {n_comp} leaves "
+                f"(the [{cfg.n_experts}, {cfg.d_model}, {cfg.d_ff}] expert "
+                "leaves among them)")
+        log(f"moe_train: scout step {step} loss {loss:.4f} gnorm "
+            f"{float(m['grad_norm']):.3f} {dt * 1e3:.1f} ms, round trip "
+            f"{n['ef_roundtrip']} (B5 {n['quantize']} B6 {n['dequantize']}), "
+            f"capacity dropped {int(dropped)} of {int(routed)} routed "
+            f"assignments ({100 * drops[-1]:.2f}%)"
+            + (" (profiled)" if step == 1 else ""))
+    for h in taps:
+        h.remove()
+    peak = torch.cuda.max_memory_allocated()
+    steady = step_s[2:]
+    ms = 1e3 * sum(steady) / len(steady)
+    tok_s = T / (ms / 1e3)
+    log_profile("scout train step 1", prof_res)
+    log(f"moe_train: steps 2-{MOE_TRAIN_STEPS - 1}: {ms:.1f} ms per step, "
+        f"{tok_s:.0f} tokens/s; peak allocated {peak / 1e9:.2f} GB (state "
+        f"reckoned {reck['state'] / 1e9:.1f} GB + "
+        f"{reck['adamw_temporaries'] / 1e9:.1f} GB of AdamW temporaries); "
+        f"device busy {100 * (prof_res['device_busy_share'] or 0):.1f}% of "
+        f"step 1")
+    out = dict(arch=cfg.name, layers=cfg.n_layers,
+               experts=f"{cfg.n_experts} of {full.n_experts}",
+               params=reck["params"], state_bytes=reck["state"],
+               adamw_temporaries=reck["adamw_temporaries"],
+               state_bytes_16_experts=reck16["state"], batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, capacity=cap, init_s=init_s, losses=losses,
+               step_ms=[1e3 * x for x in step_s], ms_per_step=ms,
+               tokens_per_s=tok_s, peak_alloc_bytes=peak,
+               compressed_leaves=n_comp, drop_share=drops,
+               busy_share=prof_res["device_busy_share"],
+               groups_ms=prof_res["groups_ms"], profile=prof_res)
+    del state, model, res, step_fn, moes, tap
+    return out
+
+
+def moe_smoke_train(dev, arch) -> dict:
+    """13(b): smoke ``arch`` (f32) trained MOE_SMOKE_STEPS steps with the
+    train CLI's configs on the card and on the CPU from the same weights
+    (seed 0, made on the CPU): losses within 1e-3 relative, one round-trip
+    launch per card step (asserted); after step 2 the card's state is saved
+    with the CLI checkpointer's settings (F2P16 through B5's codes mode, the
+    arch's policy) but leaves of MOE_SMOKE_CKPT_MIN_SIZE elements up, and
+    restored into a fresh state (through B6), each leaf bitwise against
+    the plain codec's round trip or the saved bits; then step 3 runs on."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import host_batch
+    from repro_torch.kernels import cuda as C
+    from repro_torch.launch.train import train_configs as cli_configs
+    from repro_torch.models import init_params
+    from repro_torch.train import checkpoint, init_train_state, make_train_step
+
+    cfg = smoke_config(arch)
+    ocfg, ccfg, dcfg, policy = cli_configs(
+        cfg, arch=arch, steps=MOE_SMOKE_STEPS, global_batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ)
+    weights = init_params(cfg, seed=0, device="cpu").state_dict()
+    devs = {"host": "cpu", "card": dev}
+    states = {}
+    for w, d in devs.items():
+        states[w] = init_train_state(cfg, ocfg, ccfg, seed=0, device=d)
+        states[w]["params"].load_state_dict(weights)
+    step_fn = make_train_step(cfg, ocfg, ccfg)
+    losses = {"host": [], "card": []}
+    ck = tempfile.mkdtemp(prefix="chip_smoke_moe_ckpt_")
+    try:
+        for step in range(MOE_SMOKE_STEPS):
+            batch = host_batch(dcfg, step)
+            for w, d in devs.items():
+                before = C.LAUNCHES["ef_roundtrip"]
+                states[w], m = step_fn(states[w], {
+                    k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+                losses[w].append(float(m["loss"]))
+                if w == "card":
+                    nrt = C.LAUNCHES["ef_roundtrip"] - before
+                    assert nrt == 1, f"{arch} step {step}: {nrt} round trips"
+            if step == 1:      # the state of step 2: saved and restored
+                q0, d0 = C.LAUNCHES["quantize"], C.LAUNCHES["dequantize"]
+                checkpoint.save(ck, 2, states["card"], compress=True,
+                                policy=policy,
+                                min_size=MOE_SMOKE_CKPT_MIN_SIZE)
+                save_q = C.LAUNCHES["quantize"] - q0
+                with open(os.path.join(ck, "step_2", "index.json")) as f:
+                    index = _json.load(f)["leaves"]
+                fresh = init_train_state(cfg, ocfg, ccfg, seed=1, device=dev)
+                checkpoint.restore(ck, fresh)
+                sync(dev)
+                restore_d = C.LAUNCHES["dequantize"] - d0
+                assert int(fresh["opt"]["step"]) == 2
+                n_q, n_parts = check_restored(
+                    checkpoint.flatten(states["card"]),
+                    checkpoint.flatten(fresh), index)
+                assert save_q == restore_d == n_parts > 0, \
+                    (f"{arch}: {save_q} B5 codes launches at save, "
+                     f"{restore_d} B6 at restore, {n_q} F2P16 leaves in "
+                     f"{n_parts} parts")
+                del fresh
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    got, want = losses["card"], losses["host"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    assert all(math.isfinite(x) for x in got) and rel <= MOE_SMOKE_LOSS_TOL, \
+        f"{arch}: card losses {got} vs CPU {want}"
+    # every leaf after the last step, and its move off the shared start
+    # (the three steps' updates: a wrong gradient shows there even where
+    # the losses hardly move), card against CPU, relative in norm
+    host = dict(states["host"]["params"].named_parameters())
+    leaf_rel, move_rel = {}, {}
+    for name, p in states["card"]["params"].named_parameters():
+        c, h = p.detach().float().cpu(), host[name].detach().float()
+        w0 = weights[name].float()
+        leaf_rel[name] = rel_norm(c, h)
+        move_rel[name] = rel_norm(c - w0, h - w0)
+    worst_leaf = max(leaf_rel, key=leaf_rel.get)
+    worst_move = max(move_rel, key=move_rel.get)
+    assert leaf_rel[worst_leaf] <= MOE_SMOKE_LEAF_TOL and \
+        move_rel[worst_move] <= MOE_SMOKE_MOVE_TOL, \
+        (f"{arch}: leaf {worst_leaf} {leaf_rel[worst_leaf]:.2e}, move "
+         f"{worst_move} {move_rel[worst_move]:.2e}")
+    log(f"moe_train: smoke {cfg.name} {MOE_SMOKE_STEPS} steps card vs CPU "
+        f"losses {[round(x, 6) for x in got]} / "
+        f"{[round(x, 6) for x in want]} (max rel {rel:.2e} <= "
+        f"{MOE_SMOKE_LOSS_TOL:g}); {len(leaf_rel)} leaves after step "
+        f"{MOE_SMOKE_STEPS}: max rel in norm {leaf_rel[worst_leaf]:.2e} "
+        f"({worst_leaf}) <= {MOE_SMOKE_LEAF_TOL:g}, their moves "
+        f"{move_rel[worst_move]:.2e} ({worst_move}) <= "
+        f"{MOE_SMOKE_MOVE_TOL:g}; one "
+        f"round trip per step; checkpoint at step 2: {n_q} F2P16 leaves "
+        f"in {n_parts} layer parts ({save_q} B5 codes launches at save, "
+        f"{restore_d} B6 at restore) "
+        f"== plain round trip, {len(index) - n_q} raw, bitwise")
+    del states
+    return dict(losses=got, cpu_losses=want, max_rel=rel,
+                leaf_max_rel=leaf_rel[worst_leaf], leaf_worst=worst_leaf,
+                move_max_rel=move_rel[worst_move], move_worst=worst_move,
+                f2p16_leaves=n_q,
+                raw_leaves=len(index) - n_q, save_launches=save_q,
+                restore_launches=restore_d)
+
+
+def rel_norm(a, b) -> float:
+    """|a - b| / |b| in the 2-norm; 0 where both are 0."""
+    nb, nd = float(b.norm()), float((a - b).norm())
+    return nd / nb if nb else (0.0 if nd == 0 else math.inf)
+
+
+def chunked_train_check(dev) -> dict:
+    """13(c): the train forward's ``attn_impl="chunked"`` on the card.
+    Smoke llama3.2-3b (f32, dense: no routing to flip on a rounding) with a
+    chunk of MOE_CHUNK over the CLI's 8 x 128 batch: loss and every
+    gradient leaf, chunked on the card against naive on the card and
+    against chunked on the CPU (same weights, seed 0), relative in norm.
+    Launches no F2P kernel."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.models import init_params
+    from repro_torch.train import loss_and_grads
+
+    base = smoke_config(ARCH)
+    batch = host_batch(DataConfig(vocab_size=base.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH), 0)
+    weights = init_params(base, seed=0, device="cpu").state_dict()
+    runs = {}
+    for tag, impl, d in (("card_chunked", "chunked", dev),
+                         ("card_naive", "naive", dev),
+                         ("cpu_chunked", "chunked", "cpu")):
+        cfg = dataclasses.replace(base, attn_impl=impl, attn_chunk=MOE_CHUNK)
+        model = init_params(cfg, seed=0, device=d)
+        model.load_state_dict(weights)
+        model.requires_grad_(True)
+        loss, _, g = loss_and_grads(model, {
+            k: torch.from_numpy(v).to(d) for k, v in batch.items()}, cfg)
+        runs[tag] = (float(loss), {n: t.detach().float().cpu()
+                                   for n, t in g.items()})
+        del model, g
+    out = {}
+    for other in ("card_naive", "cpu_chunked"):
+        (lc, gc_), (lo, go) = runs["card_chunked"], runs[other]
+        lrel = abs(lc - lo) / abs(lo)
+        grel = {n: rel_norm(gc_[n], go[n]) for n in gc_}
+        worst = max(grel, key=grel.get)
+        assert math.isfinite(lc) and lrel <= MOE_CHUNK_LOSS_TOL and \
+            grel[worst] <= MOE_CHUNK_GRAD_TOL, \
+            (f"chunked on the card vs {other}: loss {lc} / {lo}, "
+             f"{worst} {grel[worst]:.2e}")
+        out[other] = dict(loss_rel=lrel, grad_max_rel=grel[worst],
+                          grad_worst=worst)
+    log(f"moe_train: chunked attention (chunk {MOE_CHUNK} over "
+        f"{TRAIN_SEQ}) in smoke {base.name}'s train forward on the card: "
+        f"loss {runs['card_chunked'][0]:.6f}; against naive on the card "
+        f"loss rel {out['card_naive']['loss_rel']:.2e}, gradients "
+        f"{out['card_naive']['grad_max_rel']:.2e}; against chunked on the "
+        f"CPU loss rel {out['cpu_chunked']['loss_rel']:.2e}, gradients "
+        f"{out['cpu_chunked']['grad_max_rel']:.2e} (limits "
+        f"{MOE_CHUNK_LOSS_TOL:g} / {MOE_CHUNK_GRAD_TOL:g} in norm)")
+    return dict(arch=base.name, chunk=MOE_CHUNK, seq=TRAIN_SEQ,
+                loss=runs["card_chunked"][0], **out)
+
+
+def moe_train_phase(dev) -> dict:
+    """Phase 13: the launch counters are zeroed, then (a) full-width scout
+    trains, (b) the three MoE smoke configs train card against CPU with
+    a checkpoint round trip each and (c) the chunked train forward runs
+    on the card; the counters are read after (c)."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import cuda as C
+
+    t0 = time.perf_counter()
+    C.reset_launches()
+    res = dict(scout=moe_scout_train(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["smoke"] = {a: moe_smoke_train(dev, a) for a in MOE_ARCHS}
+    res["chunked"] = chunked_train_check(dev)
+    sync(dev)
+    counts = dict(C.LAUNCHES)
+    res["launches"] = {k: counts[k] for k in ("ef_roundtrip", "quantize",
+                                              "dequantize")}
+    want_rt = MOE_TRAIN_STEPS + MOE_SMOKE_STEPS * len(MOE_ARCHS)
+    assert res["launches"]["ef_roundtrip"] == want_rt, res["launches"]
+    assert res["launches"]["quantize"] > 0 and \
+        res["launches"]["dequantize"] > 0, res["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    log(f"moe_train: phase 13 in {res['seconds']:.1f} s; main-path launches "
+        f"{res['launches']}")
+    return res
+
+
+def moe_train_summary(mt: dict) -> dict:
+    sc = mt["scout"]
+    return dict(
+        scout={k: sc[k] for k in (
+            "arch", "layers", "experts", "params", "state_bytes",
+            "adamw_temporaries", "batch", "seq", "losses", "ms_per_step",
+            "tokens_per_s", "peak_alloc_bytes", "compressed_leaves",
+            "drop_share", "busy_share", "groups_ms")},
+        smoke={a: {k: r[k] for k in ("losses", "max_rel", "leaf_max_rel",
+                                     "move_max_rel", "f2p16_leaves",
+                                     "save_launches", "restore_launches")}
+               for a, r in mt["smoke"].items()},
+        chunked=mt["chunked"],
+        launches=mt["launches"], seconds=mt["seconds"])
+
+
 def main():
     import argparse
     import gc
@@ -4392,7 +4844,8 @@ def main():
     ap = argparse.ArgumentParser(description="chip smoke test of the port")
     ap.add_argument("--only", choices=("matmul", "attention", "codec",
                                        "unpacked", "fl", "families",
-                                       "recurrent", "frontends"),
+                                       "recurrent", "frontends",
+                                       "moe_train"),
                     help="matmul / attention / codec / unpacked: phases 1-2 "
                          "and phase 3's dequant matmul (B7/B8), attention "
                          "(B1/B2), packed codec (B3/B4) or unpacked codec "
@@ -4402,7 +4855,8 @@ def main():
                          "(MoE and the other configs); recurrent: phases "
                          "1-2 and phase 11 (jamba, xLSTM); frontends: "
                          "phases 1-2 and phase 12 (whisper, internvl2); "
-                         "prints no final ok line")
+                         "moe_train: phases 1-2 and phase 13 (the MoE "
+                         "family trained); prints no final ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
@@ -4497,6 +4951,15 @@ def main():
         print(json.dumps({"frontends": frontends_summary(fr)}, default=str))
         print(smi)
         return
+    if only == "moe_train":
+        mt = moe_train_phase(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_moe_train.json").write_text(json.dumps(
+            {"device": smi, "moe_train": mt}, indent=1, default=str))
+        print(json.dumps({"moe_train": moe_train_summary(mt)}, default=str))
+        print(smi)
+        return
     if only == "matmul":
         mm = check_matmul(dev)
         out_dir = ROOT / "chiprun_out"
@@ -4552,6 +5015,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     fr_res = frontends_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt_res = moe_train_phase(dev)
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
@@ -4584,6 +5050,12 @@ def main():
         if name in fr_res["launches"]:
             # phase 12's main path: whisper and internvl2 decoded, served
             kernels[-1]["frontends_launches"] = fr_res["launches"][name]
+        if name in mt_res["launches"]:
+            # phase 13's main path: scout and the MoE smoke configs trained,
+            # the smoke configs' checkpoints saved (B5) and restored (B6)
+            assert mt_res["launches"][name] > 0, \
+                f"phase 13 never launched {name}"
+            kernels[-1]["moe_train_launches"] = mt_res["launches"][name]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -4593,7 +5065,7 @@ def main():
         {"device": smi, "kernels": kernels, "serve": serve_res,
          "sketch": sketch_res, "train": train_res, "fl": fl_res,
          "families": fam_res, "recurrent": rec_res, "frontends": fr_res,
-         "shapes": {k: v["shape"] for k, v in res.items()},
+         "moe_train": mt_res, "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "ef_roundtrip_row": res["ef_roundtrip"],
          "attention_rows": {k: res[k] for k in ("attention_paged",
@@ -4609,6 +5081,7 @@ def main():
     print(json.dumps({"families": families_summary(fam_res)}, default=str))
     print(json.dumps({"recurrent": recurrent_summary(rec_res)}, default=str))
     print(json.dumps({"frontends": frontends_summary(fr_res)}, default=str))
+    print(json.dumps({"moe_train": moe_train_summary(mt_res)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""GQA attention: naive train / prefill attention,
+"""GQA attention: naive and chunked train / prefill attention,
 the packed F2P KV cache and the decode branches (port of
 ``repro.models.attention``).
 
@@ -68,6 +68,71 @@ def naive_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None):
     return out.reshape(B, Sq, H, hd)
 
 
+def chunked_attention(q, k, v, *, causal: bool, chunk: int, q_offset=0,
+                      kv_len=None):
+    """Online-softmax GQA attention over KV chunks of ``chunk`` positions
+    (the reference's ``chunked_attention``): K and V are zero-padded to
+    whole chunks, the running max ``m`` and sum ``l`` are f32, the
+    accumulator is in q's dtype, and a row that no position of a chunk
+    reaches is guarded (its max stays -inf, its terms 0). ``kv_len`` is a
+    scalar: positions at or past it are masked. A Python loop over the
+    chunks, differentiable through autograd. In a no-grad call (prefill)
+    the live scores are ``[B, K, G, Sq, chunk]``; under autograd every
+    chunk's scores and probabilities are saved for the backward, so a
+    train step holds as much as the naive path's."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    nchunk = -(-Sk // chunk)
+    pad = nchunk * chunk - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(B, Sq, K, G, hd)
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    limit = torch.as_tensor(Sk if kv_len is None else kv_len,
+                            device=q.device)
+    # the reference scales the f32 scores by jnp.sqrt(hd), an f32 number
+    root = torch.tensor(math.sqrt(hd), dtype=torch.float32)
+    acc = torch.zeros((B, K, G, Sq, hd), dtype=q.dtype, device=q.device)
+    m = torch.full((B, K, G, Sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    for ci in range(nchunk):
+        kb = k[:, ci * chunk:(ci + 1) * chunk]
+        vb = v[:, ci * chunk:(ci + 1) * chunk]
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kb).to(
+            torch.float32) / root
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        valid = kpos[None, :] < limit
+        if causal:
+            valid = valid & (kpos[None, :] <= qpos[:, None])
+        scores = torch.where(valid, scores, -math.inf)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(scores - safe_m[..., None])
+        corr = torch.exp(torch.where(torch.isfinite(m), m - safe_m,
+                                     -math.inf))
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(q.dtype), vb)
+        acc = acc * corr[..., None].to(q.dtype) + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-37)[..., None].to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+def _attend(q, k, v, cfg, *, causal, kv_len=None, q_offset=0):
+    """The train / prefill / unfused-decode attention of ``cfg``: chunked
+    when ``cfg.attn_impl == "chunked"`` and more than one query position is
+    attended, else naive (the reference's dispatch without
+    ``opt_head_shard``)."""
+    if cfg.attn_impl == "chunked" and q.shape[1] > 1:
+        return chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,
+                                 q_offset=q_offset, kv_len=kv_len)
+    return naive_attention(q, k, v, causal=causal, q_offset=q_offset,
+                           kv_len=kv_len)
+
+
 # ---------------------------------------------------------------------------
 # Block-level apply
 # ---------------------------------------------------------------------------
@@ -75,9 +140,9 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
                     cross_kv=None, causal=True, pages=None):
     """mode: 'train' | 'prefill' | 'decode'. Returns (out, cache).
 
-    ``train`` is attention over the sequence with no cache (the
-    reference's plain einsum/softmax, differentiable through autograd),
-    causal unless ``causal=False`` (the encoder).
+    ``train`` is attention over the sequence with no cache (naive or
+    chunked by ``cfg.attn_impl``, differentiable through autograd), causal
+    unless ``causal=False`` (the encoder).
 
     ``cross_kv`` (``[B, Se, D]``, the encoder's output): cross-attention,
     whatever the mode. K and V are projected from ``cross_kv`` at every
@@ -96,7 +161,7 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
         Se = cross_kv.shape[1]
         k = (cross_kv @ p["wk"]).reshape(B, Se, K, hd)
         v = (cross_kv @ p["wv"]).reshape(B, Se, K, hd)
-        out = naive_attention(q, k, v, causal=False)
+        out = _attend(q, k, v, cfg, causal=False)
         return out.reshape(B, S, H * hd) @ p["wo"], cache
     k = (x @ p["wk"]).reshape(B, S, K, hd)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
@@ -113,10 +178,10 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if mode == "train":
-        out = naive_attention(q, k, v, causal=causal)
+        out = _attend(q, k, v, cfg, causal=causal)
     elif mode == "prefill":
         _cache_write(cache, k, v, 0)
-        out = naive_attention(q, k, v, causal=causal)
+        out = _attend(q, k, v, cfg, causal=causal)
     elif mode == "decode":
         assert S == 1
         if pages is not None:
@@ -130,8 +195,7 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
                                        kv_len=pos + 1)
             else:
                 kc, vc = _cache_read(cache, cfg)
-                out = naive_attention(q, kc, vc, causal=False,
-                                      kv_len=pos + 1)
+                out = _attend(q, kc, vc, cfg, causal=False, kv_len=pos + 1)
     else:
         raise ValueError(mode)
     return out.reshape(B, S, H * hd) @ p["wo"], cache

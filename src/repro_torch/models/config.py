@@ -8,8 +8,15 @@ of the reference is ported (attention, mamba, mLSTM, sLSTM), with dense
 (SwiGLU), MoE or no FF, RoPE, sinusoidal or no positions and tied or
 separate embeddings; ``encoder_layers > 0`` adds whisper's encoder and a
 cross-attention in every decoder attention block, ``frontend="vision"``
-internvl2's projected patch embeddings in front of the tokens. The
-``opt_*`` knobs are left out. ``remat`` is kept: the train forward
+internvl2's projected patch embeddings in front of the tokens.
+``attn_impl="chunked"`` makes the train and prefill forwards (and the
+unfused decode read) attend by an online softmax over ``attn_chunk``-long
+KV chunks; that keeps only one chunk's scores alive in prefill and other
+no-grad calls, while a training backward keeps every chunk's (autograd
+saves them). ``opt_bwd_cast`` is kept for parity with the reference's
+configs and changes nothing here. The sharding knobs
+``opt_head_shard`` and ``opt_seq_par`` are left out (ROADMAP A12).
+``remat`` is kept: the train forward
 recomputes each block in the backward (``torch.utils.checkpoint``) as the
 reference rematerializes its scan body. ``fsdp`` is kept because the MoE
 configs set it; on one card it changes nothing (sharding is ROADMAP A12).
@@ -70,6 +77,9 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    # which attention implementation train/prefill uses
+    attn_impl: Literal["naive", "chunked"] = "naive"
+    attn_chunk: int = 2048
     # decode attends the packed KV cache with the fused kernel instead of
     # dequantizing the whole cache each step (engages for packed caches)
     fused_attention: bool = False
@@ -79,6 +89,10 @@ class ModelConfig:
     #     inert until ROADMAP A12 ---
     fsdp: bool = False
     remat: bool = True                     # recompute each block in backward
+
+    # the reference's logits-cotangent cast; inert here, as the loss's
+    # input cast already hands the cotangent back in the model dtype
+    opt_bwd_cast: bool = False
 
     def __post_init__(self):
         if self.n_layers % len(self.pattern):

@@ -8,6 +8,7 @@ paged path at tiles over 2 pages (ROADMAP C-ref1). Inside the port,
 bitwise: paged == dense over ``gather_pages_to_dense`` for each tile, pages
 past kv_len contribute exactly 0.0, and kv_len=0 gives exact zeros.
 """
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

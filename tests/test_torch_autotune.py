@@ -9,6 +9,7 @@ that XLA and torch take in different orders, held to 1e-6 relative
 (ROADMAP C8). ``to_dist``, ``candidate_formats``, ``_leaf_bits`` and
 ``solve(...).to_dict()`` are host numpy in both packages and must be equal.
 """
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

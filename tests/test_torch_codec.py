@@ -9,6 +9,7 @@ handed to both packages.
 """
 import itertools
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

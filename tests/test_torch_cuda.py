@@ -8,6 +8,7 @@ file imports no JAX, so it runs on a machine that has only the port:
 
 ``chip_smoke.py`` runs the same checks at the full serving shapes.
 """
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

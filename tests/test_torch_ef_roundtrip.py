@@ -8,6 +8,7 @@ divides and multiplies in the same order on both sides, so gradients and
 residuals are compared BITWISE; a NaN is compared by position (its payload
 is not part of the contract).
 """
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np

@@ -26,6 +26,7 @@ a seed).
 import dataclasses
 import os
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

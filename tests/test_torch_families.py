@@ -19,6 +19,7 @@ reference's weights carried over by ``params_from_jax``).
 """
 import dataclasses
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ inside the port, and ``FaultyEngine`` over the port's ``serve.Engine``.
 """
 import dataclasses
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,7 @@ The second half holds the reference's own invariants
 """
 import dataclasses
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ BITWISE / exactly. The second half holds the reference's own invariants
 """
 import itertools
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ one format or in two, f32 and bf16 out, a layer view of an L-stacked cache.
 """
 import types
 
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -17,6 +17,7 @@ Where rows share a position, the port's write keeps the last row in (slot,
 position) order, as the reference's scatter does on the CPU: a separate
 test points every slot at one dump position and compares the whole cache.
 """
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

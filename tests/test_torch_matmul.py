@@ -12,6 +12,7 @@ card; here its choice of format and block (``tile_kernel``), its launch
 plan (``mma_plan``), its split of f32 x into three bf16 terms and its
 arithmetic (emulated in PyTorch) are held to the JAX kernels.
 """
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

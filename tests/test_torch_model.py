@@ -9,6 +9,7 @@ decode when both caches come from ONE prefill call.
 """
 import dataclasses
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ weights carried over by ``params_from_jax``.
 """
 import dataclasses
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ Chrome ``trace_event`` schema and the disabled path is a no-op.
 """
 import json
 
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

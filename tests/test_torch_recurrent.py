@@ -27,6 +27,7 @@ numpy from a seed).
 import dataclasses
 import os
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

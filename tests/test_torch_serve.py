@@ -13,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import _torch_threads  # noqa: F401
 import jax
 import numpy as np
 import pytest

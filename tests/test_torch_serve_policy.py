@@ -15,6 +15,7 @@
 """
 import time
 
+import _torch_threads  # noqa: F401
 import jax
 import numpy as np
 import pytest

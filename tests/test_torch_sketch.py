@@ -15,6 +15,7 @@ message); trajectories are held to 5-sigma CLT consistency with the host
 ``CounterArray`` oracle. Inputs come from numpy seeds; the reference runs
 as its own tests run it (``backend="xla"`` / Pallas ``interpret=True``).
 """
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,7 @@ over by ``params_from_jax`` and the inputs drawn with numpy from a seed.
 """
 import dataclasses
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -28,6 +28,7 @@ import json
 import os
 import threading
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

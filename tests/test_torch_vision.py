@@ -17,6 +17,7 @@ a seed).
 """
 import dataclasses
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

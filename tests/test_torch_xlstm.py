@@ -16,6 +16,7 @@ drawn with numpy from a seed.
 * The caches' shapes, dtypes and ``m = -1e30`` start equal the
   reference's.
 """
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np
