@@ -12,13 +12,16 @@ NVIDIA GPU.
     python3 chip_smoke.py --only recurrent  # phases 1-2 and phase 11 (jamba, xLSTM)
     python3 chip_smoke.py --only frontends  # phases 1-2 and phase 12 (whisper, internvl2)
     python3 chip_smoke.py --only moe_train  # phases 1-2 and phase 13 (MoE trained)
+    python3 chip_smoke.py --only examples  # phases 1-2 and phase 14 (the example twins)
 
 With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
 unpacked``, ``--only fl``, ``--only families``, ``--only recurrent``,
-``--only frontends``, ``--only moe_train``) the script runs the device and
+``--only frontends``, ``--only moe_train``, ``--only examples``) the script
+runs the device and
 build phases and phase 3's dequant matmul, B7/B8 (attention, B1/B2; the
 packed codec, B3/B4; the unpacked codec, B5 and its round trip and B6;
-phase 9; phase 10; phase 11; phase 12; phase 13), prints their lines and
+phase 9; phase 10; phase 11; phase 12; phase 13; phase 14), prints their
+lines and
 ends without the final ``{"ok": ...}`` line, so it never stands in for a
 full run.
 
@@ -317,19 +320,42 @@ Phases (any failed check raises, so the script exits non-zero):
    attn_impl="chunked" (chunk 48 over 128 positions) on smoke
    llama3.2-3b (f32, dense): loss within 1e-5 and every gradient leaf
    within 1e-4 in norm of naive on the card and of chunked on the CPU.
+14. examples — (a) the twins' kernels at the shapes they give them,
+   bitwise (B1/B2 within 1e-5) against their plain versions on the same
+   inputs: B3's KV write and B4's K+V read at serve_f2p_kv's f32 [4, 48,
+   4, 32] cache, B1/B2 and B3 at serve_continuous's (2 kv heads x 3 rows
+   of 16, 64 positions), B9/B10 at the sketch's 4 x 4096 12-bit LI^2
+   cells, B5's round trip over the quickstart's compressed f32 leaves
+   and its F2P16 checkpoint codes (B5) and decode (B6); (b) the seven
+   twins of examples/ (examples/torch_*.py), each
+   imported by path and run through its main(argv) on the card at its
+   reference example's defaults, stdout captured (the last lines logged,
+   the whole report in chiprun_out/chip_smoke_examples/): the quickstart
+   (the 100M model, 300 steps of 8 x 256 with F2P8 gradients and F2P16
+   checkpoints into a fresh directory, then --steps 310, which must print
+   "resumed from step 300" and launch B6), serve_f2p_kv, serve_continuous
+   --trace (paged == copy-in == sequential and the trace asserted by the
+   twin, as the reference asserts them), the sketch
+   (2^20 packets twice), fed_avg and fed_avg --faults chaos-small,
+   autotune_study and counters_telemetry. Each run must exit 0 and print
+   its reference's acceptance line(s). The launch counts are zeroed just
+   before each run and read just after it; over the phase B1-B6 and B9
+   must have launched. No example reaches B7/B8 (the reference's only
+   caller is its benchmark folder) or B10 (both sketches' query gathers
+   grid values itself; only F2PSketch.estimates() launches B10).
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
 line, one ``{"fl": {...}}`` JSON line, one ``{"families": {...}}`` JSON
 line, one ``{"recurrent": {...}}`` JSON line, one ``{"frontends":
-{...}}`` JSON line, one ``{"moe_train": {...}}`` JSON line, one
-``{"kernels": [...]}``
+{...}}`` JSON line, one ``{"moe_train": {...}}`` JSON line, one ``{"examples":
+{...}}`` JSON line, one ``{"kernels": [...]}``
 JSON line (all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as
 a row of its own; B5's codes mode and B6 count the launches of phase 8's
 checkpoint save and restore; B3-B6 also carry ``fl_launches``, phase 9's,
 B1-B4 ``families_launches``, phase 10's, and B1-B3 and the round trip
 ``recurrent_launches``, phase 11's, B1-B4 ``frontends_launches``, phase
 12's, B5's codes mode, its round trip and B6 ``moe_train_launches``,
-phase 13's), then the
+phase 13's, and every kernel ``examples_launches``, phase 14's), then the
 nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
 copy of the results goes to chiprun_out/chip_smoke.json.
 """
@@ -433,6 +459,39 @@ FL_FEDAVG = dict(n_clients=4, rounds=5, local_steps=2, lr=0.1,
                  packed_budget=6.5)
 FL_FLEET = dict(n_clients=1000, sample=64, quorum=32, rounds=3,
                 client_batch=16)
+# phase 14: the twins of examples/ (examples/torch_*.py), each through its
+# main(argv) at its reference example's defaults on the card, with the line
+# its reference's acceptance prints; the quickstart runs twice into one
+# fresh directory, the second run past the first's last step
+QUICKSTART_STEPS, QUICKSTART_RESUMED = 300, 310
+EXAMPLE_RUNS = (
+    ("quickstart", "torch_quickstart",
+     ["--steps", str(QUICKSTART_STEPS)], ("done.",)),
+    ("quickstart_resume", "torch_quickstart",
+     ["--steps", str(QUICKSTART_RESUMED)],
+     (f"resumed from step {QUICKSTART_STEPS}", "done.")),
+    ("serve_f2p_kv", "torch_serve_f2p_kv", [],
+     ("cache=0.79 MB", "cache=0.22 MB", "token agreement exact-vs-F2P8")),
+    ("serve_continuous", "torch_serve_continuous", ["--trace"],
+     ("bit-for-bit identical to the copy-in engine AND the sequential "
+      "engine", "trace OK")),
+    ("sketch_zipf_trace", "torch_sketch_zipf_trace", [],
+     ("top-10 recall: 100%",)),
+    ("fed_avg", "torch_fed_avg", [],
+     ("acceptance (>=3.5x wire, <=1.05x loss): PASS",
+      "acceptance (packed: >=20% wire drop, <=1.001x f2p8 loss): PASS")),
+    ("fed_avg_chaos", "torch_fed_avg", ["--faults", "chaos-small"],
+     ("acceptance (<=1.05x fault-free loss, finite model): PASS",)),
+    ("autotune_study", "torch_autotune_study", [], ("overall: PASS",)),
+    ("counters_telemetry", "torch_counters_telemetry", [],
+     ("mean rel err:", "load imbalance (max/mean):")),
+)
+# what no example reaches: B7/B8 (the dequant matmul; the reference's only
+# caller is its benchmark folder) and B10 (the estimate table: the sketch's
+# query gathers grid_lut[state[rows, idx]] itself, as the reference's does,
+# and only F2PSketch.estimates() launches B10)
+EXAMPLES_UNREACHED = ("dequant_matmul", "dequant_matmul_packed",
+                      "counter_estimate")
 # f32 operations of one live sweep of the advance (min, sub, log, div,
 # ceil, two compares, max, compare, sub), log and divide counted as one
 ADVANCE_OPS_PER_SWEEP = 10
@@ -838,25 +897,25 @@ KV_SLOTS, KV_MAX_SEQ, KV_PAGE, KV_HEADS, KV_HD = 8, 1024, 8, 8, 128
 
 
 def kv_write_inputs(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
-                    dtype="bf16", K=KV_HEADS, hd=KV_HD):
+                    dtype="bf16", K=KV_HEADS, hd=KV_HD, max_seq=KV_MAX_SEQ):
     """(cache, k, v, pos, pages) of one layer's KV write at the serving
     cache: a paged pool (page table of random distinct pages; the last two
-    slots retired onto the dump page 0) or a dense [B, 1024] cache; k, v
+    slots retired onto the dump page 0) or a dense [B, max_seq] cache; k, v
     [B, S, K, hd] (8 x 128 by default) randn x 3; pos [B] int64 in [0,
-    1024 - S]."""
+    max_seq - S]."""
     import torch
 
     from repro_torch.models.attention import empty_packed
 
-    maxp = KV_MAX_SEQ // KV_PAGE
+    maxp = max_seq // KV_PAGE
     P = (KV_SLOTS + 1) * maxp + 1
-    lead = (P, KV_PAGE) if paged else (B, KV_MAX_SEQ)
+    lead = (P, KV_PAGE) if paged else (B, max_seq)
     cache = {kv: empty_packed((*lead, K, hd), fmt, dev)
              for kv in ("k", "v")}
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     k, v = ((torch.randn(B, S, K, hd, generator=g, device=dev)
              * 3).to(dt) for _ in range(2))
-    pos = torch.randint(0, KV_MAX_SEQ - S + 1, (B,), generator=g, device=dev)
+    pos = torch.randint(0, max_seq - S + 1, (B,), generator=g, device=dev)
     pages = None
     if paged:
         pages = (1 + torch.randperm(P - 1, generator=g, device=dev)[
@@ -923,7 +982,7 @@ def old_cache_write(cache, k, v, idx):
 
 def kv_write_bitwise(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
                      dtype="bf16", start=None, K=KV_HEADS, hd=KV_HD,
-                     collide=False) -> float:
+                     collide=False, max_seq=KV_MAX_SEQ) -> float:
     """B3's KV write against kv_write_plain on the same inputs, words and
     scales bitwise over the whole cache, the dump page included (rows
     sharing a position: the last in (b, s) order writes, in both);
@@ -936,7 +995,7 @@ def kv_write_bitwise(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
     from repro_torch.kernels import f2p_quant as Q
 
     cache, k, v, pos, pages = kv_write_inputs(dev, g, fmt, paged, B, S,
-                                              dtype, K, hd)
+                                              dtype, K, hd, max_seq)
     if start is not None:
         pos = start
     if collide:
@@ -1472,16 +1531,16 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     return out
 
 
-def first_batch_budget(trace, width: int, batch: int):
-    """The (depth, width) budget the sketch's host path builds from the
-    trace's first batch, as the ingest engine hands it over (per-key
-    totals)."""
+def first_batch_budget(trace, width: int, batch: int, sketch=SKETCH):
+    """The (depth, width) budget the host path of a sketch configured by
+    ``sketch`` (its width replaced) builds from the trace's first batch, as
+    the ingest engine hands it over (per-key totals)."""
     import numpy as np
 
     from repro_torch.sketch import F2PSketch, SketchConfig
 
     keys, cnt = np.unique(trace[:batch], return_counts=True)
-    sk = F2PSketch(SketchConfig(**{**SKETCH, "width": width}), device="cpu")
+    sk = F2PSketch(SketchConfig(**{**sketch, "width": width}), device="cpu")
     return sk._host_budget(keys, cnt.astype(np.float32))
 
 
@@ -1498,24 +1557,24 @@ def live_sweeps(state, budget, luts, u) -> int:
     return n
 
 
-def check_counter(dev, trace, width=SKETCH["width"], batch=BATCH):
-    """B9 and B10 against their plain versions on the card, at the main
-    path's shapes: [4, width] state and the budget of the trace's first
-    batch."""
+def counter_bitwise(dev, budget, formats) -> tuple[float, float]:
+    """B9 against its plain version, state and leftover bitwise, from a
+    zero and a random state at sweep0 0 and 32, and B10 against its plain
+    version on the random state, for each (flavor, n_bits) of ``formats``
+    (2 hyper-exponent bits), over ``budget``'s cells. Returns the largest
+    |difference| of each (0.0 when bitwise)."""
     import numpy as np
     import torch
 
     from repro_torch.core.f2p import F2PFormat, Flavor
     from repro_torch.kernels import f2p_counter as FC
 
-    budget = torch.from_numpy(first_batch_budget(trace, width, batch)).to(dev)
     shape = tuple(budget.shape)
     n = budget.numel()
     gen = np.random.default_rng(3)
     sweeps = FC.PALLAS_SWEEPS
-    out = {}
     adv_err = est_err = 0.0
-    for flavor, n_bits in (("li", 8), ("li", 12), ("li", 16), ("sr", 16)):
+    for flavor, n_bits in formats:
         grid = F2PFormat(n_bits=n_bits, h_bits=2,
                          flavor=Flavor(flavor)).payload_grid
         luts = [torch.from_numpy(t).to(dev) for t in FC.advance_tables(grid)]
@@ -1542,6 +1601,25 @@ def check_counter(dev, trace, width=SKETCH["width"], batch=BATCH):
         est_err = max(est_err, float((est - ref).abs().max()))
         assert torch.equal(est, ref), \
             f"counter_estimate != plain: F2P_{flavor}^2[{n_bits}]"
+    return adv_err, est_err
+
+
+def check_counter(dev, trace, width=SKETCH["width"], batch=BATCH):
+    """B9 and B10 against their plain versions on the card, at the main
+    path's shapes: [4, width] state and the budget of the trace's first
+    batch."""
+    import torch
+
+    from repro_torch.core.f2p import F2PFormat, Flavor
+    from repro_torch.kernels import f2p_counter as FC
+
+    budget = torch.from_numpy(first_batch_budget(trace, width, batch)).to(dev)
+    shape = tuple(budget.shape)
+    n = budget.numel()
+    sweeps = FC.PALLAS_SWEEPS
+    out = {}
+    adv_err, est_err = counter_bitwise(
+        dev, budget, (("li", 8), ("li", 12), ("li", 16), ("sr", 16)))
     log("counter  : counter_advance == plain (state and leftover) and "
         "counter_estimate == plain, bitwise (8/12/16-bit LI^2, 16-bit SR^2; "
         "zero and random state; sweep0 0 and 32)")
@@ -4835,6 +4913,330 @@ def moe_train_summary(mt: dict) -> dict:
         launches=mt["launches"], seconds=mt["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the example twins
+# ---------------------------------------------------------------------------
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` is not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# what phase 14 keeps of a twin's report: numbers (the losses' first and
+# last printed value) and whole summary lines
+REPORT_NUMBERS = {
+    "loss": r"step +\d+ loss ([\d.]+)",
+    "agreement_pct": r"token agreement exact-vs-F2P8: ([\d.]+)%",
+    "tok_s": r"(\d+) tok/s",
+    "m_arrivals_s": r"\(([\d.]+)M arrivals/s\)",
+    "mean_rel_pct": r"mean rel err: ([\d.]+)%"}
+REPORT_LINES = {
+    "sequential": r"12 requests bit-for-bit identical to (.*)",
+    "pool": r"KV pool +: (.*)",
+    "wire": r"wire bytes/round: (.*)",
+    "packed": r"packed mixed policy: (.*)",
+    "final_loss": r"final eval loss: (.*)",
+    "faulted": r"faulted run: (.*)",
+    "policy": r"  policy vs best single (\(.*)",
+    "overall": r"overall: (.*)"}
+
+
+def _report_numbers(out: str) -> dict:
+    import re
+
+    res = {}
+    for name, pat in REPORT_NUMBERS.items():
+        vals = [float(x) for x in re.findall(pat, out)]
+        if vals:
+            res[name] = [vals[0], vals[-1]] if name == "loss" else vals
+    for name, pat in REPORT_LINES.items():
+        m = re.search(pat, out)
+        if m:
+            res[name] = m.group(1).strip()
+    return res
+
+
+# phase 14(a): the shapes the twins give their kernels that no earlier
+# phase checks. serve_f2p_kv: its demo LM (f32) through the unfused Engine
+# over a dense [4, 48] cache, a 32-token prefill then decode at 32..47.
+# serve_continuous: smoke llama3.2-3b (f32) in 4 slots of 64 positions over
+# 8-token pages, prompts of 4..24 tokens and at most 24 new (kv_len <= 48),
+# and its batch-1 sequential replay. The sketch: its 4 x 4096 12-bit LI^2
+# cells and 2^16-packet batches. The quickstart: model_100m's f32 leaves.
+EX_SERVE_B, EX_SERVE_PROMPT, EX_SERVE_SEQ = 4, 32, 48
+EX_CONT_SLOTS, EX_CONT_SEQ, EX_CONT_KV = 4, 64, (4, 48)
+EX_SKETCH = dict(depth=4, width=4096, n_bits=12, h_bits=2, flavor="li")
+EX_SKETCH_PACKETS, EX_SKETCH_FLOWS, EX_SKETCH_BATCH = 1 << 20, 1 << 20, 1 << 16
+
+
+def example_counter_at(dev) -> dict:
+    """B9 and B10 bitwise against their plain versions at the sketch
+    twin's cells (:data:`EX_SKETCH`) over the budget of its trace's first
+    batch; B9 timed there beside its bound."""
+    import torch
+
+    from repro_torch.core.f2p import F2PFormat, Flavor
+    from repro_torch.kernels import f2p_counter as FC
+
+    trace = load_example("torch_sketch_zipf_trace").make_trace(
+        EX_SKETCH_PACKETS, EX_SKETCH_FLOWS)
+    budget = torch.from_numpy(first_batch_budget(
+        trace, EX_SKETCH["width"], EX_SKETCH_BATCH, EX_SKETCH)).to(dev)
+    fmt = (EX_SKETCH["flavor"], EX_SKETCH["n_bits"])
+    adv_err, est_err = counter_bitwise(dev, budget, (fmt,))
+    grid = F2PFormat(n_bits=fmt[1], h_bits=EX_SKETCH["h_bits"],
+                     flavor=Flavor(fmt[0])).payload_grid
+    luts = [torch.from_numpy(t).to(dev) for t in FC.advance_tables(grid)]
+    st = torch.zeros(tuple(budget.shape), dtype=torch.int32, device=dev)
+    u = FC.hash_uniforms(7, 0, FC.PALLAS_SWEEPS, tuple(budget.shape),
+                         device=dev)
+    live = live_sweeps(st, budget, luts, u)
+    n = budget.numel()
+    r = dict(ms=cuda_ms(lambda: FC.counter_advance(st, budget, *luts, 7),
+                        iters=100),
+             bound_ms=max(bound_ms(16 * n), live * ADVANCE_OPS_PER_SWEEP
+                          / F32_OPS_PER_S * 1e3),
+             max_abs_err=adv_err, estimate_max_abs_err=est_err,
+             live_sweeps=live,
+             shape=f"state/budget {list(budget.shape)}, {fmt[1]}-bit "
+                   f"{fmt[0].upper()}^2, first {EX_SKETCH_BATCH}-packet "
+                   f"batch's budget")
+    log(f"examples : B9 {r['shape']}: == plain bitwise (zero and random "
+        f"state, sweep0 0 and 32), B10 too; advance {r['ms']:.5f} ms "
+        f"(bound {r['bound_ms']:.5f}, {live} live cell-sweeps)")
+    return r
+
+
+def example_train_codec_at(dev) -> dict:
+    """The quickstart's B5 / B6 work at model_100m's own leaves (its
+    seed-0 parameters): the round trip over every compressed f32 gradient
+    leaf in one launch (error feedback on, g randn x 1e-3, r randn x 1e-5)
+    bitwise against ef_roundtrip_plain per leaf; the checkpoint's F2P16
+    codes (B5, block min(128, last dim)) and their f32 decode (B6) bitwise
+    against quantize_plain / dequantize_plain on every leaf shape the
+    checkpoint compresses."""
+    import torch
+
+    from repro_torch.kernels import f2p_quant as Q
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import reference_numel
+    from repro_torch.optim import CompressionConfig
+    from repro_torch.optim.adamw import named_params
+    from repro_torch.optim.compress import init_residuals
+    from repro_torch.train.checkpoint import CKPT_FMT
+
+    cfg = load_example("torch_quickstart").model_100m()
+    params = init_params(cfg, seed=0, device=dev)
+    named = named_params(params)
+    ccfg = CompressionConfig()
+    res = init_residuals(params, ccfg, len(cfg.pattern))
+    names = [n for n, r in res.items() if r is not None]
+    g = torch.Generator(device=dev).manual_seed(28)
+    gs = [torch.randn(named[n].shape, generator=g, device=dev) * 1e-3
+          for n in names]
+    rs = [torch.randn(named[n].shape, generator=g, device=dev) * 1e-5
+          for n in names]
+    pg, pr = [x.clone() for x in gs], [x.clone() for x in rs]
+    Q.f2p_ef_roundtrip(gs, rs, ccfg.fmt, block=ccfg.block, error_feedback=True)
+    for n, a, b, c, d in zip(names, gs, rs, pg, pr):
+        Q.ef_roundtrip_plain(c, d, ccfg.fmt, ccfg.block, True)
+        assert _same_bits(a, c), f"quickstart round trip: gradient {n}"
+        assert _same_bits(b, d), f"quickstart round trip: residual {n}"
+    n_el = sum(x.numel() for x in gs)
+    del gs, rs, pg, pr
+    sizes = reference_numel(named, len(cfg.pattern))
+    shapes = {}
+    for n, x in named.items():
+        if sizes[n] >= 65536:
+            shapes.setdefault(tuple(x.shape), x)
+    for shape, x in shapes.items():
+        blk = min(128, shape[-1])
+        x2 = x.reshape(-1, shape[-1])
+        c, s = Q.f2p_quantize_codes(x2, CKPT_FMT, block=blk)
+        pc, ps = Q.quantize_plain(x2, CKPT_FMT, blk)
+        assert torch.equal(_bits(c), _bits(pc)) and torch.equal(s, ps), \
+            f"quickstart checkpoint codes differ at {shape}"
+        d = Q.f2p_dequantize_codes(c, s, CKPT_FMT, block=blk,
+                                   out_dtype=torch.float32)
+        assert torch.equal(_bits(d), _bits(Q.dequantize_plain(
+            c, s, CKPT_FMT, blk, torch.float32))), \
+            f"quickstart checkpoint decode differs at {shape}"
+    del params, named, res
+    torch.cuda.empty_cache()
+    r = dict(roundtrip_leaves=len(names), roundtrip_elements=n_el,
+             checkpoint_shapes=[list(k) for k in shapes], max_abs_err=0.0)
+    log(f"examples : quickstart B5 round trip == plain over its "
+        f"{len(names)} compressed f32 leaves ({n_el} elements, one launch); "
+        f"F2P16 checkpoint codes (B5) and their decode (B6) == plain at "
+        f"{r['checkpoint_shapes']}")
+    return r
+
+
+def example_kernel_checks(dev) -> dict:
+    """Phase 14(a): each kernel the twins launch, at the shapes they give
+    it where no earlier phase checks them, against its plain version on
+    the same inputs: B3 and B4's K+V read at serve_f2p_kv's cache; B1/B2
+    and B3 at serve_continuous's; B9/B10 at the sketch's cells; B5's round
+    trip and codes and B6 at the quickstart's leaves. fed_avg and
+    autotune_study run the codec at toy_task()'s leaves, which phase 9
+    holds (B3-B6 bitwise at the 9 FL leaf shapes)."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.formats import named_format
+
+    t = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(27)
+    name = "f2p_sr_2_8s"
+    fmt = named_format(name)
+    out = {}
+
+    demo = load_example("torch_serve_f2p_kv").demo_config()
+    K, hd = demo.n_kv_heads, demo.head_dim
+    for S, start in ((EX_SERVE_PROMPT, 0), (1, EX_SERVE_PROMPT),
+                     (1, EX_SERVE_SEQ - 1)):
+        kv_write_bitwise(dev, g, fmt, False, B=EX_SERVE_B, S=S, dtype="f32",
+                         start=start, K=K, hd=hd, max_seq=EX_SERVE_SEQ)
+    log(f"examples : serve_f2p_kv B3 == plain bitwise: f32 K and V "
+        f"[{EX_SERVE_B}, S, {K}, {hd}] into a dense [{EX_SERVE_B}, "
+        f"{EX_SERVE_SEQ}] {name} cache, S = {EX_SERVE_PROMPT} at 0 and S = "
+        f"1 at {EX_SERVE_PROMPT} and {EX_SERVE_SEQ - 1}")
+    out["serve_f2p_kv_kv_read"] = kv_read_at(
+        dev, K, hd, name, EX_SERVE_B, EX_SERVE_SEQ, tag="examples")
+
+    sm = smoke_config("llama3_2_3b")
+    K, G, hd = sm.n_kv_heads, sm.n_heads // sm.n_kv_heads, sm.head_dim
+    out["serve_continuous_attention"] = attention_at(
+        dev, K, G, hd, name, B=EX_CONT_SLOTS, S=EX_CONT_SEQ, kv=EX_CONT_KV,
+        tag="examples")
+    for paged, B in ((True, EX_CONT_SLOTS), (False, EX_CONT_SLOTS),
+                     (False, 1)):
+        for S in (1, 24, 32):
+            kv_write_bitwise(dev, g, fmt, paged, B=B, S=S, dtype="f32", K=K,
+                             hd=hd, max_seq=EX_CONT_SEQ)
+    kv_write_bitwise(dev, g, fmt, True, B=EX_CONT_SLOTS, dtype="f32", K=K,
+                     hd=hd, max_seq=EX_CONT_SEQ, collide=True)
+    log(f"examples : serve_continuous B3 == plain bitwise: f32 K and V [B, "
+        f"S, {K}, {hd}], S in (1, 24, 32), paged (B = {EX_CONT_SLOTS}, 8-token "
+        f"pages) and dense (B = {EX_CONT_SLOTS} and 1) over {EX_CONT_SEQ} "
+        f"positions, and all slots on one dump position")
+    out["sketch_counter_advance"] = example_counter_at(dev)
+    out["quickstart_codec"] = example_train_codec_at(dev)
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def examples_phase(dev) -> dict:
+    """Phase 14: (a) the twins' kernels at their shapes against their plain
+    versions (:func:`example_kernel_checks`); (b) each twin of examples/
+    through ``main(argv)`` at its reference's defaults on the card, stdout
+    captured (and written to chiprun_out/chip_smoke_examples/<run>.txt);
+    rc 0 and the reference's acceptance line(s) asserted per run. The launch counts are zeroed just
+    before each run and read just after it; over the phase B1-B6 and B9
+    must have launched. No example reaches B7/B8 or B10
+    (``EXAMPLES_UNREACHED``); their counts are reported as they are."""
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cuda as C
+
+    out_dir = ROOT / "chiprun_out" / "chip_smoke_examples"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    t_phase = time.perf_counter()
+    checks = example_kernel_checks(dev)
+    runs, total = {}, {k: 0 for k in C.LAUNCHES}
+    try:
+        for tag, name, argv, accept in EXAMPLE_RUNS:
+            argv = list(argv)
+            if name == "torch_quickstart":
+                argv += ["--ckpt-dir", str(tmp / "quickstart_ckpt")]
+            if argv[:1] == ["--trace"]:
+                argv.insert(1, str(tmp / "serve.trace.json"))
+            argv += ["--device", dev]
+            mod = load_example(name)
+            buf = io.StringIO()
+            sync(dev)
+            C.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(argv)
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            launches = {k: v for k, v in C.LAUNCHES.items() if v}
+            for k, v in C.LAUNCHES.items():
+                total[k] += v
+            out = buf.getvalue()
+            (out_dir / f"{tag}.txt").write_text(out)
+            missing = [a for a in accept if a not in out]
+            runs[tag] = dict(example=f"examples/{name}.py", argv=argv, rc=rc,
+                             seconds=seconds, launches=launches,
+                             report=_report_numbers(out))
+            tail = [ln for ln in out.splitlines() if ln.strip()][-3:]
+            log(f"example  : {tag:18s} rc {rc} in {seconds:.1f} s; "
+                f"launches {launches}")
+            for ln in tail:
+                log(f"  {tag:16s}| {ln}")
+            assert rc == 0, f"{tag}: exit status {rc}"
+            assert not missing, f"{tag}: report lacks {missing}"
+            if tag == "quickstart_resume":
+                assert launches.get("dequantize", 0) > 0, \
+                    "the quickstart's resume never launched B6"
+            del mod
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {
+        "attention_paged": total["attention_paged"],
+        "attention_packed": total["attention_packed"],
+        "quantize_packed": total["kv_write"] + total["quantize_packed"],
+        "dequantize_packed": total["kv_read"] + total["dequantize_packed"],
+        "quantize": total["quantize"],
+        "ef_roundtrip": total["ef_roundtrip"],
+        "dequantize": total["dequantize"],
+        "counter_advance": total["counter_advance"],
+        "counter_estimate": total["counter_estimate"],
+        "dequant_matmul": total["dequant_matmul"],
+        "dequant_matmul_packed": total["dequant_matmul_packed"]}
+    for name, n in launches.items():
+        if name not in EXAMPLES_UNREACHED:
+            assert n > 0, f"phase 14 never launched {name}"
+    res = dict(checks=checks, runs=runs, launches=launches,
+               numpy=np.__version__, seconds=time.perf_counter() - t_phase)
+    log(f"examples : phase 14 in {res['seconds']:.1f} s (numpy "
+        f"{np.__version__}); launches {launches}; no example reaches "
+        f"{EXAMPLES_UNREACHED}")
+    return res
+
+
+def examples_summary(ex: dict) -> dict:
+    def brief(v):
+        if not isinstance(v, dict):
+            return v
+        if "max_abs_err" in v:
+            return {n: v[n] for n in ("ms", "bound_ms", "max_abs_err")
+                    if n in v}
+        return {k: brief(x) for k, x in v.items()}
+
+    return dict(runs={t: {k: r[k] for k in ("seconds", "rc", "launches",
+                                            "report")}
+                      for t, r in ex["runs"].items()},
+                checks=brief(ex["checks"]),
+                launches=ex["launches"], numpy=ex["numpy"],
+                seconds=ex["seconds"])
+
+
 def main():
     import argparse
     import gc
@@ -4845,7 +5247,7 @@ def main():
     ap.add_argument("--only", choices=("matmul", "attention", "codec",
                                        "unpacked", "fl", "families",
                                        "recurrent", "frontends",
-                                       "moe_train"),
+                                       "moe_train", "examples"),
                     help="matmul / attention / codec / unpacked: phases 1-2 "
                          "and phase 3's dequant matmul (B7/B8), attention "
                          "(B1/B2), packed codec (B3/B4) or unpacked codec "
@@ -4856,7 +5258,8 @@ def main():
                          "1-2 and phase 11 (jamba, xLSTM); frontends: "
                          "phases 1-2 and phase 12 (whisper, internvl2); "
                          "moe_train: phases 1-2 and phase 13 (the MoE "
-                         "family trained); prints no final ok line")
+                         "family trained); examples: phases 1-2 and phase "
+                         "14 (the example twins); prints no final ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
@@ -4960,6 +5363,15 @@ def main():
         print(json.dumps({"moe_train": moe_train_summary(mt)}, default=str))
         print(smi)
         return
+    if only == "examples":
+        ex = examples_phase(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_examples.json").write_text(json.dumps(
+            {"device": smi, "examples": ex}, indent=1, default=str))
+        print(json.dumps({"examples": examples_summary(ex)}, default=str))
+        print(smi)
+        return
     if only == "matmul":
         mm = check_matmul(dev)
         out_dir = ROOT / "chiprun_out"
@@ -5018,6 +5430,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mt_res = moe_train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex_res = examples_phase(dev)
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
@@ -5056,6 +5471,8 @@ def main():
             assert mt_res["launches"][name] > 0, \
                 f"phase 13 never launched {name}"
             kernels[-1]["moe_train_launches"] = mt_res["launches"][name]
+        # phase 14's main path: the example twins (B7/B8: none calls them)
+        kernels[-1]["examples_launches"] = ex_res["launches"][name]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -5065,7 +5482,7 @@ def main():
         {"device": smi, "kernels": kernels, "serve": serve_res,
          "sketch": sketch_res, "train": train_res, "fl": fl_res,
          "families": fam_res, "recurrent": rec_res, "frontends": fr_res,
-         "moe_train": mt_res, "shapes": {k: v["shape"] for k, v in res.items()},
+         "moe_train": mt_res, "examples": ex_res, "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "ef_roundtrip_row": res["ef_roundtrip"],
          "attention_rows": {k: res[k] for k in ("attention_paged",
@@ -5082,6 +5499,7 @@ def main():
     print(json.dumps({"recurrent": recurrent_summary(rec_res)}, default=str))
     print(json.dumps({"frontends": frontends_summary(fr_res)}, default=str))
     print(json.dumps({"moe_train": moe_train_summary(mt_res)}, default=str))
+    print(json.dumps({"examples": examples_summary(ex_res)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -156,6 +156,14 @@ def _client_stream(dcfg, local_steps: int, round_i: int, client_id: int,
             for k in bs[0]}
 
 
+def _client_batches(dcfg, fcfg: FedAvgConfig, round_i: int, client_i: int,
+                    device="cpu"):
+    """:func:`_client_stream` at ``fcfg.client.local_steps`` (the
+    reference's helper of the same name)."""
+    return _client_stream(dcfg, fcfg.client.local_steps, round_i, client_i,
+                          device)
+
+
 def _eval_batch(dcfg, device):
     from repro_torch.data import global_batch
 

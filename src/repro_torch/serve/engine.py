@@ -1,14 +1,16 @@
 """Sequential serving engine and the sketch ingest front end (port of
-``repro.serve.engine``: ``ServeConfig``, ``Engine.generate`` with the
+``repro.serve.engine``: ``ServeConfig``, the step factories
+``make_prefill_step`` / ``make_serve_step``, ``Engine.generate`` with the
 periodic EOS sync, and ``SketchIngestEngine``).
 
 One fixed-shape request batch runs start to finish: prefill the prompts,
 then decode until ``max_new`` or EOS. Tokens stay on the device and reach
 the host once at the end; with EOS on, the all-done flag is read only every
 ``eos_sync_every`` steps. The reference donates the cache buffers to its
-jitted steps; here the caches are written in place. A recurrent family's
-caches (mamba, mLSTM, sLSTM state) start at zero for every ``generate``;
-padded rows get zero prompts, as in the reference.
+jitted steps; here the caches are written in place (the steps still
+return them, so a caller of the reference's API runs unchanged). A
+recurrent family's caches (mamba, mLSTM, sLSTM state) start at zero for
+every ``generate``; padded rows get zero prompts, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,16 +45,75 @@ class ServeConfig:
     eos_sync_every: int = 8    # EOS mode: steps between host syncs
 
 
+def _serve_model_cfg(cfg: ModelConfig, scfg: ServeConfig) -> ModelConfig:
+    """Serve-time model-config overrides: ServeConfig knobs that change how
+    the steps run against the same weights and caches."""
+    if scfg.fused_attention and not cfg.fused_attention:
+        cfg = dataclasses.replace(cfg, fused_attention=True)
+    return cfg
+
+
+def make_prefill_step(cfg: ModelConfig, scfg: ServeConfig):
+    """prefill_step(model, batch, caches) -> (last-token logits [B, V],
+    caches). ``batch`` holds ``"tokens"`` ``[B, S]`` (and ``"frames"`` /
+    ``"patches"`` for the frontend archs); the caches are written in place
+    and returned."""
+    cfg = _serve_model_cfg(cfg, scfg)
+
+    @torch.inference_mode()
+    def prefill_step(model: Model, batch, caches):
+        tokens = batch["tokens"]
+        if isinstance(tokens, torch.Tensor):
+            tokens = tokens.to(model.device, torch.int64)
+        else:   # a copy: numpy arrays may be read-only
+            tokens = torch.tensor(np.asarray(tokens), dtype=torch.int64,
+                                  device=model.device)
+        logits = prefill(model, tokens, caches, cfg=cfg,
+                         frames=batch.get("frames"),
+                         patches=batch.get("patches"))
+        return logits, caches
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, scfg: ServeConfig):
+    """serve_step(model, caches, token [B, 1], pos, req_ids=None)
+    -> (next_token [B, 1], caches).
+
+    Greedy decoding is an argmax; with ``temperature > 0`` each row samples
+    through :func:`~repro_torch.serve.arch.sample_tokens`, whose draws are
+    a pure function of (seed, request id, position): which requests share
+    the batch never perturbs them. ``req_ids`` defaults to the row index.
+    The caches are updated in place and returned."""
+    cfg = _serve_model_cfg(cfg, scfg)
+
+    @torch.inference_mode()
+    def serve_step(model: Model, caches, token, pos, req_ids=None):
+        logits = decode_step(model, token, pos, caches, cfg=cfg)
+        if scfg.temperature > 0:
+            if req_ids is None:
+                req_ids = torch.arange(token.shape[0], device=logits.device)
+            nxt = sample_tokens(logits, req_ids, pos, seed=scfg.seed,
+                                temperature=scfg.temperature)
+        else:
+            nxt = torch.argmax(logits, -1)
+        return nxt[:, None], caches
+
+    return serve_step
+
+
 class Engine:
     """Batched engine: prefill a batch of prompts, then decode until
     max_new or EOS. ``model`` is a :class:`~repro_torch.models.Model`; the
-    engine runs on the model's device."""
+    engine runs on the model's device through :func:`make_prefill_step`
+    and :func:`make_serve_step`."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, model: Model):
-        if scfg.fused_attention and not cfg.fused_attention:
-            cfg = dataclasses.replace(cfg, fused_attention=True)
-        self.cfg, self.scfg, self.model = cfg, scfg, model
+        self.cfg = _serve_model_cfg(cfg, scfg)
+        self.scfg, self.model = scfg, model
         self.device = model.device
+        self._prefill = make_prefill_step(cfg, scfg)
+        self._step = make_serve_step(cfg, scfg)
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new: int, eos: int = -1,
@@ -77,9 +138,8 @@ class Engine:
                              quantized_kv=self.scfg.quantized_kv,
                              kv_policy=self.scfg.kv_policy,
                              device=self.device)
-        model, cfg = self.model, self.cfg
-        tokens = torch.as_tensor(prompts, device=self.device).to(torch.int64)
-        logits = prefill(model, tokens, caches, cfg=cfg)
+        logits, caches = self._prefill(self.model, {"tokens": prompts},
+                                       caches)
         tok = torch.argmax(logits, -1)[:, None]
         out = [tok]
         sync_k = max(1, self.scfg.eos_sync_every)
@@ -88,14 +148,7 @@ class Engine:
             done = (tok[:, 0] == eos) | (torch.arange(Bc, device=self.device)
                                          >= B)
         for i in range(max_new - 1):
-            pos = S + i
-            logits = decode_step(model, tok, pos, caches, cfg=cfg)
-            if self.scfg.temperature > 0:
-                nxt = sample_tokens(logits, rids, pos, seed=self.scfg.seed,
-                                    temperature=self.scfg.temperature)
-            else:
-                nxt = torch.argmax(logits, -1)
-            tok = nxt[:, None]
+            tok, caches = self._step(self.model, caches, tok, S + i, rids)
             out.append(tok)
             if eos >= 0:
                 done = done | (tok[:, 0] == eos)   # stays on device

@@ -227,3 +227,53 @@ def test_import_hygiene_no_jax_no_reference():
                 "autotune.calibrate", "fl", "fl.exact", "fl.rounds",
                 "faults.plan"):
         assert f"repro_torch.{sub}" in names, sub
+
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+TWINS = sorted(EXAMPLES.glob("torch_*.py"))
+
+_TWIN_HYGIENE = """
+import importlib.util, sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, _Block())
+for path in sys.argv[1:]:
+    name = path.rsplit("/", 1)[-1][:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+print(len(sys.argv) - 1)
+"""
+
+
+def test_example_twins_import_no_jax_no_reference():
+    """Every ``examples/torch_*.py`` loads with ``jax`` and ``repro``
+    blocked, and no import statement in it (a function's lazy import
+    included) names either."""
+    import ast
+
+    names = sorted(p.stem for p in TWINS)
+    assert names == ["torch_autotune_study", "torch_counters_telemetry",
+                     "torch_fed_avg", "torch_quickstart",
+                     "torch_serve_continuous", "torch_serve_f2p_kv",
+                     "torch_sketch_zipf_trace"]
+    proc = subprocess.run([sys.executable, "-c", _TWIN_HYGIENE,
+                           *map(str, TWINS)],
+                          env={"PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) == len(TWINS)
+    for path in TWINS:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    (path.name, m)
