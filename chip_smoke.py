@@ -13,6 +13,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --only frontends  # phases 1-2 and phase 12 (whisper, internvl2)
     python3 chip_smoke.py --only moe_train  # phases 1-2 and phase 13 (MoE trained)
     python3 chip_smoke.py --only examples  # phases 1-2 and phase 14 (the example twins)
+    python3 chip_smoke.py --only sharded   # phases 1-2 and phase 15 (the sharded part)
 
 With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
 unpacked``, ``--only fl``, ``--only families``, ``--only recurrent``,
@@ -343,19 +344,45 @@ Phases (any failed check raises, so the script exits non-zero):
    must have launched. No example reaches B7/B8 (the reference's only
    caller is its benchmark folder) or B10 (both sketches' query gathers
    grid values itself; only F2PSketch.estimates() launches B10).
+15. sharded — the sharded part (A12) on one card, ranks as processes that
+   share it over gloo (NCCL refuses two ranks on one device; gloo moves
+   CPU tensors, so each collective's leg is staged through host memory,
+   by design, and named on a line). (a) compressed_psum on 2 ranks at
+   llama3.2-3b's down gradient [8192, 3072] and xLSTM-125m's embedding
+   [50304, 768], f32, unpacked and packed: each rank's B5 (B3) launch on
+   its sum shard and the gathered B6 (B4) bitwise against the plain
+   versions on the card, the result the plain composition's bits, packed
+   == unpacked, and within the codec's bound of the f32 mean; (b) ``python
+   -m repro_torch.launch.train --arch xlstm_125m --full --mesh-shape 2,2``
+   (4 ranks on the card, the launcher's defaults, 4 steps) against a 1,1
+   run's losses, then a run killed by --die-at-step 3 (rc 42) and
+   restarted on 2,1, which must resume from the latest committed step; the
+   ranks' state bytes, peak memory and step time from the CLI's "ranks"
+   line; (c) llama3.2-3b at full width, 3 steps on a (1,1) NCCL
+   DeviceMesh (DTensor state, the sharded step, one B5 round trip a step
+   on the local shards), its losses held to the plain path's: phase 8's
+   first 3 (the same seed, configs and batches; ``--only sharded`` trains
+   the plain path itself);
+   (d) phase 7's sketch (4 x 2^20 16-bit cells) on 2 ranks of 2 rows
+   each, 2^22 packets as device batches, flushed and estimated: each
+   rank's B9 with its lane base bitwise against the plain version, the
+   gathered state bitwise the unsharded sketch's on the card, B9 and B10
+   launches per rank.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
 line, one ``{"fl": {...}}`` JSON line, one ``{"families": {...}}`` JSON
 line, one ``{"recurrent": {...}}`` JSON line, one ``{"frontends":
 {...}}`` JSON line, one ``{"moe_train": {...}}`` JSON line, one ``{"examples":
-{...}}`` JSON line, one ``{"kernels": [...]}``
+{...}}`` JSON line, one ``{"sharded": {...}}`` JSON line, one
+``{"kernels": [...]}``
 JSON line (all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as
 a row of its own; B5's codes mode and B6 count the launches of phase 8's
 checkpoint save and restore; B3-B6 also carry ``fl_launches``, phase 9's,
 B1-B4 ``families_launches``, phase 10's, and B1-B3 and the round trip
 ``recurrent_launches``, phase 11's, B1-B4 ``frontends_launches``, phase
 12's, B5's codes mode, its round trip and B6 ``moe_train_launches``,
-phase 13's, and every kernel ``examples_launches``, phase 14's), then the
+phase 13's, every kernel ``examples_launches``, phase 14's, and B3-B6,
+the round trip, B9 and B10 ``sharded_launches``, phase 15's), then the
 nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
 copy of the results goes to chiprun_out/chip_smoke.json.
 """
@@ -486,6 +513,26 @@ EXAMPLE_RUNS = (
     ("counters_telemetry", "torch_counters_telemetry", [],
      ("mean rel err:", "load imbalance (max/mean):")),
 )
+# phase 15: the sharded part. (a) compressed_psum's two full-width leaves
+# (llama3.2-3b's down gradient, xLSTM-125m's embedding), (b) the train CLI
+# at --mesh-shape 2,2 then killed at SHARD_DIE_AT (a checkpoint every step:
+# the asynchronous writer commits step 1 or 2 before the kill at the top of
+# step 3) and restarted on 2,1, its
+# losses against 1,1: step 0's within SHARD_LOSS0_RTOL (the same parameters;
+# bf16 activations of half-batch GEMMs round otherwise), the last within
+# SHARD_LOSS_RTOL (each data rank's bf16 gradient rounded, summed in f32 and
+# rounded again, and AdamW's first steps turn the rounding of near-zero
+# gradients into +-lr moves: 1.9e-3 after 6 steps and 3.1e-3 after 4 on an
+# H100; on the CPU in f32, tests/test_torch_sharded_train.py holds the
+# same step to 1e-5), (c)
+# llama3.2-3b on a (1,1) mesh, SHARD_LLAMA_STEPS steps, losses against the
+# plain path within SHARD_MESH_RTOL (a world of one: the same leaves in the
+# same order; bitwise on the CPU), (d) phase 7's sketch on 2 ranks
+SHARD_PSUM_LEAVES = (("llama_down_grad", (8192, 3072)),
+                     ("xlstm_embed", (50304, 768)))
+SHARD_XLSTM_STEPS, SHARD_DIE_AT = 4, 3
+SHARD_LOSS0_RTOL, SHARD_LOSS_RTOL, SHARD_MESH_RTOL = 1e-4, 1e-2, 1e-6
+SHARD_LLAMA_STEPS, SHARD_PACKETS = 3, 1 << 22
 # what no example reaches: B7/B8 (the dequant matmul; the reference's only
 # caller is its benchmark folder) and B10 (the estimate table: the sketch's
 # query gathers grid_lut[state[rows, idx]] itself, as the reference's does,
@@ -1596,6 +1643,16 @@ def counter_bitwise(dev, budget, formats) -> tuple[float, float]:
                     f"counter_advance != plain: F2P_{flavor}^2[{n_bits}] "
                     f"{sname} state, sweep0 {sweep0}: {bad_s} states and "
                     f"{bad_l} leftovers of {n} cells differ")
+                # a row shard (the sharded sketch's): its lane base is its
+                # first cell's global index, and it draws those cells' stream
+                h = shape[0] // 2
+                part = FC.counter_advance(st[h:], budget[h:], *luts, seed,
+                                          sweep0=sweep0,
+                                          lane_base=h * shape[1])
+                assert torch.equal(part[0], want[0][h:]) and torch.equal(
+                    part[1], want[1][h:]), (
+                    f"counter_advance(lane_base) != the whole state's rows: "
+                    f"F2P_{flavor}^2[{n_bits}] {sname}, sweep0 {sweep0}")
         est = FC.counter_estimate(rand, glut)
         ref = FC.counter_estimate_plain(rand, glut)
         est_err = max(est_err, float((est - ref).abs().max()))
@@ -1622,7 +1679,8 @@ def check_counter(dev, trace, width=SKETCH["width"], batch=BATCH):
         dev, budget, (("li", 8), ("li", 12), ("li", 16), ("sr", 16)))
     log("counter  : counter_advance == plain (state and leftover) and "
         "counter_estimate == plain, bitwise (8/12/16-bit LI^2, 16-bit SR^2; "
-        "zero and random state; sweep0 0 and 32)")
+        "zero and random state; sweep0 0 and 32; the lower half of the rows "
+        "with its lane base == those rows of the whole)")
 
     # time the main path's format on its first batch (zero state)
     grid = F2PFormat(n_bits=SKETCH["n_bits"], h_bits=SKETCH["h_bits"],
@@ -5237,6 +5295,481 @@ def examples_summary(ex: dict) -> dict:
                 seconds=ex["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sharded part (A12). One card: ranks share it as processes
+# over gloo (NCCL refuses two ranks on one device); a world of one runs the
+# mesh path over NCCL.
+# ---------------------------------------------------------------------------
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(rank, world, port, fn, args, out_dir, dev):
+    """A spawned rank: its device, a gloo group, ``fn``, its result."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.set_device(torch.device(dev).index or 0)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = fn(rank, world, dev, *args)
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def spawn_ranks(fn, world: int, dev, *args) -> list:
+    """``fn(rank, world, dev, *args)`` on ``world`` spawned gloo ranks that
+    share ``dev``; their results in rank order."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(_rank_entry, args=(world, _free_port(), fn, args,
+                                              d, dev),
+                           nprocs=world, start_method="spawn")
+        out = []
+        for r in range(world):
+            with open(Path(d) / f"{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _launch_deltas(before: dict, names) -> dict:
+    from repro_torch.kernels import cuda as C
+
+    return {k: C.LAUNCHES[k] - before[k] for k in names}
+
+
+PSUM_KERNELS = ("quantize", "dequantize", "quantize_packed",
+                "dequantize_packed")
+
+
+def psum_rank(rank, world, dev, leaves, seed=100):
+    """15(a) on one rank: ``compressed_psum`` of each leaf (the rank's
+    gradient drawn from ``seed + rank``), unpacked and packed. This rank's
+    B5 / B6 (B3 / B4) launches are held on its shard against the plain
+    versions on the card: every rank draws every rank's gradient, so it
+    knows the exact sum shard (two f32 addends: any order gives its
+    bits)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cuda as C
+    from repro_torch.kernels import f2p_quant as Q
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim.compress import CompressionConfig, compressed_psum
+
+    C.reset_launches()
+    out = {}
+    for tag, shape in leaves:
+        gs = [torch.randn(shape, generator=torch.Generator(dev).manual_seed(
+            seed + r), device=dev) * 1e-3 for r in range(world)]
+        g, total = gs[rank], sum(gs[1:], gs[0])
+        rows = shape[0] // world
+        res = {}
+        for packed in (False, True):
+            ccfg = CompressionConfig(packed=packed)
+            fmt, block = ccfg.fmt, ccfg.block
+            before = dict(C.LAUNCHES)
+            got = compressed_psum(g, None, ccfg)
+            sync(dev)
+            n = _launch_deltas(before, PSUM_KERNELS)
+            # the plain composition of every rank's shard on the card
+            quant = Q.quantize_packed_plain if packed else Q.quantize_plain
+            deq = (Q.dequantize_packed_plain if packed
+                   else Q.dequantize_plain)
+            parts = [quant(total[r * rows:(r + 1) * rows], fmt, block)
+                     for r in range(world)]
+            codes = torch.cat([c for c, _ in parts])
+            scales = torch.cat([sc * torch.tensor(1.0 / world).to(dev)
+                                for _, sc in parts])
+            want = deq(codes, scales, fmt, block)
+            mine = total[rank * rows:(rank + 1) * rows]
+            kq = (Q.f2p_quantize_packed if packed else Q.f2p_quantize_codes)(
+                mine, fmt, block=block)
+            kd = (Q.f2p_dequantize_packed if packed
+                  else Q.f2p_dequantize_codes)(codes, scales, fmt,
+                                               block=block)
+            assert torch.equal(kq[0], parts[rank][0]) and torch.equal(
+                kq[1], parts[rank][1]), \
+                f"15(a) {tag} packed={packed} rank {rank}: shard quantize " \
+                "!= plain"
+            assert torch.equal(_bits(kd), _bits(want)), \
+                f"15(a) {tag} packed={packed}: dequantize != plain"
+            assert torch.equal(_bits(got), _bits(want)), \
+                f"15(a) {tag} packed={packed} rank {rank}: compressed_psum " \
+                "!= the plain composition"
+            # within the codec's error of the f32 mean: half the largest
+            # grid gap of each block's scale
+            mean = total * (1.0 / world)
+            bm = mean.abs().reshape(shape[0], -1, block).amax(-1)
+            bound = (bm / fmt.max_value * float(np.max(np.diff(fmt.grid)))
+                     / 2).repeat_interleave(block, dim=-1).reshape(shape)
+            err = float(((got - mean).abs() - bound).max())
+            assert err <= 1e-12, f"15(a) {tag}: error past the codec bound"
+            ts = []
+            for _ in range(3):
+                sync(dev)
+                t = time.perf_counter()
+                compressed_psum(g, None, ccfg)
+                sync(dev)
+                ts.append(1e3 * (time.perf_counter() - t))
+            res[packed] = dict(launches=n, ms=statistics.median(ts),
+                               max_abs_err=float((got - mean).abs().max()),
+                               got=got)
+        got_p, got_u = res[True].pop("got"), res[False].pop("got")
+        assert torch.equal(_bits(got_p), _bits(got_u)), \
+            f"15(a) {tag}: packed != unpacked"
+        out[tag] = res
+    out["host_staged"] = sorted(M.HOST_STAGED)
+    return out
+
+
+def sketch_rank(rank, world, dev, sketch_kw, n_packets, n_flows, batch):
+    """15(d) on one rank: the row-sharded sketch fed the trace in batches
+    of device keys, flushed, estimates() read; B9 with this shard's lane
+    base held against the plain version on the card. Returns the whole
+    state (gathered) and this rank's B9 / B10 launches."""
+    import torch
+
+    from repro_torch.kernels import cuda as C
+    from repro_torch.kernels import f2p_counter as FC
+    from repro_torch.launch.mesh import make_sketch_mesh
+    from repro_torch.sketch import F2PSketch, SketchConfig
+
+    trace = torch.from_numpy(make_trace(n_packets, n_flows, seed=0))
+    sk = F2PSketch(SketchConfig(**sketch_kw), device=dev,
+                   mesh=make_sketch_mesh(world, device=dev))
+    C.reset_launches()
+    sync(dev)
+    t = time.perf_counter()
+    for pos in range(0, trace.numel(), batch):
+        sk.update(trace[pos:pos + batch].to(dev))
+    sk.flush()
+    est = sk.estimates()
+    sync(dev)
+    seconds = time.perf_counter() - t
+    launches = {k: C.LAUNCHES[k] for k in ("counter_advance",
+                                           "counter_estimate")}
+    # B9 on this shard, with its lane base, against the plain version
+    budget = (torch.arange(sk.state.numel(), device=dev) % 97).to(
+        torch.float32).reshape(sk.state.shape)
+    lb = sk._row0 * sketch_kw["width"]
+    luts = (sk._p_lut, sk._run_lut, sk._logq_lut)
+    got = FC.counter_advance(sk.state, budget, *luts, 12345, lane_base=lb)
+    u = FC.hash_uniforms(12345, 0, FC.PALLAS_SWEEPS, tuple(sk.state.shape),
+                         device=dev, lane_base=lb)
+    want = FC.counter_advance_plain(sk.state, budget, *luts, u)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+        f"15(d) rank {rank}: B9 with lane base {lb} != plain"
+    return dict(state=sk._gather_rows(sk.state).cpu().numpy(),
+                estimates=est, rows=tuple(sk.state.shape), lane_base=lb,
+                launches=launches, seconds=seconds, fill=sk.fill(),
+                arrivals=sk.arrivals)
+
+
+def shard_cli(args: list, env: dict, timeout: int = 600):
+    """``python -m repro_torch.launch.train`` with ``args``: (rc, stdout,
+    seconds)."""
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *args], capture_output=True, text=True, env=env,
+                       cwd=str(ROOT), timeout=timeout)
+    if r.returncode not in (0, 42):
+        log(r.stdout[-3000:])
+        log(r.stderr[-6000:])
+    return r.returncode, r.stdout, time.perf_counter() - t
+
+
+def _cli_losses(out: str) -> dict:
+    import re
+
+    return {int(m[1]): float(m[2])
+            for m in re.finditer(r"step\s+(\d+) loss ([-\d.]+)", out)}
+
+
+def shard_train_cli(dev, full: bool = True) -> dict:
+    """15(b): the reference launcher's own example, ``--arch xlstm_125m
+    --full --mesh-shape 2,2`` (4 ranks on the card), against a ``1,1``
+    run; then a run killed by ``--die-at-step`` and restarted on ``2,1``
+    from the latest committed step."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.train import checkpoint
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = ["--arch", "xlstm_125m", "--steps", str(SHARD_XLSTM_STEPS)] + (
+        ["--full"] if full else [])
+    once = ["--ckpt-every", "100"]   # the final save only
+    if not full:   # the CPU rehearsal: a short sequence
+        base += ["--seq", "16", "--global-batch", "4"]
+    work = Path(tempfile.mkdtemp(prefix="shard_cli_"))
+    try:
+        runs = {}
+        for tag, shape in (("2,2", "2,2"), ("1,1", "1,1")):
+            e = env
+            if not full and shape == "1,1":   # the CLI's 1,1 needs a card:
+                # the CPU rehearsal joins a world of one instead
+                e = dict(env, RANK="0", WORLD_SIZE="1",
+                         MASTER_ADDR="localhost",
+                         MASTER_PORT=str(_free_port()))
+            rc, out, sec = shard_cli(base + once + [
+                "--mesh-shape", shape, "--ckpt-dir", str(work / tag)], e)
+            assert rc == 0 and out.rstrip().endswith("done."), \
+                f"15(b) --mesh-shape {shape}: rc {rc}"
+            runs[tag] = dict(losses=_cli_losses(out), seconds=sec,
+                             lines=out.splitlines())
+        first = runs["2,2"]["lines"][0]
+        assert first.startswith("backend gloo  ranks 0:"), first
+        ranks = next(x for x in runs["2,2"]["lines"] if x.startswith("ranks "))
+        a, b = runs["2,2"]["losses"], runs["1,1"]["losses"]
+        assert set(a) == set(b) and a, (a, b)
+        rel0 = abs(a[0] - b[0]) / abs(b[0])
+        rel = max(abs(a[k] - b[k]) / abs(b[k]) for k in a)
+        assert rel0 <= SHARD_LOSS0_RTOL, f"15(b) step 0 losses: {rel0}"
+        assert rel <= SHARD_LOSS_RTOL, f"15(b) losses (2,2) vs (1,1): {rel}"
+        log(f"sharded  : 15(b) {first}")
+        log(f"sharded  : 15(b) xlstm_125m (2,2) losses {a} vs (1,1) {b}: "
+            f"step 0 rel {rel0:.2e} (limit {SHARD_LOSS0_RTOL:g}), max rel "
+            f"{rel:.2e} (limit {SHARD_LOSS_RTOL:g}); "
+            f"{runs['2,2']['seconds']:.1f} s vs {runs['1,1']['seconds']:.1f}"
+            " s wall")
+        log(f"sharded  : 15(b) {ranks}")
+        d = str(work / "elastic")
+        rc, out, sec = shard_cli(base + [
+            "--mesh-shape", "2,2", "--ckpt-dir", d, "--ckpt-every", "1",
+            "--die-at-step", str(SHARD_DIE_AT)], env)
+        assert rc == 42 and f"SIMULATED PREEMPTION at step {SHARD_DIE_AT}" \
+            in out, f"15(b) --die-at-step: rc {rc}"
+        latest = checkpoint.latest_step(d)
+        assert latest is not None and latest < SHARD_DIE_AT, latest
+        rc2, out2, sec2 = shard_cli(base + once + [
+            "--mesh-shape", "2,1", "--ckpt-dir", d], env)
+        assert rc2 == 0 and f"resumed from step {latest} (elastic remesh ok)" \
+            in out2 and out2.rstrip().endswith("done."), \
+            f"15(b) restart on 2,1: rc {rc2}"
+        log(f"sharded  : 15(b) killed at step {SHARD_DIE_AT} (rc 42 from "
+            f"every rank), latest committed step {latest}; restarted on "
+            f"(2,1): resumed from step {latest}, done ({sec2:.1f} s)")
+        return dict(losses={k: v["losses"] for k, v in runs.items()},
+                    max_rel=rel, step0_rel=rel0, seconds={k: v["seconds"]
+                                          for k, v in runs.items()},
+                    backend_line=first, ranks_line=ranks, killed_rc=rc,
+                    latest=latest, resumed=latest,
+                    restart_ranks=next(x for x in out2.splitlines()
+                                       if x.startswith("ranks ")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def shard_mesh_llama(dev, cfg, backend: str, plain_losses=None) -> dict:
+    """15(c): ``cfg`` trained SHARD_LLAMA_STEPS steps on a (1, 1)
+    DeviceMesh of a world of one (``backend``): DTensor parameters, moments
+    and residuals, the sharded step with B5's round trip on the local
+    shards (one launch a step, asserted). Its losses are held to the plain
+    path's: ``plain_losses`` where given (phase 8's first steps: the same
+    seed, configs and batches), else a plain run made here first."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import host_batch
+    from repro_torch.kernels import cuda as C
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.launch.shardings import (rules_for, shard_state,
+                                              train_state_specs)
+    from repro_torch.models.sharding import logical_rules
+    from repro_torch.train import init_train_state, make_train_step
+
+    ocfg, ccfg, dcfg = train_configs(cfg)
+    out = {}
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        paths = ("plain", "mesh") if plain_losses is None else ("mesh",)
+        for path in paths:
+            state = init_train_state(cfg, ocfg, ccfg, seed=0, device=dev)
+            ctx = contextlib.nullcontext()
+            if path == "mesh":
+                mesh = compat_make_mesh((1, 1), ("data", "model"), dev)
+                rules = rules_for(cfg, mesh, "train_4k")
+                shard_state(state, train_state_specs(cfg, ocfg, ccfg, mesh,
+                                                     rules)[0])
+                assert isinstance(state["params"].embed, DTensor)
+                ctx = logical_rules(rules, mesh)
+            step_fn = make_train_step(cfg, ocfg, ccfg)
+            losses, ms, rts = [], [], []
+            with ctx:
+                for step in range(SHARD_LLAMA_STEPS):
+                    batch = {k: torch.from_numpy(v).to(dev)
+                             for k, v in host_batch(dcfg, step).items()}
+                    before = dict(C.LAUNCHES)
+                    sync(dev)
+                    t = time.perf_counter()
+                    state, m = step_fn(state, batch)
+                    losses.append(float(m["loss"]))
+                    sync(dev)
+                    ms.append(1e3 * (time.perf_counter() - t))
+                    rts.append(_launch_deltas(before, ("ef_roundtrip",))[
+                        "ef_roundtrip"])
+            if torch.device(dev).type == "cuda":
+                assert rts == [1] * SHARD_LLAMA_STEPS, f"15(c) {path}: {rts}"
+            out[path] = dict(losses=losses, step_ms=ms, roundtrips=rts)
+            del state, step_fn
+            gc.collect()
+            if torch.device(dev).type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if plain_losses is not None:
+        out["plain"] = dict(losses=list(plain_losses), from_phase=8)
+    a, b = out["mesh"]["losses"], out["plain"]["losses"]
+    assert len(a) == len(b) == SHARD_LLAMA_STEPS, (a, b)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    assert rel <= SHARD_MESH_RTOL, f"15(c) mesh vs plain losses: {rel}"
+    out.update(max_rel=rel, bitwise=a == b, arch=cfg.name,
+               layers=cfg.n_layers, backend=backend)
+    src = "phase 8's" if plain_losses is not None else "plain"
+    plain_ms = out["plain"].get("step_ms")
+    log(f"sharded  : 15(c) {cfg.name} ({cfg.n_layers} layers) on a (1,1) "
+        f"{backend} DeviceMesh: losses {a} vs {src} {b} "
+        f"({'bitwise' if a == b else f'max rel {rel:.2e}'}); step ms mesh "
+        f"{[round(x, 1) for x in out['mesh']['step_ms']]}"
+        + (f" plain {[round(x, 1) for x in plain_ms]}" if plain_ms else "")
+        + f"; B5 round trips {out['mesh']['roundtrips']}")
+    return out
+
+
+def sharded_phase(dev, *, psum_leaves=None, sketch_kw=None,
+                  packets=SHARD_PACKETS, flows=N_FLOWS, batch=BATCH,
+                  llama_cfg=None, full_xlstm=True, mesh_backend="nccl",
+                  plain_losses=None) -> dict:
+    """Phase 15: (a) compressed_psum on 2 ranks sharing the card, (b) the
+    sharded CLI and its elastic restart, (c) llama3.2-3b on a (1,1) mesh,
+    (d) the row-sharded sketch. Each part's launch counts are read from
+    its own processes, counted from 0 before it runs. ``plain_losses``:
+    phase 8's first losses, which (c) holds its mesh run to instead of
+    training the plain path again."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import cuda as C
+    from repro_torch.sketch import F2PSketch, SketchConfig
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    # (a)
+    leaves = psum_leaves or SHARD_PSUM_LEAVES
+    ranks = spawn_ranks(psum_rank, 2, dev, leaves)
+    out["psum"] = {tag: {("packed" if p else "unpacked"): {
+        k: v for k, v in ranks[0][tag][p].items()} for p in (False, True)}
+        for tag, _ in leaves}
+    for r, res in enumerate(ranks):
+        for tag, _ in leaves:
+            for p in (False, True):
+                for k, n in res[tag][p]["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+                    if torch.device(dev).type == "cuda":
+                        want = int(k == ("quantize_packed" if p else
+                                         "quantize")) + int(
+                            k == ("dequantize_packed" if p else "dequantize"))
+                        assert n == want, (tag, p, r, k, n)
+    out["host_staged"] = ranks[0]["host_staged"]
+    for tag, shape in leaves:
+        u, p = out["psum"][tag]["unpacked"], out["psum"][tag]["packed"]
+        log(f"sharded  : 15(a) compressed_psum {tag} {list(shape)} f32, W=2 "
+            f"ranks on one card: unpacked {u['ms']:.2f} ms, packed "
+            f"{p['ms']:.2f} ms a call; each rank's shard quantize (B5 / B3) "
+            f"and the gathered dequantize (B6 / B4) == plain, result == the "
+            f"plain composition, packed == unpacked, bitwise; max |err| vs "
+            f"the f32 mean {u['max_abs_err']:.3e} (within the codec bound)")
+    log(f"sharded  : 15(a) legs staged through host memory by design "
+        f"(gloo moves CPU tensors): {', '.join(out['host_staged'])}")
+    # (b)
+    out["cli"] = shard_train_cli(dev, full=full_xlstm)
+    # (c)
+    cfg = llama_cfg or full_config(ARCH)
+    out["mesh_llama"] = shard_mesh_llama(dev, cfg, mesh_backend,
+                                         plain_losses)
+    launches["ef_roundtrip"] = sum(out["mesh_llama"]["mesh"]["roundtrips"])
+    # (d)
+    skw = sketch_kw or SKETCH
+    ranks = spawn_ranks(sketch_rank, 2, dev, skw, packets, flows, batch)
+    trace = torch.from_numpy(make_trace(packets, flows, seed=0))
+    ref = F2PSketch(SketchConfig(**skw), device=dev)
+    for pos in range(0, trace.numel(), batch):
+        ref.update(trace[pos:pos + batch].to(dev))
+    ref.flush()
+    want_state, want_est = ref.state.cpu().numpy(), ref.estimates()
+    for r, res in enumerate(ranks):
+        assert np.array_equal(res["state"], want_state), \
+            f"15(d) rank {r}: sharded state != the unsharded sketch's"
+        assert np.array_equal(res["estimates"], want_est)
+        assert res["fill"] == ref.fill() and res["arrivals"] == ref.arrivals
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["sketch"] = dict(
+        rows={r: res["rows"] for r, res in enumerate(ranks)},
+        lane_base={r: res["lane_base"] for r, res in enumerate(ranks)},
+        launches={r: res["launches"] for r, res in enumerate(ranks)},
+        seconds={r: res["seconds"] for r, res in enumerate(ranks)},
+        packets=packets, fill=ref.fill())
+    log(f"sharded  : 15(d) sketch {skw['depth']} x {skw['width']} "
+        f"{skw['n_bits']}-bit on 2 ranks of {ranks[0]['rows'][0]} rows, "
+        f"{packets} packets: state == the unsharded sketch's, bitwise; "
+        f"launches per rank (B9, B10) "
+        f"{[tuple(r['launches'].values()) for r in ranks]}; "
+        f"{[round(r['seconds'], 2) for r in ranks]} s per rank")
+    for k in ("quantize", "dequantize", "quantize_packed",
+              "dequantize_packed", "ef_roundtrip", "counter_advance",
+              "counter_estimate"):
+        assert launches.get(k, 0) > 0 or torch.device(dev).type != "cuda", \
+            f"phase 15 never launched {k}"
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"sharded  : phase 15 in {out['seconds']:.1f} s; launches {launches}")
+    return out
+
+
+def sharded_summary(sh: dict) -> dict:
+    return dict(psum={t: {m: {k: v[k] for k in ("ms", "max_abs_err",
+                                                 "launches")}
+                          for m, v in x.items()}
+                      for t, x in sh["psum"].items()},
+                host_staged=sh["host_staged"],
+                cli={k: sh["cli"][k] for k in ("losses", "max_rel",
+                                               "seconds", "backend_line",
+                                               "ranks_line", "latest")},
+                mesh_llama={k: sh["mesh_llama"][k] for k in (
+                    "max_rel", "bitwise", "layers", "backend")},
+                mesh_losses=sh["mesh_llama"]["mesh"]["losses"],
+                plain_losses=sh["mesh_llama"]["plain"]["losses"],
+                mesh_step_ms=sh["mesh_llama"]["mesh"]["step_ms"],
+                sketch=sh["sketch"], launches=sh["launches"],
+                seconds=sh["seconds"])
+
+
 def main():
     import argparse
     import gc
@@ -5247,7 +5780,8 @@ def main():
     ap.add_argument("--only", choices=("matmul", "attention", "codec",
                                        "unpacked", "fl", "families",
                                        "recurrent", "frontends",
-                                       "moe_train", "examples"),
+                                       "moe_train", "examples",
+                                       "sharded"),
                     help="matmul / attention / codec / unpacked: phases 1-2 "
                          "and phase 3's dequant matmul (B7/B8), attention "
                          "(B1/B2), packed codec (B3/B4) or unpacked codec "
@@ -5259,7 +5793,9 @@ def main():
                          "phases 1-2 and phase 12 (whisper, internvl2); "
                          "moe_train: phases 1-2 and phase 13 (the MoE "
                          "family trained); examples: phases 1-2 and phase "
-                         "14 (the example twins); prints no final ok line")
+                         "14 (the example twins); sharded: phases 1-2 and "
+                         "phase 15 (the sharded part); prints no final ok "
+                         "line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
@@ -5363,6 +5899,15 @@ def main():
         print(json.dumps({"moe_train": moe_train_summary(mt)}, default=str))
         print(smi)
         return
+    if only == "sharded":
+        sh = sharded_phase(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_sharded.json").write_text(json.dumps(
+            {"device": smi, "sharded": sh}, indent=1, default=str))
+        print(json.dumps({"sharded": sharded_summary(sh)}, default=str))
+        print(smi)
+        return
     if only == "examples":
         ex = examples_phase(dev)
         out_dir = ROOT / "chiprun_out"
@@ -5433,6 +5978,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ex_res = examples_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sh_res = sharded_phase(
+        dev, plain_losses=train_res["losses"][:SHARD_LLAMA_STEPS])
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
@@ -5473,6 +6022,9 @@ def main():
             kernels[-1]["moe_train_launches"] = mt_res["launches"][name]
         # phase 14's main path: the example twins (B7/B8: none calls them)
         kernels[-1]["examples_launches"] = ex_res["launches"][name]
+        if name in sh_res["launches"]:
+            # phase 15's: the sharded part's ranks, on shards
+            kernels[-1]["sharded_launches"] = sh_res["launches"][name]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -5482,7 +6034,8 @@ def main():
         {"device": smi, "kernels": kernels, "serve": serve_res,
          "sketch": sketch_res, "train": train_res, "fl": fl_res,
          "families": fam_res, "recurrent": rec_res, "frontends": fr_res,
-         "moe_train": mt_res, "examples": ex_res, "shapes": {k: v["shape"] for k, v in res.items()},
+         "moe_train": mt_res, "examples": ex_res, "sharded": sh_res,
+         "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "ef_roundtrip_row": res["ef_roundtrip"],
          "attention_rows": {k: res[k] for k in ("attention_paged",
@@ -5500,6 +6053,7 @@ def main():
     print(json.dumps({"frontends": frontends_summary(fr_res)}, default=str))
     print(json.dumps({"moe_train": moe_train_summary(mt_res)}, default=str))
     print(json.dumps({"examples": examples_summary(ex_res)}, default=str))
+    print(json.dumps({"sharded": sharded_summary(sh_res)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -100,30 +100,35 @@ def input_specs(cfg, shape_name: str, *, sharding_fn=None) -> dict:
     of the reference's keys, shapes and dtypes (int32 tokens, bf16
     ``frames`` / ``patches``), nothing allocated. The patch embeddings
     take ``vision_tokens`` of the sequence; the encoder's frames come on
-    top. ``sharding_fn`` (the reference's per-input shardings) needs
-    several cards: ROADMAP A12."""
-    if sharding_fn is not None:
-        raise NotImplementedError(
-            "input_specs(sharding_fn=...): sharded inputs need several "
-            "cards (ROADMAP A12)")
+    top. ``sharding_fn(logical_axes)`` (e.g. a ``NamedSharding`` from the
+    rules, or None) is called with each input's logical axes, the
+    reference's, and its result is attached as the stand-in's
+    ``sharding`` attribute."""
     seq, gbatch, kind = SHAPES[shape_name]
 
-    def spec(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
+    def spec(shape, dtype, axes):
+        t = torch.empty(shape, dtype=dtype, device="meta")
+        if sharding_fn is not None:
+            t.sharding = sharding_fn(axes)
+        return t
 
     text_seq = seq
     extras = {}
     if cfg.frontend == "vision":
         text_seq = seq - cfg.vision_tokens
         extras["patches"] = spec((gbatch, cfg.vision_tokens, cfg.d_model),
-                                 torch.bfloat16)
+                                 torch.bfloat16, ("batch", None, None))
     if cfg.is_encdec:
         extras["frames"] = spec((gbatch, cfg.encoder_seq, cfg.d_model),
-                                torch.bfloat16)
+                                torch.bfloat16, ("batch", None, None))
     if kind == "train":
-        return dict(tokens=spec((gbatch, text_seq), torch.int32),
-                    labels=spec((gbatch, text_seq), torch.int32), **extras)
+        return dict(tokens=spec((gbatch, text_seq), torch.int32,
+                                ("batch", "seq")),
+                    labels=spec((gbatch, text_seq), torch.int32,
+                                ("batch", "seq")), **extras)
     if kind == "prefill":
-        return dict(tokens=spec((gbatch, text_seq), torch.int32), **extras)
+        return dict(tokens=spec((gbatch, text_seq), torch.int32,
+                                ("batch", "seq")), **extras)
     # decode: one new token against a cache of `seq`
-    return dict(token=spec((gbatch, 1), torch.int32), **extras)
+    return dict(token=spec((gbatch, 1), torch.int32, ("batch", None)),
+                **extras)

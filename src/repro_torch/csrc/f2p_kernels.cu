@@ -761,7 +761,9 @@ __global__ void dequantize_kernel(const TCode* __restrict__ codes,
 // remaining budget covers it (repro_torch.kernels.f2p_counter._sweep). The
 // uniforms are not streamed in: u = hash(seed, sweep0 + t, lane) is
 // computed in registers, the same counter-based stream hash_uniforms builds
-// for the plain version. Bound by bytes (state + budget in, state +
+// for the plain version. lane = lane_base + i is the cell's index in the
+// whole state: a rank holding a row shard of a sketch passes its first
+// cell's global index, so it draws the unsharded sketch's stream. Bound by bytes (state + budget in, state +
 // leftover out: 16 B per cell); the p/run/logq tables (<= 768 KiB) stay in
 // L2 and go through the read-only cache. A cell whose budget is spent
 // stops: a sweep with rem == 0 changes nothing, so the result is the same.
@@ -793,9 +795,11 @@ __global__ void counter_advance_kernel(const int* __restrict__ state_in,
                                        const float* __restrict__ run_lut,
                                        const float* __restrict__ logq_lut,
                                        long long n, int kmax, uint32_t seed,
-                                       uint32_t sweep0, int sweeps) {
+                                       uint32_t sweep0, int sweeps,
+                                       long long lane_base) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const uint32_t lane = (uint32_t)(lane_base + i);
   int s = state_in[i];
   float rem = budget[i];
   for (int t = 0; t < sweeps && rem > 0.f; ++t) {
@@ -803,7 +807,7 @@ __global__ void counter_advance_kernel(const int* __restrict__ state_in,
     s += (int)run;  // truncation, as torch's f32 -> int32
     rem = __fsub_rn(rem, run);
     const float pk = __ldg(p_lut + s);
-    const float u = hash_uniform(seed, sweep0 + (uint32_t)t, (uint32_t)i);
+    const float u = hash_uniform(seed, sweep0 + (uint32_t)t, lane);
     float need = ceilf(__fdiv_rn(logf(u), __ldg(logq_lut + s)));
     // p = 1 and p = 0 carry logq = 0: the quotient is +-inf and is
     // overridden here, before the maximum (the reference's order)
@@ -2988,13 +2992,13 @@ int f2p_counter_advance(const int* state, const float* budget, int* state_out,
                         float* left, const float* p_lut, const float* run_lut,
                         const float* logq_lut, long long n, int kmax,
                         uint32_t seed, uint32_t sweep0, int sweeps,
-                        cudaStream_t stream) {
+                        long long lane_base, cudaStream_t stream) {
   if (n <= 0) return 0;
   const int threads = 256;
   const long long grid = (n + threads - 1) / threads;
   counter_advance_kernel<<<(unsigned)grid, threads, 0, stream>>>(
       state, budget, state_out, left, p_lut, run_lut, logq_lut, n, kmax, seed,
-      sweep0, sweeps);
+      sweep0, sweeps, lane_base);
   return (int)cudaGetLastError();
 }
 

@@ -20,7 +20,10 @@ aggregator. Where the reference vmaps the client over a chunk of
 ``client_batch`` clients, the port runs the chunk's clients one after the
 other on the device (each quantize a kernel launch) and copies the chunk's
 updates to the host in one transfer; the chunk width cannot change a bit.
-The reference's ``_maybe_shard`` (one card: a no-op) is not ported.
+With several cards and ``FleetConfig.shard_clients`` a chunk's lanes are
+spread over the cards (``_maybe_shard``: lane ``j`` of a chunk on card
+``j // (client_batch / n)``), each card with its own replica of the
+round's parameters; a lane's bits cannot depend on the card it ran on.
 
 Parameters are the reference's tree (``models.convert.stacked_params``);
 the drivers run on ``device`` (default ``"cuda"``, as ``init_params``).
@@ -334,6 +337,33 @@ class FleetConfig:
     weight_unit_bits: int = 8
     # --- compute scaling ----------------------------------------------------
     client_batch: int = 16        # clients per device-to-host transfer
+    shard_clients: bool = True    # spread a chunk's lanes over the cards
+
+
+def _local_devices() -> list:
+    """The cards a fleet chunk may spread over: every local CUDA device."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _tree_to(tree, device):
+    """``tree`` (QTensor leaves expanded) with every tensor on ``device``."""
+    if tree is None:
+        return None
+    return _tree.unflatten(tree, [x.to(device) for x in _tree.leaves(
+        tree, expand_q=True)], expand_q=True)
+
+
+def _maybe_shard(lanes: list, flcfg: FleetConfig) -> list:
+    """A chunk's per-lane trees spread over the local cards in equal runs
+    of consecutive lanes, as the reference shards the chunk axis.
+    Unchanged with ``shard_clients`` off, one card or none, or a
+    ``client_batch`` the card count does not divide."""
+    devices = _local_devices()
+    n = len(devices)
+    if not flcfg.shard_clients or n <= 1 or flcfg.client_batch % n:
+        return lanes
+    per = flcfg.client_batch // n
+    return [_tree_to(t, devices[j // per]) for j, t in enumerate(lanes)]
 
 
 def _to_host(trees: list) -> list:
@@ -341,8 +371,9 @@ def _to_host(trees: list) -> list:
     every buffer of every tree in one device-to-host transfer: one buffer
     of bytes (uint8 views of every dtype), one copy."""
     flat = [_tree.leaves(t, expand_q=True) for t in trees]
+    dev0 = flat[0][0].device   # lanes spread over cards meet on the first
     buf = torch.cat([x.detach().contiguous().reshape(-1).view(torch.uint8)
-                     for f in flat for x in f]).cpu()
+                     .to(dev0) for f in flat for x in f]).cpu()
     out, off = [], 0
     for t, f in zip(trees, flat):
         host = []
@@ -426,17 +457,25 @@ def run_fleet_rounds(flcfg: FleetConfig, task=None, *, faults=None,
         # ---- client compute, chunk by chunk -------------------------------
         updates: dict[int, Any] = {}
         padded = cids + [cids[-1]] * (-len(cids) % chunk)
+        replicas = {}   # the round's parameters on each lane device
         with obs.span("fl.compute", round=r):
             for i0 in range(0, len(padded), chunk):
                 done, ups = [], []
-                for cid in padded[i0:i0 + chunk]:
+                lanes = padded[i0:i0 + chunk]
+                streams = _maybe_shard(
+                    [_client_stream(dcfg, ccfg.local_steps, r, cid, device)
+                     for cid in lanes], flcfg)
+                for cid, batch in zip(lanes, streams):
                     if cid in updates or cid in done:
                         continue  # pad lane (duplicate of the chunk tail)
+                    dev = batch["tokens"].device
+                    if dev not in replicas:
+                        replicas[dev] = _tree_to(params, dev)
                     with obs.span("fl.client", round=r, client=cid):
                         upd, new_res, _ = client_fn(
-                            params, res_store.get(cid, zero_res),
-                            _client_stream(dcfg, ccfg.local_steps, r, cid,
-                                           device))
+                            replicas[dev],
+                            _tree_to(res_store.get(cid, zero_res), dev),
+                            batch)
                     done.append(cid)
                     ups.append(upd)
                     if ccfg.error_feedback and ccfg.compress:

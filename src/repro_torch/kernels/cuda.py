@@ -175,7 +175,7 @@ def lib():
         L.f2p_attention.argtypes = [P, I, LL, LL, LL] + [P] * 5 + [
             AttnLen, AttnLen, P, P, P] + [I] * 15 + [F2PConsts, F2PConsts,
                                                     F, P]
-        L.f2p_counter_advance.argtypes = [P] * 7 + [LL, I, U, U, I, P]
+        L.f2p_counter_advance.argtypes = [P] * 7 + [LL, I, U, U, I, LL, P]
         L.f2p_counter_estimate.argtypes = [P, P, P, LL, P]
         L.f2p_dequant_matmul.argtypes = [P, I, P, I, I, P, P, P] + [I] * 9 + [
             F2PConsts, P]
@@ -205,7 +205,14 @@ def stream() -> int:
 
 def require_cuda(t: torch.Tensor, what: str, dtype=None) -> None:
     """Wrapper-side argument check: the kernels take contiguous CUDA
-    tensors of the stated dtype and nothing else."""
+    tensors of the stated dtype and nothing else. A DTensor (the sharded
+    paths' state) has no storage of its own to hand a kernel: its caller
+    passes the local shard (``.to_local()``) where the op is local."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        raise TypeError(f"{what} is a DTensor: a kernel takes its local "
+                        "shard (.to_local()) where the op is local")
     if t.device.type != "cuda":
         raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")
     if dtype is not None and t.dtype != dtype:

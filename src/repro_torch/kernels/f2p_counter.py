@@ -115,14 +115,17 @@ def _hash_uniform(seed: int, sweep: int, lanes: torch.Tensor) -> torch.Tensor:
 
 
 def hash_uniforms(seed: int, sweep0: int, sweeps: int, shape,
-                  device="cpu") -> torch.Tensor:
+                  device="cpu", lane_base: int = 0) -> torch.Tensor:
     """The uniforms the kernel draws for sweeps ``sweep0 .. sweep0+sweeps-1``
     of a state array of ``shape``, laid out as the TPU kernel takes them:
     ``[..., sweeps, width]`` (``[rows, sweeps, width]`` for 2-D state).
-    ``lane`` is the flat (row-major) cell index."""
+    ``lane`` is ``lane_base`` plus the flat (row-major) cell index: a row
+    shard starting at global cell ``lane_base`` draws the whole state's
+    stream for its cells."""
     shape = tuple(shape)
     n = math.prod(shape)
-    lanes = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    lanes = torch.arange(int(lane_base), int(lane_base) + n,
+                         dtype=torch.int64, device=device).reshape(shape)
     return torch.stack([_hash_uniform(seed, sweep0 + t, lanes)
                         for t in range(int(sweeps))], dim=-2)
 
@@ -188,18 +191,24 @@ def _check_advance_args(state, budget, luts) -> None:
 def counter_advance(state: torch.Tensor, budget: torch.Tensor,
                     p_lut: torch.Tensor, run_lut: torch.Tensor,
                     logq_lut: torch.Tensor, seed: int, *, sweep0: int = 0,
-                    sweeps: int = PALLAS_SWEEPS
+                    sweeps: int = PALLAS_SWEEPS, lane_base: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """``sweeps`` sweeps of the stochastic advance from sweep ``sweep0`` of
     the stream seeded by ``seed`` (a uint32). Returns ``(state,
     leftover)``. A CPU tensor runs :func:`counter_advance_plain` on
     :func:`hash_uniforms`; a CUDA tensor launches ``counter_advance_kernel``.
-    ``state`` must lie in ``[0, K)`` and ``budget`` be finite and >= 0."""
+    ``state`` must lie in ``[0, K)`` and ``budget`` be finite and >= 0.
+    ``lane_base``: the global index of ``state``'s first cell, where
+    ``state`` is a row shard of a larger state (the sharded sketch)."""
     luts = (p_lut, run_lut, logq_lut)
     _check_advance_args(state, budget, luts)
     seed, sweep0, sweeps = int(seed) & _M32, int(sweep0), int(sweeps)
+    lane_base = int(lane_base)
+    if lane_base < 0:
+        raise ValueError(f"lane_base must be >= 0, got {lane_base}")
     if state.device.type == "cpu":
-        u = hash_uniforms(seed, sweep0, sweeps, state.shape)
+        u = hash_uniforms(seed, sweep0, sweeps, state.shape,
+                          lane_base=lane_base)
         return counter_advance_plain(state, budget, *luts, u)
     C.require_cuda(state, "state", torch.int32)
     C.require_cuda(budget, "budget", torch.float32)
@@ -213,14 +222,15 @@ def counter_advance(state: torch.Tensor, budget: torch.Tensor,
         state.data_ptr(), budget.data_ptr(), out_state.data_ptr(),
         left.data_ptr(), p_lut.data_ptr(), run_lut.data_ptr(),
         logq_lut.data_ptr(), state.numel(), int(p_lut.shape[0]) - 1, seed,
-        sweep0, sweeps, C.stream()), "counter_advance")
+        sweep0, sweeps, lane_base, C.stream()), "counter_advance")
     C.LAUNCHES["counter_advance"] += 1
     return out_state, left
 
 
 def counter_advance_exact(state: torch.Tensor, budget: torch.Tensor,
                           p_lut: torch.Tensor, run_lut: torch.Tensor,
-                          logq_lut: torch.Tensor, seed: int
+                          logq_lut: torch.Tensor, seed: int, *,
+                          lane_base: int = 0
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Advance until every budget is spent: :func:`counter_advance` calls
     of ``PALLAS_SWEEPS`` sweeps on one stream, ``sweep0`` stepping by
@@ -232,7 +242,7 @@ def counter_advance_exact(state: torch.Tensor, budget: torch.Tensor,
     sweep0 = 0
     while True:
         state, rem = counter_advance(state, rem, p_lut, run_lut, logq_lut,
-                                     seed, sweep0=sweep0)
+                                     seed, sweep0=sweep0, lane_base=lane_base)
         sweep0 += PALLAS_SWEEPS
         if not bool((rem > 0).any()):
             return state, rem

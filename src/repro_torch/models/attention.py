@@ -26,6 +26,7 @@ from repro_torch.kernels.bits import pack_bits_np
 from repro_torch.kernels.f2p_attention import attention_packed, attention_paged
 from repro_torch.kernels.f2p_quant import f2p_kv_read, f2p_kv_write
 from repro_torch.models.common import apply_rope
+from repro_torch.models.sharding import constrain
 
 KV_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
 
@@ -121,11 +122,96 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int, q_offset=0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 
+def _broadcast_kv(k, H: int):
+    """[B, S, K, hd] -> [B, S, H, hd], each KV head repeated H // K times:
+    the head-sharded path's single merged head axis (``opt_head_shard``)."""
+    B, S, K, hd = k.shape
+    return k[:, :, :, None].expand(B, S, K, H // K, hd).reshape(B, S, H, hd)
+
+
+def _mha_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None):
+    """Head-sharded attention: q/k/v all [B, S, H, hd], the head axis
+    pinned to the model axis, so the scores stay local to a head shard."""
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "heads", None))
+    v = constrain(v, ("batch", None, "heads", None))
+    Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[-1]
+    # the reference divides the f32 scores by jnp.sqrt(hd), an f32 number
+    root = torch.tensor(math.sqrt(hd), dtype=torch.float32)
+    scores = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32)
+    scores = constrain(scores / root, ("batch", "heads", None, None))
+    mask = torch.zeros((Sq, Sk), dtype=torch.float32, device=q.device)
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        mask = torch.where(kpos <= qpos, 0.0, -math.inf)
+    if kv_len is not None:
+        lm = _len_mask(Sk, kv_len, q.device)
+        mask = mask + lm if lm.ndim == 1 else mask + lm[:, None, None, :]
+    probs = torch.softmax(scores + mask, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqs,bshd->bqhd", probs, v)
+    return constrain(out, ("batch", None, "heads", None))
+
+
+def _mha_chunked(q, k, v, *, causal: bool, chunk: int, q_offset=0,
+                 kv_len=None):
+    """Head-sharded online-softmax attention over KV chunks (the
+    reference's ``_mha_chunked``; :func:`chunked_attention`'s arithmetic
+    on the merged head axis)."""
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "heads", None))
+    v = constrain(v, ("batch", None, "heads", None))
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    nchunk = -(-Sk // chunk)
+    pad = nchunk * chunk - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    limit = torch.as_tensor(Sk if kv_len is None else kv_len,
+                            device=q.device)
+    root = torch.tensor(math.sqrt(hd), dtype=torch.float32)
+    acc = torch.zeros((B, H, Sq, hd), dtype=q.dtype, device=q.device)
+    m = torch.full((B, H, Sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    for ci in range(nchunk):
+        kb = k[:, ci * chunk:(ci + 1) * chunk]
+        vb = v[:, ci * chunk:(ci + 1) * chunk]
+        s = torch.einsum("bqhd,bshd->bhqs", q, kb).to(torch.float32) / root
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        valid = kpos[None, :] < limit
+        if causal:
+            valid = valid & (kpos[None, :] <= qpos[:, None])
+        s = torch.where(valid, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - safe_m[..., None])
+        corr = torch.exp(torch.where(torch.isfinite(m), m - safe_m,
+                                     -math.inf))
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqs,bshd->bhqd", p.to(q.dtype), vb)
+        acc = acc * corr[..., None].to(q.dtype) + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-37)[..., None].to(q.dtype)
+    return out.transpose(1, 2)
+
+
 def _attend(q, k, v, cfg, *, causal, kv_len=None, q_offset=0):
-    """The train / prefill / unfused-decode attention of ``cfg``: chunked
-    when ``cfg.attn_impl == "chunked"`` and more than one query position is
-    attended, else naive (the reference's dispatch without
-    ``opt_head_shard``)."""
+    """The train / prefill / unfused-decode attention of ``cfg`` (the
+    reference's dispatch): with ``opt_head_shard`` KV is broadcast to every
+    query head and attended head-sharded; chunked when ``cfg.attn_impl ==
+    "chunked"`` and more than one query position is attended, else
+    naive."""
+    if cfg.opt_head_shard:
+        k = _broadcast_kv(k, cfg.n_heads)
+        v = _broadcast_kv(v, cfg.n_heads)
+        if cfg.attn_impl == "chunked" and q.shape[1] > 1:
+            return _mha_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk,
+                                q_offset=q_offset, kv_len=kv_len)
+        return _mha_attention(q, k, v, causal=causal, q_offset=q_offset,
+                              kv_len=kv_len)
     if cfg.attn_impl == "chunked" and q.shape[1] > 1:
         return chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                                  q_offset=q_offset, kv_len=kv_len)

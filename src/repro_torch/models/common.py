@@ -8,6 +8,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.models.sharding import constrain
+
 
 # f32 elements drawn per call: a larger tensor (an MoE's [E, D, F] experts)
 # is drawn in slices of its leading axis, so the f32 draw never holds more
@@ -79,10 +81,16 @@ def sinusoidal_positions(seq: int, d_model: int) -> np.ndarray:
     return out
 
 
-def swiglu(x, w_gate, w_up, w_down):
-    """Llama-style gated MLP. x [..., D]; w_gate/w_up [D, F]; w_down [F, D]."""
+def swiglu(x, w_gate, w_up, w_down, constrain_ff: bool = True):
+    """Llama-style gated MLP. x [..., D]; w_gate/w_up [D, F]; w_down [F, D].
+    ``constrain_ff`` pins the hidden activations to the "ff" axis; under
+    sequence parallelism the caller passes False (the reference's
+    knob)."""
     g = x @ w_gate
     u = x @ w_up
+    if constrain_ff:
+        g = constrain(g, ("batch", None, "ff"))
+        u = constrain(u, ("batch", None, "ff"))
     return (torch.nn.functional.silu(g) * u) @ w_down
 
 

@@ -14,12 +14,18 @@ unfused decode read) attend by an online softmax over ``attn_chunk``-long
 KV chunks; that keeps only one chunk's scores alive in prefill and other
 no-grad calls, while a training backward keeps every chunk's (autograd
 saves them). ``opt_bwd_cast`` is kept for parity with the reference's
-configs and changes nothing here. The sharding knobs
-``opt_head_shard`` and ``opt_seq_par`` are left out (ROADMAP A12).
-``remat`` is kept: the train forward
+configs and changes nothing here. ``remat``: the train forward
 recomputes each block in the backward (``torch.utils.checkpoint``) as the
-reference rematerializes its scan body. ``fsdp`` is kept because the MoE
-configs set it; on one card it changes nothing (sharding is ROADMAP A12).
+reference rematerializes its scan body.
+
+The distribution knobs are the reference's: ``fsdp`` shards the
+parameters' reduction dim over the data axes too (``models.sharding``'s
+rules, read by ``launch.shardings.rules_for``); ``opt_head_shard`` runs
+attention over KV broadcast to every query head (``attention._mha_*``)
+with the head axis pinned to the model axis; ``opt_seq_par`` pins the
+residual stream to ``seq_sp`` between blocks (``model.Block``). The pins
+are ``models.sharding.constrain`` calls: they act on DTensor activations
+and leave plain tensors as they are.
 """
 from __future__ import annotations
 
@@ -84,15 +90,17 @@ class ModelConfig:
     # dequantizing the whole cache each step (engages for packed caches)
     fused_attention: bool = False
 
-    # --- distribution knobs: fsdp shards the parameters over the data
-    #     axis in the reference; the port runs on one card, where it is
-    #     inert until ROADMAP A12 ---
-    fsdp: bool = False
+    # --- distribution knobs ---
+    fsdp: bool = False                     # shard params over "data" too
     remat: bool = True                     # recompute each block in backward
 
     # the reference's logits-cotangent cast; inert here, as the loss's
     # input cast already hands the cotangent back in the model dtype
     opt_bwd_cast: bool = False
+    # broadcast KV to every query head and pin the head axis to "model"
+    opt_head_shard: bool = False
+    # sequence parallelism: the residual stream pinned to "seq_sp"
+    opt_seq_par: bool = False
 
     def __post_init__(self):
         if self.n_layers % len(self.pattern):

@@ -50,6 +50,7 @@ from repro_torch.models.common import (rms_norm, sinusoidal_positions,
                                       truncnorm_init)
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.moe import MoE
+from repro_torch.models.sharding import constrain
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -131,22 +132,41 @@ class Block(nn.Module):
 
     def forward(self, x, cfg: ModelConfig, *, mode, cache=None, pos_offset=0,
                 pages=None, cross_kv=None):
-        """Returns (x, the MoE aux loss or None)."""
-        h = rms_norm(x, self.norm1, cfg.norm_eps)
+        """Returns (x, the MoE aux loss or None). With ``opt_seq_par`` (a
+        train call over more than one position) the residual stream is
+        pinned to ``seq_sp`` and the normalized mixer / FF inputs to the
+        full sequence, as the reference's block."""
+        sp = cfg.opt_seq_par and mode == "train" and x.shape[1] > 1
+
+        def to_sp(t):
+            return constrain(t, ("batch", "seq_sp", None)) if sp else t
+
+        def to_full(t):
+            return constrain(t, ("batch", None, None)) if sp else t
+
+        x = to_sp(x)
+        h = to_full(rms_norm(x, self.norm1, cfg.norm_eps))
         h = self.mixer.apply(h, cfg, mode=mode, cache=cache,
                              pos_offset=pos_offset, pages=pages)
-        x = x + h
+        x = x + to_sp(h)
         if self.cross is not None and cross_kv is not None:
-            h = rms_norm(x, self.norm_cross, cfg.norm_eps)
-            x = x + A.attention_apply(self.cross.weights(), h, cfg,
-                                      mode="train", cross_kv=cross_kv)[0]
-        if self.spec.ff == "none":
-            return x, None
-        h = rms_norm(x, self.norm2, cfg.norm_eps)
+            h = to_full(rms_norm(x, self.norm_cross, cfg.norm_eps))
+            x = x + to_sp(A.attention_apply(self.cross.weights(), h, cfg,
+                                            mode="train",
+                                            cross_kv=cross_kv)[0])
+        aux = None
         if self.spec.ff == "moe":
-            h, aux = self.ff(h, cfg)
-            return x + h, aux["aux_loss"]
-        return x + swiglu(h, self.ff.gate, self.ff.up, self.ff.down), None
+            h = to_full(rms_norm(x, self.norm2, cfg.norm_eps))
+            h, out = self.ff(h, cfg, sp=sp)
+            x, aux = x + to_sp(h), out["aux_loss"]
+        elif self.spec.ff == "dense":
+            h = rms_norm(x, self.norm2, cfg.norm_eps)
+            h = swiglu(h, self.ff.gate, self.ff.up, self.ff.down,
+                       constrain_ff=not sp)
+            x = x + to_sp(h)
+        if not sp:
+            x = constrain(x, ("batch", "seq", None))
+        return x, aux
 
 
 class Encoder(nn.Module):
@@ -317,7 +337,12 @@ def _embed(model: Model, tokens, cfg: ModelConfig):
     x = model.embed[tokens]
     if cfg.pos == "sinusoidal":
         x = x + model.pos_table[:x.shape[1]]
-    return x
+    return constrain(x, ("batch", "seq", None))
+
+
+def _lm_logits(model: Model, x):
+    """``x @ head``, pinned to ("batch", "seq", "vocab")."""
+    return constrain(x @ model.head(), ("batch", "seq", "vocab"))
 
 
 def encode(model: Model, frames, cfg: ModelConfig | None = None):
@@ -375,7 +400,7 @@ def train_forward(model: Model, batch, cfg: ModelConfig | None = None):
         pad = torch.full((labels.shape[0], patches.shape[1]), -1,
                          dtype=labels.dtype, device=dev)
         labels = torch.cat([pad, labels], dim=1)
-    loss = softmax_cross_entropy(x @ model.head(), labels)
+    loss = softmax_cross_entropy(_lm_logits(model, x), labels)
     return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
@@ -404,7 +429,7 @@ def prefill(model: Model, tokens: torch.Tensor, caches, last_index=None,
         x = x[torch.arange(x.shape[0], device=x.device), li][:, None]
     else:
         x = x[:, -1:]
-    return (x @ model.head())[:, 0]
+    return _lm_logits(model, x)[:, 0]
 
 
 @torch.inference_mode()
@@ -429,4 +454,4 @@ def decode_step(model: Model, token: torch.Tensor, pos, caches, pages=None,
         x, _ = blk(x, cfg, mode="decode", cache=layer_cache(caches, i, cfg),
                    pos_offset=pos, pages=pages, cross_kv=cross_kv)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return (x @ model.head())[:, 0]
+    return _lm_logits(model, x)[:, 0]

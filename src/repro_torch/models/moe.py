@@ -61,9 +61,9 @@ class MoE(nn.Module):
                     (self.shared.down, 0.02)]
         return out
 
-    def forward(self, x, cfg):
+    def forward(self, x, cfg, sp: bool = False):
         """:func:`moe_apply` (a forward hook sees each call's ``load``)."""
-        return moe_apply(self, x, cfg)
+        return moe_apply(self, x, cfg, sp=sp)
 
 
 def capacity(T: int, cfg) -> int:
@@ -80,8 +80,10 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p: MoE, x: torch.Tensor, cfg):
-    """x ``[B, S, D]`` -> (out ``[B, S, D]``, {"load": [E] f32, "aux_loss"})."""
+def moe_apply(p: MoE, x: torch.Tensor, cfg, sp: bool = False):
+    """x ``[B, S, D]`` -> (out ``[B, S, D]``, {"load": [E] f32, "aux_loss"}).
+    ``sp``: the caller runs sequence parallelism, and the shared expert's
+    hidden activations stay unpinned (the reference's flag)."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     T = B * S
@@ -137,7 +139,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg):
 
     if p.shared is not None:
         sh = p.shared
-        out = out + swiglu(xf, sh.gate, sh.up, sh.down)
+        out = out + swiglu(xf, sh.gate, sh.up, sh.down, constrain_ff=not sp)
 
     # load-balancing aux (Switch-style) + per-expert token load; the counts
     # are not differentiated. A scatter-add of ones, exact in f32 in any

@@ -69,16 +69,20 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads: dict, state: dict, cfg: AdamWConfig):
+def apply_updates(params, grads: dict, state: dict, cfg: AdamWConfig, *,
+                  gnorm: torch.Tensor | None = None):
     """Update ``params`` (a ``Model`` or name -> tensor dict), ``state``'s
     moments and its step IN PLACE from ``grads`` (name -> tensor). Returns
     (params, state, metrics) with ``grad_norm`` and ``lr`` as 0-d device
-    tensors."""
+    tensors. ``gnorm`` overrides :func:`global_norm` of ``grads``: the
+    sharded step passes the norm of the whole gradient, its leaves being
+    local shards."""
     named = named_params(params)
     if set(grads) != set(named):
         raise ValueError("gradient names differ from the parameters'")
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -20,11 +20,12 @@ Every function here that sizes a leaf takes ``pattern_len``, the model's
 ``len(cfg.pattern)``: it decides how the per-layer names stack into the
 reference's leaves (layer g·P + i is group g of ``blocks/b<i>``).
 
-``compressed_psum`` is the reference's data-parallel wire path (reduce
-scatter, quantize the shard, all-gather the codes); it needs several cards
-and raises here (ROADMAP A12, sharded part). The reference's
-``CompressionConfig.packed`` (bit-packed codes on that all-gather leg)
-comes back with it: the single-card round trip is always unpacked.
+``compressed_psum`` is the reference's data-parallel wire path over a
+process group: reduce-scatter the rows in the input dtype, quantize the
+local sum shard (B5's codes mode on the card, B3 with
+``CompressionConfig.packed``), fold the mean's 1/W into the scales,
+all-gather codes and scales, and dequantize once (B6, or B4 when packed).
+The round trip of the train step is always unpacked, as the reference's.
 """
 from __future__ import annotations
 
@@ -46,6 +47,9 @@ class CompressionConfig:
     block: int = 128
     error_feedback: bool = True
     min_size: int = 4096   # leaves smaller than this stay uncompressed
+    # bit-packed codes on compressed_psum's all-gather leg (n_bits / 8
+    # bytes an element); None is the unpacked default
+    packed: bool | None = None
 
 
 def compressed_leaves(grads: dict, residuals: dict, ccfg: CompressionConfig,
@@ -104,8 +108,48 @@ def init_residuals(params, ccfg: CompressionConfig, pattern_len: int) -> dict:
 
 
 def compressed_psum(g: torch.Tensor, group, ccfg: CompressionConfig):
-    """Mean-reduce ``g`` over a process group exchanging QTensor leaves on
-    the gather leg (the reference's shard_map wire path)."""
-    raise NotImplementedError(
-        "compressed_psum needs several cards (torch.distributed reduce-"
-        "scatter + all-gather of the codes): ROADMAP A12, sharded part")
+    """Mean-reduce ``g`` over the process group ``group`` (None: the
+    world) exchanging QTensor leaves on the gather leg, step for step the
+    reference's shard_map path:
+
+    1. reduce-scatter ``g``'s rows (``g.reshape(n, -1)``, zero-padded to a
+       multiple of the group's size W) in the input dtype;
+    2. quantize the local SUM shard (f32; ``ccfg.packed`` packs the codes);
+    3. ``scale_by(1 / W)``: an f32 multiply of the scales, so
+       quantize(sum) / W and quantize(sum / W) agree and the gather side
+       needs no divide;
+    4. all-gather the codes and the scales;
+    5. dequantize the reassembled QTensor once, in f32;
+    6. slice the pad off and cast back to ``g``'s dtype.
+
+    Wire bytes: N/W x 4 on the scatter leg (f32), N x (n_bits / 8 packed,
+    or the code dtype's size, + 4 / block) on the gather leg."""
+    import torch.distributed as dist
+
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.launch import mesh as M
+
+    if group is None and not dist.is_initialized():
+        raise RuntimeError("compressed_psum reduces over a torch.distributed "
+                           "process group: none is initialized")
+    w = dist.get_world_size(group)
+    n = g.shape[0]
+    packed = QT.resolve_packed(ccfg.packed)
+    g2 = g.reshape(n, -1)
+    pad = (-n) % w
+    if pad:
+        g2 = torch.nn.functional.pad(g2, (0, 0, 0, pad))
+    shard_sum = M.reduce_scatter(g2, group,
+                                 leg="compressed_psum.reduce_scatter")
+    cols = shard_sum.shape[-1]
+    qt = QT.quantize(shard_sum.to(torch.float32), ccfg.fmt,
+                     block=ccfg.block, packed=packed).scale_by(1.0 / w)
+    codes_all = M.all_gather(qt.codes, group,
+                             leg="compressed_psum.all_gather")
+    scale_all = M.all_gather(qt.scales, group,
+                             leg="compressed_psum.all_gather")
+    full = QTensor.from_parts(codes_all, scale_all, ccfg.fmt, ccfg.block,
+                              (codes_all.shape[0], cols), packed=packed)
+    out = full.dequantize(torch.float32)
+    return out[:n].reshape(g.shape).to(g.dtype)

@@ -19,6 +19,14 @@ sequential on-arrival process.
 Each advance call draws a fresh uint32 seed from the sketch's own numpy
 generator (``default_rng(cfg.seed)``), so a sketch's trajectory depends on
 its seed and its inputs only, on either device.
+
+Row sharding: with a 1-D ``mesh`` (``launch.mesh.make_sketch_mesh``, axis
+``"rows"``; its size divides ``depth``) each rank holds ``depth / n``
+consecutive rows of ``state`` and of the carry. Every rank sees every
+batch and hashes it for its own rows only; the advance runs on the row
+shard with its first cell's global index as the uniform stream's lane
+base, so the shards together are bitwise the unsharded sketch. ``query``,
+``estimates``, ``fill`` and ``pending_budget`` gather over the rows axis.
 """
 from __future__ import annotations
 
@@ -109,11 +117,19 @@ class F2PSketch:
 
     def __init__(self, cfg: SketchConfig, grid: np.ndarray | None = None,
                  device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "row-sharded sketches are not ported yet (ROADMAP A12: "
-                "DeviceMesh row sharding)")
         self.cfg = cfg
+        self.mesh, self._group, self._row0, rows = None, None, 0, cfg.depth
+        if mesh is not None:
+            if not hasattr(mesh, "mesh_dim_names") or mesh.ndim != 1:
+                raise TypeError("mesh must be a 1-D DeviceMesh "
+                                "(launch.mesh.make_sketch_mesh)")
+            n = mesh.size(0)
+            if cfg.depth % n:
+                raise ValueError(f"depth {cfg.depth} does not split over "
+                                 f"{n} ranks of {mesh.mesh_dim_names[0]!r}")
+            rows = cfg.depth // n
+            self.mesh, self._group = mesh, mesh.get_group(0)
+            self._row0 = mesh.get_coordinate()[0] * rows
         self.device = torch.device(device)
         if grid is None:
             from repro_torch.core.f2p import F2PFormat, Flavor
@@ -129,11 +145,12 @@ class F2PSketch:
         self._run_lut = torch.from_numpy(run).to(dev)
         self._logq_lut = torch.from_numpy(logq).to(dev)
         a, b = make_hash_params(cfg.depth, seed=cfg.seed)
+        a, b = a[self._row0:self._row0 + rows], b[self._row0:self._row0 + rows]
         self._a_np, self._b_np = a, b
         self._a = torch.from_numpy(a.astype(np.int64)).to(dev)
         self._b = torch.from_numpy(b.astype(np.int64)).to(dev)
-        self._rows = torch.arange(cfg.depth, device=dev)[:, None]
-        shape = (cfg.depth, cfg.width)
+        self._rows = torch.arange(rows, device=dev)[:, None]
+        shape = (rows, cfg.width)
         self.state = torch.zeros(shape, dtype=torch.int32, device=dev)
         self._carry = torch.zeros(shape, dtype=torch.float32, device=dev)
         # ingest accounting: host batches tally synchronously; device
@@ -170,7 +187,15 @@ class F2PSketch:
     def _advance(self, budget: torch.Tensor) -> None:
         self.state, self._carry = FC.counter_advance(
             self.state, budget, self._p_lut, self._run_lut, self._logq_lut,
-            self._next_seed())
+            self._next_seed(), lane_base=self._row0 * self.cfg.width)
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole ``(depth, ...)`` tensor of a row-sharded one."""
+        if self.mesh is None:
+            return t
+        from repro_torch.launch import mesh as M
+
+        return M.all_gather(t, self._group, leg="sketch.rows_all_gather")
 
     # ---- host aggregation fast path ---------------------------------------
     def _host_budget(self, keys: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -188,15 +213,21 @@ class F2PSketch:
             uniq, inv = np.unique(keys, return_inverse=True)
             ucnt = np.bincount(inv, weights=counts)
         idx = hash_rows_np(uniq, self._a_np, self._b_np, cfg.width)
+        rows = len(self._a_np)
         if cfg.conservative:
             # "top-up to target" conservative update: each row's cell is
             # raised to (min over rows of the current estimates) + count
             host_state = self.state.cpu().numpy()
-            est = self.grid[host_state[np.arange(cfg.depth)[:, None], idx]]
-            target = est.min(axis=0, keepdims=True) + ucnt[None, :]
+            est = self.grid[host_state[np.arange(rows)[:, None], idx]]
+            emin = est.min(axis=0, keepdims=True)
+            if self.mesh is not None:
+                emin = self._gather_rows(torch.from_numpy(emin).to(
+                    self.device)).min(dim=0, keepdim=True).values
+                emin = emin.cpu().numpy()
+            target = emin + ucnt[None, :]
             w_rows = np.clip(target - est, 0.0, ucnt[None, :])
-        budget = np.empty((cfg.depth, cfg.width), np.float32)
-        for d in range(cfg.depth):
+        budget = np.empty((rows, cfg.width), np.float32)
+        for d in range(rows):
             w = w_rows[d] if cfg.conservative else ucnt
             budget[d] = np.bincount(idx[d], weights=w, minlength=cfg.width)
         return budget
@@ -252,7 +283,7 @@ class F2PSketch:
         budget = self._carry.clone()
         budget.index_put_(
             (self._rows.expand_as(idx), idx),
-            counts.reshape(1, -1).expand(self.cfg.depth, -1),
+            counts.reshape(1, -1).expand(idx.shape[0], -1),
             accumulate=True)
         self._advance(budget)
         self._arrivals_dev_pending.append(counts.sum(dtype=torch.float32))
@@ -264,12 +295,14 @@ class F2PSketch:
                 .to(self.device))
         idx = hash_rows(keys, self._a, self._b, self.cfg.width).long()
         est = self._grid_lut[self.state[self._rows, idx].long()]
-        return est.min(dim=0).values.cpu().numpy()
+        est = est.min(dim=0, keepdim=True).values
+        return self._gather_rows(est).min(dim=0).values.cpu().numpy()
 
     def estimates(self) -> np.ndarray:
         """Full (depth, width) estimate table through ``counter_estimate``
-        (the B10 kernel on the card)."""
-        return FC.counter_estimate(self.state, self._grid_lut).cpu().numpy()
+        (the B10 kernel on the card; on each row shard, then gathered)."""
+        return self._gather_rows(
+            FC.counter_estimate(self.state, self._grid_lut)).cpu().numpy()
 
     def flush(self) -> float:
         """Drain the carried budget with ``counter_advance_exact`` (one
@@ -282,7 +315,8 @@ class F2PSketch:
             return 0.0
         self.state, self._carry = FC.counter_advance_exact(
             self.state, self._carry, self._p_lut, self._run_lut,
-            self._logq_lut, self._next_seed())
+            self._logq_lut, self._next_seed(),
+            lane_base=self._row0 * self.cfg.width)
         return self.pending_budget
 
     @property
@@ -296,8 +330,15 @@ class F2PSketch:
 
     @property
     def pending_budget(self) -> float:
-        """Total arrival budget carried to the next batch (f64 sum)."""
-        return float(self._carry.sum(dtype=torch.float64))
+        """Total arrival budget carried to the next batch (f64 sum; the
+        carries are whole numbers, so the shards' sum is exact)."""
+        total = self._carry.sum(dtype=torch.float64)
+        if self.mesh is not None:
+            from repro_torch.launch import mesh as M
+
+            M.all_reduce(total.reshape(1), self._group,
+                         leg="sketch.budget_all_reduce")
+        return float(total)
 
     @property
     def nbytes(self) -> int:
@@ -307,7 +348,13 @@ class F2PSketch:
 
     def fill(self) -> float:
         """Fraction of non-zero cells (collision-pressure diagnostic)."""
-        return float((self.state > 0).float().mean())
+        if self.mesh is None:
+            return float((self.state > 0).float().mean())
+        from repro_torch.launch import mesh as M
+
+        n = (self.state > 0).sum().to(torch.float64).reshape(1)
+        M.all_reduce(n, self._group, leg="sketch.fill_all_reduce")
+        return float(np.float32(float(n) / (self.cfg.depth * self.cfg.width)))
 
     def __repr__(self) -> str:
         return (f"F2PSketch(depth={self.cfg.depth}, width={self.cfg.width}, "

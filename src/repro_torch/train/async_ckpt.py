@@ -7,6 +7,11 @@ thread, so the train loop never blocks on disk. At most one write is in
 flight; a newer snapshot that arrives while one is running replaces the
 queued one (latest wins), so a slow filesystem lowers checkpoint
 frequency, never step time.
+
+On a sharded state every rank calls ``save`` (the snapshot gathers each
+DTensor leaf, a collective); only the checkpointer built with
+``writer=True`` keeps the snapshot and writes it, so one rank writes the
+files of a one-card run.
 """
 from __future__ import annotations
 
@@ -19,8 +24,10 @@ from repro_torch.train import checkpoint
 
 class AsyncCheckpointer:
     def __init__(self, ckpt_dir: str, *, keep: int = 3, compress: bool = True,
-                 policy=None, packed: bool | None = None):
+                 policy=None, packed: bool | None = None,
+                 writer: bool = True):
         self.dir = ckpt_dir
+        self.writer = writer   # False: take part in the gathers only
         self.keep = keep
         self.compress = compress
         self.policy = policy   # FormatPolicy | None: per-leaf ckpt formats
@@ -39,8 +46,11 @@ class AsyncCheckpointer:
         """Snapshot to host (synchronous) and enqueue the write."""
         t = time.perf_counter()
         snap = checkpoint.snapshot(state, compress=self.compress,
-                                   policy=self.policy, packed=self.packed)
+                                   policy=self.policy, packed=self.packed,
+                                   writer=self.writer)
         self.stats["snapshot_s"].append(time.perf_counter() - t)
+        if not self.writer:
+            return
         with self._lock:
             self._pending = (step, snap)   # latest wins
             self._lock.notify()

@@ -30,6 +30,15 @@ through B6 (B4 for packed payloads) on the device of the target tensor.
 :func:`write` (the files); ``AsyncCheckpointer`` runs the second on a
 worker thread. :func:`restore` writes into the tensors of ``tree_like``
 IN PLACE (no second copy of the state on the card) and returns it.
+
+Sharded states stay mesh-agnostic: a DTensor leaf is gathered whole by
+every rank of its mesh (:func:`snapshot` is then a collective, each rank
+walking the leaves in the same order), and only the writer rank
+(``writer=True``) quantizes and copies it to the host, so the files are
+those of a one-card run. A restore into DTensors reads the whole leaf and
+keeps each rank's slice, so a run may resume on another mesh shape
+(elastic); ``shardings`` first places a plain tree onto a mesh, and
+``lazy=True`` returns the compressed leaves as :class:`QTensor` s.
 """
 from __future__ import annotations
 
@@ -203,16 +212,24 @@ class LeafSnapshot:
 
 def snapshot(tree: Any, *, compress: bool = False, block: int = 128,
              min_size: int = 65536, fmt: F2PFormat = CKPT_FMT, policy=None,
-             packed: bool | None = None) -> list[LeafSnapshot]:
+             packed: bool | None = None,
+             writer: bool = True) -> list[LeafSnapshot]:
     """Quantize the compressed leaves where they live (B5 on the card) and
     copy every buffer to the host. ``policy`` picks each leaf's format by
-    its path ``ckpt/<leaf path>``; ``packed`` stores bit-packed words."""
+    its path ``ckpt/<leaf path>``; ``packed`` stores bit-packed words.
+    DTensor leaves are gathered whole first (a collective: every rank of
+    the mesh calls this); a rank with ``writer=False`` only takes part in
+    the gathers and returns an empty list."""
     from repro_torch.autotune.policy import path_from_keystr
+    from repro_torch.launch.shardings import gather_full
 
     pk = QT.resolve_packed(packed)
     out = []
     for name, leaf in flatten(tree).items():
-        parts, shape = _parts(leaf), _leaf_shape(leaf)
+        parts = [gather_full(p, leg="ckpt.all_gather") for p in _parts(leaf)]
+        if not writer:
+            continue
+        shape = _leaf_shape(leaf)
         stacked = isinstance(leaf, Stacked)
         entry = {"shape": list(shape),
                  "dtype": str(parts[0].dtype).removeprefix("torch.")}
@@ -369,6 +386,37 @@ def _from_bytes(raw: bytearray, dtype: torch.dtype, shape) -> torch.Tensor:
     return torch.frombuffer(raw, dtype=dtype).reshape(shape)
 
 
+def _read_qtensor(name: str, e: dict, data: np.memmap) -> QTensor:
+    """A compressed leaf's QTensor on the host (decode deferred), in the
+    leaf's (stacked) shape."""
+    fmt = _fmt_from_meta(e["fmt"]) if "fmt" in e else CKPT_FMT
+    packed = bool(e.get("packed", False))
+    cdt = torch.uint32 if packed else (
+        torch.uint8 if fmt.n_bits <= 8 else torch.uint16)
+    codes = _from_bytes(_read_span(data, name, e["offset"], e["nbytes"],
+                                   e.get("crc"), "codes"),
+                        cdt, e.get("codes_shape", e["shape"]))
+    scales = _from_bytes(_read_span(data, name, e["scale_offset"],
+                                    e["scale_nbytes"], e.get("scale_crc"),
+                                    "scales"),
+                         torch.float32, e["scale_shape"])
+    return QTensor.from_parts(codes, scales, fmt, e["block"], e["shape"],
+                              packed=packed)
+
+
+def _assign(p: torch.Tensor, value: torch.Tensor) -> None:
+    """Copy a whole leaf's value into ``p``: into its local slice where
+    ``p`` is a DTensor (the rank keeps its part of the whole)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.shardings import local_slice
+
+    if isinstance(p, DTensor):
+        p.to_local().copy_(local_slice(value.to(p.device), p))
+    else:
+        p.copy_(value)
+
+
 def _read_leaf(name: str, e: dict, data: np.memmap, like) -> None:
     """Decode one index entry into the tensor(s) of ``like`` in place."""
     parts = _parts(like)
@@ -378,35 +426,36 @@ def _read_leaf(name: str, e: dict, data: np.memmap, like) -> None:
                          f"{_leaf_shape(like)}")
     dtype = _DTYPES[e["dtype"]]
     if e["codec"] in ("qtensor", "f2p16"):   # f2p16: pre-QTensor name
-        fmt = _fmt_from_meta(e["fmt"]) if "fmt" in e else CKPT_FMT
-        packed = bool(e.get("packed", False))
-        cdt = torch.uint32 if packed else (
-            torch.uint8 if fmt.n_bits <= 8 else torch.uint16)
-        codes = _from_bytes(_read_span(data, name, e["offset"], e["nbytes"],
-                                       e.get("crc"), "codes"),
-                            cdt, e.get("codes_shape", e["shape"]))
-        scales = _from_bytes(_read_span(data, name, e["scale_offset"],
-                                        e["scale_nbytes"], e.get("scale_crc"),
-                                        "scales"),
-                             torch.float32, e["scale_shape"])
+        q = _read_qtensor(name, e, data)
         shape = e["shape"][1:] if stacked else e["shape"]
         for i, p in enumerate(parts):
-            c, s = (codes[i], scales[i]) if stacked else (codes, scales)
-            qt = QTensor.from_parts(c.to(p.device), s.to(p.device), fmt,
-                                    e["block"], shape, packed=packed)
-            p.copy_(qt.dequantize(torch.float32).to(dtype))
+            c, s = (q.codes[i], q.scales[i]) if stacked else (q.codes,
+                                                              q.scales)
+            qt = QTensor.from_parts(c.to(p.device), s.to(p.device), q.fmt,
+                                    q.block, shape, packed=q.packed)
+            _assign(p, qt.dequantize(torch.float32).to(dtype))
         return
     arr = _from_bytes(_read_span(data, name, e["offset"], e["nbytes"],
                                  e.get("crc")), dtype, e["shape"])
     for i, p in enumerate(parts):
-        p.copy_(arr[i] if stacked else arr)
+        _assign(p, arr[i] if stacked else arr)
 
 
 @torch.no_grad()
-def restore(ckpt_dir: str, tree_like: Any, step: int | None = None):
+def restore(ckpt_dir: str, tree_like: Any, step: int | None = None,
+            shardings: Any = None, *, lazy: bool = False):
     """Restore step ``step`` (default: the latest committed) into the
     tensors of ``tree_like`` IN PLACE, matching leaves by name. Returns
-    (tree_like, step)."""
+    (tree_like, step).
+
+    Mesh-agnostic: a DTensor leaf of ``tree_like`` gets its rank's slice of
+    the whole leaf, so a run restores onto any mesh shape (elastic).
+    ``shardings`` (the tree ``launch.shardings.train_state_specs`` returns,
+    or ``{name: NamedSharding}`` for a ``Model``) first places a plain
+    ``tree_like`` onto its mesh (``shard_state``). With ``lazy=True``
+    nothing is written: returns ``({keystr name: leaf}, step)``, each
+    compressed leaf a :class:`QTensor` in its (stacked) reference shape and
+    each raw one a tensor, on the device of ``tree_like``'s leaf."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -415,6 +464,28 @@ def restore(ckpt_dir: str, tree_like: Any, step: int | None = None):
     with open(os.path.join(d, "index.json")) as f:
         index = json.load(f)["leaves"]
     data = np.memmap(os.path.join(d, "data.bin"), dtype=np.uint8, mode="r")
+    if lazy:
+        if shardings is not None:
+            raise ValueError("lazy restores return host-read QTensors on "
+                             "tree_like's devices; place them after")
+        out = {}
+        for name, like in flatten(tree_like).items():
+            e, dev = index[name], _parts(like)[0].device
+            if e["codec"] in ("qtensor", "f2p16"):
+                q = _read_qtensor(name, e, data)
+                out[name] = QTensor.from_parts(
+                    q.codes.to(dev), q.scales.to(dev), q.fmt, q.block,
+                    q.shape, packed=q.packed)
+            else:
+                out[name] = _from_bytes(
+                    _read_span(data, name, e["offset"], e["nbytes"],
+                               e.get("crc")),
+                    _DTYPES[e["dtype"]], e["shape"]).to(dev)
+        return out, step
+    if shardings is not None:
+        from repro_torch.launch.shardings import shard_state
+
+        shard_state(tree_like, shardings)
     for name, like in flatten(tree_like).items():
         _read_leaf(name, index[name], data, like)
     return tree_like, step

@@ -150,9 +150,19 @@ def test_input_specs_and_applicability_equal_reference(arch, shape):
 
 
 def test_input_specs_sharding_names_a12():
-    with pytest.raises(NotImplementedError, match="A12"):
-        input_specs(full_config(WHISPER), "train_4k",
-                    sharding_fn=lambda axes: None)
+    """``sharding_fn`` is called with the reference's logical axes, input
+    by input, and its result rides on each stand-in as ``.sharding``."""
+    for shape in ("train_4k", "decode_32k"):
+        got, want = [], []
+        specs = input_specs(full_config(WHISPER), shape,
+                            sharding_fn=lambda axes: got.append(axes) or
+                            ("sh",) + tuple(axes))
+        jinput_specs(jfull_config(WHISPER), shape,
+                     sharding_fn=lambda axes: want.append(axes))
+        assert got == [tuple(a) for a in want]
+        assert specs["frames"].sharding == ("sh", "batch", None, None)
+        assert sorted(repr(t.sharding) for t in specs.values()) == \
+            sorted(repr(("sh",) + a) for a in got)
 
 
 @pytest.mark.parametrize("arch", FRONTENDS + ["no_such_arch"])

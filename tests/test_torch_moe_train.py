@@ -371,15 +371,16 @@ def test_run_three_steps_match_reference(ref, tmp_path, enabled):
 
 
 def test_run_trains_moe_and_rejects_meshes(tmp_path):
-    """No MoE config raises any more; the mesh-shape raise stays."""
+    """No MoE config raises any more; a mesh shape that is not
+    data,model is refused."""
     for arch in ARCHS:
         _, info = launch_train.run(smoke_config(arch), arch=arch, steps=1,
                                    global_batch=1, seq=8,
                                    ckpt_dir=str(tmp_path / arch),
                                    device="cpu", log=lambda *_: None)
         assert np.isfinite(info["history"][0]["loss"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        launch_train.main(["--arch", SCOUT, "--mesh-shape", "2,2",
+    with pytest.raises(ValueError, match="mesh-shape"):
+        launch_train.main(["--arch", SCOUT, "--mesh-shape", "2,2,2",
                            "--ckpt-dir", str(tmp_path / "m")])
 
 

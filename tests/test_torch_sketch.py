@@ -460,7 +460,8 @@ def test_sketch_counts_padding_and_ceiling():
     sk.update(torch.arange(32))
     sk.update(torch.arange(16), torch.full((16,), 2.0))
     assert sk.arrivals == 70.0
-    with pytest.raises(NotImplementedError, match="A12"):
+    # a mesh must be a 1-D DeviceMesh (the row-sharded sketch)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         F2PSketch(SketchConfig(), device=CPU, mesh=object())
 
 
