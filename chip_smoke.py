@@ -14,14 +14,16 @@ NVIDIA GPU.
     python3 chip_smoke.py --only moe_train  # phases 1-2 and phase 13 (MoE trained)
     python3 chip_smoke.py --only examples  # phases 1-2 and phase 14 (the example twins)
     python3 chip_smoke.py --only sharded   # phases 1-2 and phase 15 (the sharded part)
+    python3 chip_smoke.py --only analysis  # phases 1-2 and phase 16 (the analysis tools)
 
 With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
 unpacked``, ``--only fl``, ``--only families``, ``--only recurrent``,
-``--only frontends``, ``--only moe_train``, ``--only examples``) the script
-runs the device and
+``--only frontends``, ``--only moe_train``, ``--only examples``, ``--only
+sharded``, ``--only analysis``) the script runs the device and
 build phases and phase 3's dequant matmul, B7/B8 (attention, B1/B2; the
 packed codec, B3/B4; the unpacked codec, B5 and its round trip and B6;
-phase 9; phase 10; phase 11; phase 12; phase 13; phase 14), prints their
+phase 9; phase 10; phase 11; phase 12; phase 13; phase 14; phase 15;
+phase 16), prints their
 lines and
 ends without the final ``{"ok": ...}`` line, so it never stands in for a
 full run.
@@ -368,13 +370,26 @@ Phases (any failed check raises, so the script exits non-zero):
    rank's B9 with its lane base bitwise against the plain version, the
    gathered state bitwise the unsharded sketch's on the card, B9 and B10
    launches per rank.
+16. analysis — the launch analysis tools (A14). (a) The op analysis
+   (launch/op_analysis.py; kernels charged through kernels/cost.py) of
+   full-width llama3.2-3b's train step (phase 8's 8 x 128) and of a decode
+   step of 8 slots over packed caches of 1024 positions (fused attention,
+   position 512), each on the card and again on fake CPU tensors: FLOPs
+   equal, bytes within 1%, and the step as measured (CUDA events after a
+   synchronize) at least 0.9 x max(t_compute, t_memory) at the H100's
+   data-sheet rates (launch/roofline.py); (b) ``python -m
+   repro_torch.launch.dryrun`` of llama3.2-3b decode_32k and train_4k on
+   the single-pod fake world (one CPU process each, run beside (a)),
+   ``launch.report`` over the two records, one ``launch.hillclimb`` variant
+   at decode; the seconds each cell traced. Records and the report land in
+   chiprun_out/analysis/.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
 line, one ``{"fl": {...}}`` JSON line, one ``{"families": {...}}`` JSON
 line, one ``{"recurrent": {...}}`` JSON line, one ``{"frontends":
 {...}}`` JSON line, one ``{"moe_train": {...}}`` JSON line, one ``{"examples":
 {...}}`` JSON line, one ``{"sharded": {...}}`` JSON line, one
-``{"kernels": [...]}``
+``{"analysis": {...}}`` JSON line, one ``{"kernels": [...]}``
 JSON line (all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as
 a row of its own; B5's codes mode and B6 count the launches of phase 8's
 checkpoint save and restore; B3-B6 also carry ``fl_launches``, phase 9's,
@@ -839,6 +854,7 @@ def check_codec(dev):
     import torch
 
     from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_quant as Q
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -849,14 +865,13 @@ def check_codec(dev):
         "(6/8/16-bit, f32+bf16 in, f32+bf16 out; B4's K+V read of a layer "
         "view with zero/inf/NaN scales)")
     fmt = named_format("f2p_sr_2_8s")
-    W = 32
     out["quantize_packed"] = check_kv_write(dev)
     # B3's contiguous mode at a prefill group's rows (4 prompts x 256
     # positions x 8 kv heads), beside its bytes bound
     xp = torch.randn(8192, 128, generator=g, device=dev).to(torch.bfloat16)
     pf = dict(ms=cuda_ms(lambda: Q.f2p_quantize_packed(xp, fmt), iters=100),
               device_ms=device_ms(lambda: Q.f2p_quantize_packed(xp, fmt)),
-              bound_ms=bound_ms(8192 * (256 + W * 4 + 4)))
+              bound_ms=bound_ms(cost.nbytes("quantize_packed", xp, fmt)))
     out["quantize_packed"]["prefill_quantize"] = pf
     log(f"quantize : contiguous rows [8192,128] bf16 {pf['ms']:.5f} ms "
         f"(device {_ms(pf['device_ms'])}; bound {pf['bound_ms']:.5f} ms)")
@@ -879,6 +894,7 @@ def check_dequantize(dev, g, names=("f2p_sr_2_8s", "f2p_lr_1_6s")) -> dict:
 
     from repro_torch.core import qtensor as QT
     from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_quant as Q
 
     bf = torch.bfloat16
@@ -890,17 +906,15 @@ def check_dequantize(dev, g, names=("f2p_sr_2_8s", "f2p_lr_1_6s")) -> dict:
         ck, cv = cache["k"], cache["v"]
         w = ck.codes.reshape(-1, ck.codes.shape[-1])
         s = ck.scales.reshape(-1, 1)
-        n = w.shape[0]
-        # words, scales in once, bf16 values out once, per side
-        side = n * (w.shape[1] * 4 + 4 + 128 * 2)
         single = lambda: Q.f2p_dequantize_packed(w, s, fmt, out_dtype=bf)
         both = lambda: Q.f2p_kv_read(cache, bf)
         for mode, fn, plain, nb, old in (
                 ("single", single,
                  lambda: Q.dequantize_packed_plain(w, s, fmt, 128, bf),
-                 side, None),
+                 cost.nbytes("dequantize_packed", w, s, fmt, out_dtype=bf),
+                 None),
                 ("kv_read", both, lambda: Q.kv_read_plain(cache, bf),
-                 2 * side, lambda: (QT.dequantize(ck, dtype=bf),
+                 cost.nbytes("kv_read", cache, bf), lambda: (QT.dequantize(ck, dtype=bf),
                                     QT.dequantize(cv, dtype=bf)))):
             got, ref = fn(), plain()
             got = got if isinstance(got, tuple) else (got,)
@@ -1064,15 +1078,6 @@ def kv_write_bitwise(dev, g, fmt, paged: bool, B=KV_SLOTS, S=1,
     return err
 
 
-def kv_write_bytes(k, W: int, paged: bool) -> int:
-    """Bytes one layer write must move: K and V read once, their words and
-    scales written once, the start positions and (paged) one page id per
-    slot read."""
-    B, S, K, _ = k.shape
-    per_side = k.numel() * k.element_size() + B * S * K * (4 * W + 4)
-    return 2 * per_side + 8 * B + (4 * B if paged else 0)
-
-
 def check_kv_write(dev, names=("f2p_sr_2_8s", "f2p_lr_1_6s")) -> dict:
     """B3's KV write (one launch for a layer's K and V into the cache) on
     the card: bitwise against kv_write_plain in both addressing modes and
@@ -1088,6 +1093,7 @@ def check_kv_write(dev, names=("f2p_sr_2_8s", "f2p_lr_1_6s")) -> dict:
     import torch
 
     from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_quant as Q
     from repro_torch.models import attention as A
 
@@ -1119,8 +1125,8 @@ def check_kv_write(dev, names=("f2p_sr_2_8s", "f2p_lr_1_6s")) -> dict:
                 new = lambda: A._cache_write(cache, k, v, pos)
                 old = lambda: old_cache_write(cache, k, v, pos)
                 plain = lambda: Q.kv_write_plain(k, v, cache, pos)
-            r = dict(bound_ms=bound_ms(kv_write_bytes(
-                k, cache["k"].codes.shape[-1], paged)))
+            r = dict(bound_ms=bound_ms(cost.nbytes(
+                "kv_write", k, v, cache, pos, pages if paged else None)))
             for tag, fn in (("", new), ("old_", old)):
                 r[tag + "ms"] = cuda_ms(fn, iters=200)
                 r[tag + "device_ms"], r[tag + "kernels"] = \
@@ -1136,8 +1142,7 @@ def check_kv_write(dev, names=("f2p_sr_2_8s", "f2p_lr_1_6s")) -> dict:
     # a prefill call's write: 4 prompts x 256 positions from 0, dense
     fmt = named_format(names[0])
     cache, k, v, _, _ = kv_write_inputs(dev, g, fmt, False, B=4, S=256)
-    pf = dict(bound_ms=bound_ms(kv_write_bytes(
-        k, cache["k"].codes.shape[-1], False)))
+    pf = dict(bound_ms=bound_ms(cost.nbytes("kv_write", k, v, cache, 0)))
     for tag, fn in (("", lambda: A._cache_write(cache, k, v, 0)),
                     ("old_", lambda: old_cache_write(cache, k, v, 0))):
         pf[tag + "ms"] = cuda_ms(fn, iters=50)
@@ -1321,6 +1326,7 @@ def check_unpacked_codec(dev):
 
     from repro_torch.configs import full_config
     from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_quant as Q
 
     exhaustive = check_encode_exhaustive(dev)
@@ -1380,7 +1386,7 @@ def check_unpacked_codec(dev):
         x = torch.randn(*shape, generator=g, device=dev).reshape(
             -1, shape[-1])
         c, s = Q.f2p_quantize_codes(x, grad_fmt)
-        n, nblk = x.numel(), s.numel()
+        n = x.numel()
         r = dict(count=count,
                  quantize_ms=host_ms(lambda: Q.f2p_quantize_codes(
                      x, grad_fmt)),
@@ -1411,9 +1417,9 @@ def check_unpacked_codec(dev):
         tot["dd"] += count * (r["dequantize_device_ms"] or float("nan"))
         tot["qp"] += count * r["quantize_plain_ms"]
         tot["dp"] += count * r["dequantize_plain_ms"]
-        tot["qb"] += count * (5 * n + 4 * nblk)    # f32 in, code + scale out
-        tot["q16b"] += count * (6 * n + 4 * nblk)
-        tot["db"] += count * (5 * n + 4 * nblk)    # code + scale in, f32 out
+        tot["qb"] += count * cost.nbytes("quantize", x, grad_fmt)
+        tot["q16b"] += count * cost.nbytes("quantize", x, ckpt_fmt)
+        tot["db"] += count * cost.nbytes("dequantize", c, s, grad_fmt)
         tot["n"] += count * n
         del x, c, s
     nleaves = sum(train_leaf_counts(cfg).values())
@@ -1443,7 +1449,8 @@ def check_unpacked_codec(dev):
     rt["plain_ms"] = cuda_ms(lambda: [
         Q.ef_roundtrip_plain(a, b, grad_fmt) for a, b in zip(gs, rs)],
         iters=1, warm=0)
-    rt.update(bound_ms=bound_ms(12 * n_el), bound_by="bytes",
+    rt.update(bound_ms=bound_ms(cost.nbytes("ef_roundtrip", gs, rs,
+                                             grad_fmt)), bound_by="bytes",
               library_ms=None, max_abs_err=0.0,
               shape=f"one train step: {len(gs)} leaves, {n_el} elements, "
                     "bf16 g + f32 r, error feedback, one launch")
@@ -1490,6 +1497,7 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
 
     from repro_torch.core import qtensor as QT
     from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_attention as A
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -1525,11 +1533,13 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
         qm, slab_k, slab_v, pages, **cm), rtol=1e-5, atol=1e-5)
 
     # bytes this call needs: live K/V words + scales of every (row, head)
-    # at this format's row width, q in, out, the live page ids and the lens
+    # at this format's row width, q in, out, the lens and (paged) the live
+    # page ids
     live = int(kv_len.sum())
-    row_bytes = (slab_k.codes.shape[-1] + slab_v.codes.shape[-1]) * 4 + 8
-    nb = live * K * row_bytes + 2 * B * K * G * hd * 4 \
-        + int(((kv_len + T - 1) // T).sum()) * 4 + B * 8
+    nb = {"attention_paged": cost.nbytes(
+              "attention_paged", q, slab_k, slab_v, pages, kv_len=kv_len),
+          "attention_packed": cost.nbytes(
+              "attention_packed", q, dense_k, dense_v, kv_len=kv_len)}
     plan = A.attention_plan(B, K, G, hd, S)
     ctas = int((-(-kv_len // A.ATTN_SPLIT)).sum()) * K * plan.groups
     # yardstick: SDPA over K/V dequantized up front (f32, GQA expanded)
@@ -1559,7 +1569,7 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
         out[name] = dict(
             ms=cuda_ms(fn, iters=100), device_ms=dms, cold_ms=cold,
             plain_ms=cuda_ms(plain, iters=10),
-            bound_ms=bound_ms(nb), library_ms=lib_ms,
+            bound_ms=bound_ms(nb[name]), library_ms=lib_ms,
             max_abs_err=float((got - ref).abs().max()),
             split=A.ATTN_SPLIT, splits=plan.nsplit, grid=list(plan.grid),
             live_ctas=ctas, device_kernels_per_call=per_call,
@@ -1668,11 +1678,11 @@ def check_counter(dev, trace, width=SKETCH["width"], batch=BATCH):
     import torch
 
     from repro_torch.core.f2p import F2PFormat, Flavor
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_counter as FC
 
     budget = torch.from_numpy(first_batch_budget(trace, width, batch)).to(dev)
     shape = tuple(budget.shape)
-    n = budget.numel()
     sweeps = FC.PALLAS_SWEEPS
     out = {}
     adv_err, est_err = counter_bitwise(
@@ -1691,7 +1701,9 @@ def check_counter(dev, trace, width=SKETCH["width"], batch=BATCH):
     u = FC.hash_uniforms(7, 0, sweeps, shape, device=dev)
     live = live_sweeps(st, budget, luts, u)
     del u
-    adv_bound = max(bound_ms(16 * n),
+    adv_bytes = bound_ms(cost.nbytes("counter_advance", st, budget, *luts,
+                                      7))
+    adv_bound = max(adv_bytes,
                     live * ADVANCE_OPS_PER_SWEEP / F32_OPS_PER_S * 1e3)
     state_mid, _ = FC.counter_advance(st, budget, *luts, 7)
     out["counter_advance"] = dict(
@@ -1701,8 +1713,7 @@ def check_counter(dev, trace, width=SKETCH["width"], batch=BATCH):
             st, budget, *luts, FC.hash_uniforms(7, 0, sweeps, shape,
                                                 device=dev)), iters=5),
         bound_ms=adv_bound,
-        bound_by=("bytes" if adv_bound == bound_ms(16 * n)
-                  else "operations"),
+        bound_by=("bytes" if adv_bound == adv_bytes else "operations"),
         library_ms=None, max_abs_err=adv_err, live_sweeps=live,
         shape=f"state/budget [{shape[0]}, {shape[1]}], 16-bit LI^2, first "
               f"batch's budget, {sweeps} sweeps ({live} live cell-sweeps)")
@@ -1710,7 +1721,8 @@ def check_counter(dev, trace, width=SKETCH["width"], batch=BATCH):
         ms=cuda_ms(lambda: FC.counter_estimate(state_mid, glut), iters=100),
         plain_ms=cuda_ms(lambda: FC.counter_estimate_plain(state_mid, glut),
                          iters=30),
-        bound_ms=bound_ms(8 * n), bound_by="bytes",
+        bound_ms=bound_ms(cost.nbytes("counter_estimate", state_mid, glut)),
+        bound_by="bytes",
         library_ms=cuda_ms(lambda: glut[state_mid], iters=30),
         max_abs_err=est_err,
         shape=f"state [{shape[0]}, {shape[1]}] -> f32, 16-bit LI^2 grid")
@@ -1790,15 +1802,19 @@ def check_quantize_weight(w, fmt, codes, scales, packed: bool):
             f"quantize_weight scales differ: {tuple(w.shape)}"
 
 
-def matmul_bound(M: int, K: int, N: int, nbytes: int, kernel: str,
-                 x_dtype) -> dict:
+def matmul_bound(key: str, x, q, scales, fmt, kernel: str) -> dict:
     """A matmul row's bound: the larger of its bytes / 3.35 TB/s and its
-    operations over the rate of the kernel's arithmetic: f32 SIMT (decode
-    and simt: 2 M N K / 67 TFLOP/s) or bf16 tensor cores (mma: passes x 2
-    M N K / 989 TFLOP/s, 3 passes for f32 x, 1 for bf16 x)."""
+    operations (2 M N K) over the rate of the kernel's arithmetic: f32 SIMT
+    (decode and simt: 67 TFLOP/s) or bf16 tensor cores (mma: passes x 2 M N
+    K / 989 TFLOP/s, 3 passes for f32 x, 1 for bf16 x); bytes and
+    operations from kernels/cost.py."""
     import torch
 
-    ops = 2 * M * K * N
+    from repro_torch.kernels import cost
+
+    nbytes = cost.nbytes(key, x, q, scales, fmt=fmt)
+    ops = cost.flops(key, x, q, scales, fmt=fmt)
+    x_dtype = x.dtype
     passes = (1 if x_dtype == torch.bfloat16 else 3) if kernel == "mma" \
         else None
     ops_ms = (passes * ops / BF16_OPS_PER_S if passes else
@@ -1880,9 +1896,6 @@ def check_matmul(dev):
                 err = float((y - ref).abs().max())
                 del y, ref
                 big = N > 16384
-                code_bytes = q.numel() * q.element_size()
-                nbytes = code_bytes + scales.numel() * 4 \
-                    + x.numel() * x.element_size() + M * N * 4
 
                 def call():
                     return MM.dequant_matmul(x, q, scales, fmt=fmt,
@@ -1897,7 +1910,7 @@ def check_matmul(dev):
                         x, q, scales, fmt, packed), iters=2 if big else 5,
                         warm=1),
                     max_abs_err=err,
-                    **matmul_bound(M, K, N, nbytes, kernel[0], dt)))
+                    **matmul_bound(key, x, q, scales, fmt, kernel[0])))
             del q, scales
             torch.cuda.empty_cache()
         # the yardstick: one torch.matmul on W dequantized up front (f32,
@@ -3333,6 +3346,7 @@ def attention_at(dev, K, G, hd, fmt_name="f2p_sr_2_8s", *, B=8, S=1024,
 
     from repro_torch.core import qtensor as QT
     from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_attention as A
 
     g = torch.Generator(device=dev).manual_seed(10)
@@ -3364,10 +3378,10 @@ def attention_at(dev, K, G, hd, fmt_name="f2p_sr_2_8s", *, B=8, S=1024,
     paged, dense = (kern(q) for kern, _ in calls.values())
     assert torch.equal(paged, dense), \
         f"B1 != B2 over the gathered pages at K={K} G={G} hd={hd}"
-    live = int(kv_len.sum())
-    row_bytes = (slab_k.codes.shape[-1] + slab_v.codes.shape[-1]) * 4 + 8
-    nb = live * K * row_bytes + 2 * B * K * G * hd * q.element_size() \
-        + int(((kv_len + T - 1) // T).sum()) * 4 + B * 8
+    nb = {"attention_paged": cost.nbytes(
+              "attention_paged", q, slab_k, slab_v, pages, kv_len=kv_len),
+          "attention_packed": cost.nbytes(
+              "attention_packed", q, dense_k, dense_v, kv_len=kv_len)}
     plan = A.attention_plan(B, K, G, hd, S)
     out = {}
     for (name, (kern, plain)), got in zip(calls.items(), (paged, dense)):
@@ -3386,7 +3400,7 @@ def attention_at(dev, K, G, hd, fmt_name="f2p_sr_2_8s", *, B=8, S=1024,
         dms, per_call = device_calls(fn, "attention_decode_kernel")
         out[name] = dict(ms=cuda_ms(fn, iters=100), device_ms=dms,
                          plain_ms=cuda_ms(lambda: plain(q), iters=5),
-                         bound_ms=bound_ms(nb),
+                         bound_ms=bound_ms(nb[name]),
                          max_abs_err=float((got.float() - ref.float())
                                            .abs().max()),
                          q_dtype=q_dtype, shape=f"B={B} S={S} kv_len "
@@ -3410,6 +3424,7 @@ def kv_read_at(dev, K, hd, fmt_name, B, S, tag="frontend") -> dict:
     import torch
 
     from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_quant as Q
 
     g = torch.Generator(device=dev).manual_seed(14)
@@ -3421,8 +3436,7 @@ def kv_read_at(dev, K, hd, fmt_name, B, S, tag="frontend") -> dict:
             assert torch.equal(_bits(a), _bits(b)), \
                 f"kv_read differs: {fmt_name} K={K} hd={hd} {odt}"
     fn = lambda: Q.f2p_kv_read(cache, torch.bfloat16)
-    n = B * S * K
-    nb = 2 * n * (cache["k"].codes.shape[-1] * 4 + 4 + hd * 2)
+    nb = cost.nbytes("kv_read", cache, torch.bfloat16)
     dms, per_call = device_calls(fn, "dequantize_packed_kernel")
     r = dict(ms=host_ms(fn, iters=100), device_ms=dms,
              device_kernels_per_call=per_call, bound_ms=bound_ms(nb),
@@ -3444,6 +3458,7 @@ def kv_write_at(dev, K, hd, fmt_name="f2p_sr_2_8s") -> dict:
     import torch
 
     from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_quant as Q
     from repro_torch.models import attention as A
 
@@ -3454,8 +3469,8 @@ def kv_write_at(dev, K, hd, fmt_name="f2p_sr_2_8s") -> dict:
     kv_write_bitwise(dev, g, fmt, True, K=K, hd=hd, collide=True)
     cache, k, v, pos, pages = kv_write_inputs(dev, g, fmt, True, K=K, hd=hd)
     fn = lambda: A._paged_cache_write(cache, k, v, pos, pages)
-    r = dict(ms=cuda_ms(fn, iters=200), bound_ms=bound_ms(kv_write_bytes(
-        k, cache["k"].codes.shape[-1], True)),
+    r = dict(ms=cuda_ms(fn, iters=200), bound_ms=bound_ms(cost.nbytes(
+        "kv_write", k, v, cache, pos, pages)),
         plain_ms=cuda_ms(lambda: Q.kv_write_plain(k, v, cache, pos, pages),
                          iters=10))
     r["device_ms"], r["kernels"] = device_ms_kernels(fn, iters=50)
@@ -5039,6 +5054,7 @@ def example_counter_at(dev) -> dict:
     import torch
 
     from repro_torch.core.f2p import F2PFormat, Flavor
+    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_counter as FC
 
     trace = load_example("torch_sketch_zipf_trace").make_trace(
@@ -5054,10 +5070,11 @@ def example_counter_at(dev) -> dict:
     u = FC.hash_uniforms(7, 0, FC.PALLAS_SWEEPS, tuple(budget.shape),
                          device=dev)
     live = live_sweeps(st, budget, luts, u)
-    n = budget.numel()
     r = dict(ms=cuda_ms(lambda: FC.counter_advance(st, budget, *luts, 7),
                         iters=100),
-             bound_ms=max(bound_ms(16 * n), live * ADVANCE_OPS_PER_SWEEP
+             bound_ms=max(bound_ms(cost.nbytes(
+                 "counter_advance", st, budget, *luts, 7)),
+                 live * ADVANCE_OPS_PER_SWEEP
                           / F32_OPS_PER_S * 1e3),
              max_abs_err=adv_err, estimate_max_abs_err=est_err,
              live_sweeps=live,
@@ -5770,6 +5787,177 @@ def sharded_summary(sh: dict) -> dict:
                 seconds=sh["seconds"])
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the launch analysis tools (A14)
+# ---------------------------------------------------------------------------
+# (a) the cells the op analysis counts on the card and on fake CPU tensors:
+# phase 8's train step (rows x seq) and a decode step of the serving cell's
+# 8 slots over packed caches of 1024 positions (the copy-in engine's fused
+# attention) at position 512 (launch.dryrun.device_cell); (b) the dry run's
+# cells on the single-pod fake world and the hillclimb variant run at decode
+ANALYSIS_TRAIN = (TRAIN_BATCH, TRAIN_SEQ)
+ANALYSIS_DECODE = (8, 1024)
+ANALYSIS_CELLS = ("decode_32k", "train_4k")
+ANALYSIS_VARIANT = "fsdp"
+# the counts' agreement, card against fake: FLOPs equal, bytes within this
+# share; the measured step at least this share of max(t_compute, t_memory)
+ANALYSIS_BYTES_RTOL, ANALYSIS_BOUND_SHARE = 0.01, 0.9
+
+
+def analysis_cell(dev, kind: str) -> dict:
+    """One cell of 16(a): the op analysis of the step on the card (real
+    tensors: the kernels launch and are charged through kernels/cost.py),
+    the same cell on fake CPU tensors, and the step timed alone (CUDA
+    events after a synchronize): FLOPs must agree exactly, bytes within
+    ANALYSIS_BYTES_RTOL, and the measured step must be at least
+    ANALYSIS_BOUND_SHARE of its roofline bound max(t_compute, t_memory)."""
+    import gc
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dryrun import device_cell
+    from repro_torch.launch.op_analysis import analyze
+
+    rows, seq = ANALYSIS_TRAIN if kind == "train" else ANALYSIS_DECODE
+    iters = 3 if kind == "train" else 20
+    t0 = time.perf_counter()
+    step, args = device_cell(ARCH, kind, rows, seq, device=dev)
+    ms = cuda_ms(lambda: step(*args), iters=iters, warm=1)
+    sync(dev)
+    _, card = analyze(step, *args)
+    sync(dev)
+    del step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        step, args = device_cell(ARCH, kind, rows, seq, device="cpu",
+                                 fake=True)
+        _, fake = analyze(step, *args, fake=True)
+    del step, args
+    fake_s = time.perf_counter() - t0
+    t_compute = card["flops"] / RL.PEAK_FLOPS * 1e3
+    t_memory = card["hbm_bytes"] / RL.HBM_BW * 1e3
+    rel = abs(card["hbm_bytes"] - fake["hbm_bytes"]) / fake["hbm_bytes"]
+    r = dict(kind=kind, rows=rows, seq=seq, ms=ms, t_compute_ms=t_compute,
+             t_memory_ms=t_memory, bound_ms=max(t_compute, t_memory),
+             flops=card["flops"], fake_flops=fake["flops"],
+             hbm_bytes=card["hbm_bytes"], fake_hbm_bytes=fake["hbm_bytes"],
+             bytes_rel_diff=rel, temp_bytes=card["temp_size_in_bytes"],
+             fake_temp_bytes=fake["temp_size_in_bytes"],
+             argument_bytes=card["argument_size_in_bytes"],
+             kernels=card["kernels"], fake_kernels=fake["kernels"],
+             card_s=card_s, fake_s=fake_s,
+             top_ops=dict(sorted(card["by_op"].items(),
+                                 key=lambda kv: -kv[1]["bytes"])[:6]))
+    log(f"analysis : {kind:6s} {rows} x {seq}: measured {ms:.3f} ms | "
+        f"t_compute {t_compute:.3f} ms ({card['flops']:.6e} FLOPs), "
+        f"t_memory {t_memory:.3f} ms ({card['hbm_bytes']:.6e} B) | fake "
+        f"{fake['flops']:.6e} FLOPs, {fake['hbm_bytes']:.6e} B (bytes "
+        f"{rel:.2e} apart) | temp {card['temp_size_in_bytes']} B card, "
+        f"{fake['temp_size_in_bytes']} B fake | kernels "
+        f"{ {k: v['count'] for k, v in card['kernels'].items()} } | "
+        f"{card_s:.1f} s card, {fake_s:.1f} s fake")
+    assert card["flops"] == fake["flops"] > 0, \
+        f"{kind}: card {card['flops']} FLOPs, fake {fake['flops']}"
+    assert rel <= ANALYSIS_BYTES_RTOL, f"{kind}: bytes {rel:.3e} apart"
+    assert card["kernels"].keys() == fake["kernels"].keys(), \
+        (card["kernels"], fake["kernels"])
+    assert ms >= ANALYSIS_BOUND_SHARE * r["bound_ms"], \
+        f"{kind}: {ms:.3f} ms measured under its bound {r['bound_ms']:.3f}"
+    return r
+
+
+def analysis_phase(dev, *, cells=ANALYSIS_CELLS,
+                   variant=ANALYSIS_VARIANT) -> dict:
+    """Phase 16: (b) the dry run of llama3.2-3b's ``cells`` on the
+    single-pod fake world, each through ``python -m
+    repro_torch.launch.dryrun`` (one process a cell, on the CPU, started
+    first and run beside (a)), then ``launch.report`` over their records and
+    one ``launch.hillclimb`` variant at decode; (a) the op analysis of a
+    real train and decode step on the card against the same cells on fake
+    tensors (analysis_cell). Records land in chiprun_out/analysis/."""
+    import os
+    import shutil
+
+    out = ROOT / "chiprun_out" / "analysis"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = {c: [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                ARCH, "--shape", c, "--mesh", "single", "--out",
+                str(out / "dryrun")] for c in cells}
+    cmds["hillclimb"] = [sys.executable, "-m", "repro_torch.launch.hillclimb",
+                         "--arch", ARCH, "--shape", cells[0], "--variant",
+                         variant, "--out", str(out / "perf")]
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(v, env=env, cwd=str(ROOT),
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for k, v in cmds.items()}
+    res = {"device": smi_line()}
+    try:
+        res["cells"] = {k: analysis_cell(dev, k) for k in ("train", "decode")}
+        dry = {}
+        for k, p in procs.items():
+            text, _ = p.communicate(timeout=600)
+            dry[k] = dict(rc=p.returncode, tail=text.strip().splitlines()[-3:])
+            assert p.returncode == 0, f"{k}: rc {p.returncode}\n{text}"
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c in cells:
+        rec = json.loads((out / "dryrun" / f"{ARCH}__{c}__16x16.json")
+                         .read_text())
+        assert rec["status"] == "ok", rec
+        dry[c].update({k: rec[k] for k in (
+            "compile_s", "hlo_flops", "hlo_bytes", "collective_bytes",
+            "t_compute", "t_memory", "t_collective", "bottleneck",
+            "placement")})
+        log(f"analysis : dry run {ARCH} {c} on 16x16: {rec['compile_s']} s "
+            f"traced, t=({rec['t_compute']:.3e}, {rec['t_memory']:.3e}, "
+            f"{rec['t_collective']:.3e}) s, {rec['bottleneck']}; "
+            f"{rec['placement']}")
+    hc = json.loads((out / "perf" / f"{ARCH}__{cells[0]}__{variant}.json")
+                    .read_text())
+    dry["hillclimb"].update(variant=variant, compile_s=hc["compile_s"],
+                            bottleneck=hc["bottleneck"],
+                            t_memory=hc["t_memory"],
+                            t_collective=hc["t_collective"])
+    log(f"analysis : hillclimb {cells[0]} --variant {variant}: "
+        f"{hc['compile_s']} s, t_memory {hc['t_memory']:.3e} s, "
+        f"t_collective {hc['t_collective']:.3e} s, {hc['bottleneck']}")
+    rep = subprocess.run([sys.executable, "-m", "repro_torch.launch.report",
+                          str(out / "dryrun")], env=env, cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert rep.returncode == 0, rep.stderr
+    (out / "report.md").write_text(rep.stdout)
+    assert f"## Dry-run summary: {len(cells)} ok" in rep.stdout, rep.stdout
+    for c in cells:
+        assert f"| {ARCH} | {c} | ok |" in rep.stdout, c
+    res["dryrun"] = dry
+    log(f"analysis : report over {len(cells)} records ok "
+        f"(chiprun_out/analysis/report.md); phase 16 "
+        f"{time.perf_counter() - t0:.1f} s on {res['device']}")
+    return res
+
+
+def analysis_summary(an: dict) -> dict:
+    keep = ("ms", "t_compute_ms", "t_memory_ms", "flops", "fake_flops",
+            "hbm_bytes", "fake_hbm_bytes", "bytes_rel_diff", "temp_bytes")
+    return {"device": an["device"],
+            "cells": {k: {f: v[f] for f in keep}
+                      for k, v in an["cells"].items()},
+            "dryrun": {k: {f: v.get(f) for f in ("compile_s", "bottleneck",
+                                                  "t_memory")}
+                       for k, v in an["dryrun"].items()}}
+
+
 def main():
     import argparse
     import gc
@@ -5781,7 +5969,7 @@ def main():
                                        "unpacked", "fl", "families",
                                        "recurrent", "frontends",
                                        "moe_train", "examples",
-                                       "sharded"),
+                                       "sharded", "analysis"),
                     help="matmul / attention / codec / unpacked: phases 1-2 "
                          "and phase 3's dequant matmul (B7/B8), attention "
                          "(B1/B2), packed codec (B3/B4) or unpacked codec "
@@ -5794,8 +5982,9 @@ def main():
                          "moe_train: phases 1-2 and phase 13 (the MoE "
                          "family trained); examples: phases 1-2 and phase "
                          "14 (the example twins); sharded: phases 1-2 and "
-                         "phase 15 (the sharded part); prints no final ok "
-                         "line")
+                         "phase 15 (the sharded part); analysis: phases "
+                         "1-2 and phase 16 (the launch analysis tools); "
+                         "prints no final ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device — the port's kernels "
@@ -5908,6 +6097,14 @@ def main():
         print(json.dumps({"sharded": sharded_summary(sh)}, default=str))
         print(smi)
         return
+    if only == "analysis":
+        an = analysis_phase(dev)
+        out_dir = ROOT / "chiprun_out"
+        (out_dir / "chip_smoke_analysis.json").write_text(json.dumps(
+            {"device": smi, "analysis": an}, indent=1, default=str))
+        print(json.dumps({"analysis": analysis_summary(an)}, default=str))
+        print(smi)
+        return
     if only == "examples":
         ex = examples_phase(dev)
         out_dir = ROOT / "chiprun_out"
@@ -5982,6 +6179,9 @@ def main():
     torch.cuda.empty_cache()
     sh_res = sharded_phase(
         dev, plain_losses=train_res["losses"][:SHARD_LLAMA_STEPS])
+    gc.collect()
+    torch.cuda.empty_cache()
+    an_res = analysis_phase(dev)
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
@@ -6035,6 +6235,7 @@ def main():
          "sketch": sketch_res, "train": train_res, "fl": fl_res,
          "families": fam_res, "recurrent": rec_res, "frontends": fr_res,
          "moe_train": mt_res, "examples": ex_res, "sharded": sh_res,
+         "analysis": an_res,
          "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "ef_roundtrip_row": res["ef_roundtrip"],
@@ -6054,6 +6255,7 @@ def main():
     print(json.dumps({"moe_train": moe_train_summary(mt_res)}, default=str))
     print(json.dumps({"examples": examples_summary(ex_res)}, default=str))
     print(json.dumps({"sharded": sharded_summary(sh_res)}, default=str))
+    print(json.dumps({"analysis": analysis_summary(an_res)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

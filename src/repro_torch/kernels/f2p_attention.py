@@ -48,6 +48,7 @@ from repro_torch.core.f2p import F2PFormat
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels import cuda as C
 from repro_torch.kernels.bits import unpack_bits
+from repro_torch.kernels.cost import charged
 from repro_torch.kernels.f2p_quant import cuda_consts, dequantize_tile_math
 
 __all__ = ["attention_packed", "attention_paged", "attention_packed_plain",
@@ -325,6 +326,7 @@ def _paged_args(q, kq: QTensor, vq: QTensor, pages, kv_len, q_offset, tile):
                        q.device), tile)
 
 
+@charged("attention_packed")
 def attention_packed(q, kq: QTensor, vq: QTensor, *, kv_len=None,
                      causal: bool = False, q_offset=0, tile: int | None = None):
     """Fused attention straight off a dense packed cache.
@@ -358,6 +360,7 @@ def attention_packed_plain(q, kq: QTensor, vq: QTensor, *, kv_len=None,
     return _unfold_o(o3, Sq, q.dtype)
 
 
+@charged("attention_paged")
 def attention_paged(q, kq: QTensor, vq: QTensor, pages, *, kv_len=None,
                     causal: bool = False, q_offset=0, tile: int | None = None):
     """Fused attention THROUGH a page table — no dense KV row exists.

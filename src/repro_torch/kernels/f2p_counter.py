@@ -53,6 +53,7 @@ import torch
 
 from repro_torch.kernels import cuda as C
 from repro_torch.kernels.bits import fmix32
+from repro_torch.kernels.cost import charged
 
 __all__ = ["advance_tables", "hash_uniforms", "counter_advance_plain",
            "counter_advance", "counter_advance_exact",
@@ -188,6 +189,7 @@ def _check_advance_args(state, budget, luts) -> None:
         raise ValueError("a grid needs at least two states")
 
 
+@charged("counter_advance")
 def counter_advance(state: torch.Tensor, budget: torch.Tensor,
                     p_lut: torch.Tensor, run_lut: torch.Tensor,
                     logq_lut: torch.Tensor, seed: int, *, sweep0: int = 0,
@@ -257,6 +259,7 @@ def counter_estimate_plain(state: torch.Tensor,
     return grid_lut[state.long()]
 
 
+@charged("counter_estimate")
 def counter_estimate(state: torch.Tensor, grid_lut: torch.Tensor) -> torch.Tensor:
     """``L[state]``: the plain gather for a CPU tensor,
     ``counter_estimate_kernel`` for a CUDA tensor (state in ``[0, K)``)."""

@@ -58,6 +58,7 @@ from repro_torch.core.f2p import F2PFormat, Flavor
 from repro_torch.core.qtensor import block_scales
 from repro_torch.kernels import cuda as C
 from repro_torch.kernels.bits import pack_bits, packed_words, unpack_bits
+from repro_torch.kernels.cost import charged
 from repro_torch.kernels.f2p_quant import (_int32_to_codes, code_dtype,
                                            codes_to_int32, cuda_consts,
                                            dequantize_tile_math,
@@ -313,6 +314,7 @@ def _launch(x, w, scales, fmt, block, N, code_bytes, W):
     return y
 
 
+@charged("dequant_matmul")
 def f2p_dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
                        scales: torch.Tensor, *, fmt: F2PFormat = WEIGHT_FMT,
                        block: int = 128) -> torch.Tensor:
@@ -333,6 +335,7 @@ def f2p_dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
     return y
 
 
+@charged("dequant_matmul_packed")
 def f2p_dequant_matmul_packed(x: torch.Tensor, words: torch.Tensor,
                               scales: torch.Tensor, *,
                               fmt: F2PFormat = WEIGHT_FMT,

@@ -69,6 +69,7 @@ import torch
 from repro_torch.core.f2p import F2PFormat
 from repro_torch.kernels import cuda as C
 from repro_torch.kernels.bits import pack_bits, packed_words, unpack_bits
+from repro_torch.kernels.cost import charged
 
 __all__ = ["quantize_tile_math", "dequantize_tile_math",
            "f2p_quantize_packed", "f2p_dequantize_packed", "f2p_kv_write",
@@ -372,6 +373,7 @@ def _check_2d(x: torch.Tensor, block: int, what: str) -> None:
                          f"block {block}")
 
 
+@charged("quantize_packed")
 def f2p_quantize_packed(x2: torch.Tensor, fmt: F2PFormat, *, block: int = 128,
                         scale_mode: str = "f32"):
     """Blocked F2P quantization of ``[r, c]`` straight into packed words:
@@ -484,6 +486,7 @@ def _check_kv(k, v, cache, pages) -> None:
                          f"{B}")
 
 
+@charged("kv_write")
 def f2p_kv_write(k: torch.Tensor, v: torch.Tensor, cache: dict, pos,
                  pages=None) -> None:
     """Quantize a layer's new K and V ``[B, S, K, hd]`` (f32 or bf16, any
@@ -524,6 +527,7 @@ def f2p_kv_write(k: torch.Tensor, v: torch.Tensor, cache: dict, pos,
     C.LAUNCHES["kv_write"] += 1
 
 
+@charged("dequantize_packed")
 def f2p_dequantize_packed(words: torch.Tensor, scales: torch.Tensor,
                           fmt: F2PFormat, *, block: int = 128,
                           out_dtype=torch.float32) -> torch.Tensor:
@@ -590,6 +594,7 @@ def kv_read_plain(cache: dict, dtype=torch.float32):
     return tuple(out)
 
 
+@charged("kv_read")
 def f2p_kv_read(cache: dict, dtype=torch.float32):
     """Dense K and V of one layer's packed cache ``cache = {"k", "v"}``
     (QTensors: words ``[..., W]`` uint32 and scales ``[..., hd / block]``
@@ -632,6 +637,7 @@ def f2p_kv_read(cache: dict, dtype=torch.float32):
     return k, v
 
 
+@charged("quantize")
 def f2p_quantize_codes(x2: torch.Tensor, fmt: F2PFormat, *,
                        block: int = 128, scale_mode: str = "f32"):
     """Blocked F2P quantization of ``[r, c]`` into byte-aligned codes:
@@ -661,6 +667,7 @@ def f2p_quantize_codes(x2: torch.Tensor, fmt: F2PFormat, *,
     return codes, scales
 
 
+@charged("dequantize")
 def f2p_dequantize_codes(codes: torch.Tensor, scales: torch.Tensor,
                          fmt: F2PFormat, *, block: int = 128,
                          out_dtype=torch.float32) -> torch.Tensor:
@@ -763,6 +770,7 @@ def ef_plan(gs, rs, block: int = 128) -> list:
     return groups
 
 
+@charged("ef_roundtrip")
 def f2p_ef_roundtrip(gs, rs, fmt: F2PFormat, *, block: int = 128,
                      error_feedback: bool = True) -> None:
     """The error-feedback round trip of a train step's compressed leaves,

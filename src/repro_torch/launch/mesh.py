@@ -5,7 +5,7 @@ Functions, not module-level constants: importing this module touches no
 process group. A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh`
 over the world's ranks, laid out row-major over ``shape`` as the
 reference's ``jax.make_mesh``; its device type is the ranks' device (the
-card, or the CPU for gloo ranks without one).
+card, or the CPU where the caller asks for it).
 
 Production shapes (the reference's TPU pods; on cards the world must have
 the same size):
@@ -22,6 +22,7 @@ back. Each staged leg is named once in :data:`HOST_STAGED`.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 
@@ -35,14 +36,35 @@ HOST_STAGED: set[str] = set()
 def rank_device(device=None) -> torch.device:
     """The device of this rank: ``device`` when given, else the card of
     index ``rank % cards`` (ranks share cards round-robin when there are
-    more ranks than cards), else the CPU."""
+    more ranks than cards). With no card and no ``device`` it raises: a
+    rank runs on the CPU only when the caller asks for it."""
     if device is not None:
         return torch.device(device)
     n = torch.cuda.device_count()
     if n == 0:
-        return torch.device("cpu")
+        raise RuntimeError("no CUDA device for this rank: pass "
+                           "device='cpu' to run it on the CPU")
     rank = dist.get_rank() if dist.is_initialized() else 0
     return torch.device("cuda", rank % n)
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """Join rank 0 of a fake process group of ``n`` ranks (collectives
+    return at once, moving nothing) for the duration of the block, then
+    destroy it: the counterpart of the reference's
+    ``--xla_force_host_platform_device_count`` placeholder devices, for
+    the dry run on the CPU (``device="cpu"`` meshes)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is initialized already")
+    dist.init_process_group("fake", rank=0, world_size=int(n),
+                            store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def compat_make_mesh(shape, axes, device=None):

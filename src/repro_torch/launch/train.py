@@ -20,9 +20,12 @@ to a directory of their own, under the process's temporary directory).
 DeviceMesh of d·m ranks: the launcher starts them as processes of its own
 (or joins a world ``torchrun`` has already set up: ``RANK`` and
 ``WORLD_SIZE`` in the environment). With at least as many cards as ranks
-they run over NCCL, one card each; with more ranks than cards, or with no
-card, over gloo, ranks sharing the cards round-robin (or on the CPU).
-The first line names the backend and each rank's device. The state is
+they run over NCCL, one card each; with more ranks than cards over gloo,
+ranks sharing the cards round-robin. ``--device cpu`` runs every rank
+(or the one process of ``1,1``) on the CPU over gloo; the default,
+``cuda``, needs a card and exits with an error naming ``--device cpu``
+where there is none. The first line names the backend and each rank's
+device. The state is
 sharded by the reference's logical rules (``launch.shardings``); the
 step is ``train.step.sharded_train_step``. Rank 0 prints the step,
 resume and ``done.`` lines; ``--die-at-step`` exits every rank with 42,
@@ -67,6 +70,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--die-at-step", type=int, default=-1,
                     help="simulate preemption (exit hard at this step)")
     ap.add_argument("--no-compress", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the ranks run (cpu: gloo ranks on the CPU)")
     return ap.parse_args(argv)
 
 
@@ -244,18 +249,22 @@ def local_state_bytes(state) -> int:
                        if t is not None)
 
 
-def mesh_backend(world: int) -> tuple[str, list]:
-    """(backend, device of each rank) for a world of ``world`` ranks: NCCL
-    with one card each where there are enough cards, else gloo, ranks
-    sharing the cards round-robin (the CPU where there is none)."""
+def mesh_backend(world: int, device: str = "cuda") -> tuple[str, list]:
+    """(backend, device of each rank) for a world of ``world`` ranks on
+    ``device``: on the CPU gloo; on cards NCCL with one card each where
+    there are enough, else gloo, ranks sharing the cards round-robin.
+    Cards asked for where there is none raise, naming ``--device cpu``."""
     import torch
 
+    if device == "cpu":
+        return "gloo", ["cpu"] * world
     cards = torch.cuda.device_count()
+    if not cards:
+        raise RuntimeError("no CUDA device: the ranks run on the card unless "
+                           "--device cpu asks for the CPU")
     if cards >= world:
         return "nccl", [f"cuda:{r}" for r in range(world)]
-    if cards:
-        return "gloo", [f"cuda:{r % cards}" for r in range(world)]
-    return "gloo", ["cpu"] * world
+    return "gloo", [f"cuda:{r % cards}" for r in range(world)]
 
 
 def parse_mesh_shape(text: str) -> tuple[int, int]:
@@ -317,7 +326,7 @@ def _rank_main(args, shape) -> None:
     if world != shape[0] * shape[1]:
         raise ValueError(f"--mesh-shape {args.mesh_shape} needs "
                          f"{shape[0] * shape[1]} ranks; the world has {world}")
-    backend, devices = mesh_backend(world)
+    backend, devices = mesh_backend(world, args.device)
     device = devices[rank]
     if device.startswith("cuda"):
         torch.cuda.set_device(torch.device(device))
@@ -344,6 +353,11 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     shape = parse_mesh_shape(args.mesh_shape)
+    try:
+        mesh_backend(shape[0] * shape[1], args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         _rank_main(args, shape)
         return 0
@@ -355,7 +369,7 @@ def main(argv=None) -> int:
     run(cfg, arch=args.arch, steps=args.steps,
         global_batch=args.global_batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, die_at_step=args.die_at_step,
-        compress=not args.no_compress)
+        compress=not args.no_compress, device=args.device)
     return 0
 
 

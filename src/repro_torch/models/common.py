@@ -56,10 +56,23 @@ def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
                         device=device)
 
 
+def _rope_table(head_dim: int, theta: float, device: torch.device):
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is None:
+        return _rope_freqs_on(head_dim, theta, device)
+    # under a FakeTensorMode (the dry run, which allows real inputs) the
+    # cached table is made and returned real, so that no fake tensor stays
+    # in the cache and a fake step reads the same constant as a real one
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        return _rope_freqs_on(head_dim, theta, device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """x: [..., S, H, hd]; positions: broadcastable to [..., S]."""
     hd = x.shape[-1]
-    freqs = _rope_freqs_on(hd, float(theta), x.device)
+    freqs = _rope_table(hd, float(theta), x.device)
     ang = positions[..., None].to(torch.float32) * freqs
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]

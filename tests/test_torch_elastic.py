@@ -42,7 +42,8 @@ def test_elastic_restart_resumes_from_latest_committed(tmp_path):
     d = str(tmp_path / "run")
     common = ["--steps", "12", "--seq", "16", "--global-batch", "4",
               "--ckpt-every", "2", "--ckpt-dir", d]
-    r = _cli(*common, "--mesh-shape", "2,2", "--die-at-step", "5")
+    r = _cli(*common, "--mesh-shape", "2,2", "--die-at-step", "5",
+             "--device", "cpu")
     assert r.returncode == 42, r.stderr[-3000:]
     lines = r.stdout.splitlines()
     assert lines[0] == "backend gloo  ranks 0:cpu 1:cpu 2:cpu 3:cpu"
@@ -52,7 +53,7 @@ def test_elastic_restart_resumes_from_latest_committed(tmp_path):
     latest = checkpoint.latest_step(d)
     assert latest in (2, 4), latest
     shutil.copytree(d, str(tmp_path / "copy"))
-    r2 = _cli(*common, "--mesh-shape", "2,1")
+    r2 = _cli(*common, "--mesh-shape", "2,1", "--device", "cpu")
     assert r2.returncode == 0, r2.stderr[-3000:]
     assert f"resumed from step {latest} (elastic remesh ok)" in r2.stdout
     assert r2.stdout.rstrip().endswith("done.")
