@@ -15,15 +15,16 @@ NVIDIA GPU.
     python3 chip_smoke.py --only examples  # phases 1-2 and phase 14 (the example twins)
     python3 chip_smoke.py --only sharded   # phases 1-2 and phase 15 (the sharded part)
     python3 chip_smoke.py --only analysis  # phases 1-2 and phase 16 (the analysis tools)
+    python3 chip_smoke.py --only long     # phases 1-2 and phase 17 (long-context decode)
 
 With ``--only matmul`` (``--only attention``, ``--only codec``, ``--only
 unpacked``, ``--only fl``, ``--only families``, ``--only recurrent``,
 ``--only frontends``, ``--only moe_train``, ``--only examples``, ``--only
-sharded``, ``--only analysis``) the script runs the device and
-build phases and phase 3's dequant matmul, B7/B8 (attention, B1/B2; the
-packed codec, B3/B4; the unpacked codec, B5 and its round trip and B6;
-phase 9; phase 10; phase 11; phase 12; phase 13; phase 14; phase 15;
-phase 16), prints their
+sharded``, ``--only analysis``, ``--only long``) the script runs the
+device and build phases and phase 3's dequant matmul, B7/B8 (attention,
+B1/B2; the packed codec, B3/B4; the unpacked codec, B5 and its round trip
+and B6; phase 9; phase 10; phase 11; phase 12; phase 13; phase 14; phase
+15; phase 16; phase 17), prints their
 lines and
 ends without the final ``{"ok": ...}`` line, so it never stands in for a
 full run.
@@ -77,7 +78,11 @@ Phases (any failed check raises, so the script exits non-zero):
    dequantized up front; grid_lut[state] for the estimate. B1/B2 also
    report their device time per call (torch.profiler, the kernel alone),
    a cold-L2 device time (a 64 MB write before each launch), the plan's
-   splits and live CTAs and the device kernels per call. Then the
+   splits and live CTAs and the device kernels per call, and a sha256
+   digest of their outputs at the default tile over DIGEST_CASES (up to
+   32768 positions, seeded on the card; attention_digest uses only what
+   the wrappers took before the tile tables, so the same script run on a
+   parent tree shows whether a kernel change kept these bits). Then the
    dequant matmul (B8 on f2p_sr_2_8s uint8 codes, B7 on 6- and 8-bit
    packed words) at llama3.2-3b's projection shapes (K, N) in (3072,
    3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 128256): M = 8
@@ -357,7 +362,8 @@ Phases (any failed check raises, so the script exits non-zero):
    == unpacked, and within the codec's bound of the f32 mean; (b) ``python
    -m repro_torch.launch.train --arch xlstm_125m --full --mesh-shape 2,2``
    (4 ranks on the card, the launcher's defaults, 4 steps) against a 1,1
-   run's losses, then a run killed by --die-at-step 3 (rc 42) and
+   run's losses (in the whole script, phase 11(d)'s: the same arch,
+   configs, data and steps), then a run killed by --die-at-step 3 (rc 42) and
    restarted on 2,1, which must resume from the latest committed step; the
    ranks' state bytes, peak memory and step time from the CLI's "ranks"
    line; (c) llama3.2-3b at full width, 3 steps on a (1,1) NCCL
@@ -383,13 +389,38 @@ Phases (any failed check raises, so the script exits non-zero):
    ``launch.report`` over the two records, one ``launch.hillclimb`` variant
    at decode; the seconds each cell traced. Records and the report land in
    chiprun_out/analysis/.
+17. long   — long-context decode (caches past 32768 positions) and the
+   tile tables. (a) B1 (a shuffled page table) and B2 (dense, the gathered
+   pages) at batch 1 over caches of 32896, 131072 and 524288 positions, at
+   llama3.2-3b's and jamba's (kv heads, G, head_dim) = (8, 3, 128) and (8,
+   8, 128), f2p_sr_2_8s, kv_len S - 1 and 100, tiles 128 and 512: paged ==
+   dense and the page table cut to the live span == the dense call on the
+   full cache, bitwise; within rtol = atol = 1e-5 of the plain version at
+   the same tile; at kv_len S - 1 the ms with the host, device ms, the
+   bound and SDPA (enable_gqa, bf16 K/V of the live positions). Then the
+   launch counters are zeroed and the main path runs: (b) full-width
+   llama3.2-3b's paged and copy-in BatchedEngine and sequential Engine,
+   each built with max_seq 131072, on 3 requests of 64 tokens (16 new),
+   one slot: tokens paged == copy-in == sequential (asserted); (c) one
+   llama3.2-3b row: a 131072-position cache filled through B3 from seeded
+   K/V, the same words as pool slabs at a permutation, 8 greedy steps from
+   position 131064 dense (B2) and paged (B1), logits bitwise equal at
+   every step; (d) the reference's long_500k cell for jamba, cut as in
+   phase 11 (8 layers, 8 of 16 experts): caches of 524288 positions
+   filled the same way, 4 steps ending at position 524287, paged == dense
+   logits bitwise; the counters are read (B1, B2 and B3 must have
+   launched). (e) autotune_attention_tile("cuda", 8) and
+   autotune_matmul_tiles("cuda", 6 and 8) at their default shapes, each
+   candidate also timed with CUDA events, the kernel at the winner held to
+   its plain version; then both tables are cleared.
 
 Prints one ``{"sketch": {...}}`` JSON line, one ``{"train": {...}}`` JSON
 line, one ``{"fl": {...}}`` JSON line, one ``{"families": {...}}`` JSON
 line, one ``{"recurrent": {...}}`` JSON line, one ``{"frontends":
 {...}}`` JSON line, one ``{"moe_train": {...}}`` JSON line, one ``{"examples":
 {...}}`` JSON line, one ``{"sharded": {...}}`` JSON line, one
-``{"analysis": {...}}`` JSON line, one ``{"kernels": [...]}``
+``{"analysis": {...}}`` JSON line, one ``{"long": {...}}`` JSON line, one
+``{"kernels": [...]}``
 JSON line (all ten kernels and B5's round-trip mode, ``ef_roundtrip``, as
 a row of its own; B5's codes mode and B6 count the launches of phase 8's
 checkpoint save and restore; B3-B6 also carry ``fl_launches``, phase 9's,
@@ -397,9 +428,10 @@ B1-B4 ``families_launches``, phase 10's, and B1-B3 and the round trip
 ``recurrent_launches``, phase 11's, B1-B4 ``frontends_launches``, phase
 12's, B5's codes mode, its round trip and B6 ``moe_train_launches``,
 phase 13's, every kernel ``examples_launches``, phase 14's, and B3-B6,
-the round trip, B9 and B10 ``sharded_launches``, phase 15's), then the
-nvidia-smi line, then the last line ``{"ok": true, "device": {...}}``. A
-copy of the results goes to chiprun_out/chip_smoke.json.
+the round trip, B9 and B10 ``sharded_launches``, phase 15's, and B1-B3
+``long_launches``, phase 17's), then the nvidia-smi line, then the last
+line ``{"ok": true, "device": {...}}``. A line before them gives each
+phase's seconds. A copy of the results goes to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import json
@@ -557,10 +589,37 @@ EXAMPLES_UNREACHED = ("dequant_matmul", "dequant_matmul_packed",
 # f32 operations of one live sweep of the advance (min, sub, log, div,
 # ceil, two compares, max, compare, sub), log and divide counted as one
 ADVANCE_OPS_PER_SWEEP = 10
+# phase 17: long-context decode. (a) B1/B2 at batch 1 over caches of 32896
+# positions (257 splits of 128), 131072 (Llama 3.2's published context) and
+# 524288 (the reference's long_500k shape, launch/dryrun.py), at
+# llama3.2-3b's (kv heads, G, head_dim) and jamba's, tiles 128 and 512;
+# (b) llama3.2-3b's engines built with max_seq LONG_MAX_SEQ on
+# LONG_REQUESTS requests of LONG_PROMPT tokens (a prefill bucket) and
+# LONG_NEW new ones; (c) LONG_STEPS decode steps ending at the last
+# position of a full LONG_MAX_SEQ cache; (d) jamba cut as in phase 11 at
+# long_500k: JAMBA_LONG_STEPS steps ending at position 524287
+LONG_LENGTHS = (32896, 131072, 524288)
+LONG_SHAPES = ((8, 3, 128), (8, 8, 128))
+LONG_TILES = (128, 512)
+LONG_MAX_SEQ, LONG_REQUESTS, LONG_PROMPT, LONG_NEW = 131072, 3, 64, 16
+LONG_STEPS = 8
+JAMBA_LONG_S, JAMBA_LONG_STEPS = 524288, 4
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def gc_cuda() -> None:
+    """Collect the garbage and hand the card's cached blocks back, so the
+    next model of a phase finds the memory its predecessor held."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 def smi_line() -> str:
@@ -1480,6 +1539,62 @@ def check_unpacked_codec(dev):
     return out
 
 
+# phase 3's digest of B1/B2 at the default tile: (kv heads, G, head_dim,
+# rows, cache positions) at llama3.2-3b's and jamba's shapes, up to 32768
+# positions (256 splits of 128, the most the kernel took before caches of
+# any length), each row's kv_len drawn below S with S, S - 1, 129 and 1
+# among them
+DIGEST_CASES = ((8, 3, 128, 4, 1024), (8, 3, 128, 4, 8192),
+                (8, 3, 128, 4, 32768), (8, 8, 128, 4, 32768),
+                (2, 3, 64, 4, 4096))
+
+
+def attention_digest(dev, fmt_name="f2p_sr_2_8s") -> str:
+    """sha256 of the bytes of B1's and B2's outputs at the default tile
+    over :data:`DIGEST_CASES` (decode, a causal 4-query call, bf16 q), the
+    inputs seeded on the card. It uses only what the kernels' wrappers took
+    before the tile tables, so the same function on a parent tree shows
+    whether a kernel change left these results bitwise as they were."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_attention as A
+
+    fmt = named_format(fmt_name)
+    h = hashlib.sha256()
+    for K, G, hd, B, S in DIGEST_CASES:
+        g = torch.Generator(device=dev).manual_seed(S + 17 * G)
+        T = 8
+        maxp = S // T
+        P = B * maxp + 1
+        slab_k, slab_v = (QT.quantize(torch.randn(P, T, K, hd, generator=g,
+                                                  device=dev),
+                                      fmt, block=hd, packed=True)
+                          for _ in range(2))
+        pages = torch.randperm(P, generator=g, device=dev)[:B * maxp]
+        pages = pages.reshape(B, maxp).to(torch.int32)
+        kv_len = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+        kv_len[:4] = torch.tensor([S, S - 1, 129, 1], device=dev)[:B]
+        dk = A.gather_pages_to_dense(slab_k, pages)
+        dv = A.gather_pages_to_dense(slab_v, pages)
+        q = torch.randn(B, 1, K * G, hd, generator=g, device=dev)
+        qm = torch.randn(B, 4, K * G, hd, generator=g, device=dev)
+        cm = dict(kv_len=kv_len, causal=True, q_offset=kv_len - 4)
+        for o in (A.attention_paged(q, slab_k, slab_v, pages, kv_len=kv_len),
+                  A.attention_packed(q, dk, dv, kv_len=kv_len),
+                  A.attention_paged(qm, slab_k, slab_v, pages, **cm),
+                  A.attention_packed(qm, dk, dv, **cm),
+                  A.attention_packed(q.to(torch.bfloat16), dk, dv,
+                                     kv_len=kv_len)):
+            h.update(_bits(o).cpu().numpy().tobytes())
+        del slab_k, slab_v, dk, dv
+    torch.cuda.empty_cache()
+    return h.hexdigest()
+
+
 def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     """B1 and B2 at the serving decode shape (8 rows x 8 kv heads, G = 3,
     head_dim 128, kv_len 512..1024 over 8-token pages), held to their
@@ -1585,6 +1700,11 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     log(f"attention: {fmt_name}: paged == dense-over-gathered bitwise (and "
         "on the live span); both within 1e-5 of the plain version (decode "
         "and causal multi-query)")
+    digest = attention_digest(dev, fmt_name)
+    for r in out.values():
+        r["digest"] = digest
+    log(f"attention: digest of B1/B2 at the default tile, {fmt_name}, over "
+        f"{len(DIGEST_CASES)} cases up to 32768 positions: {digest}")
     return out
 
 
@@ -4214,12 +4334,13 @@ def recurrent_summary(rec: dict) -> dict:
 def slabs_from_dense(cfg, caches, pol, B, T, dev, seed=12):
     """Pool slabs holding the dense caches' pages at a permutation (as
     tests/test_torch_families.py builds them): (slabs, page table). Rows
-    of ``caches`` are ``max_seq = maxp * T`` positions."""
+    of ``caches`` are ``max_seq = maxp * T`` positions. A recurrent
+    position of the pattern gets a fresh zero state."""
     import torch
 
     from repro_torch.models import init_caches
 
-    S = caches["b0"]["k"].shape[2]
+    S = next(c for c in caches.values() if "k" in c)["k"].shape[2]
     maxp = S // T
     P = B * maxp + 2
     slabs = init_caches(cfg, 1, P * T, quantized_kv=True, kv_policy=pol,
@@ -4230,6 +4351,8 @@ def slabs_from_dense(cfg, caches, pol, B, T, dev, seed=12):
     G, K = cfg.n_groups, cfg.n_kv_heads
     idx = pages.flatten().long()
     for key in caches:
+        if "k" not in caches[key]:
+            continue
         for kv in ("k", "v"):
             src, dst = caches[key][kv], slabs[key][kv]
             W = src.codes.shape[-1]
@@ -5521,11 +5644,13 @@ def _cli_losses(out: str) -> dict:
             for m in re.finditer(r"step\s+(\d+) loss ([-\d.]+)", out)}
 
 
-def shard_train_cli(dev, full: bool = True) -> dict:
+def shard_train_cli(dev, full: bool = True, plain_losses=None) -> dict:
     """15(b): the reference launcher's own example, ``--arch xlstm_125m
     --full --mesh-shape 2,2`` (4 ranks on the card), against a ``1,1``
-    run; then a run killed by ``--die-at-step`` and restarted on ``2,1``
-    from the latest committed step."""
+    run, or against ``plain_losses`` (phase 11(d)'s: the same arch,
+    configs, data and steps in one process) when given; then a run
+    killed by ``--die-at-step`` and restarted on ``2,1`` from the latest
+    committed step."""
     import os
     import shutil
     import tempfile
@@ -5541,7 +5666,9 @@ def shard_train_cli(dev, full: bool = True) -> dict:
     work = Path(tempfile.mkdtemp(prefix="shard_cli_"))
     try:
         runs = {}
-        for tag, shape in (("2,2", "2,2"), ("1,1", "1,1")):
+        shapes = (("2,2", "2,2"),) if plain_losses else (("2,2", "2,2"),
+                                                         ("1,1", "1,1"))
+        for tag, shape in shapes:
             e = env
             if not full and shape == "1,1":   # the CLI's 1,1 needs a card:
                 # the CPU rehearsal joins a world of one instead
@@ -5554,6 +5681,10 @@ def shard_train_cli(dev, full: bool = True) -> dict:
                 f"15(b) --mesh-shape {shape}: rc {rc}"
             runs[tag] = dict(losses=_cli_losses(out), seconds=sec,
                              lines=out.splitlines())
+        if plain_losses:
+            runs["1,1"] = dict(losses={k: float(plain_losses[k]) for k in
+                                       runs["2,2"]["losses"]},
+                               seconds=0.0, lines=[])
         first = runs["2,2"]["lines"][0]
         assert first.startswith("backend gloo  ranks 0:"), first
         ranks = next(x for x in runs["2,2"]["lines"] if x.startswith("ranks "))
@@ -5564,7 +5695,8 @@ def shard_train_cli(dev, full: bool = True) -> dict:
         assert rel0 <= SHARD_LOSS0_RTOL, f"15(b) step 0 losses: {rel0}"
         assert rel <= SHARD_LOSS_RTOL, f"15(b) losses (2,2) vs (1,1): {rel}"
         log(f"sharded  : 15(b) {first}")
-        log(f"sharded  : 15(b) xlstm_125m (2,2) losses {a} vs (1,1) {b}: "
+        log(f"sharded  : 15(b) xlstm_125m (2,2) losses {a} vs (1,1) {b}"
+            f"{' (phase 11(d))' if plain_losses else ''}: "
             f"step 0 rel {rel0:.2e} (limit {SHARD_LOSS0_RTOL:g}), max rel "
             f"{rel:.2e} (limit {SHARD_LOSS_RTOL:g}); "
             f"{runs['2,2']['seconds']:.1f} s vs {runs['1,1']['seconds']:.1f}"
@@ -5680,13 +5812,14 @@ def shard_mesh_llama(dev, cfg, backend: str, plain_losses=None) -> dict:
 def sharded_phase(dev, *, psum_leaves=None, sketch_kw=None,
                   packets=SHARD_PACKETS, flows=N_FLOWS, batch=BATCH,
                   llama_cfg=None, full_xlstm=True, mesh_backend="nccl",
-                  plain_losses=None) -> dict:
+                  plain_losses=None, xlstm_losses=None) -> dict:
     """Phase 15: (a) compressed_psum on 2 ranks sharing the card, (b) the
     sharded CLI and its elastic restart, (c) llama3.2-3b on a (1,1) mesh,
     (d) the row-sharded sketch. Each part's launch counts are read from
     its own processes, counted from 0 before it runs. ``plain_losses``:
     phase 8's first losses, which (c) holds its mesh run to instead of
-    training the plain path again."""
+    training the plain path again; ``xlstm_losses``: phase 11(d)'s, which
+    (b) holds its (2,2) run to instead of a (1,1) run."""
     import numpy as np
     import torch
 
@@ -5724,7 +5857,8 @@ def sharded_phase(dev, *, psum_leaves=None, sketch_kw=None,
     log(f"sharded  : 15(a) legs staged through host memory by design "
         f"(gloo moves CPU tensors): {', '.join(out['host_staged'])}")
     # (b)
-    out["cli"] = shard_train_cli(dev, full=full_xlstm)
+    out["cli"] = shard_train_cli(dev, full=full_xlstm,
+                                 plain_losses=xlstm_losses)
     # (c)
     cfg = llama_cfg or full_config(ARCH)
     out["mesh_llama"] = shard_mesh_llama(dev, cfg, mesh_backend,
@@ -5958,6 +6092,449 @@ def analysis_summary(an: dict) -> dict:
                        for k, v in an["dryrun"].items()}}
 
 
+def long_attention(dev, shapes=LONG_SHAPES, lengths=LONG_LENGTHS,
+                   tiles=LONG_TILES, fmt_name="f2p_sr_2_8s") -> dict:
+    """17(a): B1 (paged, a shuffled page table) and B2 (dense, over the
+    gathered pages) at batch 1 over caches of each length in ``lengths``,
+    at (kv heads, G, head_dim) in ``shapes``, kv_len S - 1 and 100, at each
+    tile: paged == dense bitwise, the page table cut to the live span ==
+    the dense call on the full cache, and the dense call within rtol =
+    atol = 1e-5 of the plain version at the same tile. Timed at kv_len S -
+    1: ms with the host (CUDA events around the wrapper), device ms
+    (torch.profiler, the kernel alone), the bound (kernels/cost.py's bytes
+    / 3.35 TB/s against 4 G hd f32 operations a position and kv head / 67
+    TFLOP/s) and SDPA (enable_gqa) on the dequantized bf16 K/V of the live
+    positions."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import f2p_attention as A
+
+    fmt = named_format(fmt_name)
+    cuda = torch.device(dev).type == "cuda"
+    T, B = 8, 1
+    rows = []
+    for K, G, hd in shapes:
+        for S in lengths:
+            g = torch.Generator(device=dev).manual_seed(S + G)
+            maxp = S // T
+            P = maxp + 1
+            slab_k, slab_v = (QT.quantize(torch.randn(
+                P, T, K, hd, generator=g, device=dev), fmt, block=hd,
+                packed=True) for _ in range(2))
+            pages = torch.randperm(P, generator=g, device=dev)[:maxp]
+            pages = pages[None].to(torch.int32)
+            dk = A.gather_pages_to_dense(slab_k, pages)
+            dv = A.gather_pages_to_dense(slab_v, pages)
+            q = torch.randn(B, 1, K * G, hd, generator=g, device=dev)
+            sdpa_ms = None
+            if cuda:
+                n = S - 1
+                qs = q.transpose(1, 2).to(torch.bfloat16)
+                kd = dk.dequantize(torch.bfloat16)[:, :n].transpose(1, 2)
+                vd = dv.dequantize(torch.bfloat16)[:, :n].transpose(1, 2)
+                sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qs, kd, vd, enable_gqa=True), iters=20)
+                del kd, vd
+            for tile in tiles:
+                for kv_len in (S - 1, 100):
+                    paged = A.attention_paged(q, slab_k, slab_v, pages,
+                                              kv_len=kv_len, tile=tile)
+                    dense = A.attention_packed(q, dk, dv, kv_len=kv_len,
+                                               tile=tile)
+                    assert torch.equal(paged, dense), \
+                        f"B1 != B2 at S={S} K={K} G={G} tile {tile}"
+                    span = -(-kv_len // T)
+                    assert torch.equal(A.attention_paged(
+                        q, slab_k, slab_v, pages[:, :span].contiguous(),
+                        kv_len=kv_len, tile=tile), dense), \
+                        f"cut page table != dense at S={S} tile {tile}"
+                    t0 = time.perf_counter()
+                    ref = A.attention_packed_plain(q, dk, dv, kv_len=kv_len,
+                                                   tile=tile)
+                    sync(dev)
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                    torch.testing.assert_close(dense, ref, rtol=1e-5,
+                                               atol=1e-5)
+                    err = float((dense - ref).abs().max())
+                    plan = A.attention_plan(B, K, G, hd, S, tile)
+                    r = dict(K=K, G=G, hd=hd, S=S, tile=tile, kv_len=kv_len,
+                             splits=plan.nsplit,
+                             live_splits=-(-kv_len // tile),
+                             max_abs_err=err, plain_ms=plain_ms)
+                    if cuda and kv_len == S - 1:
+                        nb = cost.nbytes("attention_paged", q, slab_k,
+                                         slab_v, pages, kv_len=kv_len)
+                        ops = 4 * G * hd * kv_len * K * B
+                        by_bytes = bound_ms(nb)
+                        by_ops = ops / F32_OPS_PER_S * 1e3
+                        for name, fn in (
+                                ("attention_paged",
+                                 lambda: A.attention_paged(
+                                     q, slab_k, slab_v, pages, kv_len=kv_len,
+                                     tile=tile)),
+                                ("attention_packed",
+                                 lambda: A.attention_packed(
+                                     q, dk, dv, kv_len=kv_len, tile=tile))):
+                            dms, _ = device_calls(
+                                fn, "attention_decode_kernel", iters=10)
+                            r[name] = dict(ms=cuda_ms(fn, iters=20),
+                                           device_ms=dms)
+                        r.update(bound_ms=max(by_bytes, by_ops),
+                                 bytes_bound_ms=by_bytes, ops_bound_ms=by_ops,
+                                 bound_by="bytes" if by_bytes >= by_ops
+                                 else "operations", bytes=nb,
+                                 sdpa_ms=sdpa_ms)
+                        log(f"long     : B1/B2 K={K} G={G} hd={hd} S={S} "
+                            f"tile {tile} ({plan.nsplit} splits): paged "
+                            f"{r['attention_paged']['ms']:.5f} ms (device "
+                            f"{_ms(r['attention_paged']['device_ms'])}), "
+                            f"dense {r['attention_packed']['ms']:.5f} "
+                            f"(device "
+                            f"{_ms(r['attention_packed']['device_ms'])}); "
+                            f"bound {r['bound_ms']:.5f} ({r['bound_by']}), "
+                            f"SDPA bf16 {sdpa_ms:.5f}, plain "
+                            f"{plain_ms:.1f}; max |err| {err:.2e}")
+                    rows.append(r)
+            del slab_k, slab_v, dk, dv
+            gc_cuda()
+    log(f"long     : B1/B2 at S {lengths}, tiles {tiles}, kv_len S - 1 and "
+        f"100: paged == dense == the cut page table bitwise, within 1e-5 "
+        f"of the plain version ({len(rows)} cases)")
+    return dict(rows=rows, merge=merge_probe(dev, rows, shapes[0],
+                                             max(lengths), tiles)
+                if cuda else None)
+
+
+def merge_probe(dev, rows, shape, S, tiles, fmt_name="f2p_sr_2_8s") -> dict:
+    """The split merge's share of a long call, estimated: the last CTA of
+    a (head, group) merges every split of it, one such CTA per kv head,
+    all at once; so one kv head (T1: an eighth of the pass, the whole
+    merge) against eight (T8: the pass and the same merge) gives merge =
+    (8 T1 - T8) / 7, from the dense call's device time at kv_len S - 1."""
+    import torch
+
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.formats import named_format
+    from repro_torch.kernels import f2p_attention as A
+
+    K, G, hd = shape
+    fmt = named_format(fmt_name)
+    g = torch.Generator(device=dev).manual_seed(5)
+    kq, vq = (QT.quantize(torch.randn(1, S, 1, hd, generator=g, device=dev),
+                          fmt, block=hd, packed=True) for _ in range(2))
+    q = torch.randn(1, 1, G, hd, generator=g, device=dev)
+    out = {}
+    for tile in tiles:
+        t1, _ = device_calls(lambda: A.attention_packed(
+            q, kq, vq, kv_len=S - 1, tile=tile), "attention_decode_kernel",
+            iters=10)
+        t8 = next(r["attention_packed"]["device_ms"] for r in rows
+                  if (r["K"], r["G"], r["hd"], r["S"], r["tile"]) ==
+                  (K, G, hd, S, tile) and "attention_packed" in r)
+        est = (K * t1 - t8) / (K - 1) if t1 and t8 else None
+        out[tile] = dict(one_head_device_ms=t1, heads_device_ms=t8,
+                         merge_ms=est, splits=-(-S // tile))
+        log(f"long     : merge at S={S}, tile {tile} ({-(-S // tile)} "
+            f"splits): one kv head {_ms(t1)} ms, {K} heads {_ms(t8)} ms on "
+            f"the device; the merge about {_ms(est)} ms")
+    del kq, vq
+    return out
+
+
+def fill_kv(caches, seed: int, dev) -> None:
+    """Every attention position's dense K and V cache filled through B3
+    (its packed quantize) from seeded normal values, layer group by group."""
+    import torch
+
+    from repro_torch.core import qtensor as QT
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for c in caches.values():
+        if "k" not in c:
+            continue
+        for kv in ("k", "v"):
+            qt = c[kv]
+            G, B, S, K, hd = qt.shape
+            for i in range(G):
+                x = torch.randn(B, S, K, hd, generator=g, device=dev,
+                                dtype=torch.bfloat16)
+                part = QT.quantize(x, qt.fmt, block=qt.block, packed=True)
+                qt.codes[i].view(torch.int32).copy_(
+                    part.codes.view(torch.int32))
+                qt.scales[i].copy_(part.scales)
+                del x, part
+
+
+def long_decode(dev, cfg, model, S, pos0, steps, tag, seed=31) -> dict:
+    """17(c) / (d): one row deep in its context. Dense caches of S positions
+    filled with seeded K/V (:func:`fill_kv`), the same words as pool slabs
+    at a permutation (:func:`slabs_from_dense`), then ``steps`` greedy
+    decode steps from ``pos0`` on each: logits bitwise equal at every step
+    (asserted), ms per step. The dense run is the fused one (B2)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.models import init_caches
+
+    cfg = dataclasses.replace(cfg, fused_attention=True)
+    t0 = time.perf_counter()
+    caches = init_caches(cfg, 1, S, quantized_kv=True, device=dev)
+    fill_kv(caches, seed, dev)
+    slabs, pages = slabs_from_dense(cfg, caches, None, 1, 8, dev)
+    sync(dev)
+    fill_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=g, device=dev)
+    pos = torch.full((1,), pos0, dtype=torch.int64, device=dev)
+    dense = greedy_decode(dev, model, cfg, caches, tok, pos, steps)
+    paged = greedy_decode(dev, model, cfg, slabs, tok, pos, steps,
+                          pages=pages)
+    for i, (a, b) in enumerate(zip(dense["logits"], paged["logits"])):
+        assert torch.equal(a, b), f"{tag}: paged != dense logits at step {i}"
+        assert bool(torch.isfinite(a).all()), f"{tag}: logits not finite"
+    med = {k: statistics.median(r["step_ms"]) if r["step_ms"] else None
+           for k, r in (("dense", dense), ("paged", paged))}
+    res = dict(S=S, positions=[pos0, pos0 + steps - 1], steps=steps,
+               fill_s=fill_s, dense_step_ms=dense["step_ms"],
+               paged_step_ms=paged["step_ms"],
+               dense_median_ms=med["dense"], paged_median_ms=med["paged"],
+               tokens=dense["tokens"][0].tolist(),
+               launches={k: v for k, v in dense["counts"].items() if v},
+               paged_launches={k: v for k, v in paged["counts"].items()
+                               if v})
+    log(f"long     : {tag}: cache of {S} positions filled in {fill_s:.1f} s; "
+        f"{steps} greedy steps from position {pos0}: paged == dense logits "
+        f"bitwise at every step; median {_ms(med['dense'])} ms a step dense, "
+        f"{_ms(med['paged'])} paged; launches {res['launches']} / "
+        f"{res['paged_launches']}")
+    del caches, slabs
+    gc_cuda()
+    return res
+
+
+def long_engines(dev, cfg, model, max_seq=LONG_MAX_SEQ, n_req=LONG_REQUESTS,
+                 prompt=LONG_PROMPT, max_new=LONG_NEW) -> dict:
+    """17(b): the paged and copy-in BatchedEngine and the sequential Engine,
+    each built with ``max_seq`` positions a row (the copy-in and sequential
+    engines hold dense caches of that length), on ``n_req`` requests of
+    ``prompt`` tokens (a prefill bucket: no padding) and ``max_new`` new
+    tokens, one slot: greedy tokens paged == copy-in == sequential
+    (asserted), tok/s each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cuda as C
+    from repro_torch.serve import (BatchedEngine, BatchedServeConfig, Engine,
+                                   Request, ServeConfig)
+
+    rng = np.random.default_rng(30)
+    reqs = [Request(uid=u + 1, tokens=rng.integers(
+                0, cfg.vocab_size, prompt).astype(np.int32),
+                max_new=max_new) for u in range(n_req)]
+    n_pages = 2 * n_req * -(-(prompt + max_new) // 8) + 2
+    res = {}
+    outs = {}
+    for tag, kw in (("paged", {}), ("copy_in", dict(paged_decode=False))):
+        eng = BatchedEngine(cfg, BatchedServeConfig(
+            slots=1, max_seq=max_seq, n_pages=n_pages, **kw), model)
+        before = dict(C.LAUNCHES)
+        sync(dev)
+        t = time.perf_counter()
+        outs[tag] = eng.run(reqs)
+        sync(dev)
+        dt = time.perf_counter() - t
+        ntok = sum(len(v) for v in outs[tag].values())
+        res[tag] = dict(tok_s=ntok / dt, seconds=dt, launches={
+            k: C.LAUNCHES[k] - before[k] for k in C.LAUNCHES
+            if C.LAUNCHES[k] - before[k]})
+        del eng
+        gc_cuda()
+    seq = Engine(cfg, ServeConfig(batch=1, max_seq=max_seq,
+                                  quantized_kv=True, fused_attention=True),
+                 model)
+    before = dict(C.LAUNCHES)
+    t = time.perf_counter()
+    outs["sequential"] = {r.uid: seq.generate(r.tokens[None], r.max_new)[0]
+                          for r in reqs}
+    sync(dev)
+    dt = time.perf_counter() - t
+    res["sequential"] = dict(
+        tok_s=n_req * max_new / dt, seconds=dt,
+        launches={k: C.LAUNCHES[k] - before[k] for k in C.LAUNCHES
+                  if C.LAUNCHES[k] - before[k]})
+    for r in reqs:
+        p = outs["paged"][r.uid]
+        assert len(p) == r.max_new, f"request {r.uid} short"
+        for tag in ("copy_in", "sequential"):
+            assert np.array_equal(np.asarray(outs[tag][r.uid]), p), \
+                f"request {r.uid}: {tag} != paged at max_seq {max_seq}"
+    if torch.device(dev).type == "cuda":
+        assert res["paged"]["launches"].get("attention_paged", 0) > 0
+        assert res["copy_in"]["launches"].get("attention_packed", 0) > 0
+        assert res["sequential"]["launches"].get("attention_packed", 0) > 0
+    log(f"long     : {cfg.name} engines at max_seq {max_seq}: {n_req} "
+        f"requests x {max_new} tokens, paged == copy-in == sequential, "
+        f"token for token; tok/s paged {res['paged']['tok_s']:.1f}, "
+        f"copy-in {res['copy_in']['tok_s']:.1f}, sequential "
+        f"{res['sequential']['tok_s']:.1f}")
+    res["tokens"] = {u: np.asarray(v).tolist() for u, v in
+                     outs["paged"].items()}
+    return res
+
+
+def long_autotune(dev) -> dict:
+    """17(e): autotune_attention_tile("cuda", 8) and
+    autotune_matmul_tiles("cuda", n) at 6 and 8 bits at their default
+    shapes; each candidate also timed here (CUDA events) and printed, the
+    kernel at the winner held to its plain version (attention rtol = atol
+    = 1e-5; matmul rtol 1e-4, atol 1e-4 x max |y|), then both tables
+    cleared so that later calls run at the defaults."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import qtensor as QT
+    from repro_torch.core.f2p import F2PFormat, Flavor
+    from repro_torch.kernels import f2p_attention as A
+    from repro_torch.kernels import f2p_matmul as M
+    from repro_torch.kernels.bits import unpack_bits
+
+    out = {}
+    t0 = time.perf_counter()
+    win = A.autotune_attention_tile("cuda", 8)
+    tune_s = time.perf_counter() - t0
+    assert A.attention_tile("cuda", 8) == win
+    fmt = F2PFormat(8, 2, Flavor.SR, signed=True)
+    B, S, K, hd = 2, 2048, 4, 128
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(B, 1, 2 * K, hd)).astype(
+        np.float32)).to(dev)
+    kq, vq = (QT.quantize(torch.from_numpy(rng.normal(
+        size=(B, S, K, hd)).astype(np.float32)).to(dev), fmt, block=hd,
+        packed=True) for _ in range(2))
+    times = {t: cuda_ms(lambda t=t: A.attention_packed(
+        q, kq, vq, kv_len=S - 1, tile=t), iters=50)
+        for t in (64, 128, 256, 512)}
+    got = A.attention_packed(q, kq, vq, kv_len=S - 1)       # the table's
+    torch.testing.assert_close(got, A.attention_packed_plain(
+        q, kq, vq, kv_len=S - 1, tile=win), rtol=1e-5, atol=1e-5)
+    out["attention"] = dict(winner=win, ms=times, tune_s=tune_s)
+    log(f"long     : autotune_attention_tile('cuda', 8) at (2, 2048, 4, "
+        f"128): {win} in {tune_s:.2f} s; CUDA-event ms per tile "
+        f"{ {t: round(v, 5) for t, v in times.items()} }; the kernel at "
+        f"{win} within 1e-5 of the plain version")
+    Mr, Kd, N = 256, 1024, 1024
+    cand = inspect.signature(M.autotune_matmul_tiles).parameters[
+        "candidates"].default
+    for n_bits in (6, 8):
+        f = F2PFormat(n_bits, 2, Flavor.SR, signed=True)
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.normal(size=(Mr, Kd)).astype(
+            np.float32)).to(dev)
+        w = torch.from_numpy(rng.normal(size=(Kd, N)).astype(
+            np.float32)).to(dev)
+        words, scales = M.quantize_weight(w, f, packed=True)
+        # the planner's launch (no entry yet), then each candidate's
+        times = {"planner": cuda_ms(lambda: M.f2p_dequant_matmul_packed(
+            x, words, scales, fmt=f), iters=50)}
+        times.update({str(c): cuda_ms(lambda c=c: M.f2p_dequant_matmul_packed(
+            x, words, scales, fmt=f, tiles=c), iters=50) for c in cand})
+        t0 = time.perf_counter()
+        win_m = M.autotune_matmul_tiles("cuda", n_bits)
+        tune_s = time.perf_counter() - t0
+        assert M.matmul_tiles("cuda", n_bits) == win_m
+        y = M.f2p_dequant_matmul_packed(x, words, scales, fmt=f)  # table's
+        ref = M.ref_dequant_matmul(x, unpack_bits(words, n_bits, N), scales,
+                                   f)
+        torch.testing.assert_close(y, ref, rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))
+        out[f"matmul_{n_bits}"] = dict(winner=list(win_m), ms=times,
+                                       tune_s=tune_s)
+        log(f"long     : autotune_matmul_tiles('cuda', {n_bits}) at (256, "
+            f"1024, 1024): {win_m} in {tune_s:.2f} s; CUDA-event ms "
+            f"{ {k: round(v, 5) for k, v in times.items()} }; the kernel at "
+            f"the winner within 1e-4 of the plain version")
+    A._TILE_TABLE.clear()
+    M._TILE_TABLE.clear()
+    return out
+
+
+def long_phase(dev) -> dict:
+    """Phase 17: long-context decode. (a) B1/B2 at 32896, 131072 and 524288
+    positions; then the launch counters are zeroed and the main path runs:
+    (b) full-width llama3.2-3b's three engines at max_seq 131072, (c) one
+    llama3.2-3b row at position 131064 of a full 131072-position cache,
+    (d) the reference's long_500k cell for jamba (cut as in phase 11) at
+    position 524287; the counters are read; (e) the two autotuners."""
+    import dataclasses
+
+    from repro_torch.configs import full_config
+    from repro_torch.kernels import cuda as C
+    from repro_torch.models import init_params
+
+    t_phase = time.perf_counter()
+    res = {"attention": long_attention(dev)}
+    cfg = full_config("llama3_2_3b")
+    model = init_params(cfg, seed=0, device=dev)
+    C.reset_launches()
+    res["engines"] = long_engines(dev, cfg, model)
+    res["llama_decode"] = long_decode(
+        dev, cfg, model, LONG_MAX_SEQ, LONG_MAX_SEQ - LONG_STEPS, LONG_STEPS,
+        f"{cfg.name} at {LONG_MAX_SEQ}")
+    del model
+    gc_cuda()
+    full = full_config("jamba_1_5_large")
+    jcfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS,
+                               n_experts=JAMBA_EXPERTS)
+    t0 = time.perf_counter()
+    model = init_params(jcfg, seed=0, device=dev)
+    sync(dev)
+    log(f"long     : {jcfg.name} cut to {JAMBA_LAYERS} layers and "
+        f"{JAMBA_EXPERTS} of {full.n_experts} experts (phase 11's cut), "
+        f"init {time.perf_counter() - t0:.1f} s")
+    res["jamba_long_500k"] = long_decode(
+        dev, jcfg, model, JAMBA_LONG_S, JAMBA_LONG_S - JAMBA_LONG_STEPS,
+        JAMBA_LONG_STEPS, f"{jcfg.name} long_500k")
+    del model
+    gc_cuda()
+    res["launches"] = {k: v for k, v in C.LAUNCHES.items() if v}
+    for name in ("attention_paged", "attention_packed", "kv_write"):
+        assert res["launches"].get(name, 0) > 0, \
+            f"phase 17's main path never launched {name}"
+    res["autotune"] = long_autotune(dev)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"long     : phase 17 in {res['seconds']:.1f} s; main-path launches "
+        f"{res['launches']}")
+    return res
+
+
+def long_summary(lg: dict) -> dict:
+    a = [r for r in lg["attention"]["rows"] if "attention_paged" in r]
+    return dict(
+        attention={f"K{r['K']}_G{r['G']}_S{r['S']}_t{r['tile']}": dict(
+            paged_ms=r["attention_paged"]["ms"],
+            paged_device_ms=r["attention_paged"]["device_ms"],
+            dense_ms=r["attention_packed"]["ms"],
+            dense_device_ms=r["attention_packed"]["device_ms"],
+            bound_ms=r["bound_ms"], sdpa_ms=r["sdpa_ms"],
+            max_abs_err=r["max_abs_err"]) for r in a},
+        engines={k: lg["engines"][k]["tok_s"] for k in ("paged", "copy_in",
+                                                         "sequential")},
+        llama_decode_ms=[lg["llama_decode"]["dense_median_ms"],
+                         lg["llama_decode"]["paged_median_ms"]],
+        jamba_long_500k_ms=[lg["jamba_long_500k"]["dense_median_ms"],
+                            lg["jamba_long_500k"]["paged_median_ms"]],
+        autotune={k: v["winner"] for k, v in lg["autotune"].items()},
+        launches=lg["launches"], seconds=lg["seconds"])
+
+
 def main():
     import argparse
     import gc
@@ -5969,7 +6546,7 @@ def main():
                                        "unpacked", "fl", "families",
                                        "recurrent", "frontends",
                                        "moe_train", "examples",
-                                       "sharded", "analysis"),
+                                       "sharded", "analysis", "long"),
                     help="matmul / attention / codec / unpacked: phases 1-2 "
                          "and phase 3's dequant matmul (B7/B8), attention "
                          "(B1/B2), packed codec (B3/B4) or unpacked codec "
@@ -5984,6 +6561,8 @@ def main():
                          "14 (the example twins); sharded: phases 1-2 and "
                          "phase 15 (the sharded part); analysis: phases "
                          "1-2 and phase 16 (the launch analysis tools); "
+                         "long: phases 1-2 and phase 17 (long-context "
+                         "decode, the tile tables' autotuners); "
                          "prints no final ok line")
     only = ap.parse_args().only
     if not torch.cuda.is_available():
@@ -6015,7 +6594,7 @@ def main():
         print(json.dumps({"attention": {k: {f: v[f] for f in (
             "ms", "device_ms", "cold_ms", "library_ms", "bound_ms",
             "splits", "live_ctas", "device_kernels_per_call",
-            "max_abs_err")} for k, v in att.items()}}))
+            "max_abs_err", "digest")} for k, v in att.items()}}))
         print(smi)
         return
     if only == "codec":
@@ -6105,6 +6684,15 @@ def main():
         print(json.dumps({"analysis": analysis_summary(an)}, default=str))
         print(smi)
         return
+    if only == "long":
+        lg = long_phase(dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_long.json").write_text(json.dumps(
+            {"device": smi, "long": lg}, indent=1, default=str))
+        print(json.dumps({"long": long_summary(lg)}, default=str))
+        print(smi)
+        return
     if only == "examples":
         ex = examples_phase(dev)
         out_dir = ROOT / "chiprun_out"
@@ -6127,6 +6715,14 @@ def main():
         print(smi)
         return
 
+    marks = [("start", time.perf_counter())]
+
+    def mark(phase: str) -> None:
+        """The phase's seconds (the card is freed after it)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append((phase, time.perf_counter()))
+
     t0 = time.perf_counter()
     trace = make_trace(N_PACKETS, N_FLOWS, seed=0)
     log(f"trace    : {trace.size} packets over {N_FLOWS} flows in "
@@ -6138,16 +6734,17 @@ def main():
     res.update(check_counter(dev, trace))
     res.update(check_matmul(dev))
     check_small(dev)
+    mark("3-4 kernels, small")
     # B7/B8 have no model caller: their launches are check_matmul's drive
     # pass over the projection shapes
     launches: dict[str, int] = {k: res[k]["launches"] for k in (
         "dequant_matmul", "dequant_matmul_packed")}
     serve_res = serve(dev, launches)
+    mark("5-6 serve")
     sketch_res = sketch_phase(dev, trace, launches)
     assert sketch_res["obs"]["launches"] > 0, "obs sync never launched B9"
     del trace
-    gc.collect()
-    torch.cuda.empty_cache()    # the serving model and the sketch are gone
+    mark("7 sketch")    # the serving model and the sketch are gone
     train_res = train_phase(dev, launches)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6157,31 +6754,33 @@ def main():
     launches["quantize"] = train_res["resume"]["save_launches"]["quantize"]
     launches["dequantize"] = train_res["resume"]["restore_launches"][
         "dequantize"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("8 train")
     fl_res = fl_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("9 fl")
     fam_res = families_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("10 families")
     rec_res = recurrent_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("11 recurrent")
     fr_res = frontends_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("12 frontends")
     mt_res = moe_train_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("13 moe_train")
     ex_res = examples_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("14 examples")
+    # 15(b) is held to phase 11(d)'s xLSTM losses (the same arch, configs,
+    # data and steps), as 15(c) to phase 8's: no (1,1) CLI run again
     sh_res = sharded_phase(
-        dev, plain_losses=train_res["losses"][:SHARD_LLAMA_STEPS])
-    gc.collect()
-    torch.cuda.empty_cache()
+        dev, plain_losses=train_res["losses"][:SHARD_LLAMA_STEPS],
+        xlstm_losses=rec_res["train"]["losses"])
+    mark("15 sharded")
     an_res = analysis_phase(dev)
+    mark("16 analysis")
+    long_res = long_phase(dev)
+    mark("17 long")
+    phase_s = {m: round(t - marks[i][1], 1)
+               for i, (m, t) in enumerate(marks[1:])}
+    log(f"phases   : seconds {phase_s}, "
+        f"{marks[-1][1] - marks[0][1]:.1f} in all")
 
     kernels = []
     for name in ("attention_paged", "attention_packed", "quantize_packed",
@@ -6225,6 +6824,10 @@ def main():
         if name in sh_res["launches"]:
             # phase 15's: the sharded part's ranks, on shards
             kernels[-1]["sharded_launches"] = sh_res["launches"][name]
+        long_name = "kv_write" if name == "quantize_packed" else name
+        if long_name in long_res["launches"]:
+            # phase 17's main path: the long-context engines and decodes
+            kernels[-1]["long_launches"] = long_res["launches"][long_name]
         log(f"kernel   : {name:18s} {r['ms']:.5f} ms (bound "
             f"{r['bound_ms']:.5f}, plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']}) launches {launches[name]} | {r['shape']}")
@@ -6235,7 +6838,7 @@ def main():
          "sketch": sketch_res, "train": train_res, "fl": fl_res,
          "families": fam_res, "recurrent": rec_res, "frontends": fr_res,
          "moe_train": mt_res, "examples": ex_res, "sharded": sh_res,
-         "analysis": an_res,
+         "analysis": an_res, "long": long_res, "phase_seconds": phase_s,
          "shapes": {k: v["shape"] for k, v in res.items()},
          "unpacked_per_shape": res["quantize"]["per_shape"],
          "ef_roundtrip_row": res["ef_roundtrip"],
@@ -6256,6 +6859,7 @@ def main():
     print(json.dumps({"examples": examples_summary(ex_res)}, default=str))
     print(json.dumps({"sharded": sharded_summary(sh_res)}, default=str))
     print(json.dumps({"analysis": analysis_summary(an_res)}, default=str))
+    print(json.dumps({"long": long_summary(long_res)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,17 @@
 
 #include <type_traits>
 
+// The library builds as one translation unit (F2P_PART 0, the default) or
+// as parts compiled side by side and linked into one library: 1 the
+// matmul's tile route, 2 its decode route, 3 attention, 4 the rest (the
+// codec, the KV write and read, the counters). A part holds its entries'
+// non-template kernels; the templates are compiled where an entry
+// instantiates them.
+#ifndef F2P_PART
+#define F2P_PART 0
+#endif
+#define F2P_IN(p) (F2P_PART == 0 || F2P_PART == (p))
+
 // Format constants, as repro_torch.kernels.f2p_quant._fmt_consts gives them.
 struct F2PConsts {
   int nu, h, sgn, vmax, v_sub, v_top, bias, is_signed, n_bits;
@@ -494,6 +505,7 @@ __global__ void quantize_generic_kernel(const TIn* __restrict__ x,
 // and value against f2p_encode and f2p_decode of it; with s a power of two,
 // y * (1/s) against __fdiv_rn(y, s). Mismatches are counted in *bad and the
 // smallest mismatching pattern is kept in *first.
+#if F2P_IN(4)
 __global__ void encode_check_kernel(unsigned start, long long count,
                                     const int4* __restrict__ enc_g,
                                     const float2* __restrict__ val_g, F2PConsts f,
@@ -529,6 +541,7 @@ __global__ void encode_check_kernel(unsigned start, long long count,
   }
   if (n_bad) atomicAdd(bad, (unsigned long long)n_bad);
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // B3, quantize_packed_write_kernel: rows of one or two inputs (a layer's K
@@ -787,6 +800,7 @@ __device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t sweep,
   return __fmul_rn(__fadd_rn((float)(x >> 8), 0.5f), 5.9604644775390625e-8f);
 }
 
+#if F2P_IN(4)
 __global__ void counter_advance_kernel(const int* __restrict__ state_in,
                                        const float* __restrict__ budget,
                                        int* __restrict__ state_out,
@@ -824,17 +838,20 @@ __global__ void counter_advance_kernel(const int* __restrict__ state_in,
   state_out[i] = s;
   left[i] = rem;
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // counter_estimate: L[state], one thread per cell (B10). Bound by bytes
 // (4 B of state in, 4 B of estimate out); the grid stays in L2.
 // ---------------------------------------------------------------------------
+#if F2P_IN(4)
 __global__ void counter_estimate_kernel(const int* __restrict__ state,
                                         const float* __restrict__ grid,
                                         float* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = __ldg(grid + state[i]);
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // dequant_matmul: y[M, N] f32 = x[M, K] (f32 or bf16) @ W, W[k, n] =
@@ -1005,6 +1022,7 @@ dequant_matmul_kernel(const TIn* __restrict__ x, WSrc w,
 }
 
 // y = part[0] + part[1] + ... in split order (deterministic)
+#if F2P_IN(1)
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ y, long long mn,
                                   int splits) {
@@ -1015,6 +1033,7 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
     y[i] = s;
   }
 }
+#endif
 
 template <typename TIn, typename WSrc>
 static void launch_matmul(const void* x, WSrc w, const float* scales, float* part,
@@ -1944,15 +1963,17 @@ static int launch_mma_in(int x_bf16, const MmaArgs& a, WSrc w, int splits,
 //
 // The design.
 // - Split KV. The grid is (split, kv head x row group, batch row). A CTA
-//   takes kAttnSplit consecutive positions (a constant of the design,
-//   mirrored by f2p_attention.ATTN_SPLIT), kAttnChunk of them per warp of
-//   kAttnWarps: warp w takes
-//   positions kAttnChunk * w + lane, lanes past the chunk idle there.
-//   Splits and warps past a row's kv_len do nothing, and no K/V word past
-//   kv_len is read, so the result is a function of the row's kv_len and
-//   the words below it only: not of S, the span bucket, B or the SM
-//   count. Dense and paged run the same loop on the same words, so paged
-//   == dense bitwise.
+//   takes `tile` consecutive positions (a run-time multiple of kAttnChunk,
+//   128 by default: f2p_attention.attention_tile), walked in passes of
+//   kAttnPass = kAttnChunk x kAttnWarps: in pass i warp w takes the chunk
+//   at i * kAttnPass + kAttnChunk * w, position + lane, lanes past the
+//   chunk idle there, and keeps its own online (m, l, acc) across its
+//   chunks (the first chunk's taken as it is, so one pass is bitwise the
+//   one-chunk warp). Splits, passes and warps past a row's kv_len do
+//   nothing, and no K/V word past kv_len is read, so the result is a
+//   function of the row's kv_len, the words below it and the tile only:
+//   not of S, the span bucket, B or the SM count. Dense and paged run the
+//   same loop on the same words, so paged == dense bitwise at one tile.
 // - Row groups. The R = G * Sq folded query rows are cut into ng groups of
 //   RG = 3 or 4 rows (a template parameter), one group per CTA: the q rows
 //   and sums of a lane stay in registers. Rows past R (R < 3, or a last
@@ -1962,8 +1983,11 @@ static int launch_mma_in(int x_bf16, const MmaArgs& a, WSrc w, int splits,
 //   and scales, and its V rows and scales, into shared memory as two
 //   cp.async groups (16-byte pieces where rows are 16-byte aligned, else
 //   4-byte), so the warp's bytes are all in flight at once while the CTA
-//   builds the decode tables; V lands during QK. (Each warp stages its one
-//   chunk whole: there is no ring to cycle.)
+//   builds the decode tables; V lands during QK. Each warp stages one
+//   chunk a pass, whole, after the last pass is done with the stage: there
+//   is no ring, so a tile of several passes waits for each chunk's bytes
+//   (between passes the warp's (m, l) and acc wait in shared memory, so
+//   that the registers of QK are those of one pass).
 // - Decode once per element, in registers. Lane l owns D = hd / 32 (1, 2
 //   or 4) consecutive dims: it cuts their fields out of a window of 1-3
 //   words at a fixed bit offset, decodes each through a table (n_bits <=
@@ -1990,7 +2014,11 @@ static int launch_mma_in(int x_bf16, const MmaArgs& a, WSrc w, int splits,
 //   launch, and no host step between two. Every merge is m = max m_i,
 //   o = sum_i acc_i exp(m_i - m) / max(sum_i l_i exp(m_i - m), 1e-37),
 //   in f32 with expf and no fast math; the factors exp(m_i - m) are
-//   computed once per row.
+//   computed once per row. Any number of splits: the max is a block-wide
+//   reduction (exact in any order), then the factors go through shared
+//   memory in chunks of as many splits as the warp regions hold, and L
+//   and o run on across chunks in split order, so up to one chunk's worth
+//   the arithmetic is the one-chunk merge's.
 // - q is read in its caller layout [B, Sq, H, hd] and dtype (f32 or bf16,
 //   strided), and o written as [B, Sq, H, hd] in that dtype
 //   (__float2bfloat16_rn, what .to(torch.bfloat16) gives): no fold or
@@ -1999,9 +2027,9 @@ static int launch_mma_in(int x_bf16, const MmaArgs& a, WSrc w, int splits,
 // bf16 or TF32 inputs would break the 1e-5 f32 tolerance.
 // ---------------------------------------------------------------------------
 constexpr int kAttnRows = 4;        // most query rows one CTA holds
-constexpr int kAttnChunk = 16;      // positions per warp: 8, 16 or 32
+constexpr int kAttnChunk = 16;      // positions per warp chunk; the tile's unit
 constexpr int kAttnWarps = 8;
-constexpr int kAttnSplit = kAttnChunk * kAttnWarps;   // positions per CTA
+constexpr int kAttnPass = kAttnChunk * kAttnWarps;   // positions a pass of the warps covers
 constexpr int kAttnMaxThreads = 32 * kAttnWarps;
 
 // kv_len or q_offset: an int32 / int64 tensor read at b * stride (stride 0:
@@ -2019,6 +2047,7 @@ struct AttnArgs {
   int* counts;               // finished splits per (b, h, group), 0 between launches
   AttnLen kvlen, qoff;
   int bf16, Sq, H, K, G, R, hd, S, T, P, maxp, causal, ng;
+  int tile;                  // positions per CTA, a multiple of kAttnChunk
   int Wk, Wv, win_k, win_v, vec_k, vec_v;
   int tab_k, tab_v;          // table bits (n_bits <= 8); 0: f2p_decode
   int tv_off, build_v;       // V's table: its offset; 0 when it is K's
@@ -2030,7 +2059,8 @@ struct AttnArgs {
 
 // a warp's region, after the tables: K stage (then the warp's acc [RG][hd]),
 // V stage, and for up to 32 positions row indices, K and V scales and p
-// [32][4], then m [4] and l [4]
+// [32][4], then m [4] and l [4], then (a tile of more than one pass) the
+// stash of its acc between passes [RG][hd]
 __host__ __device__ constexpr int attn_misc_floats() { return 32 * 3 + 32 * 4 + 8; }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -2143,29 +2173,44 @@ __device__ __forceinline__ void attn_store(const AttnArgs& a, int b, int h, int 
 
 extern __shared__ float4 attn_smem4[];
 
-template <int RG, int D>
-__global__ void __launch_bounds__(kAttnMaxThreads)
+// CTAs an SM asked of the compiler. One pass (MULTI false) fits 64
+// registers, four CTAs an SM, but for 4 rows of 4 dims a lane (the
+// accumulators of 16 values); MULTI (a tile of several passes) holds q,
+// the stage pointers and the pass's state across its loop: two, so that a
+// long call's many CTAs do not run one an SM (on an H100 at 700 W a
+// one-pass CTA of 96-107 registers ran 10-15% slower at the serving shape
+// than one of 64)
+__host__ __device__ constexpr int attn_min_ctas(int rg, int d, bool multi) {
+  return multi || (rg == 4 && d == 4) ? 2 : 4;
+}
+template <int RG, int D, bool MULTI>
+__global__ void __launch_bounds__(kAttnMaxThreads, attn_min_ctas(RG, D, MULTI))
 attention_decode_kernel(AttnArgs a) {
   float* smem = reinterpret_cast<float*>(attn_smem4);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = kAttnWarps;
-  const int L = kAttnSplit;
+  const int L = a.tile;
   const int split = blockIdx.x, b = blockIdx.z;
   const int h = blockIdx.y / a.ng, grp = blockIdx.y - h * a.ng, r0 = grp * RG;
   const int bhg = (b * a.K + h) * a.ng + grp;
   const int hdg = RG * a.hd;
-  const int c0 = split * L + warp * kAttnChunk, pos = c0 + lane;
+  const long long s0 = (long long)split * L;   // the split's first position
+  int c0 = (int)s0 + warp * kAttnChunk;   // s0 < S: the grid covers S
   // the page id goes out with the kv_len load (ids past S are not read)
   int pid = 0;
-  if (a.pages && lane < kAttnChunk && pos < a.S)
-    pid = __ldg(a.pages + (size_t)b * a.maxp + pos / a.T);
+  if (a.pages && lane < kAttnChunk && c0 + lane < a.S)
+    pid = __ldg(a.pages + (size_t)b * a.maxp + (c0 + lane) / a.T);
   const int kvlen = (int)max(0LL, min(attn_len(a.kvlen, b), (long long)a.S));
-  const int ns = (kvlen + L - 1) / L;   // the row's live splits
-  if (split >= max(ns, 1)) return;
-  if (ns == 0) {                        // kv_len <= 0: exact zeros
+  // splits past the row's kv_len do nothing (no division: a 64-bit one
+  // costs the kernel registers)
+  if (s0 >= max(kvlen, 1)) return;
+  if (kvlen == 0) {                     // kv_len <= 0: exact zeros
     for (int i = threadIdx.x; i < hdg; i += blockDim.x)
       attn_store(a, b, h, r0 + i / a.hd, i % a.hd, 0.0f);
     return;
   }
+  // the live end of this split: chunks never cross it (the tile is whole
+  // chunks)
+  const int end = (int)min((long long)kvlen, s0 + L);
   float* wr = smem + a.tables + warp * a.warp_floats;
   uint32_t* kraw = reinterpret_cast<uint32_t*>(wr);
   uint32_t* vraw = kraw + a.kreg;
@@ -2175,29 +2220,34 @@ attention_decode_kernel(AttnArgs a) {
   float* pb = vsc + 32;   // [32][4]
   float* ml = pb + 128;   // m [4], l [4]
 
-  // stage this warp's n live positions: K rows and scales, then V's (the
-  // scales of positions past n are 0, so a stale word there decodes to 0)
-  const int n = max(0, min(kAttnChunk, kvlen - c0));
-  if (lane < n) {
-    long long row;
-    if (a.pages) {
-      pid = min(max(pid, 0), a.P - 1);   // a garbage id stays inside the slab
-      row = ((long long)pid * a.T + pos % a.T) * a.K + h;
+  // stage the n live positions of the warp's chunk at c0: K rows and
+  // scales, then V's (the scales of positions past n are 0, so a stale
+  // word there decodes to 0), as two cp.async groups
+  auto stage = [&](int n) {
+    if (lane < n) {
+      const int pos = c0 + lane;
+      long long row;
+      if (a.pages) {
+        pid = min(max(pid, 0), a.P - 1);   // a garbage id stays inside the slab
+        row = ((long long)pid * a.T + pos % a.T) * a.K + h;
+      } else {
+        row = ((long long)b * a.S + pos) * a.K + h;
+      }
+      rows[lane] = (int)row;
     } else {
-      row = ((long long)b * a.S + pos) * a.K + h;
+      ksc[lane] = 0.0f;
+      vsc[lane] = 0.0f;
     }
-    rows[lane] = (int)row;
-  } else {
-    ksc[lane] = 0.0f;
-    vsc[lane] = 0.0f;
-  }
-  __syncwarp();
-  attn_stage(kraw, a.kw, a.Wk, a.vec_k, rows, n, lane);
-  if (lane < n) cp_async4(ksc + lane, a.ks + rows[lane]);
-  cp_async_commit();
-  attn_stage(vraw, a.vw, a.Wv, a.vec_v, rows, n, lane);
-  if (lane < n) cp_async4(vsc + lane, a.vs + rows[lane]);
-  cp_async_commit();
+    __syncwarp();
+    attn_stage(kraw, a.kw, a.Wk, a.vec_k, rows, n, lane);
+    if (lane < n) cp_async4(ksc + lane, a.ks + rows[lane]);
+    cp_async_commit();
+    attn_stage(vraw, a.vw, a.Wv, a.vec_v, rows, n, lane);
+    if (lane < n) cp_async4(vsc + lane, a.vs + rows[lane]);
+    cp_async_commit();
+  };
+  int n = max(0, min(kAttnChunk, end - c0));
+  stage(n);
 
   // while the copies fly: the tables and this lane's q (its D dims of RG rows)
   if (a.tab_k) attn_table(smem, a.tab_k, a.fk);
@@ -2222,115 +2272,143 @@ attention_decode_kernel(AttnArgs a) {
     }
   }
   cp_async_wait<1>();
-  __syncthreads();   // the tables are built, every warp's K stage has landed
+  __syncthreads();   // the tables are built, every warp's first K stage has landed
 
-  // QK: lane t ends with the scores of position c0 + t. The table and
-  // f2p_decode get a loop each: a select per element would run both.
-  // Positions past n in a group read stale stage words; their scores are
-  // masked below, and each position's dot is summed apart.
   const int nbk = a.fk.n_bits, bitk = dl * nbk;
   const int wk0 = live_lane ? bitk >> 5 : 0, shk = bitk & 31;
-  float s[RG];
+  // The warp's chunks, one a pass (MULTI; else the one chunk, and the loop
+  // body runs once). Between passes its running (m, l)
+  // waits in ml and its acc in the stash, not in registers, so that QK
+  // holds no more registers than with one pass. A chunk's scores are
+  // exponentiated against the running max, and the acc so far, rescaled
+  // by exp(m_old - m), is where PV starts; the first pass starts from m =
+  // -inf and acc = 0, the arithmetic of a one-chunk warp.
+  float* stash = ml + 8;   // [RG][hd] (a.tile > kAttnPass only)
+  for (int pass = 0;; ++pass) {
+    // QK: lane t ends with the scores of position c0 + t. The table and
+    // f2p_decode get a loop each: a select per element would run both.
+    // Positions past n in a group read stale stage words; their scores are
+    // masked below, and each position's dot is summed apart.
+    float s[RG];
 #pragma unroll
-  for (int r = 0; r < RG; ++r) s[r] = 0.0f;
-  auto qk = [&](auto table) {
-    constexpr bool TAB = decltype(table)::value;
+    for (int r = 0; r < RG; ++r) s[r] = 0.0f;
+    auto qk = [&](auto table) {
+      constexpr bool TAB = decltype(table)::value;
 #pragma unroll
-    for (int gi = 0; gi < kAttnChunk / 8; ++gi) {
-      if (gi * 8 >= n) break;
-      float pd[RG][8];
+      for (int gi = 0; gi < kAttnChunk / 8; ++gi) {
+        if (gi * 8 >= n) break;
+        float pd[RG][8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int t = gi * 8 + k;
-        float kv[D];
-        attn_values<D, TAB>(kraw + t * a.Wk, wk0, shk, a.win_k, nbk, tabk, lane, a.fk, ksc[t],
-                            live_lane, kv);
+        for (int k = 0; k < 8; ++k) {
+          const int t = gi * 8 + k;
+          float kv[D];
+          attn_values<D, TAB>(kraw + t * a.Wk, wk0, shk, a.win_k, nbk, tabk, lane, a.fk, ksc[t],
+                              live_lane, kv);
+#pragma unroll
+          for (int r = 0; r < RG; ++r) {
+            pd[r][k] = 0.0f;
+#pragma unroll
+            for (int j = 0; j < D; ++j) pd[r][k] = fmaf(qr[r][j], kv[j], pd[r][k]);
+          }
+        }
 #pragma unroll
         for (int r = 0; r < RG; ++r) {
-          pd[r][k] = 0.0f;
-#pragma unroll
-          for (int j = 0; j < D; ++j) pd[r][k] = fmaf(qr[r][j], kv[j], pd[r][k]);
+          const float x = __shfl_sync(0xffffffffu, attn_reduce8(pd[r], lane), (lane & 7) << 2);
+          if ((lane >> 3) == gi) s[r] = x;
         }
       }
-#pragma unroll
-      for (int r = 0; r < RG; ++r) {
-        const float x = __shfl_sync(0xffffffffu, attn_reduce8(pd[r], lane), (lane & 7) << 2);
-        if ((lane >> 3) == gi) s[r] = x;
-      }
-    }
-  };
-  if (tabk)
-    qk(std::true_type());
-  else
-    qk(std::false_type());
+    };
+    if (tabk)
+      qk(std::true_type());
+    else
+      qk(std::false_type());
 
-  // softmax over the warp's positions, one row at a time
-  const long long qo = a.causal ? attn_len(a.qoff, b) : 0;
-  float m[RG], l[RG];
+    // softmax over the chunk's positions, one row at a time, against the
+    // running max
+    const long long qo = a.causal ? attn_len(a.qoff, b) : 0;
+    float m[RG], l[RG], co[RG];
 #pragma unroll
-  for (int r = 0; r < RG; ++r) {
-    bool valid = lane < n;
-    if (a.causal) valid = valid && (long long)(c0 + lane) <= qo + (r0 + r) % a.Sq;
-    const float sv = valid ? s[r] * a.scale : -INFINITY;
-    float mx = sv;
+    for (int r = 0; r < RG; ++r) {
+      bool valid = lane < n;
+      if (a.causal) valid = valid && (long long)(c0 + lane) <= qo + (r0 + r) % a.Sq;
+      const float sv = valid ? s[r] * a.scale : -INFINITY;
+      float mx = sv;
 #pragma unroll
-    for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float p = expf(sv - (isfinite(mx) ? mx : 0.0f));
-    float sum = p;
+      for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mold = pass ? ml[r] : -INFINITY;
+      const float M = fmaxf(mold, mx);
+      const float safe = isfinite(M) ? M : 0.0f;
+      const float p = expf(sv - safe);
+      float sum = p;
 #pragma unroll
-    for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    pb[lane * 4 + r] = p;
-    m[r] = mx;
-    l[r] = sum;
-  }
-  cp_async_wait<0>();
-  __syncwarp();   // the V stage has landed and p is visible to the warp
-
-  // PV: lane l's dims, positions in order
-  const int nbv = a.fv.n_bits, bitv = dl * nbv;
-  const int wv0 = live_lane ? bitv >> 5 : 0, shv = bitv & 31;
-  float acc[RG][D];
-#pragma unroll
-  for (int r = 0; r < RG; ++r)
-#pragma unroll
-    for (int j = 0; j < D; ++j) acc[r][j] = 0.0f;
-  // groups of 8 positions; past n, p = 0 and the value is 0 (scale 0)
-  auto pv = [&](auto table) {
-    constexpr bool TAB = decltype(table)::value;
-#pragma unroll
-    for (int gi = 0; gi < kAttnChunk / 8; ++gi) {
-      if (gi * 8 >= n) break;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int t = gi * 8 + k;
-        float v[D];
-        attn_values<D, TAB>(vraw + t * a.Wv, wv0, shv, a.win_v, nbv, tabv, lane, a.fv,
-                            vsc[t], live_lane, v);
-        const float4 p4 = reinterpret_cast<const float4*>(pb)[t];
-        const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-        for (int j = 0; j < D; ++j)
-#pragma unroll
-          for (int r = 0; r < RG; ++r) acc[r][j] = fmaf(pr[r], v[j], acc[r][j]);
-      }
+      for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      pb[lane * 4 + r] = p;
+      co[r] = isfinite(mold) ? expf(mold - safe) : 0.0f;
+      l[r] = pass ? fmaf(ml[4 + r], co[r], sum) : sum;
+      m[r] = M;
     }
-  };
-  if (tabv)
-    pv(std::true_type());
-  else
-    pv(std::false_type());
-  float* wacc = wr;   // the K stage is spent: the warp's acc [RG][hd]
-  if (live_lane)
+    cp_async_wait<0>();
+    __syncwarp();   // the V stage has landed, p is visible, ml has been read
+
+    // PV: lane l's dims, positions in order, onto the rescaled acc; groups
+    // of 8 positions; past n, p = 0 and the value is 0 (scale 0)
+    const int nbv = a.fv.n_bits, bitv = dl * nbv;
+    const int wv0 = live_lane ? bitv >> 5 : 0, shv = bitv & 31;
+    float acc[RG][D];
 #pragma unroll
     for (int r = 0; r < RG; ++r)
 #pragma unroll
-      for (int j = 0; j < D; ++j) wacc[r * a.hd + dl + j] = acc[r][j];
-  if (lane == 0)
+      for (int j = 0; j < D; ++j)
+        acc[r][j] = pass && live_lane ? stash[r * a.hd + dl + j] * co[r] : 0.0f;
+    auto pv = [&](auto table) {
+      constexpr bool TAB = decltype(table)::value;
 #pragma unroll
-    for (int r = 0; r < RG; ++r) {
-      ml[r] = m[r];
-      ml[4 + r] = l[r];
-    }
+      for (int gi = 0; gi < kAttnChunk / 8; ++gi) {
+        if (gi * 8 >= n) break;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int t = gi * 8 + k;
+          float v[D];
+          attn_values<D, TAB>(vraw + t * a.Wv, wv0, shv, a.win_v, nbv, tabv, lane, a.fv,
+                              vsc[t], live_lane, v);
+          const float4 p4 = reinterpret_cast<const float4*>(pb)[t];
+          const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int j = 0; j < D; ++j)
+#pragma unroll
+            for (int r = 0; r < RG; ++r) acc[r][j] = fmaf(pr[r], v[j], acc[r][j]);
+        }
+      }
+    };
+    if (tabv)
+      pv(std::true_type());
+    else
+      pv(std::false_type());
+
+    // the warp's next chunk, one pass on (warp-uniform: every lane agrees);
+    // the state goes to ml and to the stash (the last pass: its acc to the
+    // spent K stage, where the CTA merge reads it)
+    c0 += kAttnPass;
+    n = MULTI ? max(0, min(kAttnChunk, end - c0)) : 0;
+    __syncwarp();   // every lane is done with the stages, scales and p
+    float* dst = n ? stash : wr;
+    if (live_lane)
+#pragma unroll
+      for (int r = 0; r < RG; ++r)
+#pragma unroll
+        for (int j = 0; j < D; ++j) dst[r * a.hd + dl + j] = acc[r][j];
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        ml[r] = m[r];
+        ml[4 + r] = l[r];
+      }
+    if (n == 0) break;
+    if (a.pages && lane < n) pid = __ldg(a.pages + (size_t)b * a.maxp + (c0 + lane) / a.T);
+    stage(n);
+    cp_async_wait<1>();
+    __syncwarp();   // the K stage has landed, the state is visible
+  }
   __syncthreads();
 
   // the CTA's warps, merged in warp order: one thread per row finds the
@@ -2339,7 +2417,8 @@ attention_decode_kernel(AttnArgs a) {
   __shared__ float cf[(kAttnMaxThreads / 32) * kAttnRows];   // [warp][row]
   __shared__ float mlt[2 * kAttnRows];                        // max, sum per row
   __shared__ int last;
-  const int live = min(nw, (kvlen - split * L + kAttnChunk - 1) / kAttnChunk);
+  const int base = blockIdx.x * a.tile;   // s0, recomputed: nothing held across the passes
+  const int live = min(nw, (min(kvlen - base, a.tile) + kAttnChunk - 1) / kAttnChunk);
   const int mo = a.kreg + a.vreg + 32 * 3 + 128;   // ml's offset in a region
   float* w0 = smem + a.tables;
   if (threadIdx.x < RG) {
@@ -2359,26 +2438,26 @@ attention_decode_kernel(AttnArgs a) {
   }
   __syncthreads();
   const size_t ps = (size_t)hdg + 2 * RG;
-  float* mine = ns > 1 ? a.part + ((size_t)bhg * gridDim.x + split) * ps : nullptr;
+  const bool one = kvlen <= a.tile;     // the row's only split writes o
+  float* mine = one ? nullptr : a.part + ((size_t)bhg * gridDim.x + split) * ps;
   for (int i = threadIdx.x; i < hdg; i += blockDim.x) {
     const int r = i / a.hd, d = i - r * a.hd;
     float O = 0.0f;
     for (int w = 0; w < live; ++w) O = fmaf(w0[w * a.warp_floats + i], cf[w * kAttnRows + r], O);
-    if (ns == 1)
+    if (one)
       attn_store(a, b, h, r0 + r, d, O / fmaxf(mlt[kAttnRows + r], 1e-37f));
     else
       mine[i] = O;
   }
-  if (ns == 1) return;
+  if (one) return;
   if (threadIdx.x < RG) {
     mine[hdg + threadIdx.x] = mlt[threadIdx.x];
     mine[hdg + RG + threadIdx.x] = mlt[kAttnRows + threadIdx.x];
   }
 
   // the last CTA of this (row, head, group) to finish merges the partials
-  // in split order, the same way: each split's (m, l) to shared memory (the
-  // warp regions are free; attention_plan bounds the splits so they fit),
-  // the factors once per row, then FMAs with 8 partials in flight
+  // in split order, the same way, for any number of splits
+  const int ns = (int)(((unsigned)kvlen + (unsigned)L - 1u) / (unsigned)L);   // live splits
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(a.counts + bhg, 1) == ns - 1;
@@ -2387,46 +2466,92 @@ attention_decode_kernel(AttnArgs a) {
   __threadfence();
   if (threadIdx.x == 0) a.counts[bhg] = 0;   // ready for the next launch on this stream
   const float* pp = a.part + (size_t)bhg * gridDim.x * ps;
-  float* sml = w0;   // [ns][2 RG]: m (then the factor) and l of each split
-  for (int e = threadIdx.x; e < ns * 2 * RG; e += blockDim.x) {
-    const int j = e / (2 * RG);
-    sml[e] = __ldcg(pp + j * ps + hdg + (e - j * 2 * RG));
-  }
-  __syncthreads();
-  if (threadIdx.x < RG) {
-    const int r = threadIdx.x;
-    float M = -INFINITY;
-    for (int j = 0; j < ns; ++j) M = fmaxf(M, sml[j * 2 * RG + r]);
-    const float safe = isfinite(M) ? M : 0.0f;
-    float Ls = 0.0f;
-    for (int j = 0; j < ns; ++j) {
-      const float mj = sml[j * 2 * RG + r];
-      const float c = isfinite(mj) ? expf(mj - safe) : 0.0f;
-      sml[j * 2 * RG + r] = c;
-      Ls = fmaf(sml[j * 2 * RG + RG + r], c, Ls);
+  // The (m, l) of up to `cap` splits at a time go to the warp regions
+  // ([j]: m, then l, per row; m then becomes the split's factor). M, the
+  // max over every split: with one chunk, thread r takes it from there (as
+  // the one-chunk merge always did); with more, every thread's max over its
+  // splits, then over the warps, first (fmaxf is exact, so the order does
+  // not matter; the sign of a zero M may, but m_j - M and so every factor
+  // is the same either way). L (thread r) and each o element (its thread,
+  // 8 partials in flight, its sum waiting in osum between chunks) run on
+  // in split order across the chunks.
+  float* sml = w0;
+  float* osum = w0 + nw * a.warp_floats - hdg;
+  const int cap = (nw * a.warp_floats - hdg) / (2 * RG);
+  if (ns > cap) {
+    float mx[RG];
+#pragma unroll
+    for (int r = 0; r < RG; ++r) mx[r] = -INFINITY;
+    for (int j = threadIdx.x; j < ns; j += blockDim.x)
+#pragma unroll
+      for (int r = 0; r < RG; ++r) mx[r] = fmaxf(mx[r], __ldcg(pp + j * ps + hdg + r));
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+      if (lane == 0) cf[warp * kAttnRows + r] = mx[r];
     }
-    mlt[kAttnRows + r] = Ls;
+    __syncthreads();
+    if (threadIdx.x < RG) {
+      float M = -INFINITY;
+      for (int w = 0; w < nw; ++w) M = fmaxf(M, cf[w * kAttnRows + threadIdx.x]);
+      mlt[threadIdx.x] = isfinite(M) ? M : 0.0f;
+    }
   }
+  float Ls = 0.0f;
+  for (int c = 0; c < ns; c += cap) {
+    const int nc = min(cap, ns - c);
+    for (int e = threadIdx.x; e < nc * 2 * RG; e += blockDim.x) {
+      const int j = e / (2 * RG);
+      sml[e] = __ldcg(pp + (size_t)(c + j) * ps + hdg + (e - j * 2 * RG));
+    }
+    __syncthreads();
+    if (ns <= cap) {
+      if (threadIdx.x < RG) {
+        float M = -INFINITY;
+        for (int j = 0; j < nc; ++j) M = fmaxf(M, sml[j * 2 * RG + threadIdx.x]);
+        mlt[threadIdx.x] = isfinite(M) ? M : 0.0f;
+      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < nc * RG; e += blockDim.x) {
+      const int j = e / RG, r = e - j * RG;
+      const float mj = sml[j * 2 * RG + r];
+      sml[j * 2 * RG + r] = isfinite(mj) ? expf(mj - mlt[r]) : 0.0f;
+    }
+    __syncthreads();
+    if (threadIdx.x < RG)
+      for (int j = 0; j < nc; ++j)
+        Ls = fmaf(sml[j * 2 * RG + RG + threadIdx.x], sml[j * 2 * RG + threadIdx.x], Ls);
+    for (int i = threadIdx.x; i < hdg; i += blockDim.x) {
+      const int r = i / a.hd;
+      const float* pi = pp + (size_t)c * ps + i;
+      float O = c ? osum[i] : 0.0f;
+      for (int j0 = 0; j0 < nc; j0 += 8) {
+        float o[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) o[q] = j0 + q < nc ? __ldcg(pi + (j0 + q) * ps) : 0.0f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (j0 + q < nc) O = fmaf(o[q], sml[(j0 + q) * 2 * RG + r], O);
+      }
+      osum[i] = O;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < RG) mlt[kAttnRows + threadIdx.x] = Ls;
   __syncthreads();
   for (int i = threadIdx.x; i < hdg; i += blockDim.x) {
     const int r = i / a.hd, d = i - r * a.hd;
-    float O = 0.0f;
-    for (int j0 = 0; j0 < ns; j0 += 8) {
-      float o[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) o[k] = j0 + k < ns ? __ldcg(pp + (j0 + k) * ps + i) : 0.0f;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        if (j0 + k < ns) O = fmaf(o[k], sml[(j0 + k) * 2 * RG + r], O);
-    }
-    attn_store(a, b, h, r0 + r, d, O / fmaxf(mlt[kAttnRows + r], 1e-37f));
+    attn_store(a, b, h, r0 + r, d, osum[i] / fmaxf(mlt[kAttnRows + r], 1e-37f));
   }
 }
 
-template <int RG, int D>
+template <int RG, int D, bool MULTI>
 static int launch_attention(const AttnArgs& a, dim3 grid, int threads, size_t smem,
                             cudaStream_t stream) {
-  auto k = attention_decode_kernel<RG, D>;
+  auto k = attention_decode_kernel<RG, D, MULTI>;
   static size_t opted[kMaxDevices] = {};   // past 48 KB, once per device and size
   int dev = 0;
   cudaGetDevice(&dev);
@@ -2440,11 +2565,17 @@ static int launch_attention(const AttnArgs& a, dim3 grid, int threads, size_t sm
   return (int)cudaGetLastError();
 }
 
+// MULTI: a tile of more than one pass (the loop over a warp's chunks);
+// one pass is its own instance, straight-line code with the registers of
+// one chunk
 template <int D>
 static int launch_attention_rg(int rg, const AttnArgs& a, dim3 grid, int threads,
                                size_t smem, cudaStream_t stream) {
-  return rg == 3 ? launch_attention<3, D>(a, grid, threads, smem, stream)
-                 : launch_attention<4, D>(a, grid, threads, smem, stream);
+  if (a.tile > kAttnPass)
+    return rg == 3 ? launch_attention<3, D, true>(a, grid, threads, smem, stream)
+                   : launch_attention<4, D, true>(a, grid, threads, smem, stream);
+  return rg == 3 ? launch_attention<3, D, false>(a, grid, threads, smem, stream)
+                 : launch_attention<4, D, false>(a, grid, threads, smem, stream);
 }
 
 // words of the widest lane window: D fields of nb bits from bit l * D * nb
@@ -2770,8 +2901,11 @@ static int launch_dequantize_packed(const DQArgs& a, dim3 grid, size_t smem,
 // ---------------------------------------------------------------------------
 extern "C" {
 
+#if F2P_IN(4)
 const char* f2p_error_string(int rc) { return cudaGetErrorString((cudaError_t)rc); }
+#endif
 
+#if F2P_IN(4)
 // B3: one launch of quantize_packed_write_kernel. k (and v when nside is
 // 2) is [B, S, Kh, cols], f32 or bf16 (x_bf16), at its strides in elements;
 // row (b, s, h) goes to row (page * T + off) * Kh + h of its side's words
@@ -2821,7 +2955,9 @@ int f2p_kv_write(KVSideIn k, KVSideIn v, int nside, int x_bf16, const int* pages
   if (x_bf16) return launch_kv_write<__nv_bfloat16>(a, grid, smem, stream);
   return launch_kv_write<float>(a, grid, smem, stream);
 }
+#endif
 
+#if F2P_IN(4)
 // B4: one launch of dequantize_packed_kernel. Side k (and v when nside is
 // 2, a layer's K and V cache, each in its own format): words [rows, W]
 // uint32 (W = ceil(cols * n_bits / 32)) + scales [rows, cols / block] f32
@@ -2853,7 +2989,9 @@ int f2p_dequantize_packed(const uint32_t* kw, const float* ks, void* ko, F2PCons
   if (out_bf16) return launch_dequantize_packed<__nv_bfloat16>(a, grid, smem, stream);
   return launch_dequantize_packed<float>(a, grid, smem, stream);
 }
+#endif
 
+#if F2P_IN(4)
 // B5, codes mode. tab: the format's encode table (f2p_quant.encode_table:
 // 256 int4 entries, then 256 float2 values).
 int f2p_quantize(const void* x, int x_bf16, void* codes, int code_bytes,
@@ -2877,7 +3015,9 @@ int f2p_quantize(const void* x, int x_bf16, void* codes, int code_bytes,
                                      inv_max, pow2, stream);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if F2P_IN(4)
 // B5, round-trip mode: one launch of ef_roundtrip_kernel over the nleaves
 // EFLeaf rows at `leaves` (on the device; row nleaves holds blk0 = nblocks),
 // blocks of 128, f32 scales; ef: error feedback.
@@ -2903,7 +3043,9 @@ int f2p_ef_roundtrip(const void* leaves, int nleaves, int nblocks, int ef,
   }
   return (int)cudaGetLastError();
 }
+#endif
 
+#if F2P_IN(4)
 // The exhaustive check of the table encode over the patterns [start, start +
 // count) (encode_check_kernel); bad and first are device counters.
 int f2p_encode_check(unsigned start, long long count, const void* tab, F2PConsts f,
@@ -2914,7 +3056,9 @@ int f2p_encode_check(unsigned start, long long count, const void* tab, F2PConsts
       start, count, enc, (const float2*)(enc + kEncEntries), f, s, bad, first);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if F2P_IN(4)
 int f2p_dequantize(const void* codes, int code_bytes, const float* scales,
                    void* out, int out_bf16, long long total, int block,
                    F2PConsts f, cudaStream_t stream) {
@@ -2931,25 +3075,29 @@ int f2p_dequantize(const void* codes, int code_bytes, const float* scales,
     launch_dequantize<uint16_t, float>(codes, scales, out, total, block, f, stream);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if F2P_IN(3)
 // B1 / B2: one launch of attention_decode_kernel. q [B, Sq, H, hd] (f32
 // or bf16 by q_bf16; strides qsb, qss, qsh, dims contiguous) -> out [B, Sq,
 // H, hd] contiguous in q's dtype. pages null: dense [B, S, K, W] words;
 // else [P, T, K, W] slabs through pages [B, maxp] (S = maxp * T). The plan
-// (nsplit = ceil(S / kAttnSplit); rg = 3 or 4 rows per CTA in ng groups)
-// comes from f2p_attention.attention_plan. With nsplit > 1, part holds B *
+// (tile positions per CTA, a multiple of kAttnChunk; nsplit = ceil(S /
+// tile); rg = 3 or 4 rows per CTA in ng groups) comes from
+// f2p_attention.attention_plan. With nsplit > 1, part holds B *
 // K * ng * nsplit * (rg * hd + 2 rg) floats and counts B * K * ng ints,
 // zero before the launch and zero again after it.
 int f2p_attention(const void* q, int q_bf16, long long qsb, long long qss, long long qsh,
                   const uint32_t* kw, const float* ks, const uint32_t* vw, const float* vs,
                   const int* pages, AttnLen kvlen, AttnLen qoff, void* out, float* part,
                   int* counts, int B, int Sq, int H, int K, int hd, int Wk, int Wv, int S,
-                  int T, int P, int maxp, int causal, int nsplit, int rg, int ng,
-                  F2PConsts fk, F2PConsts fv, float scale, cudaStream_t stream) {
+                  int T, int P, int maxp, int causal, int nsplit, int tile, int rg,
+                  int ng, F2PConsts fk, F2PConsts fv, float scale, cudaStream_t stream) {
   const int D = hd <= 32 ? 1 : hd <= 64 ? 2 : 4;
-  if (hd < 1 || hd > 128 || hd % D || fk.n_bits > 16 || fv.n_bits > 16 ||
-      nsplit != max(1, (S + kAttnSplit - 1) / kAttnSplit) || (rg != 3 && rg != 4) ||
-      (nsplit > 1 && (!part || !counts)))
+  if (hd < 1 || hd > 128 || hd % D || fk.n_bits > 16 || fv.n_bits > 16 || tile <= 0 ||
+      tile % kAttnChunk || tile > (1 << 20) ||
+      nsplit != max(1, (int)(((long long)S + tile - 1) / tile)) || (rg != 3 && rg != 4) ||
+      (nsplit > 1 && (!part || !counts)) || (long long)K * ng > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   AttnArgs a;
@@ -2958,6 +3106,7 @@ int f2p_attention(const void* q, int q_bf16, long long qsb, long long qss, long 
   a.out = out; a.part = part; a.counts = counts; a.kvlen = kvlen; a.qoff = qoff;
   a.bf16 = q_bf16; a.Sq = Sq; a.H = H; a.K = K; a.G = H / K; a.R = (H / K) * Sq;
   a.hd = hd; a.S = S; a.T = T; a.P = P; a.maxp = maxp; a.causal = causal; a.ng = ng;
+  a.tile = tile;
   a.Wk = Wk; a.Wv = Wv;
   a.win_k = attn_window(hd, D, fk.n_bits);
   a.win_v = attn_window(hd, D, fv.n_bits);
@@ -2971,23 +3120,25 @@ int f2p_attention(const void* q, int q_bf16, long long qsb, long long qss, long 
   a.build_v = a.tab_v && !share;
   a.tv_off = share ? 0 : tk;
   a.tables = tk + (a.build_v ? 32 << a.tab_v : 0);
-  // +4: a lane's window may run past the last row
+  // +4: a lane's window may run past the last row; with more than one
+  // pass a warp's acc waits in a stash after its misc floats
   const int kst = max(kAttnChunk * Wk, rg * hd), vst = kAttnChunk * Wv + 4;
   a.kreg = (kst + 3) & ~3;
   a.vreg = (vst + 3) & ~3;
-  a.warp_floats = a.kreg + a.vreg + attn_misc_floats();
+  a.warp_floats = a.kreg + a.vreg + attn_misc_floats() +
+                  (tile > kAttnPass ? (rg * hd + 3) & ~3 : 0);
   a.scale = scale; a.fk = fk; a.fv = fv;
   const int nw = kAttnWarps;
   const size_t smem = sizeof(float) * ((size_t)a.tables + (size_t)nw * a.warp_floats);
-  // the last CTA stages every split's (m, l) in the warp regions
-  if (smem > 232448 || (size_t)nsplit * 2 * rg > (size_t)nw * a.warp_floats)
-    return (int)cudaErrorInvalidValue;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   const dim3 grid(nsplit, K * ng, B);
   if (D == 1) return launch_attention_rg<1>(rg, a, grid, 32 * nw, smem, stream);
   if (D == 2) return launch_attention_rg<2>(rg, a, grid, 32 * nw, smem, stream);
   return launch_attention_rg<4>(rg, a, grid, 32 * nw, smem, stream);
 }
+#endif
 
+#if F2P_IN(4)
 int f2p_counter_advance(const int* state, const float* budget, int* state_out,
                         float* left, const float* p_lut, const float* run_lut,
                         const float* logq_lut, long long n, int kmax,
@@ -3001,7 +3152,9 @@ int f2p_counter_advance(const int* state, const float* budget, int* state_out,
       sweep0, sweeps, lane_base);
   return (int)cudaGetLastError();
 }
+#endif
 
+#if F2P_IN(1)
 // The tile route (M > 8) of B7 / B8: the plan (mma: the tensor-core
 // kernel, else the SIMT one; bm, k_chunk, splits; e_shift) comes from
 // f2p_matmul.tile_kernel and mma_plan / matmul_split. With splits > 1, part
@@ -3055,7 +3208,9 @@ int f2p_dequant_matmul(const void* x, int x_bf16, const void* w, int code_bytes,
   }
   return (int)cudaGetLastError();
 }
+#endif
 
+#if F2P_IN(2)
 // the decode route (M <= 8) of the same function: the plan (k_chunk,
 // splits) comes from f2p_matmul.decode_plan; block is a power of two and a
 // multiple of kDecUnit. With splits > 1, part holds splits x M x N floats
@@ -3089,7 +3244,9 @@ int f2p_dequant_matmul_decode(const void* x, int x_bf16, const void* w,
                        counts, M, N, K, lb, k_chunk, splits, lut_bits, vec, async, f,
                        stream);
 }
+#endif
 
+#if F2P_IN(4)
 int f2p_counter_estimate(const int* state, const float* grid_lut, float* out,
                          long long n, cudaStream_t stream) {
   if (n <= 0) return 0;
@@ -3099,5 +3256,6 @@ int f2p_counter_estimate(const int* state, const float* grid_lut, float* out,
       state, grid_lut, out, n);
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"

@@ -245,13 +245,13 @@ def _attention_bytes(a, paged: bool):
 def _attention_flops(a, paged: bool):
     """The plain version's two batched products per kv tile, QK^T and PV,
     over every tile of the padded span."""
-    from repro_torch.kernels.f2p_attention import DEFAULT_TILE
+    from repro_torch.kernels.f2p_attention import _resolve_tile
 
     q, kq = a["q"], a["kq"]
     B, Sq, H, hd = q.shape
     S = a["pages"].shape[1] * kq.codes.shape[1] if paged else \
         kq.codes.shape[1]
-    tile = max(1, min(int(a["tile"] or DEFAULT_TILE), S))
+    tile = max(1, min(_resolve_tile(q, kq, a["tile"]), S))
     if paged:
         T = kq.codes.shape[1]
         ppt = tile // T

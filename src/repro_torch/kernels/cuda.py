@@ -2,8 +2,8 @@
 
 ``csrc/f2p_kernels.cu`` is compiled at first use with ``nvcc`` into a shared
 library with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``,
-no ``--use_fast_math``: the codec must stay bitwise) and loaded with
-``ctypes``. The library lands in ``repro_torch/_build/<source hash>/``, so an
+no ``--use_fast_math``: the codec must stay bitwise; its parts by one nvcc
+each, at once, then linked) and loaded with ``ctypes``. The library lands in ``repro_torch/_build/<source hash>/``, so an
 edited source rebuilds and an unchanged one loads in milliseconds. Nothing
 here runs at import time: the CPU tests import every module of the package
 on a machine without ``nvcc``.
@@ -32,6 +32,7 @@ SOURCE = _PKG / "csrc" / "f2p_kernels.cu"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_PARTS = 4   # the source's F2P_PART values, compiled side by side
 
 MAX_SMEM = 232448   # bytes of shared memory one CTA may use on Hopper
 
@@ -130,25 +131,41 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the source if its hash has no library yet; return the path."""
+    """Compile the source if its hash has no library yet; return the path.
+    The source's parts (its ``F2P_PART`` 1..``BUILD_PARTS``: the matmul's
+    two routes, attention, the rest) compile side by side, one nvcc each,
+    and link into one library."""
     global build_log, build_seconds
     src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                         + f" parts {BUILD_PARTS}".encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / key
     lib_path = out_dir / "libf2p_kernels.so"
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, lib_path)   # atomic: concurrent builds agree
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [work / f"part{p}.o" for p in range(1, BUILD_PARTS + 1)]
+    procs = [subprocess.Popen(
+        [_nvcc(), *compile_flags, f"-DF2P_PART={p}", "-c", "-o", str(o),
+         str(SOURCE)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for p, o in enumerate(objs, 1)]
+    logs = [proc.communicate()[0] for proc in procs]
+    build_log = "".join(logs)
+    failed = [p for p, proc in enumerate(procs, 1) if proc.returncode]
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(work / "lib.so"),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        build_log += link.stdout + link.stderr
+        failed = [f"link ({link.returncode})"] if link.returncode else []
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed (parts {failed}):\n{build_log}")
+    os.replace(work / "lib.so", lib_path)   # atomic: concurrent builds agree
+    shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return lib_path
 
@@ -173,7 +190,7 @@ def lib():
                                        P, P]
         L.f2p_dequantize.argtypes = [P, I, P, P, I, LL, I, F2PConsts, P]
         L.f2p_attention.argtypes = [P, I, LL, LL, LL] + [P] * 5 + [
-            AttnLen, AttnLen, P, P, P] + [I] * 15 + [F2PConsts, F2PConsts,
+            AttnLen, AttnLen, P, P, P] + [I] * 16 + [F2PConsts, F2PConsts,
                                                     F, P]
         L.f2p_counter_advance.argtypes = [P] * 7 + [LL, I, U, U, I, LL, P]
         L.f2p_counter_estimate.argtypes = [P, P, P, LL, P]

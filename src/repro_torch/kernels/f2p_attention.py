@@ -18,22 +18,30 @@ kernel replaces ``repro/kernels/f2p_attention.py::_fused_kernel`` (dense)
 and ``::_paged_kernel`` (paged). On an H100 decode attention is bound by
 bytes and instruction issue: it reads every live packed K/V word and scale
 once (n_bits/8 bytes per element instead of 2 for bf16) and does 4*R*hd
-flops per position. The kernel splits KV across CTAs: a CTA takes
-:data:`ATTN_SPLIT` consecutive positions (16 per warp, one per lane) of
-one (batch row, kv head, group of 3 or 4 query rows), stages their
-packed words with ``cp.async``, decodes each element once in registers (a
-bank-replicated table up to 8 bits), forms the QK dots by a transposing
-warp butterfly and PV with lanes owning dims, and merges warps, then
-splits, in a fixed order (the last CTA of a row merges the splits). The
-split is a constant of the design, not the caller's
-``tile``, and no K/V word past a row's kv_len is read: the result depends
-on each row's kv_len and words only, not on S, the span bucket, B or the
-SM count, so paged == dense-over-gathered-pages bitwise on the card too,
+flops per position. The kernel splits KV across CTAs: a CTA takes ``tile``
+consecutive positions (a multiple of :data:`ATTN_CHUNK`; 128 by default),
+walked in passes of 128 (16 per warp, one per lane) of one (batch row, kv
+head, group of 3 or 4 query rows), each warp keeping its own online
+softmax across its chunks. It stages their packed words with
+``cp.async``, decodes each element once in registers (a bank-replicated
+table up to 8 bits), forms the QK dots by a transposing warp butterfly
+and PV with lanes owning dims, and merges warps, then splits, in a fixed
+order (the last CTA of a row merges any number of splits). No K/V word
+past a row's kv_len is read: the result depends on each row's kv_len,
+words and the tile only, not on S, the span bucket, B or the SM count, so
+paged == dense-over-gathered-pages bitwise on the card too at one tile,
 and a paged call on a page table cut to a span bucket equals the dense
-call on the full cache. q is read and o written in the caller's layout
-and dtype (f32 or bf16) by the kernel, and kv_len / q_offset / the page
-ids are read (and the ids clamped) there: one launch per call. The
-wrapper's host-side plan is :func:`attention_plan`.
+call on the full cache, for a cache of any length. q is read and o
+written in the caller's layout and dtype (f32 or bf16) by the kernel, and
+kv_len / q_offset / the page ids are read (and the ids clamped) there:
+one launch per call. The wrapper's host-side plan is
+:func:`attention_plan`.
+
+The kv tile comes from the caller (``tile=``) or, when it passes none,
+from the per-(backend, n_bits) tile table (:func:`attention_tile`,
+:func:`set_attention_tile`, :func:`autotune_attention_tile`), keyed as
+the reference keys it but by the device type: ``"cuda"`` (the kernel's
+positions per CTA) or ``"cpu"`` (the plain version's tile).
 """
 from __future__ import annotations
 
@@ -44,7 +52,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.f2p import F2PFormat
+from repro_torch.core import qtensor as QT
+from repro_torch.core.f2p import F2PFormat, Flavor
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels import cuda as C
 from repro_torch.kernels.bits import unpack_bits
@@ -55,15 +64,61 @@ __all__ = ["attention_packed", "attention_paged", "attention_packed_plain",
            "attention_paged_plain", "gather_pages_to_dense",
            "attention_reference", "attention_packed_reference",
            "attention_paged_reference", "attention_plan", "AttnPlan",
+           "attention_tile", "set_attention_tile", "autotune_attention_tile",
            "DEFAULT_TILE", "ATTN_SPLIT"]
 
-DEFAULT_TILE = 128      # the plain version's kv tile
-# kv positions per CTA of the kernel: its kAttnSplit (8 warps of
-# kAttnChunk = 16), which the C entry checks the plan's nsplit against
+# kv-tile length: cache positions per grid step of the reference, per CTA
+# of the kernel, per step of the plain version's loop. Per-(backend,
+# n_bits) overrides as in the reference, the backend being the device type
+# ("cuda" or "cpu"); DEFAULT_TILE when absent.
+DEFAULT_TILE = 128
+_TILE_TABLE: dict[tuple[str, int], int] = {}
+# the kernel's default positions per CTA: one pass of its 8 warps of
+# kAttnChunk = 16 positions
 ATTN_SPLIT = 128
+ATTN_CHUNK = 16         # a kernel tile is a multiple of the warp chunk
+ATTN_MAX_TILE = 1 << 20   # the kernel's split arithmetic stays in int32
 ATTN_ROWS = (3, 4)      # query rows per CTA: the kernel's instances
 ATTN_MAX_HEAD_DIM = 128   # a lane holds at most 4 dims of a row
-ATTN_MAX_SPLITS = 256   # the last CTA stages every split's (m, l)
+ATTN_MAX_GRID_YZ = 65535  # CUDA's limit on the grid's y (K x groups) and z (B)
+_BACKENDS = ("cuda", "cpu")
+
+
+def attention_tile(backend: str, n_bits: int) -> int:
+    """kv-tile length for (backend, n_bits): table hit or DEFAULT_TILE."""
+    return _TILE_TABLE.get((backend, int(n_bits)), DEFAULT_TILE)
+
+
+def kernel_takes_tile(tile: int) -> bool:
+    """Whether the kernel takes ``tile`` positions per CTA: a multiple of
+    :data:`ATTN_CHUNK` up to :data:`ATTN_MAX_TILE`."""
+    return 0 < int(tile) <= ATTN_MAX_TILE and int(tile) % ATTN_CHUNK == 0
+
+
+def _check_kernel_tile(tile: int) -> int:
+    """The kernel's tile, or a ValueError naming the limit."""
+    tile = int(tile)
+    if not kernel_takes_tile(tile):
+        raise ValueError(f"attention kernel takes a tile that is a multiple "
+                         f"of {ATTN_CHUNK} positions up to {ATTN_MAX_TILE}, "
+                         f"got {tile}")
+    return tile
+
+
+def set_attention_tile(backend: str, n_bits: int, tile: int) -> None:
+    """Install ``tile`` for (backend, n_bits); ``"cuda"`` takes only a tile
+    the kernel can take."""
+    if backend == "cuda":
+        _check_kernel_tile(tile)
+    _TILE_TABLE[(backend, int(n_bits))] = int(tile)
+
+
+def _resolve_tile(q, kq: QTensor, tile) -> int:
+    """An explicit tile wins; else the table entry for q's device type and
+    the K format's width."""
+    if tile is None:
+        return attention_tile(q.device.type, kq.fmt.n_bits)
+    return int(tile)
 
 
 # ---------------------------------------------------------------------------
@@ -170,26 +225,28 @@ def _to_tiles(x, B: int, nt: int, tile: int):
 # ---------------------------------------------------------------------------
 class AttnPlan(NamedTuple):
     """The kernel's launch: query rows in ``groups`` groups of ``rows``
-    per CTA (rows past R are masked), ``nsplit`` splits of
-    :data:`ATTN_SPLIT` positions, grid (nsplit, K * groups, B), and the
-    split workspace (``n_part`` f32 partials, ``n_counts`` counts; none
-    with one split)."""
+    per CTA (rows past R are masked), ``nsplit`` splits of ``tile``
+    positions, grid (nsplit, K * groups, B), and the split workspace
+    (``n_part`` f32 partials, ``n_counts`` counts; none with one split)."""
     rows: int
     groups: int
     nsplit: int
     grid: tuple
     n_part: int
     n_counts: int
+    tile: int
 
 
 @functools.lru_cache(maxsize=1024)
-def attention_plan(B: int, K: int, R: int, hd: int, S: int) -> AttnPlan:
+def attention_plan(B: int, K: int, R: int, hd: int, S: int,
+                   tile: int = ATTN_SPLIT) -> AttnPlan:
     """The kernel's launch plan from shapes only: batch rows, kv heads,
-    folded query rows R = G*Sq, head_dim and the per-row length S the
-    cache can hold (paged: max_pages * page_tokens). It never reads kv_len
-    (a device value): the grid covers S, and the kernel retires the splits
-    past each row's kv_len itself. Raises ValueError on a head_dim or a
-    length the kernel cannot take."""
+    folded query rows R = G*Sq, head_dim, the per-row length S the cache
+    can hold (paged: max_pages * page_tokens) and the positions per CTA.
+    It never reads kv_len (a device value): the grid covers S, of any
+    length, and the kernel retires the splits past each row's kv_len
+    itself. Raises ValueError naming the limit on a head_dim, a tile or a
+    grid the kernel cannot take."""
     if not 1 <= hd <= ATTN_MAX_HEAD_DIM:
         raise ValueError(f"attention kernel takes head_dim 1..{ATTN_MAX_HEAD_DIM},"
                          f" got {hd}")
@@ -197,23 +254,25 @@ def attention_plan(B: int, K: int, R: int, hd: int, S: int) -> AttnPlan:
     if hd % lane_dims:
         raise ValueError(f"attention kernel: head_dim {hd} is not a multiple "
                          f"of the {lane_dims} dims a lane holds")
+    tile = _check_kernel_tile(tile)
     groups = -(-R // ATTN_ROWS[-1])
     rows = max(ATTN_ROWS[0], -(-R // groups))
-    nsplit = max(1, -(-S // ATTN_SPLIT))
-    if nsplit > ATTN_MAX_SPLITS:
-        raise ValueError(f"attention kernel takes at most {ATTN_MAX_SPLITS} "
-                         f"splits of {ATTN_SPLIT} positions (S <= "
-                         f"{ATTN_MAX_SPLITS * ATTN_SPLIT}), got S = {S}")
+    if K * groups > ATTN_MAX_GRID_YZ or B > ATTN_MAX_GRID_YZ:
+        raise ValueError(f"attention kernel's grid takes at most "
+                         f"{ATTN_MAX_GRID_YZ} kv heads x row groups and "
+                         f"batch rows, got {K * groups} and {B}")
+    nsplit = max(1, -(-S // tile))
     many = nsplit > 1
     return AttnPlan(rows, groups, nsplit,
                     (nsplit, K * groups, B),
                     B * K * groups * nsplit * (rows * hd + 2 * rows) if many
-                    else 0, B * K * groups if many else 0)
+                    else 0, B * K * groups if many else 0, tile)
 
 
 def _attention_cuda(q, kq: QTensor, vq: QTensor, kv_len, q_offset, causal,
-                    pages=None):
-    """One launch of the kernel; o ``[B, Sq, H, hd]`` in q's dtype."""
+                    tile: int, pages=None):
+    """One launch of the kernel at ``tile`` positions per CTA; o ``[B, Sq,
+    H, hd]`` in q's dtype."""
     B, Sq, H, hd = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention kernel takes f32 or bf16 q, got {q.dtype}")
@@ -238,7 +297,7 @@ def _attention_cuda(q, kq: QTensor, vq: QTensor, kv_len, q_offset, causal,
     if n_rows >= 2 ** 31:
         raise ValueError(f"attention kernel indexes < 2^31 cache rows, got "
                          f"{n_rows}")
-    plan = attention_plan(B, K, (H // K) * Sq, hd, S)
+    plan = attention_plan(B, K, (H // K) * Sq, hd, S, tile)
     dev = q.device
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     stream = C.stream()
@@ -256,7 +315,8 @@ def _attention_cuda(q, kq: QTensor, vq: QTensor, kv_len, q_offset, causal,
         out.data_ptr(), None if part is None else part.data_ptr(),
         None if counts is None else counts.data_ptr(), B, Sq, H, K, hd,
         kw.shape[-1], vw.shape[-1], S, T, P, maxp, int(causal), plan.nsplit,
-        plan.rows, plan.groups, cuda_consts(kq.fmt), cuda_consts(vq.fmt),
+        plan.tile, plan.rows, plan.groups, cuda_consts(kq.fmt),
+        cuda_consts(vq.fmt),
         1.0 / math.sqrt(hd), stream), what)
     C.LAUNCHES[what] += 1
     return out
@@ -276,14 +336,15 @@ def _check_cache(qt: QTensor, hd: int, what: str, ndim: int) -> None:
 
 
 def _dense_check(q, kq: QTensor, vq: QTensor, tile) -> int:
-    """Argument checks of the dense call (both routes); the plain tile."""
+    """Argument checks of the dense call (both routes); the plain tile
+    (``tile`` or the table's, clamped to S)."""
     H, hd = q.shape[2], q.shape[3]
     _check_cache(kq, hd, "kq", 4)
     _check_cache(vq, hd, "vq", 4)
     S, K = kq.codes.shape[1], kq.codes.shape[2]
     if H % K:
         raise ValueError(f"n_heads {H} not a multiple of kv heads {K}")
-    return max(1, min(int(tile or DEFAULT_TILE), S))
+    return max(1, min(_resolve_tile(q, kq, tile), S))
 
 
 def _dense_args(q, kq: QTensor, vq: QTensor, kv_len, q_offset, tile):
@@ -309,7 +370,7 @@ def _paged_check(q, kq: QTensor, vq: QTensor, pages, tile):
         raise ValueError(f"pages must be [B={B}, max_pages], got "
                          f"{tuple(pages.shape)}")
     S = pages.shape[1] * T
-    tile = max(1, min(int(tile or DEFAULT_TILE), S))
+    tile = max(1, min(_resolve_tile(q, kq, tile), S))
     if tile % T:
         raise ValueError(f"kv tile {tile} not a multiple of page_tokens {T}: "
                          "paged tiles must span whole pages")
@@ -335,15 +396,17 @@ def attention_packed(q, kq: QTensor, vq: QTensor, *, kv_len=None,
     shape ``[B, S, K, hd]`` with block = hd. ``kv_len`` masks positions
     >= kv_len; ``causal`` masks positions past ``q_offset + s``. Both take a
     scalar or a per-batch ``[B]`` vector. Returns ``[B, Sq, H, hd]`` in q's
-    dtype. CUDA tensors launch the kernel (f32 or bf16 q; ``tile`` is the
-    plain version's and only checked there: the kernel's split is
-    :data:`ATTN_SPLIT`), CPU tensors run :func:`attention_packed_plain`."""
+    dtype. ``tile=None`` takes the tile table's entry for (the device
+    type, the K format's n_bits). CUDA tensors launch the kernel with
+    ``tile`` positions per CTA (f32 or bf16 q; a tile it cannot take
+    raises), CPU tensors run :func:`attention_packed_plain`."""
     if q.device.type != "cuda":
         return attention_packed_plain(q, kq, vq, kv_len=kv_len,
                                       causal=causal, q_offset=q_offset,
                                       tile=tile)
     _dense_check(q, kq, vq, tile)
-    return _attention_cuda(q, kq, vq, kv_len, q_offset, bool(causal))
+    return _attention_cuda(q, kq, vq, kv_len, q_offset, bool(causal),
+                           _resolve_tile(q, kq, tile))
 
 
 def attention_packed_plain(q, kq: QTensor, vq: QTensor, *, kv_len=None,
@@ -371,14 +434,16 @@ def attention_paged(q, kq: QTensor, vq: QTensor, pages, *, kv_len=None,
     tile must span whole pages. With the same tile the output is bitwise
     equal to :func:`attention_packed` over :func:`gather_pages_to_dense`
     (on the card for any tile, and for a page table cut to any span that
-    covers kv_len). CUDA tensors launch the kernel, CPU tensors run
-    :func:`attention_paged_plain`."""
+    covers kv_len). ``tile=None`` reads the tile table, as
+    :func:`attention_packed` does. CUDA tensors launch the kernel, CPU
+    tensors run :func:`attention_paged_plain`."""
     if q.device.type != "cuda":
         return attention_paged_plain(q, kq, vq, pages, kv_len=kv_len,
                                      causal=causal, q_offset=q_offset,
                                      tile=tile)
     pages, _ = _paged_check(q, kq, vq, pages, tile)
-    return _attention_cuda(q, kq, vq, kv_len, q_offset, bool(causal), pages)
+    return _attention_cuda(q, kq, vq, kv_len, q_offset, bool(causal),
+                           _resolve_tile(q, kq, tile), pages)
 
 
 def attention_paged_plain(q, kq: QTensor, vq: QTensor, pages, *,
@@ -455,3 +520,55 @@ def attention_packed_reference(q, kq: QTensor, vq: QTensor, *, kv_len=None,
     return attention_reference(q, kq.dequantize(torch.float32),
                                vq.dequantize(torch.float32), kv_len=kv_len,
                                causal=causal, q_offset=q_offset, tile=tile)
+
+
+def autotune_attention_tile(backend: str, n_bits: int, *,
+                            candidates=(64, 128, 256, 512),
+                            shape=(2, 2048, 4, 128), reps: int = 3,
+                            fmt: F2PFormat | None = None) -> int:
+    """Time :func:`attention_packed` over candidate kv-tile lengths on a
+    decode-shaped problem ``(B, S, K, hd)`` and install the winner in the
+    tile table; returns it. ``backend`` is the device that runs the calls:
+    ``"cuda"`` (the kernel; a tile it cannot take is skipped) or ``"cpu"``
+    (the plain version). A tile longer than S is skipped, as in the
+    reference."""
+    import time
+
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend is the device type, one of {_BACKENDS}, "
+                         f"got {backend!r}")
+    if fmt is None:
+        fmt = F2PFormat(n_bits, 2, Flavor.SR, signed=True)
+    B, S, K, hd = shape
+    rng = np.random.default_rng(0)
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(backend)
+
+    q = put(rng.normal(size=(B, 1, 2 * K, hd)))
+    kd = put(rng.normal(size=(B, S, K, hd)))
+    vd = put(rng.normal(size=(B, S, K, hd)))
+    kq = QT.quantize(kd, fmt, block=hd, packed=True)
+    vq = QT.quantize(vd, fmt, block=hd, packed=True)
+    sync = torch.cuda.synchronize if backend == "cuda" else (lambda: None)
+    best, best_t = None, DEFAULT_TILE
+    for t in candidates:
+        if t > S:
+            continue
+        if backend == "cuda" and not kernel_takes_tile(t):
+            continue
+
+        def run():
+            return attention_packed(q, kq, vq, kv_len=S - 1, tile=t)
+
+        run()       # the build and first use outside the clock
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(max(1, reps)):
+            run()
+        sync()
+        dt = time.perf_counter() - t0
+        if best is None or dt < best:
+            best, best_t = dt, t
+    set_attention_tile(backend, n_bits, best_t)
+    return best_t

@@ -42,10 +42,17 @@ Each splits K across CTAs when the output tiles alone do not fill the card
 and adds the partials in split order, so no result depends on scheduling.
 ``SERVED`` counts the calls each kernel served.
 
-The reference's per-(backend, n_bits) tile table and
-``autotune_matmul_tiles`` tune Pallas tiles (M_T, N_T, K_T, a K step of
-256) that do not map onto a CUDA kernel's compiled instances and its
-pipelined K step of 64; they have no counterpart (ROADMAP A15).
+The reference's per-(backend, n_bits) tile table of the packed kernel
+(:func:`matmul_tiles`, :func:`set_matmul_tiles`,
+:func:`autotune_matmul_tiles`, ``tiles=`` on
+:func:`f2p_dequant_matmul_packed`) is keyed by the device type, ``"cuda"``
+or ``"cpu"``. On the card an entry (or ``tiles=``) fixes B7's tile-route
+launch (:func:`tile_plan`): M_T the rows per CTA (an instance of the
+kernel that serves the call), N_T the columns per CTA (``_BN``, the
+kernels' only column tile) and K_T the K chunk of a split; with none the
+planners above decide, as before. The decode route keeps
+:func:`decode_plan` (its launch is no (M_T, N_T, K_T) tiling), and the
+plain version has no tiles.
 """
 from __future__ import annotations
 
@@ -69,14 +76,20 @@ __all__ = ["WEIGHT_FMT", "quantize_weight", "quantize_weight_plain",
            "dequantize_weight", "ref_dequant_matmul",
            "f2p_dequant_matmul", "f2p_dequant_matmul_packed",
            "dequant_matmul", "matmul_split", "matmul_route", "decode_plan",
-           "tile_kernel", "mma_plan", "significant_bits", "mma_shift",
-           "MM_DECODE_ROWS", "SERVED"]
+           "tile_kernel", "mma_plan", "tile_plan", "significant_bits",
+           "mma_shift", "matmul_tiles", "set_matmul_tiles",
+           "autotune_matmul_tiles", "M_T", "N_T", "K_T", "MM_DECODE_ROWS",
+           "SERVED"]
 
 WEIGHT_FMT = F2PFormat(n_bits=8, h_bits=2, flavor=Flavor.SR, signed=True)
 
 # the reference's Pallas tiles: its preconditions are stated in them, and
-# both packages accept the same calls
+# both packages accept the same calls; matmul_tiles' default
 M_T, N_T, K_T = 128, 256, 256
+
+# per-(backend, n_bits) (M_T, N_T, K_T) of the packed kernel, the backend
+# being the device type; an entry for "cuda" fixes B7's tile-route launch
+_TILE_TABLE: dict[tuple[str, int], tuple[int, int, int]] = {}
 
 # the tile kernels' output tile width (csrc kMmBN, kMmaCols) and the SIMT
 # kernel's K step (kMmBK)
@@ -86,6 +99,8 @@ _BN, _BK = 128, 32
 # a decoded value at most bf16's 8 significant bits, a block whole mma
 # K steps of 16 rows; its K step (csrc kMmaBK)
 _MMA_MAX_BITS, _MMA_SIG_BITS, _MMA_K, _MMA_BK = 10, 8, 16, 64
+# rows per CTA of each tile kernel's compiled instances
+TILE_ROWS = {"mma": (64, 128), "simt": (8, 16, 32, 64, 128)}
 
 # calls served by each kernel of B7 / B8 (a diagnostic beside C.LAUNCHES,
 # which counts the wrappers' launches)
@@ -258,14 +273,78 @@ def mma_plan(M: int, N: int, K: int, n_sm: int) -> tuple[int, int, int]:
     return bm, chunk, -(-K // chunk)
 
 
+def matmul_tiles(backend: str, n_bits: int) -> tuple[int, int, int]:
+    """(M_T, N_T, K_T) for the packed kernel on (backend, n_bits): table
+    hit or (M_T, N_T, K_T)."""
+    return _TILE_TABLE.get((backend, int(n_bits)), (M_T, N_T, K_T))
+
+
+def _cuda_tiles_problem(tiles, kernel: str | None = None) -> str | None:
+    """Why the tile kernels cannot take (M_T, N_T, K_T), or None: N_T must
+    be the kernels' column tile, M_T the rows of an instance (of
+    ``kernel``, or of either), K_T a positive multiple of the K step of
+    both."""
+    mt, nt, kt = (int(t) for t in tiles)
+    if nt != _BN:
+        return f"N_T {nt}: the tile kernels' only column tile is {_BN}"
+    rows = TILE_ROWS[kernel] if kernel else sorted(
+        set(TILE_ROWS["mma"]) | set(TILE_ROWS["simt"]))
+    if mt not in rows:
+        return (f"M_T {mt}: the {kernel or 'tile'} kernel's rows per CTA are "
+                f"{tuple(rows)}")
+    if kt <= 0 or kt % _MMA_BK:
+        return (f"K_T {kt} must be a positive multiple of {_MMA_BK}, the "
+                f"tile kernels' K step")
+    return None
+
+
+def _check_cuda_tiles(tiles, kernel: str | None = None):
+    """(M_T, N_T, K_T) as ints, or a ValueError naming the limit."""
+    problem = _cuda_tiles_problem(tiles, kernel)
+    if problem:
+        raise ValueError(problem)
+    return tuple(int(t) for t in tiles)
+
+
+def set_matmul_tiles(backend: str, n_bits: int,
+                     tiles: tuple[int, int, int]) -> None:
+    """Install (M_T, N_T, K_T) for (backend, n_bits): the reference's
+    check (N_T word-aligned) and, for ``"cuda"``, the kernels' own."""
+    mt, nt, kt = (int(t) for t in tiles)
+    if nt % 32:
+        raise ValueError(f"N_T {nt} not word-aligned (multiple of 32)")
+    if backend == "cuda":
+        _check_cuda_tiles((mt, nt, kt))
+    _TILE_TABLE[(backend, int(n_bits))] = (mt, nt, kt)
+
+
+def tile_plan(M: int, N: int, K: int, n_sm: int, fmt: F2PFormat,
+              block: int, tiles=None) -> tuple[str, int, int, int]:
+    """(kernel, rows per CTA, K chunk, K splits) of a tile-route launch
+    (M > MM_DECODE_ROWS). With ``tiles`` (M_T, N_T, K_T): M_T rows, a K
+    chunk of K_T and ceil(K / K_T) splits, on the kernel
+    :func:`tile_kernel` picks (ValueError where it cannot take them);
+    without, :func:`mma_plan` or :func:`matmul_split` decide."""
+    kernel = tile_kernel(fmt, block)
+    if tiles is not None:
+        bm, _, chunk = _check_cuda_tiles(tiles, kernel)
+        return kernel, bm, chunk, -(-K // chunk)
+    if kernel == "mma":
+        return (kernel,) + mma_plan(M, N, K, n_sm)
+    bm, splits = matmul_split(M, N, K, n_sm)
+    chunk = -(-(K // _BK) // splits) * _BK
+    return kernel, bm, chunk, -(-K // chunk)
+
+
 _N_SM: dict[int, int] = {}
 
 
-def _launch(x, w, scales, fmt, block, N, code_bytes, W):
+def _launch(x, w, scales, fmt, block, N, code_bytes, W, tiles=None):
     """One kernel launch: (y [M, N] f32). ``code_bytes`` 1 / 2 for uint8 /
-    uint16 codes, 0 for packed words of ``W`` words per row. The SM count
-    and the format's kernel constants are cached; the decode route adds
-    its K splits inside the kernel, in a cached workspace."""
+    uint16 codes, 0 for packed words of ``W`` words per row; ``tiles`` fix
+    the tile route's launch (:func:`tile_plan`). The SM count and the
+    format's kernel constants are cached; the decode route adds its K
+    splits inside the kernel, in a cached workspace."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes f32 or bf16 x, got {x.dtype}")
     C.require_cuda(x, "x")
@@ -295,14 +374,9 @@ def _launch(x, w, scales, fmt, block, N, code_bytes, W):
             stream), what)
         SERVED["decode"] += 1
         return y
-    kernel = tile_kernel(fmt, block)
-    if kernel == "mma":
-        bm, k_chunk, splits = mma_plan(M, N, K, n_sm)
-        shift = mma_shift(fmt)
-    else:
-        bm, splits = matmul_split(M, N, K, n_sm)
-        k_chunk = -(-(K // _BK) // splits) * _BK
-        splits, shift = -(-K // k_chunk), 0
+    kernel, bm, k_chunk, splits = tile_plan(M, N, K, n_sm, fmt, block,
+                                             tiles)
+    shift = mma_shift(fmt) if kernel == "mma" else 0
     part = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
             if splits > 1 else y)
     C.check(C.lib().f2p_dequant_matmul(
@@ -339,10 +413,15 @@ def f2p_dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
 def f2p_dequant_matmul_packed(x: torch.Tensor, words: torch.Tensor,
                               scales: torch.Tensor, *,
                               fmt: F2PFormat = WEIGHT_FMT,
-                              block: int = 128) -> torch.Tensor:
+                              block: int = 128,
+                              tiles: tuple[int, int, int] | None = None
+                              ) -> torch.Tensor:
     """y = x @ dequant(unpack(words), scales); words ``[K,
     packed_words(N)]`` uint32 from ``quantize_weight(..., packed=True)``;
-    B7 on a CUDA tensor."""
+    B7 on a CUDA tensor. ``tiles=None`` takes the tile table's entry for
+    (the device type, n_bits), if any: on the card ``tiles`` fix the tile
+    route's launch (M > MM_DECODE_ROWS), with none the planners decide;
+    the plain version has no tiles."""
     N = scales.shape[-1]
     K2, W = words.shape
     _check(x, K2, N, block)
@@ -354,7 +433,9 @@ def f2p_dequant_matmul_packed(x: torch.Tensor, words: torch.Tensor,
         return ref_dequant_matmul(x, codes, scales, fmt, block)
     if words.dtype != torch.uint32:
         raise TypeError(f"words must be uint32, got {words.dtype}")
-    y = _launch(x, words, scales, fmt, block, N, 0, W)
+    if tiles is None:
+        tiles = _TILE_TABLE.get(("cuda", fmt.n_bits))
+    y = _launch(x, words, scales, fmt, block, N, 0, W, tiles)
     C.LAUNCHES["dequant_matmul_packed"] += 1
     return y
 
@@ -367,3 +448,55 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     tensors' device picks the path."""
     fn = f2p_dequant_matmul_packed if packed else f2p_dequant_matmul
     return fn(x, codes, scales, fmt=fmt, block=block)
+
+
+def autotune_matmul_tiles(backend: str, n_bits: int, *,
+                          candidates=((128, 128, 256), (64, 128, 256),
+                                      (128, 128, 128), (64, 128, 128)),
+                          shape=(256, 1024, 1024), reps: int = 3,
+                          fmt: F2PFormat | None = None, block: int = 128
+                          ) -> tuple[int, int, int]:
+    """Time the packed kernel over candidate (M_T, N_T, K_T) tiles on a
+    serve-shaped matmul ``(M, K, N)`` and install the winner in the tile
+    table; returns it. ``backend`` must be ``"cuda"``: the plain version
+    has no tiles (the reference refuses its xla path the same way).
+    Candidates the kernel cannot take are skipped (the reference's N_T of
+    256 among them: the kernels' column tile is 128, so the defaults are
+    the port's own)."""
+    import time
+
+    if backend != "cuda":
+        raise ValueError(f"tile autotune is for the card ('cuda'), not "
+                         f"{backend!r}: the plain version has no tiles")
+    if fmt is None:
+        fmt = F2PFormat(n_bits, 2, Flavor.SR, signed=True)
+    M, K, N = shape
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)).cuda()
+    words, scales = quantize_weight(w, fmt, block=block, packed=True)
+    kernel = tile_kernel(fmt, block)
+    best, best_t = None, None
+    for t in candidates:
+        if _cuda_tiles_problem(t, kernel):
+            continue
+        mt, nt, kt = (int(v) for v in t)
+
+        def run():
+            return f2p_dequant_matmul_packed(x, words, scales, fmt=fmt,
+                                             block=block, tiles=(mt, nt, kt))
+
+        run()       # the build and first use outside the clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(max(1, reps)):
+            run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if best is None or dt < best:
+            best, best_t = dt, (mt, nt, kt)
+    if best_t is None:
+        raise ValueError(f"no candidate tile fits the {kernel} kernel: "
+                         f"{candidates}")
+    set_matmul_tiles(backend, n_bits, best_t)
+    return best_t

@@ -174,7 +174,8 @@ def test_attention_plan_reads_only_shapes_and_no_kv_len():
     import inspect
 
     params = inspect.signature(TA.attention_plan).parameters
-    assert list(params) == ["B", "K", "R", "hd", "S"]
+    assert list(params) == ["B", "K", "R", "hd", "S", "tile"]
+    assert params["tile"].default == TA.ATTN_SPLIT
     split = TA.ATTN_SPLIT
     for kv in (1, split - 1, split, split + 1, 4 * split + 37):
         live = -(-kv // split)
@@ -188,11 +189,12 @@ def test_attention_plan_reads_only_shapes_and_no_kv_len():
 @pytest.mark.parametrize("hd,S,what", [
     (256, 64, "head_dim"),
     (66, 64, "head_dim"),     # not a multiple of the 4 dims a lane holds
-    (128, TA.ATTN_MAX_SPLITS * TA.ATTN_SPLIT + 1, "splits"),
+    (128, 64, "tile"),        # 40: not a multiple of the 16-position chunk
 ])
 def test_attention_plan_names_its_limits(hd, S, what):
+    """Each limit raises by name; the cache's length is none of them."""
     with pytest.raises(ValueError, match=what):
-        TA.attention_plan(2, 2, 3, hd, S)
+        TA.attention_plan(2, 2, 3, hd, S, 40 if what == "tile" else 128)
     TA.attention_plan(2, 2, 3, 96 if hd == 66 else 128, 64)   # takes these
 
 

@@ -21,6 +21,7 @@ from repro_torch.kernels import f2p_attention as A
 from repro_torch.kernels import f2p_counter as FC
 from repro_torch.kernels import f2p_matmul as MM
 from repro_torch.kernels import f2p_quant as Q
+from repro_torch.kernels.bits import unpack_bits
 
 pytestmark = pytest.mark.cuda
 
@@ -471,9 +472,10 @@ def test_ef_roundtrip_raises_on_what_it_cannot_take(gen):
 
 
 # (format, head_dim, G, Sq, kv_len per row, causal, tile). R = G * Sq query
-# rows; the kernel's split is A.ATTN_SPLIT (128) positions.
+# rows; the tile is the kernel's positions per CTA (a multiple of 16) and
+# the plain version's kv tile.
 _ATTN_CASES = [
-    ("f2p_sr_2_8s", 64, 3, 2, (96, 40, 0), True, 8),
+    ("f2p_sr_2_8s", 64, 3, 2, (96, 40, 0), True, 16),
     ("f2p_sr_2_8s", 64, 3, 2, (96, 40, 0), True, 32),
     ("f2p_sr_2_8s", 64, 3, 2, (96, 40, 0), True, 128),
     ("f2p_sr_2_8s", 128, 3, 1, (549, 300, 1), False, 128),   # 5 splits
@@ -483,7 +485,9 @@ _ATTN_CASES = [
     ("f2p_sr_2_6s", 64, 3, 4, (300, 127, 5), True, 16),      # R = 12
     ("f2p_lr_2_16s", 64, 6, 2, (257, 1, 0), True, 128),      # R = 12
     ("f2p_sr_2_8s", 128, 4, 1, (640, 33, 31), False, 128),   # R = 4
-    ("f2p_sr_2_8s", 16, 3, 1, (40, 13, 0), False, 8),        # smoke head_dim
+    ("f2p_sr_2_8s", 16, 3, 1, (40, 13, 0), False, 16),       # smoke head_dim
+    ("f2p_sr_2_8s", 128, 3, 1, (1100, 300, 129), False, 384),  # 3 passes
+    ("f2p_sr_2_6s", 64, 3, 2, (700, 513, 1), True, 512),
     # rows past R masked: R = 1 and 2 on the 3-row instance, R = 5 as two
     # groups of 3
     ("f2p_sr_2_8s", 128, 1, 1, (300, 1, 0), False, 128),     # R = 1
@@ -516,7 +520,7 @@ def test_attention_kernels_vs_plain_and_paged_equals_dense(
     16-bit (f2p_decode); garbage page ids past kv_len change nothing; a
     paged call on the page table cut to a span bucket equals the dense
     call on the full cache, bitwise (the kernel's result depends on each
-    row's kv_len, not on S)."""
+    row's kv_len and the tile, not on S)."""
     q, slab_k, slab_v, pages = _attn_inputs(gen, name, hd, G, Sq, kv)
     kv_len = torch.tensor(kv, device="cuda")
     kw = dict(kv_len=kv_len, causal=causal, q_offset=kv_len - Sq, tile=tile)
@@ -545,9 +549,8 @@ def test_attention_kernels_vs_plain_and_paged_equals_dense(
         tail[1::2] = 10 ** 6
     assert torch.equal(A.attention_paged(q, slab_k, slab_v, junk, **kw), got)
     span = max(1, -(-max(kv) // T))
-    cut = dict(kw, tile=None)
     assert torch.equal(A.attention_paged(
-        q, slab_k, slab_v, pages[:, :span].contiguous(), **cut), dense)
+        q, slab_k, slab_v, pages[:, :span].contiguous(), **kw), dense)
 
 
 @pytest.mark.parametrize("name", ["f2p_sr_2_8s", "f2p_lr_2_16s"])
@@ -595,6 +598,88 @@ def test_attention_kernel_raises_on_shapes_it_cannot_take(gen):
                      fmt, block=64, packed=True)
     with pytest.raises(TypeError):
         A.attention_packed(q.half(), kq, kq, kv_len=8)
+
+
+@pytest.fixture
+def clean_tables():
+    """The tile tables are module globals: empty before and after."""
+    A._TILE_TABLE.clear()
+    MM._TILE_TABLE.clear()
+    yield
+    A._TILE_TABLE.clear()
+    MM._TILE_TABLE.clear()
+
+
+@pytest.mark.parametrize("tile", [128, 512])
+@pytest.mark.parametrize("S", [32896, 131072])
+def test_attention_kernels_past_32768_positions(gen, clean_tables, S, tile):
+    """B1 and B2 at llama3.2-3b's (8 kv heads, G = 3, head_dim 128) over a
+    cache past the old cap of 256 splits: paged == dense bitwise, the page
+    table cut to the live span == the dense call on the full cache, within
+    1e-5 of the plain version at the same tile; kv_len S - 1 and 100."""
+    K, G, hd, T = 8, 3, 128, 8
+    fmt = named_format("f2p_sr_2_8s")
+    maxp = S // T
+    slab_k, slab_v = (QT.quantize(torch.randn(maxp + 1, T, K, hd,
+                                              generator=gen, device="cuda"),
+                                  fmt, block=hd, packed=True)
+                      for _ in range(2))
+    pages = torch.randperm(maxp + 1, generator=gen, device="cuda")[:maxp]
+    pages = pages[None].to(torch.int32)
+    dk = A.gather_pages_to_dense(slab_k, pages)
+    dv = A.gather_pages_to_dense(slab_v, pages)
+    q = torch.randn(1, 1, K * G, hd, generator=gen, device="cuda")
+    for kv_len in (S - 1, 100):
+        C.reset_launches()
+        paged = A.attention_paged(q, slab_k, slab_v, pages, kv_len=kv_len,
+                                  tile=tile)
+        dense = A.attention_packed(q, dk, dv, kv_len=kv_len, tile=tile)
+        assert C.LAUNCHES["attention_paged"] == 1
+        assert C.LAUNCHES["attention_packed"] == 1
+        assert torch.equal(paged, dense)
+        cut = pages[:, :-(-kv_len // T)].contiguous()
+        assert torch.equal(A.attention_paged(q, slab_k, slab_v, cut,
+                                             kv_len=kv_len, tile=tile), dense)
+        torch.testing.assert_close(dense, A.attention_packed_plain(
+            q, dk, dv, kv_len=kv_len, tile=tile), rtol=1e-5, atol=1e-5)
+
+
+def test_tile_table_entries_drive_the_launches(gen, clean_tables,
+                                               monkeypatch):
+    """With the tables empty the wrappers launch at the planners' plans; a
+    "cuda" entry launches at its tile (B1/B2) or tiles (B7's tile route),
+    as the host plans the wrappers call show, and the kernels stay within
+    tolerance of their plain versions."""
+    seen = []
+    plan, tile_plan = A.attention_plan, MM.tile_plan
+    monkeypatch.setattr(A, "attention_plan",
+                        lambda *a: seen.append(a[5]) or plan(*a))
+    monkeypatch.setattr(MM, "tile_plan",
+                        lambda *a: seen.append(tile_plan(*a)) or seen[-1])
+    fmt = named_format("f2p_sr_2_8s")
+    kq, vq = (QT.quantize(torch.randn(1, 4096, 8, 128, generator=gen,
+                                      device="cuda"), fmt, block=128,
+                          packed=True) for _ in range(2))
+    q = torch.randn(1, 1, 24, 128, generator=gen, device="cuda")
+    A.attention_packed(q, kq, vq, kv_len=4000)
+    A.set_attention_tile("cuda", 8, 512)
+    o = A.attention_packed(q, kq, vq, kv_len=4000)
+    assert seen == [128, 512]
+    torch.testing.assert_close(o, A.attention_packed_plain(
+        q, kq, vq, kv_len=4000, tile=512), rtol=1e-5, atol=1e-5)
+    x = torch.randn(256, 1024, generator=gen, device="cuda")
+    w = torch.randn(1024, 1024, generator=gen, device="cuda") * 0.02
+    words, scales = MM.quantize_weight(w, fmt, packed=True)
+    seen.clear()
+    MM.f2p_dequant_matmul_packed(x, words, scales, fmt=fmt)
+    MM.set_matmul_tiles("cuda", 8, (64, 128, 256))
+    y = MM.f2p_dequant_matmul_packed(x, words, scales, fmt=fmt)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert seen == [("mma",) + MM.mma_plan(256, 1024, 1024, n_sm),
+                    ("mma", 64, 256, 4)]
+    ref = MM.ref_dequant_matmul(x, unpack_bits(words, 8, 1024), scales, fmt)
+    torch.testing.assert_close(y, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
 
 
 def _cuda_luts(grid):
