@@ -361,12 +361,13 @@ Phases (any failed check raises, so the script exits non-zero):
    versions on the card, the result the plain composition's bits, packed
    == unpacked, and within the codec's bound of the f32 mean; (b) ``python
    -m repro_torch.launch.train --arch xlstm_125m --full --mesh-shape 2,2``
-   (4 ranks on the card, the launcher's defaults, 4 steps) against a 1,1
-   run's losses (in the whole script, phase 11(d)'s: the same arch,
-   configs, data and steps), then a run killed by --die-at-step 3 (rc 42) and
-   restarted on 2,1, which must resume from the latest committed step; the
-   ranks' state bytes, peak memory and step time from the CLI's "ranks"
-   line; (c) llama3.2-3b at full width, 3 steps on a (1,1) NCCL
+   (4 ranks on the card, the model axis split, the launcher's defaults, a
+   checkpoint every step) killed by --die-at-step 3 (rc 42), its 3 losses
+   before the kill against a 1,1 run's (in the whole script, phase
+   11(d)'s: the same arch, configs and data), then restarted on 2,1,
+   which must resume from the latest committed step; the ranks' state
+   bytes, peak memory, step time and model-axis split from the CLI's
+   "ranks" line; (c) llama3.2-3b at full width, 3 steps on a (1,1) NCCL
    DeviceMesh (DTensor state, the sharded step, one B5 round trip a step
    on the local shards), its losses held to the plain path's: phase 8's
    first 3 (the same seed, configs and batches; ``--only sharded`` trains
@@ -375,7 +376,16 @@ Phases (any failed check raises, so the script exits non-zero):
    each, 2^22 packets as device batches, flushed and estimated: each
    rank's B9 with its lane base bitwise against the plain version, the
    gathered state bitwise the unsharded sketch's on the card, B9 and B10
-   launches per rank.
+   launches per rank; (e) model-axis parallel training on a (1, 2) mesh,
+   2 ranks sharing the card over gloo, ``make_train_step`` on the state
+   ``init_train_state`` places: llama3.2-3b at full width and
+   scout (1 layer, 8 of 16 experts: phase 13's cut), 3 steps of 8 x 128
+   each, every rank computing its vocabulary rows, heads, FF width and
+   experts; losses held to the one-process run's (phase 8's and phase
+   13's first 3, or a plain run here under ``--only sharded``), per-rank
+   state about half the one-process state, peak memory, ms a step, the
+   bytes of each named leg, one B5 round trip a step on each rank's local
+   shards.
 16. analysis — the launch analysis tools (A14). (a) The op analysis
    (launch/op_analysis.py; kernels charged through kernels/cost.py) of
    full-width llama3.2-3b's train step (phase 8's 8 x 128) and of a decode
@@ -562,16 +572,16 @@ EXAMPLE_RUNS = (
 )
 # phase 15: the sharded part. (a) compressed_psum's two full-width leaves
 # (llama3.2-3b's down gradient, xLSTM-125m's embedding), (b) the train CLI
-# at --mesh-shape 2,2 then killed at SHARD_DIE_AT (a checkpoint every step:
-# the asynchronous writer commits step 1 or 2 before the kill at the top of
+# at --mesh-shape 2,2, a checkpoint every step, killed at SHARD_DIE_AT (the
+# asynchronous writer commits step 1 or 2 before the kill at the top of
 # step 3) and restarted on 2,1, its
-# losses against 1,1: step 0's within SHARD_LOSS0_RTOL (the same parameters;
-# bf16 activations of half-batch GEMMs round otherwise), the last within
-# SHARD_LOSS_RTOL (each data rank's bf16 gradient rounded, summed in f32 and
-# rounded again, and AdamW's first steps turn the rounding of near-zero
-# gradients into +-lr moves: 1.9e-3 after 6 steps and 3.1e-3 after 4 on an
-# H100; on the CPU in f32, tests/test_torch_sharded_train.py holds the
-# same step to 1e-5), (c)
+# losses before the kill against 1,1: step 0's within SHARD_LOSS0_RTOL (the
+# same parameters; bf16 activations of half-batch GEMMs round otherwise),
+# the others within SHARD_LOSS_RTOL (each data rank's bf16 gradient
+# rounded, summed in f32 and rounded again, and AdamW's first steps turn the
+# rounding of near-zero gradients into +-lr moves: 1.9e-3 after 6 steps and
+# 3.1e-3 after 4 on an H100; on the CPU in f32,
+# tests/test_torch_sharded_train.py holds the same step to 1e-5), (c)
 # llama3.2-3b on a (1,1) mesh, SHARD_LLAMA_STEPS steps, losses against the
 # plain path within SHARD_MESH_RTOL (a world of one: the same leaves in the
 # same order; bitwise on the CPU), (d) phase 7's sketch on 2 ranks
@@ -580,6 +590,19 @@ SHARD_PSUM_LEAVES = (("llama_down_grad", (8192, 3072)),
 SHARD_XLSTM_STEPS, SHARD_DIE_AT = 4, 3
 SHARD_LOSS0_RTOL, SHARD_LOSS_RTOL, SHARD_MESH_RTOL = 1e-4, 1e-2, 1e-6
 SHARD_LLAMA_STEPS, SHARD_PACKETS = 3, 1 << 22
+# (e) model-axis parallel training at (1, 2): SHARD_TP_STEPS steps, losses
+# against the one-process run's: step 0 within SHARD_TP_LOSS0_RTOL (the
+# same parameters; a split layer's bf16 partial products are rounded, summed
+# in f32 and rounded again, where one bf16 product rounds once), the rest
+# within SHARD_TP_LOSS_RTOL (those roundings move the bf16 gradients, and
+# AdamW's first steps turn the rounding of near-zero gradients into +-lr
+# moves, as in (b)); each rank's state within SHARD_TP_STATE_SHARE of half
+# the one-process state (the norms and the router are whole on each rank)
+SHARD_TP_STEPS, SHARD_TP_LOSS0_RTOL, SHARD_TP_LOSS_RTOL = 3, 1e-3, 1e-2
+SHARD_TP_STATE_SHARE = (0.45, 0.55)
+# step 0's gradient norm (the same parameters and batch) within this of the
+# one-process run's: only the bf16 roundings of the partial sums differ
+SHARD_TP_GNORM0_RTOL = 1e-3
 # what no example reaches: B7/B8 (the dequant matmul; the reference's only
 # caller is its benchmark folder) and B10 (the estimate table: the sketch's
 # query gathers grid_lut[state[rows, idx]] itself, as the reference's does,
@@ -1595,24 +1618,18 @@ def attention_digest(dev, fmt_name="f2p_sr_2_8s") -> str:
     return h.hexdigest()
 
 
-def check_attention(dev, fmt_name="f2p_sr_2_8s"):
+def attention_parity(dev, fmt_name="f2p_sr_2_8s") -> dict:
     """B1 and B2 at the serving decode shape (8 rows x 8 kv heads, G = 3,
-    head_dim 128, kv_len 512..1024 over 8-token pages), held to their
-    plain versions (rtol = atol = 1e-5) and to each other (bitwise), also
-    for a causal multi-query call and a page table cut to the live span;
-    then timed: ``ms`` with CUDA events around the wrapper in a loop (the
-    host included), ``device_ms`` (the kernel alone, torch.profiler, the
-    slabs L2-resident as in that loop), ``cold_ms`` (the kernel alone with
-    the L2 flushed by a 64 MB write before each launch: in serving the 28
-    layers' pools far exceed the 50 MB L2), SDPA on K/V dequantized up
-    front as the yardstick, the bound, the plan's split and CTA counts and
-    the device kernels per call."""
+    head_dim 128, kv_len 512..1024 over 8-token pages, generator seed 2):
+    paged == dense over the gathered pages, bitwise, for decode, for a
+    page table cut to the live span and for a causal multi-query call, the
+    last also within rtol = atol = 1e-5 of the plain paged version. Runs
+    the plain versions on the CPU (tests/test_torch_paged_parity.py).
+    Returns the decode call's inputs and its output."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.core import qtensor as QT
     from repro_torch.core.formats import named_format
-    from repro_torch.kernels import cost
     from repro_torch.kernels import f2p_attention as A
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -1630,11 +1647,10 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     pages = perm[:B * maxp].reshape(B, maxp).to(torch.int32)
     dense_k = A.gather_pages_to_dense(slab_k, pages)
     dense_v = A.gather_pages_to_dense(slab_v, pages)
-    out = {}
     paged = A.attention_paged(q, slab_k, slab_v, pages, kv_len=kv_len)
     dense = A.attention_packed(q, dense_k, dense_v, kv_len=kv_len)
     assert torch.equal(paged, dense), \
-        "paged != dense-over-gathered-pages on the card"
+        f"paged != dense-over-gathered-pages on {dev}"
     span = int(-(-kv_len.max() // T))
     assert torch.equal(A.attention_paged(
         q, slab_k, slab_v, pages[:, :span].contiguous(), kv_len=kv_len),
@@ -1646,6 +1662,34 @@ def check_attention(dev, fmt_name="f2p_sr_2_8s"):
     assert torch.equal(pm, A.attention_packed(qm, dense_k, dense_v, **cm))
     torch.testing.assert_close(pm, A.attention_paged_plain(
         qm, slab_k, slab_v, pages, **cm), rtol=1e-5, atol=1e-5)
+    return dict(q=q, slab_k=slab_k, slab_v=slab_v, pages=pages,
+                dense_k=dense_k, dense_v=dense_v, kv_len=kv_len,
+                paged=paged, dense=dense, shape=(B, K, G, hd, T, S))
+
+
+def check_attention(dev, fmt_name="f2p_sr_2_8s"):
+    """B1 and B2 at the serving decode shape, held to each other (bitwise,
+    :func:`attention_parity`) and to their plain versions (rtol = atol =
+    1e-5); then timed: ``ms`` with CUDA events around the wrapper in a
+    loop (the host included), ``device_ms`` (the kernel alone,
+    torch.profiler, the slabs L2-resident as in that loop), ``cold_ms``
+    (the kernel alone with the L2 flushed by a 64 MB write before each
+    launch: in serving the 28 layers' pools far exceed the 50 MB L2), SDPA
+    on K/V dequantized up front as the yardstick, the bound, the plan's
+    split and CTA counts and the device kernels per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import f2p_attention as A
+
+    par = attention_parity(dev, fmt_name)
+    q, slab_k, slab_v, pages = (par[k] for k in ("q", "slab_k", "slab_v",
+                                                  "pages"))
+    dense_k, dense_v, kv_len = par["dense_k"], par["dense_v"], par["kv_len"]
+    paged, dense = par["paged"], par["dense"]
+    B, K, G, hd, T, S = par["shape"]
+    out = {}
 
     # bytes this call needs: live K/V words + scales of every (row, head)
     # at this format's row width, q in, out, the lens and (paged) the live
@@ -2901,6 +2945,7 @@ def train_phase(dev, launches) -> dict:
     step0 = Step0RoundTrip(model, res, ccfg)
     step_fn = make_train_step(cfg, ocfg, ccfg)
     losses, step_s, per_step, prof_res, stalls = [], [], [], None, []
+    gnorms = []
     C.reset_launches()
     torch.cuda.synchronize()
     watch = StepStalls()
@@ -2927,6 +2972,7 @@ def train_phase(dev, launches) -> dict:
             gc.collect()
         step_s.append(dt)
         losses.append(loss)
+        gnorms.append(float(m["grad_norm"]))
         stalls.append(watch.take())
         nrt = C.LAUNCHES["ef_roundtrip"] - before["ef_roundtrip"]
         nq = C.LAUNCHES["quantize"] - before["quantize"]
@@ -2965,7 +3011,8 @@ def train_phase(dev, launches) -> dict:
         f"step 1; the round trip {rt:.3f} ms device time per step")
     out = dict(arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, init_s=init_s,
-               losses=losses, step_ms=[1e3 * x for x in step_s],
+               losses=losses, grad_norms=gnorms,
+               step_ms=[1e3 * x for x in step_s],
                ms_per_step=ms, tokens_per_s=tok_s, peak_alloc_bytes=peak,
                compressed_leaves=n_comp, launches_per_step=per_step,
                stalls_per_step=stalls,
@@ -4815,7 +4862,7 @@ def moe_scout_train(dev) -> dict:
     moes = [m for m in model.modules() if isinstance(m, MOE.MoE)]
     taps = [m.register_forward_hook(on_moe) for m in moes]
     step_fn = make_train_step(cfg, ocfg, ccfg)
-    losses, step_s, drops, prof_res = [], [], [], None
+    losses, step_s, drops, prof_res, gnorms = [], [], [], None, []
     for step in range(MOE_TRAIN_STEPS):
         step_now[0] = step
         batch = {k: torch.from_numpy(v).to(dev)
@@ -4837,6 +4884,7 @@ def moe_scout_train(dev) -> dict:
             gc.collect()
         step_s.append(dt)
         losses.append(loss)
+        gnorms.append(float(m["grad_norm"]))
         n = {k: C.LAUNCHES[k] - before[k] for k in ("ef_roundtrip",
                                                     "quantize", "dequantize")}
         loads = [tap[(id(mo), step)] for mo in moes]
@@ -4877,6 +4925,7 @@ def moe_scout_train(dev) -> dict:
                adamw_temporaries=reck["adamw_temporaries"],
                state_bytes_16_experts=reck16["state"], batch=TRAIN_BATCH,
                seq=TRAIN_SEQ, capacity=cap, init_s=init_s, losses=losses,
+               grad_norms=gnorms,
                step_ms=[1e3 * x for x in step_s], ms_per_step=ms,
                tokens_per_s=tok_s, peak_alloc_bytes=peak,
                compressed_leaves=n_comp, drop_share=drops,
@@ -5646,11 +5695,12 @@ def _cli_losses(out: str) -> dict:
 
 def shard_train_cli(dev, full: bool = True, plain_losses=None) -> dict:
     """15(b): the reference launcher's own example, ``--arch xlstm_125m
-    --full --mesh-shape 2,2`` (4 ranks on the card), against a ``1,1``
-    run, or against ``plain_losses`` (phase 11(d)'s: the same arch,
-    configs, data and steps in one process) when given; then a run
-    killed by ``--die-at-step`` and restarted on ``2,1`` from the latest
-    committed step."""
+    --full --mesh-shape 2,2`` (4 ranks on the card, the model axis split),
+    a checkpoint every step and killed by ``--die-at-step``: its losses
+    before the kill against a ``1,1`` run's, or against ``plain_losses``
+    (phase 11(d)'s: the same arch, configs and data in one process) when
+    given; then restarted on ``2,1`` from the latest committed step (the
+    state split over the model axis restored onto a mesh without one)."""
     import os
     import shutil
     import tempfile
@@ -5658,38 +5708,42 @@ def shard_train_cli(dev, full: bool = True, plain_losses=None) -> dict:
     from repro_torch.train import checkpoint
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    base = ["--arch", "xlstm_125m", "--steps", str(SHARD_XLSTM_STEPS)] + (
-        ["--full"] if full else [])
+    base = ["--arch", "xlstm_125m", "--steps", str(SHARD_XLSTM_STEPS),
+            "--log-every", "1"] + (["--full"] if full else [])
     once = ["--ckpt-every", "100"]   # the final save only
     if not full:   # the CPU rehearsal: a short sequence
         base += ["--seq", "16", "--global-batch", "4"]
+    if "cuda" not in str(dev):
+        base += ["--device", "cpu"]
     work = Path(tempfile.mkdtemp(prefix="shard_cli_"))
     try:
-        runs = {}
-        shapes = (("2,2", "2,2"),) if plain_losses else (("2,2", "2,2"),
-                                                         ("1,1", "1,1"))
-        for tag, shape in shapes:
+        d = str(work / "elastic")
+        rc, out, sec = shard_cli(base + [
+            "--mesh-shape", "2,2", "--ckpt-dir", d, "--ckpt-every", "1",
+            "--die-at-step", str(SHARD_DIE_AT)], env)
+        assert rc == 42 and f"SIMULATED PREEMPTION at step {SHARD_DIE_AT}" \
+            in out, f"15(b) --die-at-step: rc {rc}"
+        lines = out.splitlines()
+        a = _cli_losses(out)
+        assert sorted(a) == list(range(SHARD_DIE_AT)), a
+        if plain_losses:
+            b, sec1 = {k: float(plain_losses[k]) for k in a}, 0.0
+        else:
             e = env
-            if not full and shape == "1,1":   # the CLI's 1,1 needs a card:
-                # the CPU rehearsal joins a world of one instead
+            if not full:   # the CLI's 1,1 needs a card: the CPU
+                # rehearsal joins a world of one instead
                 e = dict(env, RANK="0", WORLD_SIZE="1",
                          MASTER_ADDR="localhost",
                          MASTER_PORT=str(_free_port()))
-            rc, out, sec = shard_cli(base + once + [
-                "--mesh-shape", shape, "--ckpt-dir", str(work / tag)], e)
-            assert rc == 0 and out.rstrip().endswith("done."), \
-                f"15(b) --mesh-shape {shape}: rc {rc}"
-            runs[tag] = dict(losses=_cli_losses(out), seconds=sec,
-                             lines=out.splitlines())
-        if plain_losses:
-            runs["1,1"] = dict(losses={k: float(plain_losses[k]) for k in
-                                       runs["2,2"]["losses"]},
-                               seconds=0.0, lines=[])
-        first = runs["2,2"]["lines"][0]
+            rc1, out1, sec1 = shard_cli(base + once + [
+                "--mesh-shape", "1,1", "--ckpt-dir", str(work / "1,1")], e)
+            assert rc1 == 0 and out1.rstrip().endswith("done."), \
+                f"15(b) --mesh-shape 1,1: rc {rc1}"
+            b = _cli_losses(out1)
+        first = lines[0]
         assert first.startswith("backend gloo  ranks 0:"), first
-        ranks = next(x for x in runs["2,2"]["lines"] if x.startswith("ranks "))
-        a, b = runs["2,2"]["losses"], runs["1,1"]["losses"]
-        assert set(a) == set(b) and a, (a, b)
+        ranks = next(x for x in lines if x.startswith("ranks "))
+        assert set(a) <= set(b), (a, b)
         rel0 = abs(a[0] - b[0]) / abs(b[0])
         rel = max(abs(a[k] - b[k]) / abs(b[k]) for k in a)
         assert rel0 <= SHARD_LOSS0_RTOL, f"15(b) step 0 losses: {rel0}"
@@ -5698,16 +5752,9 @@ def shard_train_cli(dev, full: bool = True, plain_losses=None) -> dict:
         log(f"sharded  : 15(b) xlstm_125m (2,2) losses {a} vs (1,1) {b}"
             f"{' (phase 11(d))' if plain_losses else ''}: "
             f"step 0 rel {rel0:.2e} (limit {SHARD_LOSS0_RTOL:g}), max rel "
-            f"{rel:.2e} (limit {SHARD_LOSS_RTOL:g}); "
-            f"{runs['2,2']['seconds']:.1f} s vs {runs['1,1']['seconds']:.1f}"
-            " s wall")
+            f"{rel:.2e} (limit {SHARD_LOSS_RTOL:g}); {sec:.1f} s vs "
+            f"{sec1:.1f} s wall")
         log(f"sharded  : 15(b) {ranks}")
-        d = str(work / "elastic")
-        rc, out, sec = shard_cli(base + [
-            "--mesh-shape", "2,2", "--ckpt-dir", d, "--ckpt-every", "1",
-            "--die-at-step", str(SHARD_DIE_AT)], env)
-        assert rc == 42 and f"SIMULATED PREEMPTION at step {SHARD_DIE_AT}" \
-            in out, f"15(b) --die-at-step: rc {rc}"
         latest = checkpoint.latest_step(d)
         assert latest is not None and latest < SHARD_DIE_AT, latest
         rc2, out2, sec2 = shard_cli(base + once + [
@@ -5718,18 +5765,18 @@ def shard_train_cli(dev, full: bool = True, plain_losses=None) -> dict:
         log(f"sharded  : 15(b) killed at step {SHARD_DIE_AT} (rc 42 from "
             f"every rank), latest committed step {latest}; restarted on "
             f"(2,1): resumed from step {latest}, done ({sec2:.1f} s)")
-        return dict(losses={k: v["losses"] for k, v in runs.items()},
-                    max_rel=rel, step0_rel=rel0, seconds={k: v["seconds"]
-                                          for k, v in runs.items()},
-                    backend_line=first, ranks_line=ranks, killed_rc=rc,
-                    latest=latest, resumed=latest,
+        return dict(losses={"2,2": a, "1,1": b}, max_rel=rel, step0_rel=rel0,
+                    seconds={"2,2": sec, "1,1": sec1}, backend_line=first,
+                    ranks_line=ranks, killed_rc=rc, latest=latest,
+                    resumed=latest,
                     restart_ranks=next(x for x in out2.splitlines()
                                        if x.startswith("ranks ")))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def shard_mesh_llama(dev, cfg, backend: str, plain_losses=None) -> dict:
+def shard_mesh_llama(dev, cfg, backend: str, plain_losses=None,
+                     plain_gnorms=None) -> dict:
     """15(c): ``cfg`` trained SHARD_LLAMA_STEPS steps on a (1, 1)
     DeviceMesh of a world of one (``backend``): DTensor parameters, moments
     and residuals, the sharded step with B5's round trip on the local
@@ -5745,8 +5792,7 @@ def shard_mesh_llama(dev, cfg, backend: str, plain_losses=None) -> dict:
     from repro_torch.data import host_batch
     from repro_torch.kernels import cuda as C
     from repro_torch.launch.mesh import compat_make_mesh
-    from repro_torch.launch.shardings import (rules_for, shard_state,
-                                              train_state_specs)
+    from repro_torch.launch.shardings import rules_for, train_state_specs
     from repro_torch.models.sharding import logical_rules
     from repro_torch.train import init_train_state, make_train_step
 
@@ -5757,17 +5803,19 @@ def shard_mesh_llama(dev, cfg, backend: str, plain_losses=None) -> dict:
     try:
         paths = ("plain", "mesh") if plain_losses is None else ("mesh",)
         for path in paths:
-            state = init_train_state(cfg, ocfg, ccfg, seed=0, device=dev)
-            ctx = contextlib.nullcontext()
+            ctx, shardings = contextlib.nullcontext(), None
             if path == "mesh":
                 mesh = compat_make_mesh((1, 1), ("data", "model"), dev)
                 rules = rules_for(cfg, mesh, "train_4k")
-                shard_state(state, train_state_specs(cfg, ocfg, ccfg, mesh,
-                                                     rules)[0])
-                assert isinstance(state["params"].embed, DTensor)
+                shardings = train_state_specs(cfg, ocfg, ccfg, mesh,
+                                              rules)[0]
                 ctx = logical_rules(rules, mesh)
+            state = init_train_state(cfg, ocfg, ccfg, seed=0, device=dev,
+                                     shardings=shardings)
+            assert isinstance(state["params"].embed, DTensor) == (
+                path == "mesh")
             step_fn = make_train_step(cfg, ocfg, ccfg)
-            losses, ms, rts = [], [], []
+            losses, gnorms, ms, rts = [], [], [], []
             with ctx:
                 for step in range(SHARD_LLAMA_STEPS):
                     batch = {k: torch.from_numpy(v).to(dev)
@@ -5777,13 +5825,15 @@ def shard_mesh_llama(dev, cfg, backend: str, plain_losses=None) -> dict:
                     t = time.perf_counter()
                     state, m = step_fn(state, batch)
                     losses.append(float(m["loss"]))
+                    gnorms.append(float(m["grad_norm"]))
                     sync(dev)
                     ms.append(1e3 * (time.perf_counter() - t))
                     rts.append(_launch_deltas(before, ("ef_roundtrip",))[
                         "ef_roundtrip"])
             if torch.device(dev).type == "cuda":
                 assert rts == [1] * SHARD_LLAMA_STEPS, f"15(c) {path}: {rts}"
-            out[path] = dict(losses=losses, step_ms=ms, roundtrips=rts)
+            out[path] = dict(losses=losses, grad_norms=gnorms, step_ms=ms,
+                             roundtrips=rts)
             del state, step_fn
             gc.collect()
             if torch.device(dev).type == "cuda":
@@ -5791,7 +5841,8 @@ def shard_mesh_llama(dev, cfg, backend: str, plain_losses=None) -> dict:
     finally:
         dist.destroy_process_group()
     if plain_losses is not None:
-        out["plain"] = dict(losses=list(plain_losses), from_phase=8)
+        out["plain"] = dict(losses=list(plain_losses),
+                            grad_norms=list(plain_gnorms), from_phase=8)
     a, b = out["mesh"]["losses"], out["plain"]["losses"]
     assert len(a) == len(b) == SHARD_LLAMA_STEPS, (a, b)
     rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
@@ -5809,17 +5860,240 @@ def shard_mesh_llama(dev, cfg, backend: str, plain_losses=None) -> dict:
     return out
 
 
+def _tp_batches(dcfg, dev, steps: int) -> list:
+    import torch
+
+    from repro_torch.data import host_batch
+
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in host_batch(dcfg, step).items()}
+            for step in range(steps)]
+
+
+def tp_ranks(rank, world, dev, specs) -> list:
+    """15(e)'s runs on one rank, one after the other: :func:`tp_rank` of
+    each ``(cfg, arch, total_steps, batch, seq)``, the card's cached
+    blocks handed back between them."""
+    out = []
+    for spec in specs:
+        out.append(tp_rank(rank, world, dev, *spec))
+        gc_cuda()
+    return out
+
+
+def tp_rank(rank, world, dev, cfg, arch, total_steps, batch, seq,
+            steps=SHARD_TP_STEPS) -> dict:
+    """15(e) on one rank of a (1, world) mesh sharing the card: ``cfg``
+    trained ``steps`` steps through ``make_train_step`` on the state
+    ``init_train_state`` places, the train CLI's configs for
+    ``arch`` over ``total_steps`` (the one-process run's), ``batch`` x
+    ``seq`` tokens a step (the whole batch: one data rank). Returns the
+    losses, ms a step (host clock, synced), this rank's state bytes and
+    peak allocated bytes, its legs a step (calls, bytes; the steps after
+    the first), the split and its B5 round trips."""
+    import torch
+
+    from repro_torch.kernels import cuda as C
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.launch.shardings import (rules_for, split_plan,
+                                              train_state_specs)
+    from repro_torch.launch.train import local_state_bytes
+    from repro_torch.launch.train import train_configs as cli_configs
+    from repro_torch.models.sharding import logical_rules
+    from repro_torch.train import init_train_state, make_train_step
+
+    ocfg, ccfg, dcfg, _ = cli_configs(cfg, arch=arch, steps=total_steps,
+                                      global_batch=batch, seq=seq)
+    mesh = compat_make_mesh((1, world), ("data", "model"), dev)
+    rules = rules_for(cfg, mesh, "train_4k")
+    shardings, _ = train_state_specs(cfg, ocfg, ccfg, mesh, rules)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, ocfg, ccfg, seed=0, device=dev,
+                             shardings=shardings)
+    step_fn = make_train_step(cfg, ocfg, ccfg)
+    batches = _tp_batches(dcfg, dev, steps)
+    C.reset_launches()
+    losses, gnorms, ms = [], [], []
+    with logical_rules(rules, mesh):
+        for step, b in enumerate(batches):
+            if step == 1:
+                M.reset_legs()
+            sync(dev)
+            t = time.perf_counter()
+            state, m = step_fn(state, b)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t))
+    from repro_torch.optim.compress import compressed_leaves
+    from repro_torch.train.step import ef_border_split, ef_local_split
+
+    res = state["residuals"]
+    aligned, gathered = ef_local_split(res, compressed_leaves(
+        dict(state["params"].named_parameters()), res, ccfg,
+        len(cfg.pattern)), ccfg.block)
+    bordered, gathered = ef_border_split(res, gathered, ccfg.block)
+    n = max(steps - 1, 1)
+    return dict(losses=losses, grad_norms=gnorms, step_ms=ms,
+                gathered=gathered, bordered=bordered,
+                roundtrip_calls=bool(aligned or bordered) + bool(gathered),
+                state_bytes=local_state_bytes(state),
+                peak_bytes=(torch.cuda.max_memory_allocated()
+                            if torch.device(dev).type == "cuda" else 0),
+                legs={k: (c // n, b // n) for k, (c, b) in
+                      sorted(M.LEGS.items())},
+                split=split_plan(cfg, dict(
+                    state["params"].named_parameters()))["kinds"],
+                roundtrips=C.LAUNCHES["ef_roundtrip"])
+
+
+def tp_plain_run(dev, cfg, arch, total_steps, batch, seq,
+                 steps=SHARD_TP_STEPS) -> tuple:
+    """(losses, gradient norms) of the one-process run 15(e) is held to,
+    where no earlier phase gave them (``--only sharded``): the same
+    configs, seed and batches."""
+    from repro_torch.launch.train import train_configs as cli_configs
+    from repro_torch.train import init_train_state, make_train_step
+
+    ocfg, ccfg, dcfg, _ = cli_configs(cfg, arch=arch, steps=total_steps,
+                                      global_batch=batch, seq=seq)
+    state = init_train_state(cfg, ocfg, ccfg, seed=0, device=dev)
+    step_fn = make_train_step(cfg, ocfg, ccfg)
+    losses, gnorms = [], []
+    for b in _tp_batches(dcfg, dev, steps):
+        state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    del state, step_fn
+    gc_cuda()
+    return losses, gnorms
+
+
+def one_process_state_bytes(cfg, ccfg) -> int:
+    """The bytes :func:`launch.train.local_state_bytes` counts for ``cfg``
+    in one process: parameters, f32 moments and residuals."""
+    from repro_torch.models.model import Model
+
+    r = train_state_bytes(cfg, ccfg)
+    grads = sum(p.numel() * p.element_size()
+                for p in Model(cfg, "meta").parameters())
+    return r["state"] - grads
+
+
+def shard_tp(dev, runs, world=2) -> dict:
+    """15(e): each of ``runs`` (``(tag, cfg, arch, total steps, batch,
+    seq, the one-process run's (losses, gradient norms) or None)``)
+    trained on ``world`` spawned ranks of a (1, world) mesh sharing the
+    card, held to the one-process run; returns each run's ranks and
+    checks."""
+    from repro_torch.launch.shardings import split_text
+    from repro_torch.launch.train import train_configs as cli_configs
+
+    plains = [plain or tp_plain_run(dev, cfg, arch, total, batch, seq)
+              for _, cfg, arch, total, batch, seq, plain in runs]
+    gc_cuda()
+    t = time.perf_counter()
+    by_rank = spawn_ranks(tp_ranks, world, dev,
+                          [r[1:6] for r in runs])   # one spawn for all runs
+    wall = time.perf_counter() - t
+    out = {}
+    for i, (tag, cfg, arch, total, batch, seq, _) in enumerate(runs):
+        want, want_gn = plains[i]
+        ranks = [r[i] for r in by_rank]
+        got = ranks[0]["losses"]
+        assert all(r["losses"] == got for r in ranks), \
+            f"15(e) {tag}: the ranks' losses differ"
+        assert all(math.isfinite(x) for x in got), got
+        rel0 = abs(got[0] - want[0]) / abs(want[0])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        assert rel0 <= SHARD_TP_LOSS0_RTOL, f"15(e) {tag} step 0: {rel0}"
+        gn = ranks[0]["grad_norms"][0]
+        gn_rel = abs(gn - want_gn[0]) / abs(want_gn[0])
+        assert gn_rel <= SHARD_TP_GNORM0_RTOL, \
+            f"15(e) {tag} step 0 gradient norm: {gn} vs {want_gn[0]}"
+        assert rel <= SHARD_TP_LOSS_RTOL, f"15(e) {tag} losses: {rel}"
+        _, ccfg, _, _ = cli_configs(cfg, arch=arch, steps=total)
+        whole = one_process_state_bytes(cfg, ccfg)
+        shares = [r["state_bytes"] / whole for r in ranks]
+        lo, hi = SHARD_TP_STATE_SHARE
+        assert all(lo <= x <= hi for x in shares), f"15(e) {tag}: {shares}"
+        split = ranks[0]["split"]
+        assert all(split.values()), f"15(e) {tag}: {split}"
+        assert "train.param_all_gather" not in ranks[0]["legs"], \
+            ranks[0]["legs"]
+        # one B5 round trip a step on the local shards (those whose blocks
+        # straddle the ranks' border extended by their neighbours'
+        # columns), and one more on the whole leaves narrower than a
+        # block a rank (C26)
+        rts = [r["roundtrips"] for r in ranks]
+        if "cuda" in str(dev):
+            want_rt = [SHARD_TP_STEPS * r["roundtrip_calls"] for r in ranks]
+            assert rts == want_rt, f"15(e) {tag}: {rts} != {want_rt}"
+        steady = [sorted(r["step_ms"][1:])[len(r["step_ms"][1:]) // 2]
+                  for r in ranks]
+        out[tag] = dict(arch=cfg.name, layers=cfg.n_layers,
+                        experts=cfg.n_experts, losses=got, one_process=want,
+                        step0_rel=rel0, max_rel=rel,
+                        grad_norms=ranks[0]["grad_norms"],
+                        one_process_grad_norms=want_gn, gnorm0_rel=gn_rel,
+                        whole_state=whole,
+                        state_bytes=[r["state_bytes"] for r in ranks],
+                        state_share=shares,
+                        peak_bytes=[r["peak_bytes"] for r in ranks],
+                        step_ms=[r["step_ms"] for r in ranks],
+                        ms_per_step=steady, legs=ranks[0]["legs"],
+                        split=split, roundtrips=rts,
+                        roundtrip_gathered=ranks[0]["gathered"],
+                        roundtrip_bordered=ranks[0]["bordered"])
+        gib = 1e9
+        log(f"sharded  : 15(e) {cfg.name} ({cfg.n_layers} layers"
+            + (f", {cfg.n_experts} experts" if cfg.n_experts else "")
+            + f") on (1,{world}), {world} ranks sharing the card: "
+            f"{split_text(dict(model=world, kinds=split))}; losses {got} vs "
+            f"one process {want}: step 0 rel {rel0:.2e} (limit "
+            f"{SHARD_TP_LOSS0_RTOL:g}), max rel {rel:.2e} (limit "
+            f"{SHARD_TP_LOSS_RTOL:g}); step 0 gradient norm {gn:.6g} vs "
+            f"{want_gn[0]:.6g}, rel {gn_rel:.2e} (limit "
+            f"{SHARD_TP_GNORM0_RTOL:g})")
+        log(f"sharded  : 15(e) {cfg.name}: state per rank "
+            f"{[round(r['state_bytes'] / gib, 2) for r in ranks]} GB of "
+            f"{whole / gib:.2f} in one process "
+            f"({[round(x, 4) for x in shares]}); peak per rank "
+            f"{[round(r['peak_bytes'] / gib, 2) for r in ranks]} GB; ms a "
+            f"step {[[round(x, 1) for x in r['step_ms']] for r in ranks]}; "
+            f"B5 round trips {rts} (across the border: "
+            f"{ranks[0]['bordered'] or 'none'}; on the whole leaf, C26: "
+            f"{ranks[0]['gathered'] or 'none'})")
+        log(f"sharded  : 15(e) {cfg.name} legs a step (rank 0: calls, "
+            f"bytes): " + ", ".join(f"{k} {c} {b}" for k, (c, b) in
+                                    ranks[0]["legs"].items()))
+    log(f"sharded  : 15(e) {len(runs)} runs on one spawn of {world} ranks: "
+        f"{wall:.1f} s wall")
+    out["wall_s"] = wall
+    return out
+
+
 def sharded_phase(dev, *, psum_leaves=None, sketch_kw=None,
                   packets=SHARD_PACKETS, flows=N_FLOWS, batch=BATCH,
                   llama_cfg=None, full_xlstm=True, mesh_backend="nccl",
-                  plain_losses=None, xlstm_losses=None) -> dict:
+                  plain_losses=None, plain_gnorms=None, xlstm_losses=None,
+                  scout_run=None, tp_runs=None) -> dict:
     """Phase 15: (a) compressed_psum on 2 ranks sharing the card, (b) the
     sharded CLI and its elastic restart, (c) llama3.2-3b on a (1,1) mesh,
-    (d) the row-sharded sketch. Each part's launch counts are read from
-    its own processes, counted from 0 before it runs. ``plain_losses``:
-    phase 8's first losses, which (c) holds its mesh run to instead of
+    (d) the row-sharded sketch, (e) model-axis parallel training of
+    llama3.2-3b and scout on (1,2). Each part's launch counts are read
+    from its own processes, counted from 0 before it runs.
+    ``plain_losses`` / ``plain_gnorms``: phase 8's first losses and
+    gradient norms, which (c) and (e) hold their runs to instead of
     training the plain path again; ``xlstm_losses``: phase 11(d)'s, which
-    (b) holds its (2,2) run to instead of a (1,1) run."""
+    (b) holds its (2,2) run to instead of a (1,1) run; ``scout_run``:
+    phase 13's first (losses, gradient norms), which (e) holds scout to;
+    ``tp_runs``: (e)'s runs in place of the full-width ones (the CPU
+    rehearsal)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -5828,7 +6102,12 @@ def sharded_phase(dev, *, psum_leaves=None, sketch_kw=None,
     from repro_torch.sketch import F2PSketch, SketchConfig
 
     t0 = time.perf_counter()
-    out, launches = {}, {}
+    out, launches, parts = {}, {}, {}
+
+    def part(name):
+        parts[name] = round(time.perf_counter() - t0 - sum(parts.values()),
+                            1)
+
     # (a)
     leaves = psum_leaves or SHARD_PSUM_LEAVES
     ranks = spawn_ranks(psum_rank, 2, dev, leaves)
@@ -5856,14 +6135,17 @@ def sharded_phase(dev, *, psum_leaves=None, sketch_kw=None,
             f"the f32 mean {u['max_abs_err']:.3e} (within the codec bound)")
     log(f"sharded  : 15(a) legs staged through host memory by design "
         f"(gloo moves CPU tensors): {', '.join(out['host_staged'])}")
+    part("a")
     # (b)
     out["cli"] = shard_train_cli(dev, full=full_xlstm,
                                  plain_losses=xlstm_losses)
+    part("b")
     # (c)
     cfg = llama_cfg or full_config(ARCH)
     out["mesh_llama"] = shard_mesh_llama(dev, cfg, mesh_backend,
-                                         plain_losses)
+                                         plain_losses, plain_gnorms)
     launches["ef_roundtrip"] = sum(out["mesh_llama"]["mesh"]["roundtrips"])
+    part("c")
     # (d)
     skw = sketch_kw or SKETCH
     ranks = spawn_ranks(sketch_rank, 2, dev, skw, packets, flows, batch)
@@ -5892,6 +6174,23 @@ def sharded_phase(dev, *, psum_leaves=None, sketch_kw=None,
         f"launches per rank (B9, B10) "
         f"{[tuple(r['launches'].values()) for r in ranks]}; "
         f"{[round(r['seconds'], 2) for r in ranks]} s per rank")
+    del ref, trace
+    part("d")
+    # (e)
+    if tp_runs is None:
+        scout = full_config(MOE_ARCHS[0])
+        scout = dataclasses.replace(scout, n_layers=len(scout.pattern),
+                                    n_experts=MOE_TRAIN_EXPERTS)
+        plain = out["mesh_llama"]["plain"]
+        tp_runs = (("llama", cfg, ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                    (plain["losses"], plain["grad_norms"])),
+                   ("scout", scout, MOE_ARCHS[0], MOE_TRAIN_STEPS,
+                    TRAIN_BATCH, TRAIN_SEQ, scout_run))
+    out["tp"] = shard_tp(dev, tp_runs)
+    launches["ef_roundtrip"] += sum(sum(r["roundtrips"])
+                                    for t, r in out["tp"].items()
+                                    if t != "wall_s")
+    part("e")
     for k in ("quantize", "dequantize", "quantize_packed",
               "dequantize_packed", "ef_roundtrip", "counter_advance",
               "counter_estimate"):
@@ -5899,7 +6198,9 @@ def sharded_phase(dev, *, psum_leaves=None, sketch_kw=None,
             f"phase 15 never launched {k}"
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
-    log(f"sharded  : phase 15 in {out['seconds']:.1f} s; launches {launches}")
+    out["seconds_by_part"] = parts
+    log(f"sharded  : phase 15 in {out['seconds']:.1f} s ({parts}); "
+        f"launches {launches}")
     return out
 
 
@@ -5917,8 +6218,15 @@ def sharded_summary(sh: dict) -> dict:
                 mesh_losses=sh["mesh_llama"]["mesh"]["losses"],
                 plain_losses=sh["mesh_llama"]["plain"]["losses"],
                 mesh_step_ms=sh["mesh_llama"]["mesh"]["step_ms"],
-                sketch=sh["sketch"], launches=sh["launches"],
-                seconds=sh["seconds"])
+                sketch=sh["sketch"],
+                tp={t: {k: r[k] for k in (
+                    "arch", "layers", "experts", "losses", "one_process",
+                    "step0_rel", "max_rel", "whole_state", "state_bytes",
+                    "state_share", "peak_bytes", "ms_per_step", "legs",
+                    "split", "roundtrips", "roundtrip_gathered",
+                    "roundtrip_bordered")}
+                    if t != "wall_s" else r for t, r in sh["tp"].items()},
+                launches=sh["launches"], seconds=sh["seconds"])
 
 
 # ---------------------------------------------------------------------------
@@ -6771,7 +7079,10 @@ def main():
     # data and steps), as 15(c) to phase 8's: no (1,1) CLI run again
     sh_res = sharded_phase(
         dev, plain_losses=train_res["losses"][:SHARD_LLAMA_STEPS],
-        xlstm_losses=rec_res["train"]["losses"])
+        plain_gnorms=train_res["grad_norms"][:SHARD_LLAMA_STEPS],
+        xlstm_losses=rec_res["train"]["losses"],
+        scout_run=(mt_res["scout"]["losses"][:SHARD_TP_STEPS],
+                   mt_res["scout"]["grad_norms"][:SHARD_TP_STEPS]))
     mark("15 sharded")
     an_res = analysis_phase(dev)
     mark("16 analysis")

@@ -20,8 +20,12 @@ runs on a device. ``compile_s`` is the seconds the traced step took.
 
 - train: ``make_train_step`` on the train state sharded by the
   reference's rules (``train_state_specs`` / ``shard_state``), with the
-  rank's slice of the data axes: the sharded step gathers the parameters
-  and all-reduces the gradients over the data axes (C24).
+  rank's slice of the data axes: the sharded step computes each split
+  layer's part on the model axis (``launch.shardings.split_plan``; its
+  leaves stay local), gathers the leaves of the layer kinds that compute
+  whole, and all-reduces the gradients over the data axes. The record's
+  ``placement`` and ``model_split`` name the kinds that split and those
+  that compute whole.
 - prefill / decode: the reference's inline ``prefill`` and
   ``decode_step`` + argmax, run as the sharded trainer runs: the rank
   gathers the parameters (sharded by ``params_specs``), computes its
@@ -53,16 +57,17 @@ def _mesh_name(mesh) -> str:
     return "x".join(str(s) for s in mesh.mesh.shape)
 
 
-def _data_slice(mesh, gbatch: int):
-    """(rows this rank computes, placement text)."""
+def _data_slice(mesh, gbatch: int, split: str | None = None):
+    """(rows this rank computes, placement text); ``split``: the train
+    cell's model-axis split (``launch.shardings.split_text``)."""
     from repro_torch.launch.mesh import data_axes, mesh_shape
 
     sizes = mesh_shape(mesh)
     d = math.prod(sizes[a] for a in data_axes(mesh))
     if gbatch % d == 0:
+        model = split or f"the model axis ({sizes['model']}) replicated"
         return gbatch // d, (f"data parallel: {gbatch // d} of {gbatch} "
-                                f"rows a rank over {d} data ranks, the "
-                                f"model axis ({sizes['model']}) replicated")
+                                f"rows a rank over {d} data ranks, {model}")
     return gbatch, (f"whole batch ({gbatch} rows) on rank 0: it does not "
                        f"split over {d} data ranks, no context parallelism")
 
@@ -83,29 +88,16 @@ def _step_inputs(cfg, shape_name: str, rows: int) -> dict:
             for k, v in input_specs(cfg, shape_name).items()}
 
 
-def _uninit_train_state(cfg, ccfg, device="cpu") -> dict:
-    """``train.init_train_state``'s tree on an uninitialised ``Model``
-    (under a ``FakeTensorMode``: shapes only)."""
-    from repro_torch.models.model import Model
-    from repro_torch.optim import adamw
-    from repro_torch.optim.compress import init_residuals
-
-    model = Model(cfg, device=device)
-    model.requires_grad_(True)
-    return {"params": model, "opt": adamw.init_state(model),
-            "residuals": init_residuals(model, ccfg, len(cfg.pattern))}
-
-
 def _train_cell(cfg, mesh, rules, batch):
     from repro_torch.launch.op_analysis import analyze
-    from repro_torch.launch.shardings import shard_state, train_state_specs
+    from repro_torch.launch.shardings import train_state_specs
     from repro_torch.optim import AdamWConfig, CompressionConfig
-    from repro_torch.train import make_train_step
+    from repro_torch.train import init_train_state, make_train_step
 
     ocfg, ccfg = AdamWConfig(), CompressionConfig(enabled=True)
-    state = _uninit_train_state(cfg, ccfg)
-    shardings, _ = train_state_specs(cfg, ocfg, ccfg, mesh, rules)
-    shard_state(state, shardings)
+    state = init_train_state(cfg, ocfg, ccfg, seed=None, device="cpu",
+                             shardings=train_state_specs(
+                                 cfg, ocfg, ccfg, mesh, rules)[0])
     step = make_train_step(cfg, ocfg, ccfg)
     _, counts = analyze(step, state, batch, fake=True)
     return counts
@@ -191,8 +183,8 @@ def device_cell(arch: str, kind: str, rows: int, seq: int, *,
 
         ocfg, ccfg, _, _ = train_configs(cfg, arch=arch, steps=8,
                                          global_batch=rows, seq=seq)
-        state = (_uninit_train_state(cfg, ccfg, device) if fake else
-                 init_train_state(cfg, ocfg, ccfg, seed=0, device=device))
+        state = init_train_state(cfg, ocfg, ccfg, seed=None if fake else 0,
+                                 device=device)
         batch = {"tokens": tokens((rows, seq)), "labels": tokens((rows, seq))}
         return make_train_step(cfg, ocfg, ccfg), (state, batch)
     model = Model(cfg, device=device) if fake else init_params(
@@ -217,7 +209,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, quantized_kv=False,
     head-sharded attention, chunked attention)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.launch.shardings import rules_for
+    from repro_torch.launch.shardings import (params_specs, rules_for,
+                                              split_plan, split_text)
     from repro_torch.models.sharding import logical_rules
 
     cfg = cfg or full_config(arch)
@@ -227,7 +220,10 @@ def lower_cell(arch: str, shape_name: str, mesh, *, quantized_kv=False,
     seq, gbatch, kind = SHAPES[shape_name]
     rules = rules_for(cfg, mesh, shape_name)
     n_dev = mesh.size()
-    rows, placement = _data_slice(mesh, gbatch)
+    plan = (split_plan(cfg, params_specs(cfg, mesh, rules)[0])
+            if kind == "train" else None)
+    rows, placement = _data_slice(mesh, gbatch,
+                                  plan and split_text(plan))
     with FakeTensorMode(allow_non_fake_inputs=True), \
             logical_rules(rules, mesh):
         batch = _step_inputs(cfg, shape_name, rows)
@@ -239,6 +235,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, quantized_kv=False,
     meta = dict(arch=arch, shape=shape_name, mesh=_mesh_name(mesh),
                 kind=kind, seq=seq, global_batch=gbatch, n_devices=n_dev,
                 quantized_kv=quantized_kv, placement=placement)
+    if plan is not None:
+        meta["model_split"] = plan["kinds"]
     return counts, cfg, meta
 
 

@@ -18,7 +18,9 @@ Collectives: :func:`all_reduce`, :func:`reduce_scatter` and
 (the port's CPU ranks, and ranks that share one card, which NCCL refuses),
 so on gloo a CUDA tensor's leg is staged through host memory by design:
 the tensor is copied to the host, reduced or gathered there and copied
-back. Each staged leg is named once in :data:`HOST_STAGED`.
+back. Each staged leg is named once in :data:`HOST_STAGED`, and every leg
+counts its calls and the bytes this rank hands to it in :data:`LEGS`
+(the model-axis collectives of ``models.parallel`` run on these legs).
 """
 from __future__ import annotations
 
@@ -31,6 +33,18 @@ import torch.distributed as dist
 
 # names of the legs staged through host memory (gloo + CUDA tensors)
 HOST_STAGED: set[str] = set()
+# leg name -> [calls, bytes handed to the collective by this rank]
+LEGS: dict[str, list[int]] = {}
+
+
+def reset_legs() -> None:
+    LEGS.clear()
+
+
+def _count(t: torch.Tensor, leg: str) -> None:
+    rec = LEGS.setdefault(leg, [0, 0])
+    rec[0] += 1
+    rec[1] += t.numel() * t.element_size()
 
 
 def rank_device(device=None) -> torch.device:
@@ -123,20 +137,23 @@ def mesh_shape(mesh) -> dict[str, int]:
 # Collectives (host-staged on gloo for CUDA tensors)
 # ---------------------------------------------------------------------------
 def _staged(t: torch.Tensor, group, leg: str) -> bool:
+    _count(t, leg)
     if t.device.type != "cuda" or dist.get_backend(group) != "gloo":
         return False
     HOST_STAGED.add(leg)
     return True
 
 
-def all_reduce(t: torch.Tensor, group=None, leg: str = "all_reduce"):
-    """Sum ``t`` over ``group`` in place; returns ``t``."""
+def all_reduce(t: torch.Tensor, group=None, leg: str = "all_reduce",
+               op=dist.ReduceOp.SUM):
+    """Reduce ``t`` over ``group`` in place (a sum, or ``op``); returns
+    ``t``."""
     if _staged(t, group, leg):
         h = t.cpu()
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=op, group=group)
         t.copy_(h)
         return t
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -169,3 +186,4 @@ def all_gather(t: torch.Tensor, group=None, leg: str = "all_gather"):
         dist.all_gather_into_tensor(out, raw, group=group)
     out = out if raw is src else out.view(src.dtype)
     return out.to(t.device) if staged else out
+

@@ -22,8 +22,8 @@ from torch import nn
 from repro_torch.launch import mesh as M
 from repro_torch.launch.mesh import data_axes, mesh_shape
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import (NamedSharding, _names, make_rules,
-                                         param_specs)
+from repro_torch.models.sharding import (SPLIT_KINDS, NamedSharding, _names,
+                                         leaf_kind, make_rules, param_specs)
 
 # cache leaf name -> logical axes (leading group dim added automatically).
 # A packed KV cache holds QTensors under "k"/"v": words [G, B, S, K, W] and
@@ -177,16 +177,68 @@ def caches_specs(cfg: ModelConfig, batch: int, max_seq: int, mesh, rules, *,
     return shardings, specs
 
 
+def _counts_divide(cfg: ModelConfig, kind: str, m: int) -> bool:
+    """The head counts a split kind also needs to divide (a weight's width
+    can divide where its heads do not: 24 heads of 128 at m = 16)."""
+    if kind == "heads":
+        return cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+    if kind == "mlstm":
+        return cfg.n_heads % m == 0
+    return True
+
+
+def split_plan(cfg: ModelConfig, placed: dict) -> dict:
+    """What a model rank computes split, read from where the parameters
+    lie: ``placed`` maps each parameter's name to its DTensor, or to the
+    :class:`NamedSharding` it is placed on. Returns ``{"model": m, "kinds":
+    {kind: split?}, "local": [names]}`` for the layer kinds ``cfg`` has
+    (``models.sharding.SPLIT_KINDS``). A kind computes split when the
+    model axis has more than one rank, a leaf of the kind is sharded over
+    it and the kind's head counts divide it; the leaves of a split kind
+    that are sharded over "model" are ``local`` (the sharded step keeps
+    this rank's extent over the model axis, whole over the data axes). A
+    kind that does not split gathers its leaves and computes whole."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    m, kinds, on_model = 1, {}, []
+    for n, x in placed.items():
+        mesh = x.device_mesh if isinstance(x, DTensor) else x.mesh
+        names = mesh.mesh_dim_names
+        i = names.index("model") if "model" in names else None
+        m = 1 if i is None else mesh.size(i)
+        kind = leaf_kind(n, cfg)
+        if kind is None:
+            continue
+        on = m > 1 and isinstance(x.placements[i], Shard)
+        kinds[kind] = kinds.get(kind, False) or on
+        if on:
+            on_model.append((n, kind))
+    kinds = {k: kinds[k] and _counts_divide(cfg, k, m) for k in SPLIT_KINDS
+             if k in kinds}
+    return dict(model=m, kinds=kinds,
+                local=sorted(n for n, k in on_model if kinds[k]))
+
+
+def split_text(plan: dict) -> str:
+    """``split heads ff ...; whole ...``: the kinds a model rank computes
+    split and those it computes whole (every kind whole on m = 1)."""
+    split = " ".join(k for k, v in plan["kinds"].items() if v)
+    whole = " ".join(k for k, v in plan["kinds"].items() if not v)
+    return (f"model axis {plan['model']}: split {split or '(none)'}; "
+            f"whole {whole or '(none)'}")
+
+
 # ---------------------------------------------------------------------------
 # DTensor plumbing
 # ---------------------------------------------------------------------------
-def _local(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+def _local(full: torch.Tensor, mesh, placements, dims=None) -> torch.Tensor:
     from torch.distributed.tensor import Shard
 
     coord = mesh.get_coordinate()
     out = full
     for i, p in enumerate(placements):
-        if not isinstance(p, Shard):
+        if not isinstance(p, Shard) or (
+                dims is not None and mesh.mesh_dim_names[i] not in dims):
             continue
         n = mesh.size(i)
         if out.shape[p.dim] % n:
@@ -196,31 +248,40 @@ def _local(full: torch.Tensor, mesh, placements) -> torch.Tensor:
     return out
 
 
-def local_slice(full: torch.Tensor, sharding) -> torch.Tensor:
+def local_slice(full: torch.Tensor, sharding, dims=None) -> torch.Tensor:
     """This rank's part of ``full`` (a view) on ``sharding`` (a
     :class:`NamedSharding` or a DTensor to match): split along each Shard
-    dim in mesh-dim order, as DTensor lays shards out."""
+    dim in mesh-dim order, as DTensor lays shards out; with ``dims`` (mesh
+    axis names) only along the shards of those axes."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(sharding, DTensor):
-        return _local(full, sharding.device_mesh, sharding.placements)
-    return _local(full, sharding.mesh, sharding.placements)
+        return _local(full, sharding.device_mesh, sharding.placements, dims)
+    return _local(full, sharding.mesh, sharding.placements, dims)
 
 
-def shard_tensor(full: torch.Tensor, sharding: NamedSharding):
+def shard_tensor(full: torch.Tensor, sharding: NamedSharding,
+                 device=None):
     """A DTensor on ``sharding`` holding this rank's slice of ``full``
-    (copied unless the slice is all of it, so ``full`` can be freed)."""
+    (copied unless the slice is all of it, so ``full`` can be freed). A
+    ``full`` on the ``meta`` device is a zero tensor's shape: the slice is
+    made as zeros on ``device``, the whole never exists."""
     from torch.distributed.tensor import DTensor
 
     loc = local_slice(full.detach(), sharding)
-    loc = loc.contiguous() if loc.numel() == full.numel() else loc.clone()
+    if full.device.type == "meta":
+        loc = torch.zeros(loc.shape, dtype=loc.dtype, device=device)
+    else:
+        loc = loc.contiguous() if loc.numel() == full.numel() else loc.clone()
     return DTensor.from_local(loc, sharding.mesh, sharding.placements,
                               run_check=False)
 
 
-def gather_full(x, leg: str = "gather_full") -> torch.Tensor:
+def gather_full(x, leg: str = "gather_full", dims=None) -> torch.Tensor:
     """The full tensor of a DTensor on every rank (all-gathers over each
-    sharded mesh dim, innermost first); a plain tensor passes."""
+    sharded mesh dim, innermost first); with ``dims`` (mesh axis names)
+    over those axes only, the others' shards kept. A plain tensor
+    passes."""
     from torch.distributed.tensor import DTensor, Shard
 
     if not isinstance(x, DTensor):
@@ -229,7 +290,8 @@ def gather_full(x, leg: str = "gather_full") -> torch.Tensor:
     mesh = x.device_mesh
     for i in reversed(range(mesh.ndim)):
         p = x.placements[i]
-        if not isinstance(p, Shard) or mesh.size(i) == 1:
+        if not isinstance(p, Shard) or mesh.size(i) == 1 or (
+                dims is not None and mesh.mesh_dim_names[i] not in dims):
             continue
         moved = out.movedim(p.dim, 0)
         got = M.all_gather(moved, mesh.get_group(i), leg=leg)
@@ -284,20 +346,23 @@ def shard_state(state, shardings: dict):
     """Place a train state ``{"params": Model, "opt", "residuals"}`` (or a
     ``Model`` alone, with ``{name: NamedSharding}``) on the mesh IN PLACE:
     each tensor with a sharding becomes a DTensor holding its local slice
-    (parameters stay Parameters with their ``requires_grad``); ``None``
-    residuals and the step stay as they are. Returns ``state``."""
+    (parameters stay Parameters with their ``requires_grad``; moments and
+    residuals on the ``meta`` device become this rank's zeros on the
+    parameters' device); ``None`` residuals and the step stay as they are.
+    Returns ``state``."""
     if isinstance(state, nn.Module):
         _shard_params(state, shardings)
         return state
     _shard_params(state["params"], shardings["params"])
+    dev = state["params"].embed.to_local().device
     for key in ("mu", "nu"):
         d = state["opt"][key]
         for name in d:
-            d[name] = shard_tensor(d[name], shardings["opt"][key][name])
+            d[name] = shard_tensor(d[name], shardings["opt"][key][name], dev)
     res = state["residuals"]
     for name, r in res.items():
         if r is not None:
-            res[name] = shard_tensor(r, shardings["residuals"][name])
+            res[name] = shard_tensor(r, shardings["residuals"][name], dev)
     return state
 
 

@@ -15,6 +15,8 @@ The flags are the reference's, and so are the defaults (``--arch
 xlstm_125m``) apart from ``--ckpt-dir``: ``<tempdir>/repro_torch_train_ckpt``
 (the reference's is ``/tmp/repro_train_ckpt``: the port's checkpoints go
 to a directory of their own, under the process's temporary directory).
+``--log-every`` (default 10, the reference's fixed interval) sets how
+often the loss is logged.
 
 ``--mesh-shape d,m`` other than ``1,1`` trains on a ("data", "model")
 DeviceMesh of d·m ranks: the launcher starts them as processes of its own
@@ -28,8 +30,11 @@ where there is none. The first line names the backend and each rank's
 device. The state is
 sharded by the reference's logical rules (``launch.shardings``); the
 step is ``train.step.sharded_train_step``. Rank 0 prints the step,
-resume and ``done.`` lines; ``--die-at-step`` exits every rank with 42,
-and the launcher then returns 42.
+resume and ``done.`` lines, then a "ranks" line (each rank's state bytes,
+peak memory and step time, and what the model axis splits) and a "legs"
+line (each named collective's calls and bytes a step); ``--die-at-step``
+logs those two lines and exits every rank with 42, and the launcher then
+returns 42.
 
 Every other config of the reference trains, the MoE family (llama4,
 jamba) included: its gradients are compressed at the bare ``"grad"``
@@ -70,6 +75,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--die-at-step", type=int, default=-1,
                     help="simulate preemption (exit hard at this step)")
     ap.add_argument("--no-compress", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="log the loss every this many steps")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the ranks run (cpu: gloo ranks on the CPU)")
     return ap.parse_args(argv)
@@ -96,10 +103,12 @@ def train_configs(cfg, *, arch: str, steps: int, global_batch: int = 8,
 
 def run(cfg, *, arch: str, steps: int, global_batch: int = 8, seq: int = 128,
         ckpt_dir: str, ckpt_every: int = 20, die_at_step: int = -1,
-        compress: bool = True, device="cuda", log=print, mesh_shape=None):
+        compress: bool = True, device="cuda", log=print, mesh_shape=None,
+        log_every: int = 10):
     """Train ``cfg`` for ``steps`` steps (resuming from ``ckpt_dir``'s
     latest committed step), checkpointing every ``ckpt_every`` steps and at
-    the end. Returns (state, info): ``info`` holds the first step run
+    the end, and logging the loss every ``log_every`` steps and at the
+    last. Returns (state, info): ``info`` holds the first step run
     (``start``), each step's metrics as floats (``history``) and seconds
     (``step_s``, device synced by reading the metrics), and the
     checkpointer's snapshot and write seconds (``ckpt``).
@@ -108,11 +117,14 @@ def run(cfg, *, arch: str, steps: int, global_batch: int = 8, seq: int = 128,
     process group this process belongs to (``init_process_group`` done by
     the caller, world size d·m); every rank calls ``run``, each takes its
     data slice of the batch, and only rank 0 logs and writes checkpoints.
-    ``info`` then also has ``mesh`` and ``state_bytes`` (this rank's bytes
-    of parameters, moments and residuals)."""
+    ``info`` then also has ``mesh``, ``split``
+    (``launch.shardings.split_plan``), ``ranks`` and ``legs``
+    (:func:`_mesh_report`) and ``state_bytes`` (this rank's bytes of
+    parameters, moments and residuals)."""
     import torch
 
     from repro_torch.data import host_batch
+    from repro_torch.launch import mesh as M
     from repro_torch.train import (checkpoint, init_train_state,
                                    make_train_step)
     from repro_torch.train.async_ckpt import AsyncCheckpointer
@@ -126,7 +138,8 @@ def run(cfg, *, arch: str, steps: int, global_batch: int = 8, seq: int = 128,
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import compat_make_mesh, mesh_shape as ms
-        from repro_torch.launch.shardings import (rules_for, shard_state,
+        from repro_torch.launch.shardings import (rules_for, split_plan,
+                                                  split_text,
                                                   train_state_specs)
         from repro_torch.models.sharding import logical_rules
 
@@ -144,10 +157,13 @@ def run(cfg, *, arch: str, steps: int, global_batch: int = 8, seq: int = 128,
     else:
         log(f"device {device}  arch {cfg.name} "
             f"({cfg.param_count() / 1e6:.1f}M params)")
-    state = init_train_state(cfg, ocfg, ccfg, seed=0, device=device)
+    shardings = (None if mesh is None else
+                 train_state_specs(cfg, ocfg, ccfg, mesh, rules)[0])
+    state = init_train_state(cfg, ocfg, ccfg, seed=0, device=device,
+                             shardings=shardings)
     if mesh is not None:
-        shardings, _ = train_state_specs(cfg, ocfg, ccfg, mesh, rules)
-        shard_state(state, shardings)
+        plan = split_plan(cfg, dict(state["params"].named_parameters()))
+        log(split_text(plan))
     start = _agreed(checkpoint.latest_step(ckpt_dir), mesh)
     if start is not None:
         state, start = checkpoint.restore(ckpt_dir, state, step=start)
@@ -166,18 +182,22 @@ def run(cfg, *, arch: str, steps: int, global_batch: int = 8, seq: int = 128,
         with ctx:
             for step in range(start, steps):
                 if step == die_at_step:
+                    if mesh is not None:   # the ranks' steps before it
+                        _mesh_report(state, seconds, dev, plan, log)
                     log(f"SIMULATED PREEMPTION at step {step}")
                     sys.stdout.flush()
                     os._exit(42)
                 batch = {k: torch.from_numpy(v).to(dev) for k, v in
                          host_batch(dcfg, step, process_index=dcoord,
                                     process_count=dsize).items()}
+                if step == start + 1:
+                    M.reset_legs()   # the legs of the steps after the first
                 t = time.perf_counter()
                 state, m = step_fn(state, batch)
                 m = {k: float(v) for k, v in m.items()}   # syncs the device
                 seconds.append(time.perf_counter() - t)
                 history.append(m)
-                if step % 10 == 0 or step == steps - 1:
+                if step % log_every == 0 or step == steps - 1:
                     log(f"step {step:4d} loss {m['loss']:.4f} "
                         f"gnorm {m['grad_norm']:.3f}")
                 if step > 0 and step % ckpt_every == 0:
@@ -191,19 +211,37 @@ def run(cfg, *, arch: str, steps: int, global_batch: int = 8, seq: int = 128,
     info = dict(start=start, history=history, step_s=seconds,
                 ckpt=ckpt.stats)
     if mesh is not None:
-        info.update(mesh=ms(mesh), ranks=_rank_stats(state, seconds, dev))
+        info.update(mesh=ms(mesh), split=plan,
+                    **_mesh_report(state, seconds, dev, plan, log))
         info["state_bytes"] = info["ranks"][rank]["state_bytes"]
-        log("ranks " + " | ".join(
-            f"{r}: state {a['state_bytes']} B, peak {a['peak_bytes']} B, "
-            f"step {a['step_ms']:.1f} ms" for r, a in enumerate(
-                info["ranks"])))
     log("done.")
     return state, info
 
 
-def _rank_stats(state, seconds: list, dev) -> list:
-    """Every rank's bytes of state, peak device bytes (0 on the CPU) and
-    median step milliseconds, gathered to all ranks."""
+def _mesh_report(state, seconds: list, dev, plan: dict, log) -> dict:
+    """``{"ranks": _rank_stats, "legs": rank 0's train legs a step (calls,
+    bytes; the steps after the first)}``, logged on a "ranks" line (each
+    rank's state, peak and step, and the model-axis split) and a "legs"
+    line. A collective: every rank calls it."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.shardings import split_text
+
+    n = max(len(seconds) - 1, 1)
+    legs = {k: (c // n, b // n) for k, (c, b) in sorted(M.LEGS.items())
+            if k.startswith("train.")}
+    ranks = _rank_stats(state, seconds, dev, legs)
+    log("ranks " + " | ".join(
+        f"{r}: state {a['state_bytes']} B, peak {a['peak_bytes']} B, "
+        f"step {a['step_ms']:.1f} ms" for r, a in enumerate(ranks))
+        + f" | {split_text(plan)}")
+    log("legs a step (rank 0: calls, bytes) " + ", ".join(
+        f"{k} {c} {b} B" for k, (c, b) in legs.items()))
+    return dict(ranks=ranks, legs=legs)
+
+
+def _rank_stats(state, seconds: list, dev, legs: dict) -> list:
+    """Every rank's bytes of state, peak device bytes (0 on the CPU),
+    median step milliseconds and legs a step, gathered to all ranks."""
     import statistics
 
     import torch
@@ -212,7 +250,8 @@ def _rank_stats(state, seconds: list, dev) -> list:
     mine = dict(state_bytes=local_state_bytes(state),
                 peak_bytes=(torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else 0),
-                step_ms=1e3 * statistics.median(seconds) if seconds else 0.0)
+                step_ms=1e3 * statistics.median(seconds) if seconds else 0.0,
+                legs=legs)
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, mine)
     return out
@@ -344,7 +383,7 @@ def _rank_main(args, shape) -> None:
             global_batch=args.global_batch, seq=args.seq,
             ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
             die_at_step=args.die_at_step, compress=not args.no_compress,
-            device=device, mesh_shape=shape)
+            device=device, mesh_shape=shape, log_every=args.log_every)
     finally:
         dist.destroy_process_group()
 
@@ -369,7 +408,8 @@ def main(argv=None) -> int:
     run(cfg, arch=args.arch, steps=args.steps,
         global_batch=args.global_batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, die_at_step=args.die_at_step,
-        compress=not args.no_compress, device=args.device)
+        compress=not args.no_compress, device=args.device,
+        log_every=args.log_every)
     return 0
 
 

@@ -25,6 +25,7 @@ from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.bits import pack_bits_np
 from repro_torch.kernels.f2p_attention import attention_packed, attention_paged
 from repro_torch.kernels.f2p_quant import f2p_kv_read, f2p_kv_write
+from repro_torch.models import parallel as TP
 from repro_torch.models.common import apply_rope
 from repro_torch.models.sharding import constrain
 
@@ -205,8 +206,8 @@ def _attend(q, k, v, cfg, *, causal, kv_len=None, q_offset=0):
     "chunked"`` and more than one query position is attended, else
     naive."""
     if cfg.opt_head_shard:
-        k = _broadcast_kv(k, cfg.n_heads)
-        v = _broadcast_kv(v, cfg.n_heads)
+        k = _broadcast_kv(k, q.shape[2])
+        v = _broadcast_kv(v, q.shape[2])
         if cfg.attn_impl == "chunked" and q.shape[1] > 1:
             return _mha_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                                 q_offset=q_offset, kv_len=kv_len)
@@ -239,16 +240,30 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
     is then one layer's pool slab (``{"k","v"}`` QTensors, codes
     ``[n_pages, page_tokens, K, words]``). The new token's KV is quantized
     and written into the slab page holding position ``pos_offset`` and
-    attention reads the slabs through the table (``attention_paged``)."""
+    attention reads the slabs through the table (``attention_paged``).
+
+    Weights holding fewer than ``cfg.n_heads`` query heads are this model
+    rank's heads (``train``, the sharded step): ``wq`` / ``wk`` / ``wv``
+    columns and ``wo`` rows of its query heads and the KV heads they read.
+    The rank attends those heads, and the partial output of ``wo`` is
+    summed over the model axis."""
     B, S, D = x.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, K = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    split = H != cfg.n_heads
+    leg = "train.tp_cross" if cross_kv is not None else "train.tp_attn"
+    if split:
+        x = TP.to_model(x, leg)
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     if cross_kv is not None:
         Se = cross_kv.shape[1]
+        if split:
+            cross_kv = TP.to_model(cross_kv, "train.tp_cross_kv")
         k = (cross_kv @ p["wk"]).reshape(B, Se, K, hd)
         v = (cross_kv @ p["wv"]).reshape(B, Se, K, hd)
         out = _attend(q, k, v, cfg, causal=False)
-        return out.reshape(B, S, H * hd) @ p["wo"], cache
+        out = out.reshape(B, S, H * hd) @ p["wo"]
+        return (TP.from_model(out, leg) if split else out), cache
     k = (x @ p["wk"]).reshape(B, S, K, hd)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
     # an int stays an int (no device round trip per layer); a [B] tensor
@@ -284,7 +299,8 @@ def attention_apply(p: dict, x, cfg, *, mode: str, cache=None, pos_offset=0,
                 out = _attend(q, kc, vc, cfg, causal=False, kv_len=pos + 1)
     else:
         raise ValueError(mode)
-    return out.reshape(B, S, H * hd) @ p["wo"], cache
+    out = out.reshape(B, S, H * hd) @ p["wo"]
+    return (TP.from_model(out, leg) if split else out), cache
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.models import parallel as TP
 from repro_torch.models.sharding import constrain
 
 
@@ -94,28 +95,70 @@ def sinusoidal_positions(seq: int, d_model: int) -> np.ndarray:
     return out
 
 
-def swiglu(x, w_gate, w_up, w_down, constrain_ff: bool = True):
+def swiglu(x, w_gate, w_up, w_down, constrain_ff: bool = True,
+           split: bool = False, leg: str = "train.tp_ff"):
     """Llama-style gated MLP. x [..., D]; w_gate/w_up [D, F]; w_down [F, D].
     ``constrain_ff`` pins the hidden activations to the "ff" axis; under
     sequence parallelism the caller passes False (the reference's
-    knob)."""
-    g = x @ w_gate
-    u = x @ w_up
+    knob).
+
+    ``split``: the weights are this model rank's rows, as the rules place
+    a stacked 2-D FF leaf (it takes the expert entry: gate / up split over
+    D, down over F). The rank multiplies its columns of x by its gate and
+    up rows, the partial products are summed over the model axis (one
+    reduction of both), and it multiplies its columns of the hidden
+    activations by its down rows, that partial output summed again."""
+    if split:
+        xl = TP.chunk_model(x, -1, leg + "_x")
+        gu = TP.from_model(torch.cat([xl @ w_gate, xl @ w_up], dim=-1),
+                          leg + "_gate_up")
+        g, u = gu.chunk(2, dim=-1)
+    else:
+        g = x @ w_gate
+        u = x @ w_up
     if constrain_ff:
         g = constrain(g, ("batch", None, "ff"))
         u = constrain(u, ("batch", None, "ff"))
-    return (torch.nn.functional.silu(g) * u) @ w_down
+    h = torch.nn.functional.silu(g) * u
+    if split:
+        return TP.from_model(TP.chunk_model(h, -1, leg + "_hidden") @ w_down,
+                            leg)
+    return h @ w_down
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          z_loss: float = 0.0) -> torch.Tensor:
-    """Mean token CE in f32; labels < 0 are masked out."""
+                          z_loss: float = 0.0,
+                          vocab_start: int | None = None) -> torch.Tensor:
+    """Mean token CE in f32; labels < 0 are masked out. With
+    ``vocab_start`` the logits are this model rank's columns of the
+    vocabulary, from ``vocab_start`` on: the max, the sum of exps and the
+    label's logit are reduced over the model axis (the softmax gradient
+    stays local)."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      labels.clamp(min=0)[..., None].to(torch.int64))[..., 0]
+    if vocab_start is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None].to(
+            torch.int64))[..., 0]
+    else:
+        lse, ll = _split_lse_and_label(logits, labels, vocab_start)
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse ** 2
     mask = labels >= 0
     return (loss * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+
+def _split_lse_and_label(logits, labels, v0: int):
+    """(logsumexp, the label's logit) of logits split over the vocabulary:
+    three reductions over the model axis."""
+    vl = logits.shape[-1]
+    mx = TP.max_over_model(logits.amax(dim=-1), "train.tp_loss")
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    sumexp = TP.from_model(torch.exp(logits - mx[..., None]).sum(dim=-1),
+                          "train.tp_loss_sumexp")
+    lse = torch.log(sumexp) + mx
+    idx = labels.to(torch.int64) - v0
+    inside = (idx >= 0) & (idx < vl)
+    ll = torch.gather(logits, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+    ll = TP.from_model(torch.where(inside, ll, 0.0), "train.tp_loss_label")
+    return lse, ll

@@ -25,7 +25,9 @@ attention over KV broadcast to every query head (``attention._mha_*``)
 with the head axis pinned to the model axis; ``opt_seq_par`` pins the
 residual stream to ``seq_sp`` between blocks (``model.Block``). The pins
 are ``models.sharding.constrain`` calls: they act on DTensor activations
-and leave plain tensors as they are.
+and leave plain tensors as they are. Under the sharded train step's
+model axis (``models.parallel.model_axis``) ``opt_seq_par`` runs the residual
+stream and the norms on each model rank's chunk of the sequence.
 """
 from __future__ import annotations
 

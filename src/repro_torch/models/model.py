@@ -43,6 +43,7 @@ from torch import nn
 
 from repro_torch.core.f2p import F2PFormat
 from repro_torch.models import attention as A
+from repro_torch.models import parallel as TP
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 from repro_torch.models.common import (rms_norm, sinusoidal_positions,
@@ -131,38 +132,57 @@ class Block(nn.Module):
                        else FeedForward(cfg, device))
 
     def forward(self, x, cfg: ModelConfig, *, mode, cache=None, pos_offset=0,
-                pages=None, cross_kv=None):
+                pages=None, cross_kv=None, seq_split: bool = False):
         """Returns (x, the MoE aux loss or None). With ``opt_seq_par`` (a
         train call over more than one position) the residual stream is
         pinned to ``seq_sp`` and the normalized mixer / FF inputs to the
-        full sequence, as the reference's block."""
-        sp = cfg.opt_seq_par and mode == "train" and x.shape[1] > 1
+        full sequence, as the reference's block. ``seq_split``: ``x`` is
+        this model rank's chunk of the sequence (the sharded step under
+        ``opt_seq_par``): the norms and the residual adds run on the chunk,
+        each mixer / FF input is gathered whole over the model axis and
+        its output chunked again."""
+        sp = seq_split or (cfg.opt_seq_par and mode == "train"
+                           and x.shape[1] > 1)
 
         def to_sp(t):
+            if seq_split:
+                return TP.chunk_model(t, 1, "train.tp_seq")
             return constrain(t, ("batch", "seq_sp", None)) if sp else t
 
         def to_full(t):
+            if seq_split:
+                return TP.gather_model_replicated(t, 1, "train.tp_seq")
             return constrain(t, ("batch", None, None)) if sp else t
 
-        x = to_sp(x)
-        h = to_full(rms_norm(x, self.norm1, cfg.norm_eps))
+        def norm(t, w):
+            # a rank normalizes its chunk only: the weight's gradient is
+            # summed over the model axis
+            return rms_norm(t, TP.to_model(w, "train.tp_seq_norm")
+                            if seq_split else w, cfg.norm_eps)
+
+        if not seq_split:
+            x = to_sp(x)
+        h = to_full(norm(x, self.norm1))
         h = self.mixer.apply(h, cfg, mode=mode, cache=cache,
                              pos_offset=pos_offset, pages=pages)
         x = x + to_sp(h)
         if self.cross is not None and cross_kv is not None:
-            h = to_full(rms_norm(x, self.norm_cross, cfg.norm_eps))
+            h = to_full(norm(x, self.norm_cross))
             x = x + to_sp(A.attention_apply(self.cross.weights(), h, cfg,
                                             mode="train",
                                             cross_kv=cross_kv)[0])
         aux = None
         if self.spec.ff == "moe":
-            h = to_full(rms_norm(x, self.norm2, cfg.norm_eps))
+            h = to_full(norm(x, self.norm2))
             h, out = self.ff(h, cfg, sp=sp)
             x, aux = x + to_sp(h), out["aux_loss"]
         elif self.spec.ff == "dense":
-            h = rms_norm(x, self.norm2, cfg.norm_eps)
+            h = norm(x, self.norm2)
+            if seq_split:
+                h = to_full(h)
             h = swiglu(h, self.ff.gate, self.ff.up, self.ff.down,
-                       constrain_ff=not sp)
+                       constrain_ff=not sp,
+                       split=self.ff.down.shape[0] != cfg.d_ff)
             x = x + to_sp(h)
         if not sp:
             x = constrain(x, ("batch", "seq", None))
@@ -333,8 +353,19 @@ def _frames(frames, cfg: ModelConfig):
 
 def _embed(model: Model, tokens, cfg: ModelConfig):
     """Token embeddings, plus the sinusoidal rows 0..S-1 (cast to the model
-    dtype first, as the reference) where ``pos="sinusoidal"``."""
-    x = model.embed[tokens]
+    dtype first, as the reference) where ``pos="sinusoidal"``. An
+    embedding of fewer than ``vocab_size`` rows is this model rank's slice
+    of the vocabulary: it looks up the tokens it holds, zeros elsewhere,
+    and the rows are summed over the model axis."""
+    table = model.embed
+    if table.shape[0] != cfg.vocab_size:
+        vl = table.shape[0]
+        idx = tokens - TP.model_rank() * vl
+        inside = (idx >= 0) & (idx < vl)
+        x = table[idx.clamp(0, vl - 1)] * inside[..., None].to(table.dtype)
+        x = TP.from_model(x, "train.tp_embed")
+    else:
+        x = table[tokens]
     if cfg.pos == "sinusoidal":
         x = x + model.pos_table[:x.shape[1]]
     return constrain(x, ("batch", "seq", None))
@@ -353,9 +384,23 @@ def encode(model: Model, frames, cfg: ModelConfig | None = None):
     cfg = cfg or model.cfg
     x = torch.as_tensor(frames, device=model.device).to(cfg.torch_dtype)
     x = x + model.pos_table[:x.shape[1]]
+    split = _seq_split(x, cfg)
+    if split:
+        x = TP.chunk_model(x, 1, "train.tp_seq")
     for blk in model.encoder.blocks:
-        x, _ = blk(x, cfg, mode="train")
+        x, _ = blk(x, cfg, mode="train", seq_split=split)
+    if split:
+        x = TP.gather_model_replicated(x, 1, "train.tp_seq")
     return rms_norm(x, model.encoder.norm, cfg.norm_eps)
+
+
+def _seq_split(x, cfg: ModelConfig) -> bool:
+    """Whether the residual stream ``x`` [B, S, D] runs split over the
+    sequence: ``opt_seq_par`` under a model axis of m > 1 ranks (the
+    sharded step), S a multiple of m and longer than it."""
+    m = TP.model_size()
+    return cfg.opt_seq_par and m > 1 and x.shape[1] % m == 0 \
+        and x.shape[1] > m
 
 
 def _maybe_prefix(model: Model, x, patches, cfg: ModelConfig):
@@ -387,21 +432,40 @@ def train_forward(model: Model, batch, cfg: ModelConfig | None = None):
     cross_kv = (encode(model, _frames(batch.get("frames"), cfg), cfg)
                 if cfg.is_encdec else None)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
+    split = _seq_split(x, cfg)
+    if split:
+        x = TP.chunk_model(x, 1, "train.tp_seq")
     for blk in model.blocks:
         if cfg.remat and torch.is_grad_enabled():
             x, a = checkpoint(blk, x, cfg, mode="train", cross_kv=cross_kv,
-                              use_reentrant=False)
+                              seq_split=split, use_reentrant=False)
         else:
-            x, a = blk(x, cfg, mode="train", cross_kv=cross_kv)
+            x, a = blk(x, cfg, mode="train", cross_kv=cross_kv,
+                       seq_split=split)
         if a is not None:
             aux = aux + a
+    if split:
+        x = TP.gather_model_replicated(x, 1, "train.tp_seq")
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if cfg.frontend == "vision" and patches is not None:
         pad = torch.full((labels.shape[0], patches.shape[1]), -1,
                          dtype=labels.dtype, device=dev)
         labels = torch.cat([pad, labels], dim=1)
-    loss = softmax_cross_entropy(_lm_logits(model, x), labels)
+    loss = lm_loss(model, x, labels, cfg)
     return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
+
+
+def lm_loss(model: Model, x, labels, cfg: ModelConfig):
+    """Mean token CE of the final hidden states ``x`` against ``labels``. A
+    head of fewer than ``vocab_size`` columns is this model rank's slice of
+    the vocabulary: the rank computes its logits, and the loss reduces the
+    softmax over the model axis."""
+    head = model.head()
+    if head.shape[1] == cfg.vocab_size:
+        return softmax_cross_entropy(_lm_logits(model, x), labels)
+    logits = TP.to_model(x, "train.tp_logits") @ head
+    return softmax_cross_entropy(
+        logits, labels, vocab_start=TP.model_rank() * head.shape[1])
 
 
 @torch.inference_mode()

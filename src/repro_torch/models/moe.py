@@ -16,12 +16,19 @@ reference's do.
 
 ``load`` counts every assignment, dropped ones included, and carries no
 gradient; ``aux_loss`` is the Switch-style balance term.
+
+Expert parallel (the sharded step): a model rank that holds ``E / m`` of
+the experts routes every token as the others do (the router is
+replicated, so ``load``, the drops and ``aux_loss`` are the one-process
+run's), runs its experts over their slots of the dispatch buffer, and the
+combine's partial sums are added over the model axis.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.models import parallel as TP
 from repro_torch.models.common import swiglu
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -109,9 +116,19 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, sp: bool = False):
     keep = slot < cap
     dest = torch.where(keep, se * cap + slot, E * cap)         # drops -> dump
 
-    gathered = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=dev)
-    gathered[dest] = xf[st]
-    ein = gathered[:-1].reshape(E, cap, D)
+    # a model rank holding El < E experts (the sharded step) dispatches
+    # into its own experts' slots only: the rest are its dump row
+    El = p.gate.shape[0]
+    split, xe = El != E, xf
+    if split:
+        xe = TP.to_model(xf, "train.tp_moe")
+        sg = TP.to_model(sg, "train.tp_moe_gates")
+        dest = dest - TP.model_rank() * El * cap
+        keep = keep & (dest >= 0) & (dest < El * cap)
+        dest = torch.where(keep, dest, El * cap)
+    gathered = torch.zeros((El * cap + 1, D), dtype=x.dtype, device=dev)
+    gathered[dest] = xe[st]
+    ein = gathered[:-1].reshape(El, cap, D)
 
     # ---- expert computation (one batched product per matrix) -----------
     g = torch.bmm(ein, p.gate)
@@ -119,9 +136,9 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, sp: bool = False):
     h = torch.bmm(torch.nn.functional.silu(g) * u, p.down)
 
     # ---- combine ---------------------------------------------------------
-    hflat = h.reshape(E * cap, D)
+    hflat = h.reshape(El * cap, D)
     picked = torch.where(keep[:, None],
-                         hflat[torch.clamp(dest, max=E * cap - 1)],
+                         hflat[torch.clamp(dest, max=El * cap - 1)],
                          torch.zeros((), dtype=h.dtype, device=dev))
     contrib = picked * sg[:, None].to(x.dtype)
     # the reference's scatter-add adds each token's k parts onto zeros in
@@ -136,10 +153,14 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, sp: bool = False):
     out = torch.zeros((T, D), dtype=x.dtype, device=dev)
     for j in range(k):
         out = out + back[:, j]
+    if split:
+        out = TP.from_model(out, "train.tp_moe")
 
     if p.shared is not None:
         sh = p.shared
-        out = out + swiglu(xf, sh.gate, sh.up, sh.down, constrain_ff=not sp)
+        out = out + swiglu(xf, sh.gate, sh.up, sh.down, constrain_ff=not sp,
+                           split=sh.down.shape[0] != cfg.n_shared_experts *
+                           cfg.d_ff, leg="train.tp_shared")
 
     # load-balancing aux (Switch-style) + per-expert token load; the counts
     # are not differentiated. A scatter-add of ones, exact in f32 in any

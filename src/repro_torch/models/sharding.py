@@ -192,6 +192,35 @@ def param_shardings(params, mesh, rules: dict[str, Any]) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Layer kinds of model-axis parallel training
+# ---------------------------------------------------------------------------
+# the kinds of layer a model rank can compute split, by the logical axis
+# the rules give "model": vocab (embedding and head), heads (attention,
+# cross-attention and the encoder's), ff (dense FF and the shared expert),
+# experts (an MoE's routed experts), and the recurrent mixers' inner /
+# heads_nodata channels
+SPLIT_KINDS = ("vocab", "heads", "ff", "experts", "mamba", "mlstm", "slstm")
+
+
+def leaf_kind(name: str, cfg) -> str | None:
+    """The split kind of the layer that holds the port's parameter
+    ``name`` (a :data:`SPLIT_KINDS` entry), or None for a leaf no split
+    layer holds (norms, ``vision_proj``)."""
+    parts = name.split(".")
+    if parts[-1] in ("embed", "lm_head"):
+        return "vocab"
+    if parts[0] == "encoder" or "cross" in parts:
+        return None if parts[-1].startswith("norm") else (
+            "ff" if "ff" in parts else "heads")
+    if parts[0] != "blocks" or parts[-1].startswith("norm"):
+        return None
+    spec = cfg.pattern[int(parts[1]) % len(cfg.pattern)]
+    if "ff" in parts:
+        return "ff" if "shared" in parts or spec.ff == "dense" else "experts"
+    return "heads" if spec.mixer == "attn" else spec.mixer
+
+
+# ---------------------------------------------------------------------------
 # Standard rule tables
 # ---------------------------------------------------------------------------
 def make_rules(*, data_axes=("data",), model_axis="model", fsdp: bool,

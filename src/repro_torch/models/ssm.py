@@ -19,6 +19,10 @@ dtype, and ``a_log`` / ``d_skip`` are f32 leaves even in a bf16 model, as
 the reference's. A cache is ``{"conv": [B, C-1, d_inner]`` (model dtype)
 ``, "ssm": [B, d_inner, N]`` (f32)``}``; prefill and decode read the
 state from it and write the new state back IN PLACE.
+
+Leaves of fewer than ``d_inner`` channels are this model rank's
+(``train``, the sharded step): it scans its channels, and the x_proj and
+out_proj products are summed over the model axis.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models import parallel as TP
 
 SCAN_CHUNK = 256
 
@@ -78,12 +84,16 @@ class Mamba(nn.Module):
         return mamba_apply(self, x, cfg, mode=mode, cache=cache)
 
 
-def _ssm_params(p: Mamba, x1, cfg):
+def _ssm_params(p: Mamba, x1, cfg, split: bool = False):
     """x1 [B,S,di] (post conv + silu) -> (dA [B,S,di,N], dBx [B,S,di,N],
-    C [B,S,N]), all f32."""
+    C [B,S,N]), all f32. ``split``: x1 and the leaves are this model
+    rank's channels; the x_proj product is summed over the model axis."""
     N = cfg.ssm_state
     dt_rank = max(cfg.d_model // 16, 1)
     xdbc = x1 @ p.x_proj
+    if split:
+        xdbc = TP.to_model(TP.from_model(xdbc, "train.tp_mamba_xproj"),
+                          "train.tp_mamba_dbc")
     dt_low, B_, C_ = torch.split(xdbc, [dt_rank, N, N], dim=-1)
     dt = F.softplus((dt_low @ p.dt_proj).float() + p.dt_bias.float())
     A = -torch.exp(p.a_log.float())                                # [di,N]
@@ -151,13 +161,24 @@ def mamba_apply(p: Mamba, x, cfg, *, mode: str, cache=None):
     ``cache`` (zeros without one) and the new ones are written into it in
     place."""
     B, S, D = x.shape
-    xz = x @ p.in_proj
-    x1, z = xz.chunk(2, dim=-1)
+    dl = p.conv_w.shape[1]
+    split = dl != cfg.d_inner
+    if split:
+        # this model rank's channels: in_proj's columns are a contiguous
+        # slice of [x1 | z], so the product is gathered and each rank
+        # keeps its channels of both halves
+        xz = TP.gather_model(TP.to_model(x, "train.tp_mamba") @ p.in_proj,
+                            -1, "train.tp_mamba_in")
+        r, di = TP.model_rank(), cfg.d_inner
+        x1 = xz[..., r * dl:(r + 1) * dl]
+        z = xz[..., di + r * dl:di + (r + 1) * dl]
+    else:
+        x1, z = (x @ p.in_proj).chunk(2, dim=-1)
     carry = cache["conv"] if cache is not None else None
     x1, new_conv = _causal_conv(x1, p.conv_w, p.conv_b, carry)
     x1 = F.silu(x1)
 
-    dA, dBx, C_ = _ssm_params(p, x1, cfg)
+    dA, dBx, C_ = _ssm_params(p, x1, cfg, split)
     h0 = cache["ssm"] if cache is not None else None
     if mode == "decode":
         assert S == 1
@@ -171,7 +192,8 @@ def mamba_apply(p: Mamba, x, cfg, *, mode: str, cache=None):
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(h_last)
-    return y @ p.out_proj
+    out = y @ p.out_proj
+    return TP.from_model(out, "train.tp_mamba") if split else out
 
 
 def init_mamba_cache(cfg, batch: int, dtype, device, lead: tuple = ()):

@@ -23,6 +23,16 @@ product), and the recurrence then loops over S. Caches (every leaf f32):
 mLSTM ``{"C": [B,H,hd,hd], "n": [B,H,hd], "m": [B,H]}``, sLSTM ``{"c",
 "n", "h", "m"}`` each ``[B, D]``; ``m`` starts at -1e30. Prefill and decode
 start from the cache and write the new state back IN PLACE.
+
+Leaves narrower than the config's are this model rank's (``train``, the
+sharded step). An mLSTM rank runs its heads' recurrence (its columns of
+q, k and v are gathered from the wqkv product, whose columns are a
+contiguous slice of [q | k | v]) and the out_proj product is summed over
+the model axis. An sLSTM rank computes its columns of the input
+projection (``w_in``'s), gathered once over the sequence; the recurrence
+mixes every head's state into every gate, so each rank runs it whole on
+``r_blocks`` gathered once a call (the recurrent product is 1/H of the
+input projection's FLOPs).
 """
 from __future__ import annotations
 
@@ -31,6 +41,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models import parallel as TP
 
 MLSTM_CHUNK = 256
 M0 = -1e30
@@ -131,13 +143,28 @@ def mlstm_apply(p: MLSTM, x, cfg, *, mode: str, cache=None):
     H = cfg.n_heads
     di = cfg.mlstm_expand * D
     hd = di // H
-    q, k, v = (x @ p.wqkv).chunk(3, dim=-1)
+    gates = (x @ p.w_gates + p.b_gates).float()
+    dl = p.w_ogate.shape[1]
+    split = dl != di
+    if split:
+        # this model rank's heads: wqkv's columns are a contiguous slice
+        # of [q | k | v], so the product is gathered and each rank keeps
+        # its heads' columns of all three
+        x = TP.to_model(x, "train.tp_mlstm")
+        qkv = TP.gather_model(x @ p.wqkv, -1, "train.tp_mlstm_qkv")
+        r = TP.model_rank()
+        q, k, v = (qkv[..., j * di + r * dl:j * di + (r + 1) * dl]
+                   for j in range(3))
+        H = dl // hd
+        gates = TP.to_model(gates, "train.tp_mlstm_gates").reshape(
+            B, S, 2, -1)[..., r * H:(r + 1) * H].reshape(B, S, 2 * H)
+    else:
+        q, k, v = (x @ p.wqkv).chunk(3, dim=-1)
     # sqrt(hd) in f32, rounded to x's dtype, as the reference divides by it
     root = float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(x.dtype))
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, H, hd) / root
     v = v.reshape(B, S, H, hd)
-    gates = (x @ p.w_gates + p.b_gates).float()
     i_t, f_t = gates.chunk(2, dim=-1)                          # [B,S,H]
     lf = F.logsigmoid(f_t)
 
@@ -164,7 +191,8 @@ def mlstm_apply(p: MLSTM, x, cfg, *, mode: str, cache=None):
         cache["n"].copy_(n)
         cache["m"].copy_(m)
     og = torch.sigmoid(x @ p.w_ogate)
-    return (h.reshape(B, S, di) * og) @ p.out_proj
+    out = (h.reshape(B, S, dl) * og) @ p.out_proj
+    return TP.from_model(out, "train.tp_mlstm") if split else out
 
 
 def init_mlstm_cache(cfg, batch: int, device, lead: tuple = ()):
@@ -202,15 +230,16 @@ class SLSTM(nn.Module):
         return slstm_apply(self, x, cfg, mode=mode, cache=cache)
 
 
-def _slstm_step(p: SLSTM, cfg, state, pre_t):
+def _slstm_step(r_blocks, cfg, state, pre_t):
     """One step. state (c, n, h, m), each [B, D] f32; pre_t [B, 4D] the
-    input projection ``x_t @ w_in + bias`` in the model's dtype."""
+    input projection ``x_t @ w_in + bias`` in the model's dtype; the
+    recurrent blocks ``r_blocks`` [H, hd, 4hd]."""
     c, n, h, m = state
     B, D = c.shape
     H = cfg.n_heads
     hd = D // H
-    hh = h.reshape(B, H, hd).to(p.r_blocks.dtype)
-    rec = torch.einsum("bhd,hde->bhe", hh, p.r_blocks).reshape(B, 4 * D)
+    hh = h.reshape(B, H, hd).to(r_blocks.dtype)
+    rec = torch.einsum("bhd,hde->bhe", hh, r_blocks).reshape(B, 4 * D)
     z_t, i_t, f_t, o_t = (pre_t + rec).float().chunk(4, dim=-1)
     lf = F.logsigmoid(f_t)
     m_new = torch.maximum(lf + m, i_t)
@@ -235,10 +264,18 @@ def slstm_apply(p: SLSTM, x, cfg, *, mode: str, cache=None):
                                      device=x.device))
     if mode == "decode":
         assert S == 1
-    pre = x @ p.w_in + p.bias                                  # [B,S,4D]
+    r_blocks = p.r_blocks
+    if p.w_in.shape[1] != 4 * D:   # this model rank's gate-input columns
+        pre = TP.gather_model_replicated(
+            TP.to_model(x, "train.tp_slstm") @ p.w_in, -1,
+            "train.tp_slstm_in") + p.bias
+    else:
+        pre = x @ p.w_in + p.bias                              # [B,S,4D]
+    if r_blocks.shape[0] != cfg.n_heads:   # this model rank's heads' blocks
+        r_blocks = TP.gather_model_replicated(r_blocks, 0, "train.tp_slstm_r")
     hs = []
     for t in range(S):
-        state = _slstm_step(p, cfg, state, pre[:, t])
+        state = _slstm_step(r_blocks, cfg, state, pre[:, t])
         hs.append(state[2])
     if cache is not None:
         for name, t in zip(("c", "n", "h", "m"), state):

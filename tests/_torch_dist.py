@@ -77,9 +77,11 @@ def full_state(state) -> dict:
 # Work
 # ---------------------------------------------------------------------------
 def train_jobs(rank, world, jobs):
-    """Each job ``(tag, arch, mesh_shape, fsdp, ckpt_dir, steps)`` trains a
-    smoke config on the mesh through ``launch.train.run``; rank 0 returns
-    ``{tag: (losses, gnorms, full_state, ef_split, state_bytes)}``."""
+    """Each job ``(tag, arch, mesh_shape, fsdp, ckpt_dir, steps[,
+    config overrides])`` trains a smoke config on the mesh through
+    ``launch.train.run``; rank 0 returns
+    ``{tag: (losses, gnorms, full_state, ef_split, state_bytes, legs,
+    split_plan)}`` (``legs``: rank 0's named collectives a step)."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -88,8 +90,9 @@ def train_jobs(rank, world, jobs):
     from repro_torch.train.step import ef_local_split
 
     out = {}
-    for tag, arch, shape, fsdp, ckpt_dir, steps in jobs:
-        cfg = dataclasses.replace(smoke_config(arch), fsdp=fsdp)
+    for tag, arch, shape, fsdp, ckpt_dir, steps, *over in jobs:
+        cfg = dataclasses.replace(smoke_config(arch), fsdp=fsdp,
+                                  **(over[0] if over else {}))
         state, info = run(cfg, arch=arch, steps=steps, global_batch=4,
                           seq=16, ckpt_dir=ckpt_dir, ckpt_every=100,
                           device=CPU, log=lambda *_: None, mesh_shape=shape)
@@ -102,7 +105,7 @@ def train_jobs(rank, world, jobs):
         full = full_state(state)
         out[tag] = ([h["loss"] for h in info["history"]],
                     [h["grad_norm"] for h in info["history"]], full, split,
-                    info["state_bytes"])
+                    info["state_bytes"], info["legs"], info["split"])
     return out if rank == 0 else None
 
 
@@ -198,6 +201,174 @@ def sketch_run(rank, world, cfg_kw, batches, conservative_batches):
                 fill=sk.fill(), arrivals=sk.arrivals,
                 pending_after=sk.pending_budget,
                 conservative=cons.estimates())
+
+
+def _split_model(cfg, weights: dict, mesh):
+    """A ``Model`` of ``cfg`` on the CPU holding, from the full numpy
+    ``weights``, this rank's local slice of every leaf the split plan
+    keeps local and the whole of every other leaf (what the sharded step
+    hands the forward). Returns (model, plan)."""
+    from repro_torch.launch.shardings import (local_slice, rules_for,
+                                              set_params, split_plan,
+                                              train_state_specs)
+    from repro_torch.models.model import Model
+    from repro_torch.optim import CompressionConfig
+
+    sh = train_state_specs(cfg, None, CompressionConfig(), mesh,
+                           rules_for(cfg, mesh, "train_4k"))[0]["params"]
+    plan = split_plan(cfg, sh)
+    model = Model(cfg, device=CPU)
+    set_params(model, {
+        n: torch.from_numpy(w).clone() if n not in plan["local"] else
+        local_slice(torch.from_numpy(w), sh[n]).clone()
+        for n, w in weights.items()})
+    return model, plan
+
+
+def tp_layers(rank, world, cases):
+    """Each case ``(tag, arch, config overrides, weights, layer, inputs,
+    cotangent)`` runs one split layer of the smoke config ``arch`` on a (1,
+    world) mesh, its leaves this rank's local slices of the full numpy
+    ``weights``; rank 0 returns ``{tag: dict(out, grads of the inputs,
+    legs, kinds, local)}`` (``out`` and the input gradients are whole on
+    every rank). ``layer``: ("vocab", -) embedding + logits + loss;
+    ("mixer" | "ff" | "cross", layer index); ("model", -) the whole
+    ``train_forward``, whose ``grads`` are the norm weights' (whole on
+    every rank)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models import parallel as TP
+    from repro_torch.models.common import swiglu
+    from repro_torch.models.model import _embed, lm_loss, train_forward
+
+    mesh = compat_make_mesh((1, world), ("data", "model"), CPU)
+    out = {}
+    for tag, arch, over, weights, (where, i), inputs, ct in cases:
+        cfg = dataclasses.replace(smoke_config(arch), **over)
+        model, plan = _split_model(cfg, weights, mesh)
+        xs = {k: torch.from_numpy(v).requires_grad_(v.dtype.kind == "f")
+              for k, v in inputs.items()}
+        M.reset_legs()
+        res = {}
+        with TP.model_axis(mesh):
+            if where == "model":
+                model.requires_grad_(True)
+                loss, _ = train_forward(model, xs, cfg)
+                loss.backward()
+                res.update(loss=float(loss), out=_np(loss), grads={
+                    n: _np(p.grad) for n, p in model.named_parameters()
+                    if "norm" in n})
+                res.update(legs=sorted(M.LEGS), kinds=plan["kinds"],
+                           local=sorted(plan["local"]))
+                out[tag] = res
+                continue
+            if where == "vocab":
+                e = _embed(model, xs["tokens"], cfg)
+                loss = lm_loss(model, xs["x"], xs["labels"], cfg)
+                y = loss + (e * torch.from_numpy(ct)).sum()
+                res["out"] = _np(e)
+                res["loss"] = float(loss)
+            else:
+                blk = model.blocks[i]
+                if where == "mixer":
+                    y = blk.mixer.apply(xs["x"], cfg, mode="train")
+                elif where == "cross":
+                    y = A.attention_apply(blk.cross.weights(), xs["x"], cfg,
+                                          mode="train",
+                                          cross_kv=xs["cross_kv"])[0]
+                elif blk.spec.ff == "moe":
+                    y, aux = blk.ff(xs["x"], cfg)
+                    res.update(load=_np(aux["load"]),
+                               aux_loss=float(aux["aux_loss"]))
+                else:
+                    ff = blk.ff
+                    y = swiglu(xs["x"], ff.gate, ff.up, ff.down,
+                               split=ff.down.shape[0] != cfg.d_ff)
+                res["out"] = _np(y)
+                y = (y * torch.from_numpy(ct)).sum()
+            y.backward()
+        res["grads"] = {k: _np(t.grad) for k, t in xs.items()
+                        if t.grad is not None}
+        res.update(legs=sorted(M.LEGS), kinds=plan["kinds"],
+                   local=sorted(plan["local"]))
+        out[tag] = res
+    return out if rank == 0 else None
+
+
+def tp_loss(rank, world, logits, labels, z_loss):
+    """The vocabulary-split cross-entropy of this rank's columns of the
+    numpy ``logits`` [B, S, V] on a (1, world) mesh: rank 0 returns the
+    loss and the gradient of the whole logits (the ranks' columns
+    gathered)."""
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import parallel as TP
+    from repro_torch.models.common import softmax_cross_entropy
+
+    mesh = compat_make_mesh((1, world), ("data", "model"), CPU)
+    vl = logits.shape[-1] // world
+    mine = torch.from_numpy(np.ascontiguousarray(
+        logits[..., rank * vl:(rank + 1) * vl])).requires_grad_(True)
+    with TP.model_axis(mesh):
+        loss = softmax_cross_entropy(mine, torch.from_numpy(labels),
+                                     z_loss=z_loss, vocab_start=rank * vl)
+        loss.backward()
+        grad = TP.gather_model_replicated(mine.grad, -1, "test")
+    return (float(loss), _np(grad)) if rank == 0 else None
+
+
+def tp_sums(rank, world, cases):
+    """``models.parallel.from_model`` of row ``rank`` of each case's numpy
+    ``[world, ...]`` array in ``dtype`` on a (1, world) mesh: rank 0
+    returns ``{tag: (the sum as f32 numpy, its dtype, the legs)}``."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import parallel as TP
+
+    mesh = compat_make_mesh((1, world), ("data", "model"), CPU)
+    out = {}
+    for tag, arr, dtype in cases:
+        M.reset_legs()
+        t = torch.from_numpy(arr[rank]).to(getattr(torch, dtype))
+        with TP.model_axis(mesh):
+            got = TP.from_model(t, "test.sum")
+        out[tag] = (_np(got), str(got.dtype), sorted(M.LEGS))
+    return out if rank == 0 else None
+
+
+def tp_roundtrip(rank, world, cases):
+    """``train.step.roundtrip_across_borders`` and B5's plain round trip
+    on this rank's columns of each case's full numpy ``(g, r)`` (split
+    evenly along the last axis), copied back as the sharded step does;
+    rank 0 returns ``{tag: (g, r)}``, every rank's columns gathered."""
+    from repro_torch.kernels.f2p_quant import f2p_ef_roundtrip
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.optim.compress import CompressionConfig
+    from repro_torch.train.step import roundtrip_across_borders
+
+    mesh = compat_make_mesh((1, world), ("data", "model"), CPU)
+    ccfg = CompressionConfig()
+    out = {}
+    for tag, g_full, r_full, dtype in cases:
+        w = g_full.shape[-1] // world
+        g = torch.from_numpy(np.ascontiguousarray(
+            g_full[..., rank * w:(rank + 1) * w])).to(getattr(torch, dtype))
+        r = torch.from_numpy(np.ascontiguousarray(
+            r_full[..., rank * w:(rank + 1) * w]))
+        eg, er, offs = roundtrip_across_borders(
+            [g], [r], mesh.get_group("model"), rank, world, ccfg.block)
+        f2p_ef_roundtrip(eg, er, ccfg.fmt, block=ccfg.block)
+        g.copy_(eg[0][..., offs[0]:offs[0] + w])
+        r.copy_(er[0][..., offs[0]:offs[0] + w])
+        out[tag] = tuple(
+            _np(M.all_gather(t.movedim(-1, 0).contiguous(),
+                             mesh.get_group("model")).movedim(0, -1))
+            for t in (g, r))
+    return out if rank == 0 else None
 
 
 def multi(rank, world, calls):

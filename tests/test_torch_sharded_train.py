@@ -3,9 +3,15 @@ ranks (one spawn of 4 ranks, one of 2) against the port's one-process run
 (``mesh_shape=None``), for the xLSTM and llama smoke configs; restores onto
 another mesh and lazy restores; ``constrain`` on DTensors.
 
-The sharded step computes data parallel (each data rank its slice of the
-batch) and sums the gradients over the data ranks in f32, so the numbers
-add in another order than the one-process run's. Tolerances and why:
+The sharded step computes each data rank's slice of the batch and sums
+the gradients over the data ranks in f32. Over the model axis each rank
+computes the part of every layer that the rules give that axis (the
+vocabulary, heads, FF width and the xLSTM's heads and channels), its
+leaves local, and the ranks' f32 partial sums join over the model axis;
+a layer kind whose heads do not divide the model axis (the llama smoke
+config's 6 heads at m = 4) gathers its leaves and computes whole. So the
+numbers add in another order than the one-process run's. Tolerances and
+why:
 - losses: rtol 1e-5 (the mean of the data shards' mean losses);
 - gradient norms: rtol 1e-4 (the squared shards summed over the ranks);
 - parameters after 3 steps: atol 2 x the sum of the 3 steps' learning
@@ -16,13 +22,14 @@ add in another order than the one-process run's. Tolerances and why:
   some gradients across an F2P8 rounding border from the first step on
   (the llama smoke config at (2, 1): mu 3.5e-4, residuals 7e-3 after one
   step; 4e-3, 7.8e-3 and 0.163 after three), and a code step is the whole
-  residual of its element; a model axis alone keeps them within 1e-7;
+  residual of its element;
 - a world of one, (1, 1) through the mesh path: EQUAL to the
   one-process run (no data reduction, the same leaves in the same order);
 - restores: EQUAL (the checkpoint is read whole and each rank keeps its
   slice); lazy restores: codes, scales and raw leaves EQUAL to the JAX
   reference's ``restore(lazy=True)`` of the same files.
 """
+import dataclasses
 import os
 
 import _torch_threads  # noqa: F401
@@ -46,14 +53,20 @@ from repro_torch.train import checkpoint, init_train_state
 XL, LL = "xlstm_125m", "llama3_2_3b"
 STEPS = 3
 # (tag, arch, mesh shape, fsdp)
-W4 = [("xl22", XL, (2, 2), False), ("ll22", LL, (2, 2), True)]
+W4 = [("xl22", XL, (2, 2), False), ("ll22", LL, (2, 2), True),
+      ("ll14", LL, (1, 4), False)]
 W2 = [("xl21", XL, (2, 1), False), ("xl12", XL, (1, 2), True),
-      ("ll21", LL, (2, 1), True), ("ll12", LL, (1, 2), False)]
+      ("ll21", LL, (2, 1), True), ("ll12", LL, (1, 2), False),
+      ("llv12", LL, (1, 2), False)]
+# config overrides of a job: a vocabulary of 576 splits lm_head into 288
+# columns a rank, so B5's block 2 straddles the ranks' border and the
+# round trip runs across it (``train.step.roundtrip_across_borders``)
+OVER = {"llv12": {"vocab_size": 576}}
 
 
-def _plain(arch, ckpt_dir):
+def _plain(arch, ckpt_dir, over=None):
     """The one-process run (``fsdp`` changes nothing without a mesh)."""
-    cfg = smoke_config(arch)
+    cfg = dataclasses.replace(smoke_config(arch), **(over or {}))
     state, info = run(cfg, arch=arch, steps=STEPS, global_batch=4, seq=16,
                       ckpt_dir=ckpt_dir, ckpt_every=100, device="cpu",
                       log=lambda *_: None)
@@ -64,14 +77,19 @@ def _plain(arch, ckpt_dir):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("sharded")
-    jobs4 = [(t, a, s, f, str(d / t), STEPS) for t, a, s, f in W4]
+    jobs4 = [(t, a, s, f, str(d / t), STEPS, OVER.get(t, {}))
+             for t, a, s, f in W4]
     r4 = D.spawn(D.multi, 4, [("train_jobs", (jobs4,)),
                               ("constrain_check", ())])
-    jobs2 = [(t, a, s, f, str(d / t), STEPS) for t, a, s, f in W2]
+    jobs2 = [(t, a, s, f, str(d / t), STEPS, OVER.get(t, {}))
+             for t, a, s, f in W2]
     r2 = D.spawn(D.multi, 2, [("train_jobs", (jobs2,)),
                               ("restore_onto", (XL, (2, 1), str(d / "xl22"))),
                               ("restore_onto", (LL, (1, 2), str(d / "ll22")))])
     plain = {arch: _plain(arch, str(d / f"plain_{arch}")) for arch in (XL, LL)}
+    plain.update({t: _plain(dict((w[0], w[1]) for w in W2)[t],
+                            str(d / f"plain_{t}"), o)
+                  for t, o in OVER.items()})
     return dict(dir=d, sharded={**r4[0][0], **r2[0][0]},
                 constrain=[r[1] for r in r4], restored=r2[0][1:],
                 plain=plain)
@@ -88,12 +106,12 @@ def _close_in_norm(got, want, key, name):
 @pytest.mark.parametrize("tag,arch,shape,fsdp", W4 + W2,
                          ids=[t[0] for t in W4 + W2])
 def test_sharded_trainer_matches_one_process(runs, tag, arch, shape, fsdp):
-    losses, gnorms, full, split, nbytes = runs["sharded"][tag]
-    plosses, pgnorms, pfull = runs["plain"][arch]
+    losses, gnorms, full, split, nbytes = runs["sharded"][tag][:5]
+    plosses, pgnorms, pfull = runs["plain"][tag if tag in OVER else arch]
     np.testing.assert_allclose(losses, plosses, rtol=1e-5)
     np.testing.assert_allclose(gnorms, pgnorms, rtol=1e-4)
-    ocfg, _, _, _ = train_configs(smoke_config(arch), arch=arch,
-                                  steps=STEPS)
+    ocfg, _, _, _ = train_configs(dataclasses.replace(
+        smoke_config(arch), **OVER.get(tag, {})), arch=arch, steps=STEPS)
     atol = 2 * sum(float(lr_at(ocfg, s)) for s in range(1, STEPS + 1))
     assert full["step"] == pfull["step"] == STEPS
     for n, want in pfull["params"].items():
@@ -112,6 +130,37 @@ def test_sharded_trainer_matches_one_process(runs, tag, arch, shape, fsdp):
     whole = sum(a.nbytes for k in ("params", "mu", "nu", "residuals")
                 for a in pfull[k].values())
     assert nbytes < whole if (shape[1] > 1 or fsdp) else nbytes == whole
+
+
+@pytest.mark.parametrize("tag,arch,shape,fsdp", W4 + W2,
+                         ids=[t[0] for t in W4 + W2])
+def test_model_axis_keeps_split_leaves_local(runs, tag, arch, shape, fsdp):
+    """With a model axis, every leaf the rules split over it stays local:
+    the step gathers no leaf whole over the model axis (no
+    ``train.param_all_gather`` without fsdp) and its split layers run their
+    model-axis collectives; a kind that cannot split is named whole and
+    its leaves are gathered."""
+    legs, plan = runs["sharded"][tag][5:]
+    assert plan["model"] == shape[1]
+    tp = [k for k in legs if k.startswith("train.tp_")]
+    if shape[1] == 1:
+        assert not any(plan["kinds"].values()) and not plan["local"]
+        assert not tp
+        return
+    whole = {"ll14": {"heads"}}.get(tag, set())
+    assert {k for k, v in plan["kinds"].items() if not v} == whole
+    assert plan["local"] and tp
+    gathered = "train.param_all_gather" in legs
+    assert gathered == bool(whole), legs
+    # a round trip crosses the ranks' border without a gather of the leaf
+    # where a rank holds at least a block of the leaf's last axis (the
+    # xLSTM's 192 columns of wqkv; lm_head's 288 at a vocabulary of 576);
+    # llama's 48 columns of wq are narrower than a block: gathered whole
+    crossed = {"xl22", "xl12", "llv12"}
+    assert ("train.roundtrip_edge_gather" in legs) == (tag in crossed)
+    if whole:   # the heads' leaves: 4 per layer, 2 layers
+        assert legs["train.param_all_gather"][0] == 8
+        assert not any(k.startswith("train.tp_attn") for k in legs)
 
 
 def test_constrain_redistributes_dtensors(runs):
